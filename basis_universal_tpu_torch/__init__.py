@@ -1,8 +1,9 @@
 """basis_universal_tpu_torch: the PyTorch + CUDA port of basis_universal_tpu.
 
-The first slice is ETC1S encode (`compressor.compress` /
-`compressor.compress_batch`), with the frontend's three hot kernels written
-by hand in CUDA C++ for Hopper (`csrc/etc1s_kernels.cu`). Host stages
+Ported: ETC1S and UASTC LDR 4x4 encode (`compressor.compress` /
+`compressor.compress_batch`) and the transcoder's re-encodes
+(`transcoder.py`), with the reference's four TPU kernels written by hand in
+CUDA C++ for Hopper (`csrc/etc1s_kernels.cu`). Host stages
 (containers, entropy coding, the native backend) are the reference package's
 own jax-free modules. This package never imports jax, even where it is
 installed: the reference package's `__init__` imports jax only to set up its

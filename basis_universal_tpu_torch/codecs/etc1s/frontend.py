@@ -92,8 +92,8 @@ def _init_selector_patterns(opt_sel, num_s: int):
     is_new = torch.ones(b, dtype=torch.int64, device=dev)
     is_new[1:] = (skeys[1:] != skeys[:-1]).to(torch.int64)
     group = torch.cumsum(is_new, 0) - 1
-    counts = torch.zeros(b, dtype=torch.int64, device=dev).index_add_(
-        0, group, torch.ones(b, dtype=torch.int64, device=dev))
+    counts = ops.segment_sum(torch.ones(b, dtype=torch.int64, device=dev),
+                             group, b)
     # empty groups keep the int32 minimum, as an empty segment_max does
     values = torch.full((b,), -(1 << 31), dtype=torch.int64, device=dev)
     values[group] = skeys
@@ -127,9 +127,8 @@ def _frontend_impl(px, generator, left_idx, up_idx, e_thresh, s_thresh, *,
     inten = torch.zeros(num_e, dtype=torch.int32, device=dev)
     blk_mean = px.mean(1)
     for _ in range(refine_iters):
-        cnt = torch.zeros(num_e, device=dev).index_add_(0, assign, weights)
-        mean_px = torch.zeros((num_e, 3), device=dev).index_add_(
-            0, assign, blk_mean)
+        cnt = ops.segment_sum(weights, assign, num_e)
+        mean_px = ops.segment_sum(blk_mean, assign, num_e)
         cluster_means = mean_px / torch.clamp(cnt, min=1.0)[:, None]
         color5, inten = ops.optimize_cluster_endpoints(
             px, assign, cluster_means, num_e, radius=radius,

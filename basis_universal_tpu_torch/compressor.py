@@ -1,12 +1,15 @@
-"""basis_compressor equivalent for ETC1S: image(s) -> .basis/.KTX2 bytes.
+"""basis_compressor equivalent for ETC1S and UASTC LDR 4x4: image(s) ->
+.basis/.KTX2 bytes.
 
-Counterpart of the ETC1S part of `basis_universal_tpu/compressor.py`: read
-sources -> mipmaps -> extract blocks -> frontend (PyTorch on `device`) ->
-backend (host entropy coding, native when available) -> container writers.
-The host stages are the reference's own modules, imported; the functions
-below are copies of the reference's ETC1S helpers (that module imports the
-JAX frontend at the top). Other texture formats are not ported yet and
-raise NotImplementedError.
+Counterpart of the ETC1S and UASTC LDR 4x4 parts of
+`basis_universal_tpu/compressor.py`: read sources -> mipmaps -> extract
+blocks -> device search (PyTorch on `device`: the ETC1S frontend, or the
+UASTC mode search) -> host stages (ETC1S entropy coding, native when
+available; UASTC block packing and RDO) -> container writers. The host
+stages are the reference's own modules where they are jax-free, imported;
+the functions below are copies of the reference's helpers (that module
+imports the JAX frontend at the top). Other texture formats are not ported
+yet and raise NotImplementedError.
 """
 
 import concurrent.futures as cf
@@ -28,13 +31,14 @@ from basis_universal_tpu.ops.etc1 import image_to_blocks, pack_etc1_blocks
 from basis_universal_tpu.utils.crc import crc16
 
 from .codecs.etc1s import frontend as etc1s_frontend
+from .codecs.uastc import encode as uastc_encode
+from .codecs.uastc import pack as uastc_pack
 
 MAX_ENDPOINT_CLUSTERS = 16128
 MAX_SELECTOR_CLUSTERS = 16128
 
 # where each texture format not yet ported stands in ROADMAP.md
 _NOT_PORTED = {
-    BasisTexFormat.UASTC_LDR_4x4: "queue 1, item 7 (UASTC LDR 4x4 encode)",
     BasisTexFormat.XUBC7: "queue 1, item 8 (BC7 search / XUBC7)",
 }
 _OTHER_FORMATS = "queue 1, item 12 (the remaining compressor modes)"
@@ -100,6 +104,10 @@ class CompressorParams:
     selector_rdo_thresh: float = 1.15
     # shared/global codebooks: (color5 (E,3), inten5 (E,), selectors (S,16))
     global_codebooks: Optional[tuple] = None
+    # UASTC RDO (selector-bit-range matching): 0 disables; 1.0 = default
+    # strength
+    rdo_uastc_quality: float = 0.0
+    rdo_uastc_dict_size: int = 4096
     seed: int = 0
     # torch device of the frontend
     device: str = "cuda"
@@ -115,8 +123,9 @@ class CompressorOutput:
     slice_selectors: List[np.ndarray]
 
 
-def _require_etc1s(params: CompressorParams):
-    if params.tex_format != BasisTexFormat.ETC1S:
+def _require_ported(params: CompressorParams):
+    if params.tex_format not in (BasisTexFormat.ETC1S,
+                                 BasisTexFormat.UASTC_LDR_4x4):
         where = _NOT_PORTED.get(params.tex_format, _OTHER_FORMATS)
         raise NotImplementedError(
             f"{params.tex_format!r} encoding is not ported to PyTorch yet "
@@ -249,10 +258,12 @@ def _ktx2_layout(params: CompressorParams, slices):
 
 def compress(images, params: CompressorParams = CompressorParams()
              ) -> CompressorOutput:
-    """Encode RGB(A) uint8 image(s) to ETC1S .basis/.KTX2."""
-    _require_etc1s(params)
+    """Encode RGB(A) uint8 image(s) to ETC1S or UASTC LDR 4x4 .basis/.KTX2."""
+    _require_ported(params)
     if isinstance(images, np.ndarray):
         images = [images]
+    if params.tex_format == BasisTexFormat.UASTC_LDR_4x4:
+        return _compress_uastc(images, params)
     slices = _prepare_slices(images, params)
     total_blocks = sum(s["blocks"].shape[0] for s in slices)
     all_blocks = np.concatenate([s["blocks"] for s in slices], axis=0)
@@ -272,8 +283,11 @@ def compress_batch(images, params: CompressorParams = CompressorParams()):
     """Encode N textures; returns one CompressorOutput per input. Same-sized
     inputs share the frontend's knobs and run one image at a time, image i
     with seed + i; the host assembly of image i overlaps the device work of
-    the images after it. Mixed sizes fall back to per-image `compress`."""
-    _require_etc1s(params)
+    the images after it. Mixed sizes fall back to per-image `compress`.
+    UASTC groups same-shaped slices across images instead."""
+    _require_ported(params)
+    if params.tex_format == BasisTexFormat.UASTC_LDR_4x4:
+        return _compress_uastc_batch(images, params)
     per_image = [_prepare_slices([img], params) for img in images]
     shapes = {tuple((s["num_blocks_x"] * s["num_blocks_y"], s["alpha"])
                     for s in sl) for sl in per_image}
@@ -292,6 +306,113 @@ def compress_batch(images, params: CompressorParams = CompressorParams()):
                                   batch, fp, seed=params.seed,
                                   neighbors=nbrs))]
         return [f.result() for f in futs]
+
+
+def _prep_uastc_slices(images, params: CompressorParams):
+    """Per-slice pixel prep for UASTC (no encoding): returns (slices,
+    any_alpha) where each slice dict carries its (B,16,4) f32 `px`."""
+    from basis_universal_tpu.ops.resample import generate_mipmaps
+
+    slices = []
+    any_alpha = False
+    for image_index, img in enumerate(images):
+        img = np.asarray(img)
+        if img.ndim == 2:
+            img = img[..., None].repeat(3, axis=-1)
+        if img.shape[-1] == 3:
+            img = np.concatenate(
+                [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+        has_alpha = bool((img[..., 3] != 255).any())
+        any_alpha |= has_alpha
+        levels = [img]
+        if params.mip_gen:
+            levels += generate_mipmaps(
+                img, params.mip_smallest_dimension,
+                filter=params.mip_filter, srgb=params.mip_srgb,
+                premultiplied=params.mip_premultiplied,
+                renormalize=params.mip_renormalize,
+                wrap=params.mip_wrapping)
+        for level_index, lvl in enumerate(levels):
+            h, w = lvl.shape[:2]
+            blocks = image_to_blocks(lvl).astype(np.float32)
+            by, bx = blocks.shape[:2]
+            slices.append(dict(
+                image_index=image_index, level_index=level_index,
+                orig_width=w, orig_height=h, num_blocks_x=bx,
+                num_blocks_y=by, alpha=has_alpha,
+                px=blocks.reshape(by * bx, 16, 4)))
+    return slices, any_alpha
+
+
+def _encode_uastc_slices(slice_groups, params: CompressorParams):
+    """Encode UASTC slice dicts in place (sets `data`); same-shaped slices,
+    across images, go through one `encode_blocks_batch`."""
+    groups = {}
+    for s in slice_groups:
+        groups.setdefault((s["px"].shape, s["alpha"]), []).append(s)
+    for (_shape, alpha), members in groups.items():
+        px_list = [s["px"] for s in members]
+        for s, ub in zip(members, uastc_encode.encode_blocks_batch(
+                px_list, effort=params.effort, has_alpha=alpha,
+                device=params.device)):
+            if params.rdo_uastc_quality > 0.0:
+                ub = uastc_pack.rdo_selector_match(
+                    ub, s["px"], params.rdo_uastc_quality,
+                    dict_size=params.rdo_uastc_dict_size)
+            s["data"] = ub.tobytes()
+
+
+def _compress_uastc(images, params: CompressorParams) -> CompressorOutput:
+    """UASTC LDR 4x4: per-slice raw UASTC blocks (8 bpp); the slice CRC is
+    over the block bytes; KTX2 levels are Zstandard-supercompressed where
+    `zstandard` is installed."""
+    slices, any_alpha = _prep_uastc_slices(images, params)
+    _encode_uastc_slices(slices, params)
+    return _assemble_uastc(slices, any_alpha, params)
+
+
+def _compress_uastc_batch(images, params: CompressorParams):
+    """N UASTC textures, one CompressorOutput per input image."""
+    preps = [_prep_uastc_slices([img], params) for img in images]
+    _encode_uastc_slices([s for sl, _ in preps for s in sl], params)
+    return [_assemble_uastc(sl, a, params) for sl, a in preps]
+
+
+def _assemble_uastc(slices, any_alpha: bool,
+                    params: CompressorParams) -> CompressorOutput:
+    descs = []
+    for s in slices:
+        descs.append(basis_file.SliceDesc(
+            image_index=s["image_index"], level_index=s["level_index"],
+            flags=int(SliceDescFlags.HAS_ALPHA) if s["alpha"] else 0,
+            orig_width=s["orig_width"], orig_height=s["orig_height"],
+            num_blocks_x=s["num_blocks_x"], num_blocks_y=s["num_blocks_y"],
+            slice_data_crc16=crc16(s["data"]),
+        ))
+    flags = 0
+    if params.perceptual:
+        flags |= HeaderFlags.SRGB
+    if any_alpha:
+        flags |= HeaderFlags.HAS_ALPHA_SLICES
+    data = basis_file.write_basis_file(
+        BasisTexFormat.UASTC_LDR_4x4, descs, [s["data"] for s in slices],
+        tex_type=params.tex_type, flags=int(flags),
+        userdata0=params.userdata0, userdata1=params.userdata1)
+
+    base = slices[0]
+    level_count, layer_count, face_count, info = _ktx2_layout(params, slices)
+    ktx2_data = ktx2.write_ktx2_uastc(
+        base_width=base["orig_width"], base_height=base["orig_height"],
+        level_count=level_count,
+        layer_count=layer_count,
+        face_count=face_count,
+        slice_blocks=[s["data"] for s in slices],
+        slice_info=info,
+        srgb=params.perceptual, has_alpha=any_alpha)
+    return CompressorOutput(
+        basis_data=data, ktx2_data=ktx2_data,
+        num_endpoints=0, num_selectors=0,
+        slice_endpoints=[], slice_selectors=[])
 
 
 def _ofs(slices, i):

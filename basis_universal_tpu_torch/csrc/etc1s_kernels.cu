@@ -1,9 +1,9 @@
-// Hand-written Hopper (sm_90a) kernels for the ETC1S frontend hot path.
+// Hand-written Hopper (sm_90a) kernels of the ETC1S encoder.
 //
 // Each kernel replaces one Pallas kernel of basis_universal_tpu/ops/
-// pallas_etc1s.py and computes the same function with the same float32
-// operation order per element; the plain PyTorch versions live beside the
-// wrappers in basis_universal_tpu_torch/ops/cuda_etc1s.py.
+// pallas_etc1s.py (all four are here) and computes the same function with
+// the same float32 operation order per element; the plain PyTorch versions
+// live beside the wrappers in basis_universal_tpu_torch/ops/cuda_etc1s.py.
 //
 // Every launcher takes raw device pointers, sizes and a cudaStream_t (the
 // caller's current PyTorch stream), launches asynchronously, allocates and
@@ -247,6 +247,46 @@ __global__ void rescore_kernel(const float* __restrict__ pixels,
 }
 
 // ---------------------------------------------------------------------------
+// palette_errs: the same error against K explicit palettes (B, K, 4, 3),
+//     err[b,k] = sum_i min_sel || x_i - pal[b,k,sel] ||^2 .
+// One thread per (block, candidate) reads its palette's 12 floats (48
+// contiguous bytes) instead of unpacking a word; no clip, no table.
+// ---------------------------------------------------------------------------
+__global__ void errs_kernel(const float* __restrict__ pixels,
+                            const float* __restrict__ palettes,
+                            float* __restrict__ out, int n_blocks,
+                            int n_cand) {
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= (long long)n_blocks * n_cand) return;
+  const int b = (int)(gid / n_cand);
+  const float* pal = palettes + (size_t)gid * 12;
+  float pr[4], pg[4], pb[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    pr[s] = __ldg(pal + s * 3 + 0);
+    pg[s] = __ldg(pal + s * 3 + 1);
+    pb[s] = __ldg(pal + s * 3 + 2);
+  }
+  const float* px = pixels + (size_t)b * 48;
+  float total = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float r = __ldg(px + i * 3 + 0);
+    const float g = __ldg(px + i * 3 + 1);
+    const float bl = __ldg(px + i * 3 + 2);
+    float best = 0.f;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const float dr = pr[s] - r, dg = pg[s] - g, db = pb[s] - bl;
+      const float dist = dr * dr + dg * dg + db * db;
+      best = s == 0 ? dist : fminf(best, dist);
+    }
+    total += best;
+  }
+  out[gid] = total;
+}
+
+// ---------------------------------------------------------------------------
 // find_best_selector_patterns: argmin_s sum_i bf16(d[b,i,pat_s[i]]) with
 // float32 accumulation, never materialising the (B, S) error matrix.
 // A CTA holds kSelBlocks blocks x kSelSplit pattern slices. Each thread keeps
@@ -362,6 +402,17 @@ int etc1s_palette_errs_packed(const float* pixels, const int32_t* packed,
     rescore_kernel<true><<<grid, threads, 0, s>>>(pixels, packed, out, n_blocks, n_cand);
   else
     rescore_kernel<false><<<grid, threads, 0, s>>>(pixels, packed, out, n_blocks, n_cand);
+  return (int)cudaGetLastError();
+}
+
+int etc1s_palette_errs(const float* pixels, const float* palettes, float* out,
+                       int n_blocks, int n_cand, void* stream) {
+  const long long total = (long long)n_blocks * n_cand;
+  if (total <= 0) return (int)cudaSuccess;
+  const int threads = 256;
+  const unsigned grid = (unsigned)((total + threads - 1) / threads);
+  errs_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(pixels, palettes, out,
+                                                          n_blocks, n_cand);
   return (int)cudaGetLastError();
 }
 

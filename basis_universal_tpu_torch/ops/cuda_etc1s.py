@@ -1,7 +1,11 @@
-"""CUDA kernels of the ETC1S frontend hot path, with their plain versions.
+"""CUDA kernels of the ETC1S encoder, with their plain versions.
 
-Counterpart of `basis_universal_tpu/ops/pallas_etc1s.py`. Each wrapper checks
-its inputs, then dispatches on the device of the tensors it was given:
+Counterpart of `basis_universal_tpu/ops/pallas_etc1s.py`, all four of its
+kernels: the ETC1S frontend's scan, packed rescore and selector search (the
+UASTC encoder's ETC1 hint and the transcoder's ETC1 re-encode run the scan
+and the packed rescore too), and `palette_errs`, which no path of either
+package calls. Each wrapper checks its inputs, then dispatches on the
+device of the tensors it was given:
 
 - a CUDA tensor launches the hand-written kernel of `csrc/etc1s_kernels.cu`
   on the current stream (and raises if the launch is refused);
@@ -19,6 +23,7 @@ from basis_universal_tpu.ops.etc1 import ETC1_INTEN_TABLES
 LAUNCHES = {
     "factorized_scan": 0,
     "palette_errs_packed": 0,
+    "palette_errs": 0,
     "find_best_selector_patterns": 0,
 }
 
@@ -201,6 +206,51 @@ def palette_errs_packed_reference(pixels, packed, perceptual: bool = False):
         diff = diff @ torch.as_tensor(PERC_P, device=dev).T
     dist = (diff * diff).sum(-1)                                 # (B,K,4,16)
     return dist.min(dim=2).values.sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# palette_errs
+# ---------------------------------------------------------------------------
+
+def palette_errs(pixels, palettes):
+    """Exact ETC1S errors against explicit palettes, (B, K) float32.
+
+    Replaces `pallas_etc1s.palette_errs` (`_errs_kernel`). pixels: (B, 16,
+    3) float32; palettes: (B, K, 4, 3) float32 (already clipped, and
+    perceptually transformed with the pixels where the caller scores in that
+    metric). err[b, k] = sum_i min_sel ||x_bi - pal_bk,sel||^2.
+
+    The packed rescore's function with the palette read instead of rebuilt:
+    one thread per (block, candidate) loads its palette's 12 floats (48
+    contiguous bytes) and the block's 16 pixels, ~200 FLOPs per output, so
+    like `palette_errs_packed` it is a small pass; what it adds over that
+    kernel is the palette traffic, 48 bytes per output against 4. No path of
+    the port calls it, as none of the reference does.
+    """
+    _check(pixels, "pixels", torch.float32, (None, 16, 3))
+    _check(palettes, "palettes", torch.float32, (pixels.shape[0], None, 4, 3))
+    dev = _same_device(pixels, palettes)
+    if dev.type == "cpu":
+        return palette_errs_reference(pixels, palettes)
+    from ._build import get_lib
+
+    b_n, k_n = palettes.shape[:2]
+    out = torch.empty((b_n, k_n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = get_lib().etc1s_palette_errs(
+            pixels.data_ptr(), palettes.data_ptr(), out.data_ptr(), b_n, k_n,
+            _stream(dev))
+    LAUNCHES["palette_errs"] += 1
+    _raise_on(status, "palette_errs")
+    return out
+
+
+def palette_errs_reference(pixels, palettes):
+    """Plain PyTorch version of `palette_errs`: the reference's XLA broadcast
+    (`etc1s_encode._palette_errs`)."""
+    diff = palettes[:, :, :, None, :] - pixels[:, None, None, :, :]
+    d = (diff * diff).sum(-1)                                    # (B,K,4,16)
+    return d.min(dim=2).values.sum(-1)
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,10 @@ Equivalences with the reference kept on purpose:
   with float32 accumulation does;
 - float32 matmuls that rank distances must not run in TF32: the frontend
   runs them under `exact_matmuls()`;
-- segment sums are `index_add_` (atomics on CUDA: the summation order, and
-  so the last bits of a sum, may differ from run to run).
+- segment sums go through `segment_sum`, which sums each segment in row
+  order on every device, so a card run gives the same bits every time (an
+  `index_add_` of floats on CUDA sums with atomics, in an order that
+  changes from run to run).
 """
 
 import contextlib
@@ -51,6 +53,27 @@ def exact_matmuls():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def segment_sum(data, segment_ids, num_segments: int):
+    """out[s] = sum of the rows data[i] with segment_ids[i] == s, shape
+    (num_segments, *data.shape[1:]), the same bits on every run.
+
+    Float rows are stably sorted by segment and each segment is summed in
+    row order (`torch.segment_reduce`): the order of a sequential
+    `index_add_`, whose result it equals bit for bit on the CPU. The
+    segment offsets come from a search in the sorted ids, which needs no
+    device-to-host copy (a `bincount` on CUDA waits for one). Integer sums
+    are exact in any order and stay an `index_add_`."""
+    ids = segment_ids.long()
+    if not data.is_floating_point():
+        return torch.zeros((num_segments, *data.shape[1:]), dtype=data.dtype,
+                           device=data.device).index_add_(0, ids, data)
+    sorted_ids, order = torch.sort(ids, stable=True)
+    offsets = torch.searchsorted(sorted_ids, torch.arange(
+        num_segments + 1, dtype=torch.int64, device=ids.device))
+    return torch.segment_reduce(data[order], "sum", offsets=offsets, axis=0,
+                                unsafe=True)
 
 
 def _inten(device):
@@ -185,15 +208,13 @@ def optimize_cluster_endpoints(pixels, cluster_ids, cluster_means,
     blk_err = cuda_etc1s.factorized_scan(
         pixels, base5=base5[ids].float().contiguous(), radius=radius,
         perceptual=perceptual)                                  # (B,D*8)
-    flat = torch.zeros((num_clusters, blk_err.shape[1]), dtype=torch.float32,
-                       device=dev).index_add_(0, ids, blk_err)
+    flat = segment_sum(blk_err, ids, num_clusters)
     cand = _shortlist(flat, min(16, flat.shape[1]))             # (C,K)
     c5k = torch.clamp(base5[:, None, :] + deltas[cand // 8], 0, 31)
     packed_c = _pack(c5k, cand % 8)                             # (C,K)
     berr = cuda_etc1s.palette_errs_packed(
         pixels, packed_c[ids].contiguous(), perceptual=perceptual)
-    cerr = torch.zeros((num_clusters, berr.shape[1]), dtype=torch.float32,
-                       device=dev).index_add_(0, ids, berr)
+    cerr = segment_sum(berr, ids, num_clusters)
     kbest = torch.argmin(cerr, dim=-1)
     c = torch.arange(num_clusters, device=dev)
     return _unpack(packed_c[c, kbest])
@@ -218,9 +239,8 @@ def kmeans(vecs, weights, init_centroids, num_clusters: int, iters: int = 4):
         cross = vecs_h @ c_h.T                                  # (N,C)
         d = (centroids * centroids).sum(-1)[None, :] - 2.0 * cross
         assign = torch.argmin(d, dim=-1)
-        sums = torch.zeros_like(centroids).index_add_(0, assign, wv)
-        cnts = torch.zeros(num_clusters, dtype=vecs.dtype,
-                           device=vecs.device).index_add_(0, assign, w[:, 0])
+        sums = segment_sum(wv, assign, num_clusters)
+        cnts = segment_sum(w[:, 0], assign, num_clusters)
         centroids = torch.where(cnts[:, None] > 0,
                                 sums / torch.clamp(cnts[:, None], min=1e-9),
                                 centroids)
@@ -247,8 +267,7 @@ def bisecting_init(vecs, weights, num_clusters: int, generator=None,
     feats = torch.cat([w[:, None], vecs * w[:, None], outer * w[:, None]], -1)
 
     for _ in range(rounds):
-        m = torch.zeros((c_max, feats.shape[1]), dtype=feats.dtype,
-                        device=dev).index_add_(0, assign, feats)
+        m = segment_sum(feats, assign, c_max)
         cnt = m[:, 0]
         mean = m[:, 1:1 + f] / torch.clamp(cnt, min=1e-9)[:, None]
         m2 = m[:, 1 + f:].reshape(c_max, f, f)
@@ -262,8 +281,7 @@ def bisecting_init(vecs, weights, num_clusters: int, generator=None,
         proj = (vecs * ga[:, :f]).sum(-1) - ga[:, f]
         assign = assign * 2 + (proj > 0).to(torch.int64)
 
-    m = torch.zeros((c_max, 1 + f), dtype=feats.dtype,
-                    device=dev).index_add_(0, assign, feats[:, :1 + f])
+    m = segment_sum(feats[:, :1 + f], assign, c_max)
     cnt = m[:, 0]
     mean = m[:, 1:] / torch.clamp(cnt, min=1e-9)[:, None]
     top = torch.argsort(-cnt, stable=True)[:num_clusters]
@@ -309,8 +327,7 @@ def find_best_selector_patterns(dists, patterns, num_patterns: int):
 def update_selector_patterns(dists, assign, num_patterns: int):
     """Each selector cluster's optimal pattern: per pixel position,
     argmin_k of the members' summed distances. Returns (S, 16) int32."""
-    sums = torch.zeros((num_patterns, 16, 4), dtype=dists.dtype,
-                       device=dists.device).index_add_(0, assign.long(), dists)
+    sums = segment_sum(dists, assign, num_patterns)
     return torch.argmin(sums, dim=-1).to(torch.int32)
 
 

@@ -1,7 +1,7 @@
-"""Checks for the port's tests and `chip_smoke.py`: decode an ETC1S .basis
-through the reference package's jax-free host decoder (checking every CRC),
-score it with PSNR (numpy), and size the float tolerance of the factorized
-scan."""
+"""Checks for the port's tests and `chip_smoke.py`: decode an ETC1S or
+UASTC LDR 4x4 .basis through the reference package's jax-free host decoders
+(checking every CRC), score it with PSNR (numpy), and size the float
+tolerance of the factorized scan."""
 
 import numpy as np
 import torch
@@ -11,6 +11,7 @@ from basis_universal_tpu.codecs.etc1s.stream import (
     decode_slice,
     decode_tables,
 )
+from basis_universal_tpu.codecs.uastc.decode import decode_rgba
 from basis_universal_tpu.formats.basis_file import BasisFile
 from basis_universal_tpu.ops.etc1 import (
     blocks_to_image,
@@ -62,6 +63,33 @@ def etc1s_psnr(data: bytes, image) -> float:
         got.append(dec[1][..., :1])
         want.append(image[..., 3:4])
     return psnr(np.concatenate(got, -1), np.concatenate(want, -1))
+
+
+def decode_uastc_basis(data: bytes):
+    """Per-slice decoded RGBA images of a UASTC LDR 4x4 .basis file. Raises
+    if the header/data CRCs or any slice's CRC (over its block bytes) do not
+    match."""
+    f = BasisFile(data)
+    if not f.validate_crcs():
+        raise AssertionError("header/data CRC mismatch")
+    images = []
+    for i, s in enumerate(f.slices):
+        raw = f.slice_data(i)
+        if crc16(raw) != s.slice_data_crc16:
+            raise AssertionError(f"slice {i} CRC mismatch")
+        blocks = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 16)
+        rgba = decode_rgba(blocks).reshape(s.num_blocks_y, s.num_blocks_x, 4,
+                                           4, 4)
+        images.append(blocks_to_image(rgba, s.orig_width, s.orig_height))
+    return images
+
+
+def uastc_psnr(data: bytes, image) -> float:
+    """PSNR of a UASTC .basis file's first slice against its source, over
+    RGB, and alpha too for an RGBA source."""
+    image = np.asarray(image)
+    c = 4 if image.shape[-1] == 4 else 3
+    return psnr(decode_uastc_basis(data)[0][..., :c], image[..., :c])
 
 
 def scan_term_magnitude(pixels, base5=None, radius: int = 1,

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from basis_universal_tpu.ops import etc1s_encode as jops
@@ -153,6 +154,60 @@ def test_palette_errs_packed_matches_pallas_and_xla(k, perceptual):
     _assert_close(got, xla, scale)
 
 
+def _explicit_palettes(packed):
+    """(B, K, 4, 3) float32 clipped palettes of packed candidates."""
+    c5 = np.stack([packed & 31, (packed >> 5) & 31, (packed >> 10) & 31], -1)
+    b8 = (c5 << 3) | (c5 >> 2)
+    return np.clip(b8[:, :, None, :] + ETC1_INTEN_TABLES[(packed >> 15) & 7]
+                   [..., None], 0, 255).astype(np.float32)
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
+@pytest.mark.parametrize("k", [16, 3])
+def test_palette_errs_matches_pallas_and_xla(k, perceptual):
+    """B = 300 is not a multiple of the Pallas kernel's 2048-block tile."""
+    px = _blocks(B, 51)
+    pal = _explicit_palettes(_packed(B, k, 52))
+    if perceptual:
+        # the callers' perceptual scoring: both operands transformed
+        px = np.array(jops.perceptual_transform(jnp.asarray(px)))
+        pal = np.array(jops.perceptual_transform(jnp.asarray(pal)))
+    got = ck.palette_errs(torch.from_numpy(px), torch.from_numpy(pal)).numpy()
+    assert got.shape == (B, k) and got.dtype == np.float32
+    pallas = np.asarray(pallas_etc1s.palette_errs(
+        jnp.asarray(px), jnp.asarray(pal), interpret=True))
+    xla = np.asarray(jops._palette_errs(jnp.asarray(px), jnp.asarray(pal)))
+    if perceptual:
+        _assert_close(got, pallas)
+        _assert_close(got, xla)
+    else:
+        # integer pixels and palettes: every partial sum is exact
+        np.testing.assert_array_equal(got, pallas)
+        np.testing.assert_array_equal(got, xla)
+
+
+@pytest.mark.parametrize("rows", [(4000,), (4000, 6), (4000, 16, 4)])
+def test_segment_sum_matches_index_add_and_jax(rows):
+    rng = np.random.default_rng(len(rows))
+    data = (rng.standard_normal(rows) * 1000.0).astype(np.float32)
+    ids = rng.integers(0, 250, rows[0])
+    ids[ids == 17] = 18                         # an empty segment
+    got = tops.segment_sum(torch.from_numpy(data), torch.from_numpy(ids), 260)
+    want = torch.zeros((260,) + rows[1:]).index_add_(
+        0, torch.from_numpy(ids), torch.from_numpy(data))
+    assert torch.equal(got, want)
+    assert not got[17].any()
+    seg = np.asarray(jax.ops.segment_sum(jnp.asarray(data), jnp.asarray(ids),
+                                         num_segments=260))
+    scale = np.abs(data).max() * 20.0           # ~the largest partial sums
+    _assert_close(got.numpy(), seg, scale)
+    # integer data keeps an (exact) index_add_
+    counts = tops.segment_sum(torch.ones(rows[0], dtype=torch.int64),
+                              torch.from_numpy(ids), 260)
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.bincount(ids, minlength=260))
+
+
 def _selector_check(best, val, want_best, want_val, dists, patterns):
     """Min errors close; indices equal except at ties. Returns tie count."""
     _assert_close(val, want_val)
@@ -246,6 +301,10 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         ck.palette_errs_packed(px, torch.zeros((7, 4), dtype=torch.int32))
     with pytest.raises(ValueError):
+        ck.palette_errs(px, torch.zeros((8, 4, 3, 3)))
+    with pytest.raises(TypeError):
+        ck.palette_errs(px, torch.zeros((8, 4, 4, 3), dtype=torch.float64))
+    with pytest.raises(ValueError):
         ck.find_best_selector_patterns(torch.zeros((8, 16, 4)),
                                        torch.zeros((5, 16), dtype=torch.int32),
                                        6)
@@ -261,4 +320,8 @@ def test_cpu_tensors_run_the_plain_version_without_launching():
     np.testing.assert_array_equal(
         ck.palette_errs_packed(px, packed).numpy(),
         ck.palette_errs_packed_reference(px, packed).numpy())
+    pal = torch.from_numpy(_explicit_palettes(_packed(40, 4, 2)))
+    np.testing.assert_array_equal(
+        ck.palette_errs(px, pal).numpy(),
+        ck.palette_errs_reference(px, pal).numpy())
     assert all(v == 0 for v in ck.LAUNCHES.values())

@@ -1,7 +1,7 @@
-"""The port stands on its own: it imports and encodes with jax, Pillow and
-zstandard unavailable (as on the GPU machine), a CUDA request on a machine
-without CUDA raises instead of running on the CPU, and texture formats not
-ported yet raise NotImplementedError."""
+"""The port stands on its own: it imports, encodes (ETC1S and UASTC) and
+transcodes with jax, Pillow and zstandard unavailable (as on the GPU
+machine), a CUDA request on a machine without CUDA raises instead of running
+on the CPU, and texture formats not ported yet raise NotImplementedError."""
 
 import os
 import pathlib
@@ -25,13 +25,21 @@ import sys
 for name in ("jax", "jaxlib", "PIL", "zstandard"):
     sys.modules[name] = None          # any import of these raises ImportError
 from basis_universal_tpu_torch import compressor
-from basis_universal_tpu_torch.testing.checks import etc1s_psnr
+from basis_universal_tpu_torch import transcoder
+from basis_universal_tpu_torch.testing.checks import etc1s_psnr, uastc_psnr
 from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+from basis_universal_tpu.formats.constants import BasisTexFormat
+from basis_universal_tpu.formats.constants import TranscoderTextureFormat as TF
 img, _ = synthetic_texture(64, 64, seed=2, alpha=True)
 out = compressor.compress(img, compressor.CompressorParams(device="cpu"))
 p = etc1s_psnr(out.basis_data, img)
 assert p > 20.0, p
 assert len(out.ktx2_data) > 0
+uastc = compressor.compress(img, compressor.CompressorParams(
+    tex_format=BasisTexFormat.UASTC_LDR_4x4, effort=2, device="cpu"))
+assert uastc_psnr(uastc.basis_data, img) > 25.0
+etc1 = transcoder.BasisTranscoder(uastc.basis_data, device="cpu")
+assert etc1.transcode_image_level(0, 0, TF.ETC1_RGB).shape == (16, 16, 8)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "PIL", "zstandard")
                 and sys.modules[m] is not None)
@@ -104,7 +112,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.library_path()
 
 
-@pytest.mark.parametrize("fmt", [BasisTexFormat.UASTC_LDR_4x4,
+@pytest.mark.parametrize("fmt", [BasisTexFormat.ASTC_HDR_6x6,
                                  BasisTexFormat.XUBC7,
                                  BasisTexFormat.UASTC_HDR_4x4])
 def test_formats_not_ported_raise(fmt):

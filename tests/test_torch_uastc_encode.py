@@ -1,0 +1,212 @@
+"""The port's UASTC LDR 4x4 mode search (`basis_universal_tpu_torch/codecs/
+uastc/encode.py`) against the reference's, on the CPU, and its copied host
+packers (`codecs/uastc/pack.py`) against the reference's.
+
+Inputs are made from a seed with numpy: the 256 blocks of a synthetic RGB
+or RGBA texture, plus solid, two-tone and unstructured blocks.
+
+Tolerances: errors rtol 1e-5. Endpoint codes, weights, partitions / ccs
+and winner slots are equal, except where both choices score the same: each
+block that differs is packed both ways, decoded by the reference's decoder,
+and its squared error must agree within rtol 1e-5; the count is printed.
+The ETC1 hint (the intensity table of a radius-0 ETC1S fit) may differ only
+where both tables give the same exact error (the float rounding of the
+unclipped scan scores orders such ties).
+
+The reference runs eagerly, op by op: its jitted search compiles for up to
+a minute per effort level on the CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import basis_universal_tpu.ops.etc1s_encode  # noqa: F401  (before tracing)
+from basis_universal_tpu.codecs.uastc import encode as ref_encode
+from basis_universal_tpu.codecs.uastc.decode import decode_rgba
+from basis_universal_tpu.ops.etc1 import image_to_blocks
+from basis_universal_tpu_torch.codecs.uastc import encode as port_encode
+from basis_universal_tpu_torch.codecs.uastc import pack
+from basis_universal_tpu_torch.ops import cuda_etc1s as ck
+from basis_universal_tpu_torch.ops import etc1s_encode as tops
+from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+
+RTOL = 1e-5
+
+
+def _blocks(seed, alpha):
+    """(328, 16, 4) float32 RGBA blocks; alpha 255 unless `alpha`."""
+    img, _ = synthetic_texture(64, 64, seed=seed, alpha=alpha)
+    if not alpha:
+        img = np.concatenate([img, np.full((64, 64, 1), 255, np.uint8)], -1)
+    px = image_to_blocks(img).reshape(-1, 16, 4).astype(np.int64)
+    rng = np.random.default_rng(seed)
+    solid = np.repeat(rng.integers(0, 256, (24, 1, 4)), 16, axis=1)
+    colors = rng.integers(0, 256, (24, 2, 4))
+    two_tone = np.where(rng.integers(0, 2, (24, 16, 1)) == 1,
+                        colors[:, :1], colors[:, 1:])
+    noise = rng.integers(0, 256, (24, 16, 4))
+    px = np.concatenate([px, solid, two_tone, noise])
+    if not alpha:
+        px[..., 3] = 255
+    return px.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def rgba_blocks():
+    return _blocks(7, alpha=True)
+
+
+def _sse(blocks, px):
+    dec = decode_rgba(blocks).reshape(-1, 16, 4).astype(np.float64)
+    return ((dec - px) ** 2).sum((1, 2))
+
+
+def _check_ties(differ, blocks_got, blocks_want, px, what):
+    """Blocks coded differently must decode to the same squared error."""
+    n = int(differ.sum())
+    if n:
+        e_got = _sse(blocks_got[differ], px[differ])
+        e_want = _sse(blocks_want[differ], px[differ])
+        bad = np.abs(e_got - e_want) > RTOL * np.abs(e_want)
+        assert not bad.any(), (f"{what}: {int(bad.sum())} blocks differ "
+                               f"without a tie: {e_got[bad]} vs {e_want[bad]}")
+    print(f"{what}: {n} of {len(px)} blocks coded differently, all ties")
+    return n
+
+
+# (id, trial function, positional args after px, keyword args, packer)
+def _single(mode, wb, ep_range, comps):
+    return lambda out, n: pack._pack_mode(mode, wb, ep_range, comps, out[1],
+                                          out[2], np.zeros(n, np.int64))
+
+
+def _two(mode, wb, ep_range, comps):
+    return lambda out, n: pack._pack_mode_2subset(
+        mode, wb, ep_range, comps, out[1], out[2], out[3],
+        np.zeros(n, np.int64))
+
+
+def _dual(mode, wb, ep_range, comps):
+    return lambda out, n: pack._pack_mode_dualplane(
+        mode, wb, ep_range, out[1], out[2], out[3], np.zeros(n, np.int64),
+        comps=comps)
+
+
+TRIALS = [(f"mode{m}", "_mode_trial", (wb, r, c, 1), {}, _single(m, wb, r, c))
+          for (m, wb, r, c) in pack.ALL_MODES]
+TRIALS += [
+    ("mode0-ls2", "_mode_trial", (4, 19, 3, 2), {}, _single(0, 4, 19, 3)),
+    ("mode2", "_mode_trial_2subset", (3, 8, 3, 1), {}, _two(2, 3, 8, 3)),
+    ("mode4", "_mode_trial_2subset", (2, 12, 3, 1), {}, _two(4, 2, 12, 3)),
+    ("mode9", "_mode_trial_2subset", (2, 8, 4, 1), {}, _two(9, 2, 8, 4)),
+    ("mode7", "_mode_trial_2subset", (2, 12, 3, 2),
+     dict(pattern_list=7, topk=8), _two(7, 2, 12, 3)),
+    ("mode16", "_mode_trial_2subset", (2, 20, 2, 1), {}, _two(16, 2, 20, 2)),
+    ("mode3", "_mode_trial_3subset", (2,), {},
+     lambda out, n: pack._pack_mode_3subset(out[1], out[2], out[3],
+                                            np.zeros(n, np.int64))),
+    ("mode6", "_mode_trial_dualplane", (2, 18, 1), {}, _dual(6, 2, 18, 3)),
+    ("mode11", "_mode_trial_dualplane4", (2, 13, 1), {}, _dual(11, 2, 13, 4)),
+    ("mode13", "_mode_trial_dualplane4", (1, 20, 1), {}, _dual(13, 1, 20, 4)),
+    ("mode17", "_mode_trial_dualplane_la", (2, 20, 1), {},
+     lambda out, n: pack._pack_mode_dualplane(
+         17, 2, 20, out[1], out[2], np.ones(n, np.int64),
+         np.zeros(n, np.int64), comps=2, emit_ccs=False)),
+]
+
+
+@pytest.mark.parametrize("case", TRIALS, ids=[t[0] for t in TRIALS])
+def test_mode_trial_matches_reference(case, rgba_blocks):
+    name, fn, args, kw, packer = case
+    px = rgba_blocks
+    n = px.shape[0]
+    want = [np.asarray(x) for x in
+            getattr(ref_encode, fn)(jnp.asarray(px), *args, **kw)]
+    got = [x.numpy() for x in
+           getattr(port_encode, fn)(torch.from_numpy(px), *args, **kw)]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+    assert all(g.dtype == np.int32 for g in got[1:])
+    np.testing.assert_allclose(got[0], want[0], rtol=RTOL)
+    differ = np.zeros(n, bool)
+    for g, w in zip(got[1:], want[1:]):
+        differ |= (g != w).reshape(n, -1).any(1)
+    as_np = [[x.astype(np.int64) for x in out] for out in (got, want)]
+    _check_ties(differ, packer(as_np[0], n), packer(as_np[1], n), px, name)
+
+
+def _etc1_hint_err(px, inten):
+    """Exact ETC1S error of each block's radius-0 base with table inten."""
+    rgb = torch.from_numpy(np.ascontiguousarray(px[..., :3]))
+    base5 = torch.clamp(torch.round(rgb.mean(1) * ck.C31_255), 0, 31)
+    packed = tops._pack(base5.to(torch.int32),
+                        torch.from_numpy(inten.astype(np.int32)))
+    return ck.palette_errs_packed_reference(rgb, packed[:, None])[:, 0].numpy()
+
+
+@pytest.mark.parametrize("alpha", [False, True])
+@pytest.mark.parametrize("effort", [0, 2, 3])
+def test_search_matches_reference(effort, alpha):
+    px = _blocks(11 + effort, alpha)
+    modes, ls_iters, extra, topk = pack._effort_mode_set(effort, alpha)
+    want = np.asarray(ref_encode._search_impl(jnp.asarray(px), modes,
+                                              ls_iters, extra, topk))
+    got = port_encode._search(torch.from_numpy(px), modes, ls_iters, extra,
+                              topk)
+    assert got.shape == want.shape == (px.shape[0], 59)
+    assert got.dtype == np.uint8
+
+    hint = got[:, 58] != want[:, 58]
+    np.testing.assert_array_equal(_etc1_hint_err(px[hint], got[hint, 58]),
+                                  _etc1_hint_err(px[hint], want[hint, 58]))
+    print(f"effort {effort} alpha {alpha}: ETC1 hint ties {int(hint.sum())}")
+
+    # the hint is only written into the blocks' hint fields: score the rest
+    # with the reference's hint in both
+    got[:, 58] = want[:, 58]
+    differ = (got != want).any(1)
+    _check_ties(differ, pack._pack_from_compact(got, px, modes, extra),
+                pack._pack_from_compact(want, px, modes, extra), px,
+                f"effort {effort} alpha {alpha} search")
+
+
+@pytest.mark.parametrize("effort,alpha", [(2, False), (4, True)])
+def test_copied_packers_match_reference_bytes(effort, alpha):
+    """The port's copies of the packers and of the selector RDO give the
+    reference's bytes on the same compact winner buffer."""
+    px = _blocks(21, alpha)
+    modes, ls_iters, extra, topk = pack._effort_mode_set(effort, alpha)
+    assert (modes, ls_iters, extra, topk) == ref_encode._effort_mode_set(
+        effort, alpha)
+    compact = port_encode._search(torch.from_numpy(px), modes, ls_iters,
+                                  extra, topk)
+    slots = np.unique(compact[:, 0])
+    print(f"effort {effort} alpha {alpha}: {len(slots)} of "
+          f"{len(modes) + 1 + len(extra)} mode slots won some block")
+    got = pack._pack_from_compact(compact, px, modes, extra)
+    want = ref_encode._pack_from_compact(compact, px, modes, extra)
+    np.testing.assert_array_equal(got, want)
+    for lam, dict_size in ((1.0, 4096), (3.0, 256)):
+        np.testing.assert_array_equal(
+            pack.rdo_selector_match(got, px, lam, dict_size=dict_size),
+            ref_encode.rdo_selector_match(want, px, lam, dict_size=dict_size))
+    for ep_range in sorted({m[2] for m in pack.ALL_MODES} | {7, 8, 12, 13, 18}):
+        for a, b in zip(pack.quant_luts(ep_range),
+                        ref_encode.quant_luts(ep_range)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_encode_blocks_batch_equals_encode_blocks():
+    """The uint8 upload of the batch path gives the float path's blocks."""
+    imgs = [_blocks(s, True) for s in (31, 32)]
+    batch = list(port_encode.encode_blocks_batch(imgs, effort=1,
+                                                 has_alpha=True, device="cpu"))
+    assert len(batch) == 2
+    for px, ub in zip(imgs, batch):
+        np.testing.assert_array_equal(
+            ub, port_encode.encode_blocks(px, effort=1, has_alpha=True,
+                                          device="cpu"))
