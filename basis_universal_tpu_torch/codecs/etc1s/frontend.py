@@ -16,9 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from basis_universal_tpu.ops.etc1 import ETC1_INTEN_TABLES
-
 from ...ops import etc1s_encode as ops
+from ...ops.etc1 import ETC1_INTEN_TABLES
 
 
 @dataclasses.dataclass

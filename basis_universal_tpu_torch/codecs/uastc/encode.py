@@ -31,12 +31,11 @@ import functools
 import numpy as np
 import torch
 
-from basis_universal_tpu.codecs.uastc import tables as T
-
 from ...ops import etc1s_encode as etc1s_ops
 from ...ops.cuda_etc1s import THIRD
 from ..etc1s.frontend import resolve_device
 from . import pack
+from . import tables as T
 
 _INV64 = 1.0 / 64.0
 

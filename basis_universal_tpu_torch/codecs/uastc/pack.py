@@ -3,8 +3,8 @@ LZ-aware selector RDO.
 
 Copies of the host (numpy) half of `basis_universal_tpu/codecs/uastc/
 encode.py`; that module imports jax at the top, and the port must run where
-jax is not installed. The tables and the decoder are the reference's own
-jax-free modules, imported. `codecs/uastc/encode.py` of this package is the
+jax is not installed. The tables and the decoder are this package's copies
+(`tables.py`, `decode.py`). `codecs/uastc/encode.py` of this package is the
 device half (the mode search, in PyTorch).
 """
 
@@ -12,8 +12,8 @@ import functools
 
 import numpy as np
 
-from basis_universal_tpu.codecs.uastc import tables as T
-from basis_universal_tpu.ops.etc1 import ETC1_INTEN_TABLES
+from ...ops.etc1 import ETC1_INTEN_TABLES
+from . import tables as T
 
 # (mode, weight_bits, endpoint_range, comps)
 RGB_MODES = [(0, 4, 19, 3), (1, 2, 20, 3), (5, 3, 20, 3), (18, 5, 11, 3)]
@@ -484,8 +484,7 @@ def rdo_selector_match(blocks: np.ndarray, px_rgba: np.ndarray,
     """
     if lam <= 0.0:
         return blocks
-    from basis_universal_tpu.codecs.uastc.decode import (
-        decode_rgba, unpack_blocks)
+    from .decode import decode_rgba, unpack_blocks
 
     blocks = np.ascontiguousarray(blocks, dtype=np.uint8).reshape(-1, 16)
     n = blocks.shape[0]
@@ -628,7 +627,7 @@ def _refine_spliced_endpoints(out: np.ndarray, changed: np.ndarray,
                               u, px: np.ndarray) -> None:
     """LS-refit the endpoint fields of modified single-subset single-plane
     CEM 8/12 blocks in place, keeping mode/hints/weights bits untouched."""
-    from basis_universal_tpu.codecs.uastc.decode import unpack_blocks
+    from .decode import unpack_blocks
 
     u2 = unpack_blocks(out[changed])
     for mode in np.unique(u2.mode):

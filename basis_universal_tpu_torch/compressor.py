@@ -6,9 +6,9 @@ Counterpart of the ETC1S and UASTC LDR 4x4 parts of
 blocks -> device search (PyTorch on `device`: the ETC1S frontend, or the
 UASTC mode search) -> host stages (ETC1S entropy coding, native when
 available; UASTC block packing and RDO) -> container writers. The host
-stages are the reference's own modules where they are jax-free, imported;
-the functions below are copies of the reference's helpers (that module
-imports the JAX frontend at the top). Other texture formats are not ported
+stages are this package's copies of the reference's jax-free modules; the
+functions below are copies of the reference's helpers (that module imports
+the JAX frontend at the top). Other texture formats are not ported
 yet and raise NotImplementedError.
 """
 
@@ -18,21 +18,20 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from basis_universal_tpu import native as native_mod
-from basis_universal_tpu.codecs.etc1s import backend as etc1s_backend
-from basis_universal_tpu.formats import basis_file, ktx2
-from basis_universal_tpu.formats.constants import (
+from . import native as native_mod
+from .codecs.etc1s import backend as etc1s_backend
+from .codecs.etc1s import frontend as etc1s_frontend
+from .codecs.uastc import encode as uastc_encode
+from .codecs.uastc import pack as uastc_pack
+from .formats import basis_file, ktx2
+from .formats.constants import (
     BasisTexFormat,
     BasisTextureType,
     HeaderFlags,
     SliceDescFlags,
 )
-from basis_universal_tpu.ops.etc1 import image_to_blocks, pack_etc1_blocks
-from basis_universal_tpu.utils.crc import crc16
-
-from .codecs.etc1s import frontend as etc1s_frontend
-from .codecs.uastc import encode as uastc_encode
-from .codecs.uastc import pack as uastc_pack
+from .ops.etc1 import image_to_blocks, pack_etc1_blocks
+from .utils.crc import crc16
 
 MAX_ENDPOINT_CLUSTERS = 16128
 MAX_SELECTOR_CLUSTERS = 16128
@@ -135,7 +134,7 @@ def _require_ported(params: CompressorParams):
 def _prepare_slices(images: Sequence[np.ndarray], params: CompressorParams):
     """images -> per-slice dicts. Alpha sources produce two ETC1S slices per
     level: RGB and an (a,a,a) grayscale alpha slice."""
-    from basis_universal_tpu.ops.resample import generate_mipmaps
+    from .ops.resample import generate_mipmaps
 
     slices = []
     for image_index, img in enumerate(images):
@@ -311,7 +310,7 @@ def compress_batch(images, params: CompressorParams = CompressorParams()):
 def _prep_uastc_slices(images, params: CompressorParams):
     """Per-slice pixel prep for UASTC (no encoding): returns (slices,
     any_alpha) where each slice dict carries its (B,16,4) f32 `px`."""
-    from basis_universal_tpu.ops.resample import generate_mipmaps
+    from .ops.resample import generate_mipmaps
 
     slices = []
     any_alpha = False

@@ -289,80 +289,205 @@ __global__ void errs_kernel(const float* __restrict__ pixels,
 // ---------------------------------------------------------------------------
 // find_best_selector_patterns: argmin_s sum_i bf16(d[b,i,pat_s[i]]) with
 // float32 accumulation, never materialising the (B, S) error matrix.
-// A CTA holds kSelBlocks blocks x kSelSplit pattern slices. Each thread keeps
-// its block's 64 bf16-rounded distances in registers and scans the patterns
-// s = slice, slice + kSelSplit, ... of each shared-memory chunk in increasing
-// order with a strict '<'; the slices are then merged lowest index first, so
-// ties resolve to the lowest pattern index exactly as in the Pallas kernel.
-// Patterns arrive packed 2 bits per pixel in one uint32.
+//
+// Replaces _selbest_kernel / find_best_selector_patterns of
+// basis_universal_tpu/ops/pallas_etc1s.py:173 / :207, which runs the error as
+// a (T, 64) x (64, S_chunk) one-hot product on the MXU fused with a running
+// argmin. The same product here runs on Hopper's tensor cores:
+//     err (B x S) = D_bf16 (B x 64) . Onehot (S x 64)^T, fp32 accumulate,
+// as mma.sync.m16n8k16 (bf16 in, fp32 out). Every product is exact (a bf16
+// distance times 1 or 0); only the tensor core's fp32 accumulation order can
+// differ from a sequential sum, by ulps.
+//
+// Bound at the main path's shape (B 24,576 blocks, S 2,731 patterns):
+// 2*B*S*64 = 8.6 GFLOP of bf16 products, 8.7 us at 989 TFLOP/s, against
+// 6.7 MB of traffic (2 us), so the limit is the tensor cores plus the argmin
+// that must look at each of the B*S errors once (3 instructions each).
+// The design keeps everything but that in registers:
+// - A CTA owns kSelRows = 64 rows (four 16-row m-tiles). Each of its
+//   kSelWarps warps loads the rows' distances once, rounds them to bf16
+//   (RNE, as .to(torch.bfloat16)) and keeps the A fragments of all four
+//   m-tiles and four k-steps (K = 64) in registers for the whole loop.
+// - The warps split the pattern axis (warp w takes n-tiles w, w + 4, ...).
+//   Each quad of threads reads one (16,) int32 pattern (16 bytes a thread)
+//   and packs it into a uint32 word (2 bits per pixel) by two shuffles; the
+//   B fragments (8 patterns x 16 k) are built in registers from the word:
+//   no one-hot matrix is read or stored anywhere, nothing is prepared
+//   before the launch, and one fragment feeds four m-tiles.
+// - After each n-tile each thread folds its accumulators into a running
+//   (value, index) per row it owns, strict '<' in increasing index order;
+//   padded columns (index >= S) are masked. At the end the 4 threads of a
+//   quad merge by shuffles and the warps through shared memory, each merge
+//   keeping the lower index on equal values: ties go to the lowest pattern
+//   index, as in the Pallas kernel. A row whose errors are all +inf/NaN
+//   returns pattern 0 and +inf.
+// One launch per call; the result is deterministic.
 // ---------------------------------------------------------------------------
-constexpr int kSelBlocks = 32;
-constexpr int kSelSplit = 8;
-constexpr int kSelChunk = 2048;
+constexpr int kSelWarps = 4;
+constexpr int kSelMTiles = 4;
+constexpr int kSelRows = 16 * kSelMTiles;
 
-__global__ void __launch_bounds__(kSelBlocks * kSelSplit)
-selbest_kernel(const float* __restrict__ dists,
-               const uint32_t* __restrict__ patterns,
-               int32_t* __restrict__ best_out, float* __restrict__ val_out,
-               int n_blocks, int n_patterns) {
-  __shared__ uint32_t pat_s[kSelChunk];
-  __shared__ float val_s[kSelSplit][kSelBlocks];
-  __shared__ int idx_s[kSelSplit][kSelBlocks];
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
 
-  const int tx = threadIdx.x;            // block within the CTA
-  const int ty = threadIdx.y;            // pattern slice
-  const int tid = ty * kSelBlocks + tx;
-  const int b = blockIdx.x * kSelBlocks + tx;
-  const bool valid = b < n_blocks;
+// Two bf16 one-hot entries of one pixel: u = 0 -> (1, 0), u = 1 -> (0, 1),
+// u = 2, 3 -> (0, 0), where u is the 2-bit field of q at bit c (q holds the
+// pixel's selector already XORed with the pair's first selector). PTX clamps
+// shl.b32 amounts above 32 to 32, so 0x3F80 << 32 and << 48 give 0.
+__device__ __forceinline__ uint32_t onehot_pair(uint32_t q, int c) {
+  const uint32_t sh = ((q >> c) & 3u) << 4;
+  uint32_t r;
+  asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(0x3F80u), "r"(sh));
+  return r;
+}
 
-  float d[64];
-  const float* row = dists + (size_t)(valid ? b : 0) * 64;
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void take_if_less(float& bv, int& bi, float v,
+                                             int i, bool ok) {
+  if (ok && v < bv) {
+    bv = v;
+    bi = i;
+  }
+}
+
+__device__ __forceinline__ void take_if_better(float& bv, int& bi, float v,
+                                               int i) {
+  if (v < bv || (v == bv && i < bi)) {
+    bv = v;
+    bi = i;
+  }
+}
+
+__global__ void __launch_bounds__(kSelWarps * 32, 3)
+selbest_mma_kernel(const float* __restrict__ dists,
+                   const int32_t* __restrict__ patterns,
+                   int32_t* __restrict__ best_out,
+                   float* __restrict__ val_out, int n_blocks,
+                   int n_patterns) {
+  __shared__ float val_s[kSelWarps][kSelRows];
+  __shared__ int idx_s[kSelWarps][kSelRows];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;          // mma groupID: fragment row / B column
+  const int t = lane & 3;           // thread in group: fragment columns
+  const int row0 = blockIdx.x * kSelRows;
+
+  // A fragments, m16n8k16 row-major: register r + 2c of k-step ks holds
+  // row g + 8r, columns ks*16 + 2t + 8c and + 1 (lower column, lower half).
+  uint32_t a[kSelMTiles][4][4];
 #pragma unroll
-  for (int j = 0; j < 64; ++j)
-    d[j] = __bfloat162float(__float2bfloat16_rn(__ldg(row + j)));
-
-  float best_v = __int_as_float(0x7f800000);  // +inf
-  int best_i = 0x7fffffff;
-  for (int c0 = 0; c0 < n_patterns; c0 += kSelChunk) {
-    const int cn = min(kSelChunk, n_patterns - c0);
-    __syncthreads();
-    for (int j = tid; j < cn; j += kSelBlocks * kSelSplit)
-      pat_s[j] = patterns[c0 + j];
-    __syncthreads();
-    for (int j = ty; j < cn; j += kSelSplit) {
-      const uint32_t p = pat_s[j];
-      float e = 0.f;
+  for (int mt = 0; mt < kSelMTiles; ++mt) {
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const uint32_t s = (p >> (2 * i)) & 3u;
-        const float v = s == 0 ? d[i * 4 + 0]
-                      : (s == 1 ? d[i * 4 + 1]
-                                : (s == 2 ? d[i * 4 + 2] : d[i * 4 + 3]));
-        e += v;
-      }
-      if (e < best_v) {
-        best_v = e;
-        best_i = c0 + j;
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + mt * 16 + g + 8 * r;
+      const bool valid = row < n_blocks;
+      const float2* src = reinterpret_cast<const float2*>(
+          dists + (size_t)(valid ? row : 0) * 64);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float2 v = valid ? __ldg(src + ks * 8 + t + 4 * c)
+                                 : make_float2(0.f, 0.f);
+          a[mt][ks][r + 2 * c] = pack_bf16x2(v.x, v.y);
+        }
       }
     }
   }
-  val_s[ty][tx] = best_v;
-  idx_s[ty][tx] = best_i;
-  __syncthreads();
-  if (ty == 0 && valid) {
+
+  // B fragments, "col" layout: register h of k-step ks holds column g
+  // (pattern 8j + g), k = ks*16 + 2t + 8h and + 1, i.e. pixel
+  // ks*4 + (t >> 1) + 2h with selectors 2(t & 1) and 2(t & 1) + 1.
+  const int pix_shift = 2 * (t >> 1);
+  const uint32_t flip = (t & 1) ? 0xAAAAAAAAu : 0u;
+
+  float bv[kSelMTiles][2];
+  int bi[kSelMTiles][2];
 #pragma unroll
-    for (int k = 1; k < kSelSplit; ++k) {
-      const float v = val_s[k][tx];
-      const int ix = idx_s[k][tx];
-      if (v < best_v || (v == best_v && ix < best_i)) {
-        best_v = v;
-        best_i = ix;
+  for (int mt = 0; mt < kSelMTiles; ++mt) {
+    bv[mt][0] = bv[mt][1] = __int_as_float(0x7f800000);  // +inf
+    bi[mt][0] = bi[mt][1] = 0x7fffffff;
+  }
+
+  const int n_tiles = (n_patterns + 7) >> 3;
+  for (int j = warp; j < n_tiles; j += kSelWarps) {
+    // pattern 8j + g (all selectors 0 past the last): thread t of the quad
+    // packs pixels 4t..4t+3 into bits 8t..8t+7 of the word
+    const int n = j * 8 + g;
+    const int4 s = n < n_patterns
+        ? __ldg(reinterpret_cast<const int4*>(patterns + (size_t)n * 16) + t)
+        : make_int4(0, 0, 0, 0);
+    uint32_t w = (uint32_t)((s.x & 3) | ((s.y & 3) << 2) | ((s.z & 3) << 4) |
+                            ((s.w & 3) << 6)) << (8 * t);
+    w |= __shfl_xor_sync(0xffffffffu, w, 1);
+    w |= __shfl_xor_sync(0xffffffffu, w, 2);
+    const uint32_t q = (w >> pix_shift) ^ flip;
+    uint32_t b[4][2];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      b[ks][0] = onehot_pair(q, 8 * ks);
+      b[ks][1] = onehot_pair(q, 8 * ks + 4);
+    }
+    // C fragment: d[0], d[1] are row g, columns 2t, 2t + 1; d[2], d[3]
+    // the same columns of row g + 8
+    const int c0 = j * 8 + 2 * t;
+    const bool ok0 = c0 < n_patterns, ok1 = c0 + 1 < n_patterns;
+#pragma unroll
+    for (int mt = 0; mt < kSelMTiles; ++mt) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        mma_bf16_16816(d, a[mt][ks], b[ks][0], b[ks][1]);
+      take_if_less(bv[mt][0], bi[mt][0], d[0], c0, ok0);
+      take_if_less(bv[mt][0], bi[mt][0], d[1], c0 + 1, ok1);
+      take_if_less(bv[mt][1], bi[mt][1], d[2], c0, ok0);
+      take_if_less(bv[mt][1], bi[mt][1], d[3], c0 + 1, ok1);
+    }
+  }
+
+  // the quad's 4 threads hold interleaved columns of the same rows
+#pragma unroll
+  for (int mt = 0; mt < kSelMTiles; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv[mt][r], off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi[mt][r], off);
+        take_if_better(bv[mt][r], bi[mt][r], ov, oi);
+      }
+      if (t == 0) {
+        val_s[warp][mt * 16 + g + 8 * r] = bv[mt][r];
+        idx_s[warp][mt * 16 + g + 8 * r] = bi[mt][r];
       }
     }
-    // every slice saw no finite error only if all are +inf/NaN: fall back
-    // to pattern 0, as an argmin over such a row would
-    best_out[b] = best_i == 0x7fffffff ? 0 : best_i;
-    val_out[b] = best_v;
+  }
+  __syncthreads();
+  if (threadIdx.x < kSelRows) {
+    const int rr = threadIdx.x;
+    float v = val_s[0][rr];
+    int ix = idx_s[0][rr];
+#pragma unroll
+    for (int k = 1; k < kSelWarps; ++k)
+      take_if_better(v, ix, val_s[k][rr], idx_s[k][rr]);
+    const int row = row0 + rr;
+    if (row < n_blocks) {
+      // no pattern had a finite error (all +inf/NaN): pattern 0, as an
+      // argmin over such a row would
+      best_out[row] = ix == 0x7fffffff ? 0 : ix;
+      val_out[row] = v;
+    }
   }
 }
 
@@ -417,13 +542,12 @@ int etc1s_palette_errs(const float* pixels, const float* palettes, float* out,
 }
 
 int etc1s_find_best_selector_patterns(const float* dists,
-                                      const uint32_t* patterns, int32_t* best,
+                                      const int32_t* patterns, int32_t* best,
                                       float* best_err, int n_blocks,
                                       int n_patterns, void* stream) {
   if (n_blocks <= 0) return (int)cudaSuccess;
-  const dim3 block(kSelBlocks, kSelSplit);
-  const dim3 grid((n_blocks + kSelBlocks - 1) / kSelBlocks);
-  selbest_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((n_blocks + kSelRows - 1) / kSelRows);
+  selbest_mma_kernel<<<grid, kSelWarps * 32, 0, (cudaStream_t)stream>>>(
       dists, patterns, best, best_err, n_blocks, n_patterns);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,9 @@
 The source is compiled at first use with nvcc into a shared library with a
 plain C interface, for sm_90a (Hopper), and loaded with ctypes. The library
 is cached under `build/torch_kernels/` at the repository root, keyed by the
-hash of the source, as `basis_universal_tpu/native.py` does for the host
-runtime. A failed build or load raises: there is no fallback.
+hash of the source, as `native.py` does for the host runtime, with ptxas'
+report of each kernel's registers and spills beside it. A failed build or
+load raises: there is no fallback.
 """
 
 import ctypes
@@ -21,7 +22,7 @@ _BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 _CUDA_ROOTS = ("/usr/local/cuda",)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -51,8 +52,20 @@ def library_path() -> pathlib.Path:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
                            f"{res.stdout}\n{res.stderr}")
+    _report_path(out).write_text(res.stdout + res.stderr)
     os.replace(tmp, out)
     return out
+
+
+def _report_path(lib: pathlib.Path) -> pathlib.Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+def ptxas_report(lib: pathlib.Path) -> str:
+    """ptxas' resource report (registers, spills, shared memory per kernel)
+    of the build that made `lib` ("" for a library built elsewhere)."""
+    path = _report_path(lib)
+    return path.read_text() if path.exists() else ""
 
 
 def _declare(lib):

@@ -18,7 +18,7 @@ launches of each wrapper; `reset_launch_counts()` zeroes it.
 import numpy as np
 import torch
 
-from basis_universal_tpu.ops.etc1 import ETC1_INTEN_TABLES
+from .etc1 import ETC1_INTEN_TABLES
 
 LAUNCHES = {
     "factorized_scan": 0,
@@ -259,10 +259,36 @@ def palette_errs_reference(pixels, palettes):
 
 def pack_patterns(patterns):
     """(S, 16) selector patterns -> (S,) int32 words of 16 x 2 bits
-    (pixel i in bits 2i..2i+1), the layout the selector kernel reads."""
+    (pixel i in bits 2i..2i+1): the word each quad of the selector kernel's
+    threads packs from one pattern before it builds its B fragments."""
     shifts = torch.arange(16, device=patterns.device, dtype=torch.int64) * 2
     words = ((patterns.to(torch.int64) & 3) << shifts).sum(1)
     return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def selector_b_fragments(words, num_patterns: int):
+    """The bf16 one-hot B fragments the selector kernel builds in registers,
+    (n_tiles, 32 lanes, 4 k-steps, 2 registers) int64 holding the 32-bit
+    registers, made here from the packed words (`pack_patterns`) by the
+    kernel's own bit arithmetic (`onehot_pair` in csrc/etc1s_kernels.cu) so
+    the CPU tests can hold them against the plain version's one-hot.
+
+    Lane (g, t) = (lane >> 2, lane & 3) of n-tile j reads word 8j + g (0
+    past num_patterns); register h of k-step ks holds k = 16 ks + 2t + 8h
+    and + 1 (lower k in the lower half) of pattern 8j + g."""
+    n_tiles = -(-num_patterns // 8)
+    dev = words.device
+    w = torch.zeros(n_tiles * 8, dtype=torch.int64, device=dev)
+    w[:num_patterns] = words[:num_patterns].to(torch.int64) & 0xFFFFFFFF
+    lane = torch.arange(32, device=dev)
+    g, t = lane >> 2, lane & 3
+    w = w.reshape(n_tiles, 8)[:, g]                              # (J,32)
+    q = (w >> (2 * (t >> 1))) ^ torch.where(t & 1 == 1, 0xAAAAAAAA, 0)
+    c = (8 * torch.arange(4, device=dev)[:, None]
+         + 4 * torch.arange(2, device=dev)[None, :])             # (4,2)
+    sh = ((q[:, :, None, None] >> c) & 3) << 4
+    # shl.b32 clamps shift amounts above 32 to 32: 0x3F80 << 32 is 0
+    return torch.where(sh < 32, (0x3F80 << sh) & 0xFFFFFFFF, 0)
 
 
 def find_best_selector_patterns(dists, patterns, num_patterns: int):
@@ -273,15 +299,18 @@ def find_best_selector_patterns(dists, patterns, num_patterns: int):
     Replaces `pallas_etc1s.find_best_selector_patterns` (`_selbest_kernel`).
     dists: (B, 16, 4) float32; patterns: (S, 16) integer, S = num_patterns.
 
-    On the H100 the work is B*S*16 selects and adds (1.1 G at 24,576 blocks
-    x 2,731 patterns) against 256 bytes read per block, so it is bound by
-    instruction issue, not memory. The kernel never materialises the
-    (B, S) matrix (~270 MB here): each thread keeps one block's 64
-    distances in registers, selected with compares rather than a runtime
-    index (which would spill them to local memory), while the patterns,
-    packed to one uint32 each, stream through shared memory; eight threads
-    split each block's pattern range to fill the card, and their running
-    minima merge lowest index first.
+    The error matrix is a one-hot product, D_bf16 (B, 64) . Onehot (S, 64)^T,
+    as on the TPU's matrix unit; the kernel runs it on Hopper's tensor cores
+    (mma.sync m16n8k16, bf16 in, fp32 accumulate) fused with a running
+    argmin, so the (B, S) matrix (~270 MB at 24,576 blocks x 2,731
+    patterns) is never materialised. Its bound there is the 8.6 GFLOP of
+    bf16 products (~9 us). The distances' A fragments stay in registers;
+    the one-hot B fragments are built in registers from the int32 patterns,
+    packed 2 bits per pixel on the way (`pack_patterns`,
+    `selector_b_fragments`), so nothing is prepared before the launch. The
+    tensor core may round the fp32 sum of the 16 exact products differently
+    from a sequential sum, by ulps, so an index may differ from the plain
+    version where two patterns' errors are that close.
     """
     _check(dists, "dists", torch.float32, (None, 16, 4))
     if patterns.dtype not in (torch.int32, torch.int64):
@@ -295,13 +324,18 @@ def find_best_selector_patterns(dists, patterns, num_patterns: int):
                                                      num_patterns)
     from ._build import get_lib
 
+    # the kernel reads float2 distance pairs and 16-byte pattern quarters
+    if dists.data_ptr() % 8:
+        dists = dists.clone()
+    if (patterns.dtype != torch.int32 or not patterns.is_contiguous()
+            or patterns.data_ptr() % 16):
+        patterns = patterns.to(torch.int32).contiguous().clone()
     b_n = dists.shape[0]
-    words = pack_patterns(patterns).contiguous()
     best = torch.empty(b_n, dtype=torch.int32, device=dev)
     val = torch.empty(b_n, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         status = get_lib().etc1s_find_best_selector_patterns(
-            dists.data_ptr(), words.data_ptr(), best.data_ptr(),
+            dists.data_ptr(), patterns.data_ptr(), best.data_ptr(),
             val.data_ptr(), b_n, num_patterns, _stream(dev))
     LAUNCHES["find_best_selector_patterns"] += 1
     _raise_on(status, "find_best_selector_patterns")

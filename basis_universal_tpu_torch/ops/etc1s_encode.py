@@ -29,10 +29,9 @@ import contextlib
 import numpy as np
 import torch
 
-from basis_universal_tpu.ops.etc1 import ETC1_INTEN_TABLES
-
 from . import cuda_etc1s
 from .cuda_etc1s import _INTEN_MID, C31_255
+from .etc1 import ETC1_INTEN_TABLES
 
 # Perceptual (luma-weighted) colour metric, factored as ||P d||^2 and scaled
 # so P @ (1,1,1) = (sqrt(3), 0, 0): see the reference module for the

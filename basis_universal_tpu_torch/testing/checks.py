@@ -1,24 +1,15 @@
 """Checks for the port's tests and `chip_smoke.py`: decode an ETC1S or
-UASTC LDR 4x4 .basis through the reference package's jax-free host decoders
-(checking every CRC), score it with PSNR (numpy), and size the float
+UASTC LDR 4x4 .basis through the port's host decoders (checking every CRC), score it with PSNR (numpy), and size the float
 tolerance of the factorized scan."""
 
 import numpy as np
 import torch
 
-from basis_universal_tpu.codecs.etc1s.stream import (
-    decode_palettes,
-    decode_slice,
-    decode_tables,
-)
-from basis_universal_tpu.codecs.uastc.decode import decode_rgba
-from basis_universal_tpu.formats.basis_file import BasisFile
-from basis_universal_tpu.ops.etc1 import (
-    blocks_to_image,
-    decode_blocks_to_rgba,
-    pack_etc1_blocks,
-)
-from basis_universal_tpu.utils.crc import crc16
+from ..codecs.etc1s.stream import decode_palettes, decode_slice, decode_tables
+from ..codecs.uastc.decode import decode_rgba
+from ..formats.basis_file import BasisFile
+from ..ops.etc1 import blocks_to_image, decode_blocks_to_rgba, pack_etc1_blocks
+from ..utils.crc import crc16
 
 
 def decode_etc1s_basis(data: bytes):

@@ -5,17 +5,21 @@ its transcoder re-encodes once on one GPU.
     python3 chip_smoke.py [--profile OUT_DIR]
 
 Phases (any failure raises, so the process exits nonzero with no final line):
-1. require CUDA; print versions, the card's name and power limit, and
-   whether the native host backend is available;
-2. build the hand-written kernels from `basis_universal_tpu_torch/csrc/`;
+1. require CUDA; print versions and the card's name and power limit; load
+   the port's native host library (fail if it does not load);
+2. build the hand-written kernels from `basis_universal_tpu_torch/csrc/`
+   and print ptxas' registers and spills per kernel;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the paths give it (B = 24,576 blocks of one 768x512 image; the
    scan at radius 0/1/2, the rescore at K 16 and 8; `palette_errs`, which
-   no path calls, at K 16) and time both with CUDA events;
+   no path calls, at K 16; the selector search at S 2,731 and at 16,128,
+   the most selector clusters) and time both with CUDA events, beside the
+   least time the card could take (bound) and, where one PyTorch call
+   computes the same function, that call (library);
 4. ETC1S: encode four synthetic 768x512 textures with
    `compressor.compress_batch` at quality 128, effort 1 on the card: check
    that each kernel was launched the expected number of times, decode every
-   .basis with the reference's host decoder (slice CRCs, PSNR), and hold
+   .basis with the port's host decoder (slice CRCs, PSNR), and hold
    image 0 against values recorded from the JAX reference on the CPU;
 5. UASTC LDR 4x4: the same four textures through `compress_batch` at
    effort 2, then one 768x512 RGBA texture through `compress`: one scan and
@@ -84,6 +88,8 @@ EXPECTED_PER_IMAGE = {"factorized_scan": 2, "palette_errs_packed": 3,
 # hint; the transcoder's ETC1 target one scan (radius 1) and one rescore
 # (K 16), its ASTC re-encode one UASTC search
 EXPECTED_UASTC_PER_IMAGE = {"factorized_scan": 1, "palette_errs_packed": 1}
+# images each path encodes or transcodes in its counted run
+PATH_IMAGES = {"etc1s": N_IMAGES, "uastc": N_IMAGES + 1, "transcoder": 1}
 PALLAS = "basis_universal_tpu/ops/pallas_etc1s.py"
 REPLACES = {"factorized_scan": f"{PALLAS}:343",
             "palette_errs_packed": f"{PALLAS}:137",
@@ -92,6 +98,52 @@ REPLACES = {"factorized_scan": f"{PALLAS}:343",
 SOURCE = "basis_universal_tpu_torch/csrc/etc1s_kernels.cu"
 RTOL = 1e-5
 SCAN_MAG_TOL = 1e-6     # ~8 float32 ulps of the scan's cancelled terms
+SEL_S = (2731, 16128)   # selector patterns: the main path's, and the most
+
+# Published peaks of one H100 SXM at its full 700 W power limit (NVIDIA's
+# data sheet, dense): HBM bytes/s, float32 FLOP/s outside the tensor cores,
+# bf16 tensor-core FLOP/s. A kernel's bound is the larger of its bytes (each
+# input read once, each output written once) over the first and its
+# operations over the rate of their type.
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+BF16_TC_FLOP_S = 989e12
+
+
+def _bound(n_bytes, flops, rate):
+    """(bound ms, what sets it) of a call moving n_bytes and doing flops at
+    rate FLOP/s."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, flops / rate
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _scan_bound(b_n, n_cols, external_base):
+    """factorized_scan: per output column, 16 pixels x (3 threshold
+    compares, a subtract, a multiply-add = 2 FLOPs): 96 FLOPs; bytes: the
+    pixels (and cluster bases) in, the (B, D*8) float32 errors out."""
+    n_bytes = b_n * 48 * 4 + (b_n * 12 if external_base else 0) \
+        + b_n * n_cols * 4
+    return _bound(n_bytes, b_n * n_cols * 16 * 6, FP32_FLOP_S)
+
+
+def _rescore_bound(b_n, k, perceptual, palette_bytes):
+    """palette_errs(_packed): per output, 16 pixels x 4 selectors x (3
+    subtracts, a multiply and two multiply-adds = 8 FLOPs; +18 for the
+    perceptual 3x3 transform) plus 16 x (3 mins, an add); bytes: pixels,
+    the candidates (palette_bytes each) and the errors."""
+    per_sel = 8 + (18 if perceptual else 0)
+    flops = b_n * k * 16 * (4 * per_sel + 4)
+    n_bytes = b_n * 48 * 4 + b_n * k * (palette_bytes + 4)
+    return _bound(n_bytes, flops, FP32_FLOP_S)
+
+
+def _selector_bound(b_n, s):
+    """find_best_selector_patterns: the one-hot product, 2*B*S*64 bf16
+    tensor-core FLOPs; bytes: the (B, 64) float32 distances and (S, 16)
+    int32 patterns in, index and error per block out."""
+    return _bound(b_n * 64 * 4 + s * 16 * 4 + b_n * 8,
+                  2.0 * b_n * s * 64, BF16_TC_FLOP_S)
 
 
 def _time_ms(fn, torch, reps=20, warmup=3):
@@ -124,10 +176,12 @@ def phase_env(torch):
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {card}")
-    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch import native
 
-    print("native host backend available: "
-          f"{compressor.native_mod.available()}")
+    if not native.available():
+        raise RuntimeError("the port's native host library "
+                           "(native/slice_codec.cpp) did not build or load")
+    print(f"native host library: {native.get_lib()._name}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return card
@@ -140,6 +194,8 @@ def phase_build():
     path = _build.library_path()
     _build.get_lib()
     print(f"build: {path.name} in {time.time() - t0:.1f} s")
+    for line in _build.ptxas_report(path).splitlines():
+        print(f"ptxas: {line.strip()}")
 
 
 def _close(got, want, mag, what):
@@ -157,7 +213,7 @@ def _close(got, want, mag, what):
 
 def phase_kernels(torch, blocks):
     """Each kernel against its plain version at the paths' shapes. Returns
-    per kernel the max abs error, the time of its first shape (the ETC1S
+    per kernel the max abs error, the times of its first shape (the ETC1S
     main path's, or K 16 for `palette_errs`) and every shape's row."""
     from basis_universal_tpu_torch.ops import cuda_etc1s as ck
     from basis_universal_tpu_torch.ops import etc1s_encode as ops
@@ -169,14 +225,18 @@ def phase_kernels(torch, blocks):
     b_n = px.shape[0]
     results = {}
 
-    def measure(name, label, run, plain, err):
+    def measure(name, label, run, plain, err, bound, library=None):
         ms = _time_ms(run, torch)
         pms = _time_ms(plain, torch, reps=5)
+        lms = None if library is None else _time_ms(library, torch, reps=5)
+        bound_ms, bound_by = bound
         print(f"{name} {label}: B={b_n} max_abs_err={err:.4g} "
-              f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        row = dict(shape=label, max_abs_err=err, ms=ms, plain_ms=pms)
-        res = results.setdefault(name, dict(max_abs_err=0.0, ms=ms,
-                                            plain_ms=pms, by_shape=[]))
+              f"kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
+              f"{'none' if lms is None else f'{lms:.4f} ms'}, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        row = dict(shape=label, max_abs_err=err, ms=ms, plain_ms=pms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=lms)
+        res = results.setdefault(name, dict(row, by_shape=[]))
         res["max_abs_err"] = max(res["max_abs_err"], err)
         res["by_shape"].append(row)
 
@@ -197,7 +257,8 @@ def phase_kernels(torch, blocks):
                      f"factorized_scan {label}")
         measure("factorized_scan", label,
                 lambda: ck.factorized_scan(px, **kw),
-                lambda: ck.factorized_scan_reference(px, **kw), err)
+                lambda: ck.factorized_scan_reference(px, **kw), err,
+                _scan_bound(b_n, got.shape[1], "base5" in kw))
 
     # -- palette_errs_packed: K = 16 packed candidates, plain and perceptual;
     #    K = 8 (the UASTC hint's rescore)
@@ -215,7 +276,8 @@ def phase_kernels(torch, blocks):
         measure("palette_errs_packed", label,
                 lambda: ck.palette_errs_packed(px, pk, perceptual=perceptual),
                 lambda: ck.palette_errs_packed_reference(
-                    px, pk, perceptual=perceptual), err)
+                    px, pk, perceptual=perceptual), err,
+                _rescore_bound(b_n, pk.shape[1], perceptual, 4))
 
     # -- palette_errs: the same K = 16 candidates as explicit palettes
     #    (integer values: bit-exact), and pixels and palettes perceptually
@@ -237,37 +299,51 @@ def phase_kernels(torch, blocks):
                                  "agree bit for bit")
         err = _close(got, want, 0.0, f"palette_errs {label}")
         measure("palette_errs", label, lambda: ck.palette_errs(x, pl),
-                lambda: ck.palette_errs_reference(x, pl), err)
+                lambda: ck.palette_errs_reference(x, pl), err,
+                _rescore_bound(b_n, pl.shape[1], False, 48))
 
-    # -- find_best_selector_patterns: S = 2,731 patterns, distances to each
-    #    block's own encode_blocks palette
-    n_pat = 2731
+    # -- find_best_selector_patterns: distances to each block's own
+    #    encode_blocks palette, S = 2,731 patterns (the main path's) and
+    #    16,128 (MAX_SELECTOR_CLUSTERS). The library call is the plain
+    #    version's product and min on prepared operands: one float32 matmul
+    #    of the bf16-rounded distances by the (64, S) one-hot, then min.
     enc = ops.encode_blocks(px, radius=1)
     pal = torch.clamp(
         ops.expand5(enc["color5"]).float()[:, None, :]
         + tabs[enc["inten"].long()][:, :, None], 0.0, 255.0)
     dists = ops.block_selector_distances(px, pal).contiguous()
-    pats = torch.as_tensor(rng.integers(0, 4, (n_pat, 16)), dtype=torch.int32,
-                           device=dev)
-    best, val = ck.find_best_selector_patterns(dists, pats, n_pat)
-    best_p, val_p = ck.find_best_selector_patterns_reference(dists, pats,
-                                                             n_pat)
-    torch.cuda.synchronize()
-    err = _close(val, val_p, 0.0, "find_best_selector_patterns min_err")
-    # an index may differ only where the two patterns' errors tie
     d_bf = dists.reshape(b_n, 64).to(torch.bfloat16).float()
-    onehot = torch.nn.functional.one_hot(pats.long(), 4).reshape(n_pat, 64)
-    err_of_best = (d_bf * onehot[best.long()].float()).sum(-1)
-    differ = best != best_p
-    if not torch.all(~differ | ((err_of_best - val_p).abs()
-                                <= RTOL * val_p.abs())):
-        raise AssertionError("find_best_selector_patterns: index differs "
-                             "without a tie")
-    print(f"find_best_selector_patterns: index ties {int(differ.sum())}/{b_n}")
-    measure("find_best_selector_patterns", f"S{n_pat}",
-            lambda: ck.find_best_selector_patterns(dists, pats, n_pat),
-            lambda: ck.find_best_selector_patterns_reference(dists, pats,
-                                                             n_pat), err)
+    for n_pat in SEL_S:
+        pats = torch.as_tensor(rng.integers(0, 4, (n_pat, 16)),
+                               dtype=torch.int32, device=dev)
+        best, val = ck.find_best_selector_patterns(dists, pats, n_pat)
+        again = ck.find_best_selector_patterns(dists, pats, n_pat)
+        best_p, val_p = ck.find_best_selector_patterns_reference(dists, pats,
+                                                                 n_pat)
+        torch.cuda.synchronize()
+        if not (torch.equal(again[0], best) and torch.equal(again[1], val)):
+            raise AssertionError("find_best_selector_patterns: two calls on "
+                                 "the same input differ")
+        err = _close(val, val_p, 0.0,
+                     f"find_best_selector_patterns S{n_pat} min_err")
+        # an index may differ only where the two patterns' errors tie
+        onehot_t = torch.nn.functional.one_hot(pats.long(), 4).reshape(
+            n_pat, 64).float().T.contiguous()
+        err_of_best = (d_bf * onehot_t.T[best.long()]).sum(-1)
+        differ = best != best_p
+        if not torch.all(~differ | ((err_of_best - val_p).abs()
+                                    <= RTOL * val_p.abs())):
+            raise AssertionError("find_best_selector_patterns: index differs "
+                                 "without a tie")
+        print(f"find_best_selector_patterns S{n_pat}: index ties "
+              f"{int(differ.sum())}/{b_n}")
+        measure("find_best_selector_patterns", f"S{n_pat}",
+                lambda: ck.find_best_selector_patterns(dists, pats, n_pat),
+                lambda: ck.find_best_selector_patterns_reference(dists, pats,
+                                                                 n_pat), err,
+                _selector_bound(b_n, n_pat),
+                library=lambda: torch.min(d_bf @ onehot_t, dim=-1))
+        del best_p, val_p
     return results
 
 
@@ -331,7 +407,7 @@ def _hold(label, p, size, ref):
 
 
 def _uastc_params(compressor, device="cuda"):
-    from basis_universal_tpu.formats.constants import BasisTexFormat
+    from basis_universal_tpu_torch.formats.constants import BasisTexFormat
 
     return compressor.CompressorParams(
         tex_format=BasisTexFormat.UASTC_LDR_4x4, effort=UASTC_EFFORT,
@@ -389,13 +465,13 @@ def phase_transcoder(torch, uastc_out):
     the stored blocks), and the engine's ASTC re-encode of the decoded
     pixels (the UASTC search on the card). Each is held to the port on the
     CPU. Returns the launches of the two re-encodes."""
-    from basis_universal_tpu.codecs.uastc import astc_pack
-    from basis_universal_tpu.codecs.uastc.decode import decode_rgba
-    from basis_universal_tpu.formats.basis_file import BasisFile
-    from basis_universal_tpu.formats.constants import \
-        TranscoderTextureFormat as TF
-    from basis_universal_tpu.ops.etc1 import unpack_etc1_blocks
     from basis_universal_tpu_torch import transcoder
+    from basis_universal_tpu_torch.codecs.uastc import astc_pack
+    from basis_universal_tpu_torch.codecs.uastc.decode import decode_rgba
+    from basis_universal_tpu_torch.formats.basis_file import BasisFile
+    from basis_universal_tpu_torch.formats.constants import \
+        TranscoderTextureFormat as TF
+    from basis_universal_tpu_torch.ops.etc1 import unpack_etc1_blocks
     from basis_universal_tpu_torch.ops import cuda_etc1s as ck
     from basis_universal_tpu_torch.testing.checks import psnr
 
@@ -659,6 +735,8 @@ def main():
                    replaces=REPLACES[name],
                    launches=sum(p[name] for p in paths.values()),
                    launches_by_path={k: p[name] for k, p in paths.items()},
+                   launches_per_image={k: p[name] / PATH_IMAGES[k]
+                                       for k, p in paths.items()},
                    **kernels[name]) for name in REPLACES]
     print(f"card: {card}")
     print(json.dumps({"kernels": record}))

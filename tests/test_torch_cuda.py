@@ -124,8 +124,8 @@ def test_segment_sum_is_deterministic_on_card(cuda):
 def test_uastc_search_on_card_matches_cpu(cuda):
     """Same tie rule as `test_torch_uastc_encode.py`: a block coded
     differently must decode to the same squared error."""
-    from basis_universal_tpu.codecs.uastc.decode import decode_rgba
     from basis_universal_tpu_torch.codecs.uastc import encode, pack
+    from basis_universal_tpu_torch.codecs.uastc.decode import decode_rgba
 
     rng = np.random.default_rng(9)
     px = np.concatenate([_blocks(B - 20, 45).numpy(),
@@ -152,20 +152,82 @@ def test_uastc_search_on_card_matches_cpu(cuda):
           "differ, all ties")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("s", [37, 2100, 5000])
-def test_find_best_selector_patterns_on_card(cuda, s):
-    gen = torch.Generator().manual_seed(s)
-    dists = torch.rand((B, 16, 4), generator=gen) * 5000.0
+def _selector_inputs(b, s, seed, cuda):
+    gen = torch.Generator().manual_seed(seed)
+    dists = torch.rand((b, 16, 4), generator=gen) * 5000.0
     pats = torch.randint(0, 4, (s, 16), generator=gen, dtype=torch.int32)
-    best, val = ck.find_best_selector_patterns(dists.to(cuda), pats.to(cuda), s)
+    return dists.to(cuda), pats.to(cuda)
+
+
+def _check_selector(best, val, dists, pats, s):
+    """min_err within rtol of the plain version's; an index may differ only
+    where the plain error of the kernel's pattern ties the plain minimum."""
     pb, pv = ck.find_best_selector_patterns_reference(dists, pats, s)
     _close(val, pv)
     d = dists.to(torch.bfloat16).float()
-    err_of = d.gather(2, pats[best.cpu().long()].long()[..., None])[..., 0].sum(-1)
-    differ = best.cpu() != pb
+    err_of = d.gather(2, pats[best.long()].long()[..., None])[..., 0].sum(-1)
+    differ = best != pb
     assert torch.all((err_of - pv).abs()[differ] <= RTOL * pv.abs()[differ])
+    assert torch.all((best >= 0) & (best < s))
+    return int(differ.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 24575, 24576])
+@pytest.mark.parametrize("s", [1, 7, 2731, 16128])
+def test_find_best_selector_patterns_on_card(cuda, s, b):
+    """The tensor-core kernel against its plain version (on the card, TF32
+    off) from one pattern up to MAX_SELECTOR_CLUSTERS, at one block, a
+    ragged 24,575 and the main path's 24,576."""
+    dists, pats = _selector_inputs(b, s, s + b, cuda)
+    best, val = ck.find_best_selector_patterns(dists, pats, s)
+    assert best.dtype == torch.int32 and val.dtype == torch.float32
     assert ck.LAUNCHES["find_best_selector_patterns"] == 1
+    ties = _check_selector(best, val, dists, pats, s)
+    print(f"selector B={b} S={s}: {ties} index ties")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [7, 2731])
+def test_selector_exact_ties_go_to_the_lowest_index_on_card(cuda, s):
+    """Small integer distances make every sum exact, so equal errors are
+    exact ties, and duplicated patterns tie everywhere: the kernel must
+    return the plain version's (the first) index and value exactly."""
+    rng = np.random.default_rng(s)
+    b = 24576
+    dists = torch.as_tensor(rng.integers(0, 4, (b, 16, 4)),
+                            dtype=torch.float32).to(cuda)
+    m = -(-s // 2)                      # patterns m.. repeat patterns 0..
+    pats = rng.integers(0, 4, (m, 16))[np.arange(s) % m]
+    pats = torch.as_tensor(pats, dtype=torch.int32).to(cuda)
+    best, val = ck.find_best_selector_patterns(dists, pats, s)
+    pb, pv = ck.find_best_selector_patterns_reference(dists, pats, s)
+    err = (dists.reshape(b, 64).cpu().double()
+           @ torch.nn.functional.one_hot(pats.long().cpu(), 4).reshape(s, 64)
+           .double().T)
+    first = err.argmin(1)                               # numpy rule: first
+    assert torch.equal(err.min(1).values.float(), pv.cpu())
+    assert torch.equal(pb.cpu().long(), first)
+    assert torch.equal(best.cpu().long(), first)
+    assert torch.equal(val.cpu(), pv.cpu())
+    assert bool((best < m).all())                       # never a later twin
+
+
+@pytest.mark.cuda
+def test_selector_kernel_is_deterministic_on_card(cuda):
+    """Repeated calls give identical outputs, as do int64 patterns and a
+    distance tensor that starts off the 8-byte alignment the kernel's float2
+    loads need (the wrapper copies both)."""
+    dists, pats = _selector_inputs(24576, 2731, 5, cuda)
+    best, val = ck.find_best_selector_patterns(dists, pats, 2731)
+    for _ in range(3):
+        b2, v2 = ck.find_best_selector_patterns(dists, pats, 2731)
+        assert torch.equal(b2, best) and torch.equal(v2, val)
+    shifted = torch.empty(dists.numel() + 1, device=cuda)[1:]
+    shifted.copy_(dists.reshape(-1))
+    b2, v2 = ck.find_best_selector_patterns(shifted.view(dists.shape),
+                                            pats.long(), 2731)
+    assert torch.equal(b2, best) and torch.equal(v2, val)
 
 
 @pytest.mark.cuda
@@ -197,8 +259,8 @@ def test_compress_on_card_launches_each_kernel(cuda):
 
 @pytest.mark.cuda
 def test_uastc_compress_on_card(cuda):
-    from basis_universal_tpu.formats.constants import BasisTexFormat
     from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.formats.constants import BasisTexFormat
     from basis_universal_tpu_torch.testing.checks import uastc_psnr
     from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
 

@@ -257,6 +257,82 @@ def test_pack_patterns_layout():
     np.testing.assert_array_equal(back, pats)
 
 
+def _selector_onehot(frag):
+    """(n_tiles * 8, 64) bfloat16: the one-hot matrix that the selector
+    kernel's B fragments (`ck.selector_b_fragments`, (n_tiles, 32 lanes, 4
+    k-steps, 2 registers)) hold, pattern by pattern: register h of k-step ks
+    of lane (g, t) holds pattern 8j + g at k = 16 ks + 2t + 8h (low half)
+    and + 1 (high half)."""
+    n_tiles = frag.shape[0]
+    halves = torch.stack([frag & 0xFFFF, frag >> 16], -1)        # (J,32,4,2,2)
+    lane = torch.arange(32)
+    g, t = lane >> 2, lane & 3
+    ks = torch.arange(4)[:, None, None]
+    h = torch.arange(2)[None, :, None]
+    e = torch.arange(2)[None, None, :]
+    k = 16 * ks + 2 * t[:, None, None, None] + 8 * h + e         # (32,4,2,2)
+    out = torch.zeros((n_tiles, 8, 64), dtype=torch.int64)
+    out[:, g[:, None, None, None].expand_as(k), k] = halves
+    return out.reshape(-1, 64).to(torch.int16).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("s", [1, 7, 8, 9, 700, 2731])
+def test_selector_fragments_hold_the_plain_one_hot(s):
+    """The word each quad of the selector kernel packs from a pattern
+    (`pack_patterns`) and the bf16 one-hot B fragments it builds from the
+    word in registers (mirrored by `selector_b_fragments`) give back the
+    plain version's one-hot; the padding past S, up to the 8-pattern tile,
+    is built from zero words (all selectors 0) and masked by the kernel."""
+    rng = np.random.default_rng(s)
+    pats = torch.from_numpy(rng.integers(0, 4, (s, 16)).astype(np.int32))
+    words = ck.pack_patterns(pats)
+    frag = ck.selector_b_fragments(words, s)
+    n_tiles = -(-s // 8)
+    assert frag.shape == (n_tiles, 32, 4, 2)
+    # each register holds two bf16 halves, each 1.0 (0x3F80) or 0
+    for half in (frag & 0xFFFF, frag >> 16):
+        assert set(half.unique().tolist()) <= {0, 0x3F80}
+    onehot = _selector_onehot(frag)
+    assert onehot.dtype == torch.bfloat16 and onehot.shape == (n_tiles * 8,
+                                                               64)
+    want = torch.nn.functional.one_hot(pats.long(), 4).reshape(s, 64)
+    assert torch.equal(onehot[:s], want.to(torch.bfloat16))
+    pad = torch.zeros((n_tiles * 8 - s, 16), dtype=torch.long)
+    assert torch.equal(onehot[s:], torch.nn.functional.one_hot(pad, 4)
+                       .reshape(-1, 64).to(torch.bfloat16))
+    # the kernel's product of bf16 distances by that one-hot is the plain
+    # version's error matrix
+    d = torch.from_numpy(rng.random((40, 64), np.float32) * 5000.0)
+    d = d.to(torch.bfloat16).float()
+    np.testing.assert_array_equal((d @ onehot.float().T)[:, :s].numpy(),
+                                  (d @ want.float().T).numpy())
+
+
+def test_selector_fragment_mirror_follows_the_cuda_source():
+    """`selector_b_fragments` repeats the kernel's bit arithmetic: the word
+    shift and selector flip per lane, the field offsets per k-step and
+    register, and the clamped shift of bf16 1.0."""
+    src = (pathlib.Path(ck.__file__).resolve().parent.parent / "csrc"
+           / "etc1s_kernels.cu").read_text()
+    for piece in ("((s.w & 3) << 6)) << (8 * t);",
+                  "w |= __shfl_xor_sync(0xffffffffu, w, 1);",
+                  "w |= __shfl_xor_sync(0xffffffffu, w, 2);",
+                  "const int pix_shift = 2 * (t >> 1);",
+                  "(t & 1) ? 0xAAAAAAAAu : 0u",
+                  "const uint32_t q = (w >> pix_shift) ^ flip;",
+                  "b[ks][0] = onehot_pair(q, 8 * ks);",
+                  "b[ks][1] = onehot_pair(q, 8 * ks + 4);",
+                  "const uint32_t sh = ((q >> c) & 3u) << 4;",
+                  '"r"(0x3F80u)', "shl.b32",
+                  "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"):
+        assert piece in src, piece
+    # lane 6 = (g 1, t 2): pattern 1's pixels 1 and 3 (k 4..5, 12..13)
+    words = ck.pack_patterns(torch.tensor([[0] * 16, [3, 0, 2, 1] * 4]))
+    frag = ck.selector_b_fragments(words, 2)
+    assert frag[0, 6, 0].tolist() == [0x3F80, 0x3F800000]    # sel 0, sel 1
+    assert frag[0, 7, 0].tolist() == [0, 0]                  # sels 2, 3
+
+
 def _cu_array(src, name):
     body = re.search(name + r"\[[^\]]*\](?:\[[^\]]*\])?\s*=\s*\{(.*?)\};", src,
                      re.S).group(1)

@@ -1,7 +1,8 @@
 """The port stands on its own: it imports, encodes (ETC1S and UASTC) and
-transcodes with jax, Pillow and zstandard unavailable (as on the GPU
-machine), a CUDA request on a machine without CUDA raises instead of running
-on the CPU, and texture formats not ported yet raise NotImplementedError."""
+transcodes with the reference package, jax, Pillow and zstandard
+unavailable (the GPU machine has none of the last three), a CUDA request on
+a machine without CUDA raises instead of running on the CPU, and texture
+formats not ported yet raise NotImplementedError."""
 
 import os
 import pathlib
@@ -22,14 +23,16 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 _BLOCKED_RUN = r"""
 import sys
-for name in ("jax", "jaxlib", "PIL", "zstandard"):
+BLOCKED = ("basis_universal_tpu", "jax", "jaxlib", "PIL", "zstandard")
+for name in BLOCKED:
     sys.modules[name] = None          # any import of these raises ImportError
 from basis_universal_tpu_torch import compressor
 from basis_universal_tpu_torch import transcoder
 from basis_universal_tpu_torch.testing.checks import etc1s_psnr, uastc_psnr
 from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
-from basis_universal_tpu.formats.constants import BasisTexFormat
-from basis_universal_tpu.formats.constants import TranscoderTextureFormat as TF
+from basis_universal_tpu_torch.formats.constants import BasisTexFormat
+from basis_universal_tpu_torch.formats.constants import \
+    TranscoderTextureFormat as TF
 img, _ = synthetic_texture(64, 64, seed=2, alpha=True)
 out = compressor.compress(img, compressor.CompressorParams(device="cpu"))
 p = etc1s_psnr(out.basis_data, img)
@@ -40,9 +43,10 @@ uastc = compressor.compress(img, compressor.CompressorParams(
 assert uastc_psnr(uastc.basis_data, img) > 25.0
 etc1 = transcoder.BasisTranscoder(uastc.basis_data, device="cpu")
 assert etc1.transcode_image_level(0, 0, TF.ETC1_RGB).shape == (16, 16, 8)
+rgba = transcoder.BasisTranscoder(out.basis_data, device="cpu")
+assert rgba.transcode_image_level(0, 0, TF.RGBA32).shape == (64, 64, 4)
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "PIL", "zstandard")
-                and sys.modules[m] is not None)
+                if m.split(".")[0] in BLOCKED and sys.modules[m] is not None)
 assert not loaded, loaded
 print("ok", round(p, 3))
 """
@@ -57,7 +61,8 @@ from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
 img, _ = synthetic_texture(64, 64, seed=3)
 out = compressor.compress(img, compressor.CompressorParams(device="cpu"))
 assert etc1s_psnr(out.basis_data, img) > 20.0
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "basis_universal_tpu"))
 assert not loaded, loaded
 assert "BASISU_TPU_DISABLE_COMPILE_CACHE" not in os.environ
 print("ok")
@@ -72,9 +77,9 @@ def test_port_imports_and_encodes_without_jax_pil_zstandard():
 
 
 def test_port_does_not_load_an_installed_jax():
-    """Where jax is installed, importing and running the port (which imports
-    the reference package's jax-free modules) still loads none of it, and
-    leaves the environment as it found it."""
+    """Where jax and the reference package are installed, importing and
+    running the port loads neither, and leaves the environment as it found
+    it."""
     env = {k: v for k, v in os.environ.items()
            if k != "BASISU_TPU_DISABLE_COMPILE_CACHE"}
     res = subprocess.run([sys.executable, "-c", _INSTALLED_RUN], cwd=REPO,

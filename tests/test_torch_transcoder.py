@@ -1,5 +1,5 @@
-"""The port's transcoder fronts (`basis_universal_tpu_torch/transcoder.py`)
-against the reference transcoder, on the CPU.
+"""The port's transcoder (`basis_universal_tpu_torch/transcoder.py`) against
+the reference transcoder, on the CPU.
 
 A UASTC LDR 4x4 file (64x64 RGBA, made by the port) is transcoded by both
 to ETC1_RGB, ETC2_RGBA and ASTC_4x4_RGBA, from .basis and from .KTX2, and
@@ -100,6 +100,8 @@ def test_astc_reencode_matches_reference(uastc_file):
 
 
 def test_other_formats_keep_the_reference_engines(uastc_file):
+    """An ETC1S file goes through the port's own copy of the reference's
+    ETC1S engine and gives the reference's bytes."""
     img, _ = synthetic_texture(32, 32, seed=71)
     etc1s = compressor.compress(img, compressor.CompressorParams(device="cpu"))
     tc = port.BasisTranscoder(etc1s.basis_data, device="cpu")
@@ -107,7 +109,7 @@ def test_other_formats_keep_the_reference_engines(uastc_file):
     np.testing.assert_array_equal(
         got, ref.BasisTranscoder(etc1s.basis_data).transcode_image_level(
             0, 0, TF.RGBA32))
-    assert isinstance(tc._engine, ref.Etc1sTranscodeEngine)
+    assert isinstance(tc._engine, port.Etc1sTranscodeEngine)
 
 
 def test_cuda_request_without_cuda_raises(uastc_file, monkeypatch):
