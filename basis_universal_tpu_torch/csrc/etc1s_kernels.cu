@@ -89,30 +89,93 @@ __device__ __forceinline__ float expand5f(float c5) {
 }
 
 // ---------------------------------------------------------------------------
-// factorized_scan: unclipped ETC1S error of every block against D candidate
-// base colours x 8 intensity tables,
-//     err = q - su2/3 + 3 * sum_i min_k (t_k - u_i)^2 .
-// One thread per (block, delta): threadIdx.x walks blocks, blockIdx.y picks
-// the delta, so a warp reads one delta from constant memory (broadcast) and
-// stores 8 rows of the (D*8, B) output at 32 neighbouring addresses.
+// factorized_scan and factorized_scan_shortlist: the unclipped ETC1S error of
+// every block against D candidate base colours x 8 intensity tables,
+//     err = q - su2/3 + 3 * sum_i min_k (t_k - u_i)^2 ,
+// column d*8 + t for delta d (kDeltasR1 / kDeltasR2 order) and table t; D is
+// 1, 27 or 125 (radius 0, 1, 2).
+//
+// Replaces _fscan_kernel / factorized_scan of basis_universal_tpu/ops/
+// pallas_etc1s.py:249 / :343. The full variant writes the (B, D*8) float32
+// errors, row-major, so the segment sum of optimize_cluster_endpoints
+// gathers whole rows; the shortlist variant writes only the (B, k) int64
+// columns of the k smallest errors per block (ascending, equal errors by
+// ascending column: the order of lax.top_k and of a stable sort), so the
+// errors never reach device memory and no sort runs after the scan.
+//
+// Bound at the main path's shape (B 24,576, D 27): the full variant moves
+// 4.7 MB in and 21.2 MB out (7.7 us at 3.35 TB/s); the shortlist variant
+// 4.7 MB in and 3.1 MB out (2.3 us). Both do B*D*8*16 = 85 M (pixel, table)
+// steps of a compare, a select, a subtract and a multiply-add (~0.01 ms of
+// issue over 132 SMs x 128 lanes), so both are bound by that arithmetic, not
+// by bytes. The design keeps all but that arithmetic off the critical path:
+// - A CTA stages its tile of blocks once (contiguous 192-byte blocks,
+//   coalesced 16-byte loads into shared memory padded to 52 floats a block,
+//   so a quarter-warp's 16-byte reads hit distinct banks), then one thread
+//   per block computes the block's luma and moments once, in the same
+//   sequential order over the 16 pixels as before, into shared memory (luma
+//   transposed, [16][tile]). The CTA then loops over all D deltas: no grid
+//   dimension over deltas, nothing recomputed per delta.
+// - One comparison per intensity table. The tables are {-a, -b, b, a} and
+//   kMids holds their exact midpoints {-m, 0, m}, so min_k (t_k - u)^2 is
+//   (s - |u|)^2 with s = |u| > m ? a : b: the same square as the three
+//   threshold compares give, bit for bit (negation is exact; at u = 0 both
+//   give b^2; at u = -m, (a - m)^2 = (m - b)^2 exactly).
+// - D = 27 and 125: a warp owns a block and lane l owns deltas l, l + 32,
+//   ...; the full variant's lanes store their 8 errors as two float4, so a
+//   warp writes one contiguous row. D = 1: a thread owns a block (tile 128).
+// - The shortlist variant keeps each lane's errors in registers as integer
+//   keys that order as the floats do (-0.0 as +0.0, NaN last). A threshold
+//   that at least k columns reach (the largest of the lanes' minima) is
+//   lowered by bisection on the key, each step one count per lane and one
+//   warp reduction, until at most 32 columns reach it; those are compacted
+//   into shared memory as (key, column) words and each is ranked against
+//   the others: rank r < k is written to place r. No step is a serial
+//   chain of more than a few reductions. Ties are exact in saturated blocks
+//   (clipped deltas coincide) and go to the lower column. D = 1 ranks its 8
+//   columns in the thread.
+// CTA shapes (ScanShape), from ptxas' registers and shared memory: D 27 has
+// 8 warps on a 32-block tile (768 CTAs at B 24,576; 40-64 registers and
+// 10-17 KB allow 4-5 CTAs, 40 warps, per SM, enough to hide the shortlist's
+// shuffle and reduction chains, which 4-warp CTAs (~23 warps per SM) did
+// not); D 125 has 4 warps on a 16-block tile (1,536 CTAs; 96-128 registers
+// allow 4 CTAs per SM, and its shortlist buffers take 32 KB); D 1 has 128
+// threads on a 128-block tile (192 CTAs; its 8 columns a block are cheap).
 // ---------------------------------------------------------------------------
-template <bool kExternalBase, bool kPerceptual>
-__global__ void fscan_kernel(const float* __restrict__ pixels,
-                             const float* __restrict__ base5,
-                             float* __restrict__ out, int n_blocks,
-                             int radius) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int d = blockIdx.y;
-  if (b >= n_blocks) return;
+constexpr int kPxStride = 52;            // floats per staged block (48 + 4)
 
-  const float* px = pixels + (size_t)b * 48;
+// CTA shape per D: warps, and blocks per tile (one per thread at D 1)
+template <int kD>
+struct ScanShape {
+  static constexpr int kWarps = kD == 27 ? 8 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kTile = kD == 1 ? kThreads : (kD == 27 ? 32 : 16);
+};
+
+// One block's sufficient statistics and base colour (5-bit, as floats).
+struct ScanMoments {
+  float sum_l, sum_l2, s0, s1, s2, sum_x2, b5r, b5g, b5b;
+};
+
+// Moments of one block from its 48 staged floats (shared memory); writes
+// the 16 luma values at stride luma_stride.
+template <bool kExternalBase, bool kPerceptual>
+__device__ __forceinline__ ScanMoments block_moments(
+    const float* __restrict__ px, const float* __restrict__ base5, int b,
+    float* __restrict__ luma_out, int luma_stride) {
+  float v[48];
+#pragma unroll
+  for (int q = 0; q < 12; ++q) {
+    const float4 f = reinterpret_cast<const float4*>(px)[q];
+    v[4 * q] = f.x; v[4 * q + 1] = f.y; v[4 * q + 2] = f.z; v[4 * q + 3] = f.w;
+  }
   float x0[16], x1[16], x2[16];
   float sr = 0.f, sg = 0.f, sb = 0.f;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const float r = __ldg(px + i * 3 + 0);
-    const float g = __ldg(px + i * 3 + 1);
-    const float bl = __ldg(px + i * 3 + 2);
+    const float r = v[i * 3 + 0];
+    const float g = v[i * 3 + 1];
+    const float bl = v[i * 3 + 2];
     sr += r; sg += g; sb += bl;
     if (kPerceptual) {
       x0[i] = P00 * r + P01 * g + P02 * bl;
@@ -122,39 +185,41 @@ __global__ void fscan_kernel(const float* __restrict__ pixels,
       x0[i] = r; x1[i] = g; x2[i] = bl;
     }
   }
-  float luma[16];
+  ScanMoments m;
   float sum_l = 0.f, sum_l2 = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f, sum_x2 = 0.f;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    luma[i] = kPerceptual ? SQRT3 * x0[i] : x0[i] + x1[i] + x2[i];
-    sum_l += luma[i];
-    sum_l2 += luma[i] * luma[i];
+    const float luma = kPerceptual ? SQRT3 * x0[i] : x0[i] + x1[i] + x2[i];
+    luma_out[i * luma_stride] = luma;
+    sum_l += luma;
+    sum_l2 += luma * luma;
     s0 += x0[i]; s1 += x1[i]; s2 += x2[i];
     sum_x2 += x0[i] * x0[i] + x1[i] * x1[i] + x2[i] * x2[i];
   }
-
-  float b5r, b5g, b5b;
+  m.sum_l = sum_l; m.sum_l2 = sum_l2;
+  m.s0 = s0; m.s1 = s1; m.s2 = s2; m.sum_x2 = sum_x2;
   if (kExternalBase) {
-    b5r = base5[(size_t)b * 3 + 0];
-    b5g = base5[(size_t)b * 3 + 1];
-    b5b = base5[(size_t)b * 3 + 2];
+    m.b5r = base5[(size_t)b * 3 + 0];
+    m.b5g = base5[(size_t)b * 3 + 1];
+    m.b5b = base5[(size_t)b * 3 + 2];
   } else {
-    b5r = clip31(rintf(sr / 16.f * C31_255));
-    b5g = clip31(rintf(sg / 16.f * C31_255));
-    b5b = clip31(rintf(sb / 16.f * C31_255));
+    m.b5r = clip31(rintf(sr / 16.f * C31_255));
+    m.b5g = clip31(rintf(sg / 16.f * C31_255));
+    m.b5b = clip31(rintf(sb / 16.f * C31_255));
   }
+  return m;
+}
 
-  int dr, dg, db;
-  if (radius == 0) {
-    dr = dg = db = 0;
-  } else if (radius == 1) {
-    dr = kDeltasR1[d][0]; dg = kDeltasR1[d][1]; db = kDeltasR1[d][2];
-  } else {
-    dr = kDeltasR2[d][0]; dg = kDeltasR2[d][1]; db = kDeltasR2[d][2];
-  }
-  const float c5r = clip31(b5r + (float)dr);
-  const float c5g = clip31(b5g + (float)dg);
-  const float c5b = clip31(b5b + (float)db);
+// The 8 errors (one per intensity table) of one block against one delta:
+// the one device function behind both scan variants, so they agree bit for
+// bit per column.
+template <bool kPerceptual>
+__device__ __forceinline__ void scan_delta(const ScanMoments& m,
+                                           const float (&luma)[16], int dr,
+                                           int dg, int db, float (&err)[8]) {
+  const float c5r = clip31(m.b5r + (float)dr);
+  const float c5g = clip31(m.b5g + (float)dg);
+  const float c5b = clip31(m.b5b + (float)db);
   const float b8r = expand5f(c5r), b8g = expand5f(c5g), b8b = expand5f(c5b);
   float e0, e1, e2, lb;
   if (kPerceptual) {
@@ -166,9 +231,9 @@ __global__ void fscan_kernel(const float* __restrict__ pixels,
     e0 = b8r; e1 = b8g; e2 = b8b;
     lb = b8r + b8g + b8b;
   }
-  const float q = sum_x2 - 2.f * (e0 * s0 + e1 * s1 + e2 * s2) +
+  const float q = m.sum_x2 - 2.f * (e0 * m.s0 + e1 * m.s1 + e2 * m.s2) +
                   16.f * (e0 * e0 + e1 * e1 + e2 * e2);
-  const float su2 = sum_l2 - 2.f * lb * sum_l + 16.f * lb * lb;
+  const float su2 = m.sum_l2 - 2.f * lb * m.sum_l + 16.f * lb * lb;
   const float cst = q - su2 * THIRD;
 
   float acc[8];
@@ -176,36 +241,271 @@ __global__ void fscan_kernel(const float* __restrict__ pixels,
   for (int t = 0; t < 8; ++t) acc[t] = 0.f;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const float u = (luma[i] - lb) * THIRD;
+    // u rounded before the subtraction, as the three-compare form computed
+    // it: |t_k - u| = s - |u| exactly, so the squares are the same bits
+    const float a = fabsf(__fmul_rn(luma[i] - lb, THIRD));
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
-      const int k = (u > kMids[t][0]) + (u > kMids[t][1]) + (u > kMids[t][2]);
-      const float tk = k == 0 ? kTabs[t][0]
-                     : (k == 1 ? kTabs[t][1] : (k == 2 ? kTabs[t][2] : kTabs[t][3]));
-      const float dv = tk - u;
+      const float s = a > kMids[t][2] ? kTabs[t][3] : kTabs[t][2];
+      const float dv = __fsub_rn(s, a);
       acc[t] = acc[t] + dv * dv;
     }
   }
 #pragma unroll
-  for (int t = 0; t < 8; ++t)
-    out[(size_t)(d * 8 + t) * n_blocks + b] = cst + 3.f * acc[t];
+  for (int t = 0; t < 8; ++t) err[t] = cst + 3.f * acc[t];
+}
+
+// An integer key that orders as the float does: -0.0 as +0.0, NaN after
+// +inf (as a sort puts it).
+__device__ __forceinline__ int order_key(float v) {
+  int b = __float_as_int(v);
+  if (v == 0.f) b = 0;
+  if (v != v) b = 0x7fffffff;
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+
+// The k smallest of one block's columns, held by a warp (lane l holds the
+// keys of deltas l + 32 m; nothing past the last delta), written in order
+// to out[0..k): ascending key, equal keys by ascending column. cand is the
+// warp's shared-memory buffer of kD*8 words.
+template <int kD>
+__device__ __forceinline__ void warp_shortlist(const int (&key)[(kD + 31) / 32][8],
+                                               int lane, int k,
+                                               unsigned long long* cand,
+                                               int64_t* __restrict__ out) {
+  constexpr int kM = (kD + 31) / 32;
+  const unsigned full = 0xffffffffu;
+  // how many of the block's columns have a key <= x
+  auto count = [&](int x) {
+    int c = 0;
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        c += (lane + 32 * m < kD) && key[m][t] <= x;
+    return c;
+  };
+  // 1. a threshold that at least k columns reach: the largest of the lanes'
+  //    minima (each of the 27 or 32 lanes holds a column at or under it),
+  //    and one that none reaches
+  int lmin = 0x7fffffff;
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      if (lane + 32 * m < kD) lmin = min(lmin, key[m][t]);
+  int hi = __reduce_max_sync(full, lane < kD ? lmin : (int)0x80000000);
+  const int lo0 = __reduce_min_sync(full, lmin) - 1;
+  // 2. lower it by bisection on the key while more than 32 columns reach
+  //    it (about one step on the main path's blocks), down to the k-th
+  //    smallest key itself (which ties may still make longer)
+  int lo = lo0;
+  int c = count(hi);                          // this lane's columns <= hi
+  int n_cand = __reduce_add_sync(full, c);
+  while (n_cand > 32 && (unsigned)hi - (unsigned)lo > 1u) {
+    const int mid = lo + (int)(((unsigned)hi - (unsigned)lo) >> 1);
+    const int cm = count(mid);
+    const int n = __reduce_add_sync(full, cm);
+    if (n >= k) {
+      hi = mid;
+      c = cm;
+      n_cand = n;
+    } else {
+      lo = mid;
+    }
+  }
+  // 3. compact the columns at or under it as (key, column) words that order
+  //    as 64-bit integers: each lane's count, then an exclusive scan
+  int pos = c;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(full, pos, off);
+    if (lane >= off) pos += y;
+  }
+  pos -= c;
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      if ((lane + 32 * m < kD) && key[m][t] <= hi)
+        cand[pos++] =
+            ((unsigned long long)((unsigned)key[m][t] ^ 0x80000000u) << 32) |
+            (unsigned)((lane + 32 * m) * 8 + t);
+  if (lane == 0 && (n_cand & 1)) cand[n_cand] = ~0ull;   // pad to pairs
+  __syncwarp();
+  // 4. each candidate's rank among the candidates (two words per load);
+  //    the first k are written
+  const ulonglong2* pairs = reinterpret_cast<const ulonglong2*>(cand);
+  for (int i = lane; i < n_cand; i += 32) {
+    const unsigned long long mine = cand[i];
+    int rank = 0;
+    for (int j = 0; j < (n_cand + 1) / 2; ++j) {
+      const ulonglong2 w = pairs[j];
+      rank += (w.x < mine) + (w.y < mine);
+    }
+    if (rank < k) out[rank] = (int64_t)(mine & 0xffffffffull);
+  }
+  __syncwarp();
+}
+
+template <int kD, bool kShortlist, bool kExternalBase, bool kPerceptual>
+__global__ void __launch_bounds__(ScanShape<kD>::kThreads)
+fscan_kernel(const float* __restrict__ pixels,
+             const float* __restrict__ base5, float* __restrict__ err_out,
+             int64_t* __restrict__ idx_out, int n_blocks, int k) {
+  constexpr int kThreads = ScanShape<kD>::kThreads;
+  constexpr int kWarps = ScanShape<kD>::kWarps;
+  constexpr int kTile = ScanShape<kD>::kTile;
+  constexpr int kM = (kD + 31) / 32;
+  constexpr bool kWarpSelect = kShortlist && kD > 1;
+  __shared__ __align__(16) float px_s[kTile * kPxStride];
+  __shared__ float luma_s[16][kTile];
+  __shared__ ScanMoments mom_s[kTile];
+  __shared__ __align__(16) unsigned long long cand_s
+      [kWarpSelect ? kWarps : 1][kWarpSelect ? kD * 8 : 2];
+
+  const int b0 = blockIdx.x * kTile;
+  const int n_tile = min(kTile, n_blocks - b0);
+
+  // stage the tile: 12 float4 per block, neighbouring threads on
+  // neighbouring 16 bytes
+  const float4* src = reinterpret_cast<const float4*>(pixels + (size_t)b0 * 48);
+  for (int q = threadIdx.x; q < n_tile * 12; q += kThreads) {
+    const int j = q / 12;
+    *reinterpret_cast<float4*>(px_s + j * kPxStride + (q - 12 * j) * 4) =
+        __ldg(src + q);
+  }
+  __syncthreads();
+  if (threadIdx.x < n_tile) {
+    const int j = threadIdx.x;
+    mom_s[j] = block_moments<kExternalBase, kPerceptual>(
+        px_s + j * kPxStride, base5, b0 + j, &luma_s[0][j], kTile);
+  }
+  __syncthreads();
+
+  if constexpr (kD == 1) {
+    const int j = threadIdx.x;
+    if (j >= n_tile) return;
+    float luma[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) luma[i] = luma_s[i][j];
+    float e[8];
+    scan_delta<kPerceptual>(mom_s[j], luma, 0, 0, 0, e);
+    const size_t b = (size_t)(b0 + j);
+    if constexpr (!kShortlist) {
+      float4* o = reinterpret_cast<float4*>(err_out + b * 8);
+      o[0] = make_float4(e[0], e[1], e[2], e[3]);
+      o[1] = make_float4(e[4], e[5], e[6], e[7]);
+    } else {
+      int key[8];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) key[t] = order_key(e[t]);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        int rank = 0;
+#pragma unroll
+        for (int j2 = 0; j2 < 8; ++j2)
+          rank += j2 < t ? key[j2] <= key[t] : key[j2] < key[t];
+        if (rank < k) idx_out[b * k + rank] = t;
+      }
+    }
+    return;
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // this lane's deltas, read once
+  int dr[kM], dg[kM], db[kM];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    const int d = lane + 32 * m;
+    dr[m] = dg[m] = db[m] = 0;
+    if (d < kD) {
+      if (kD == 27) {
+        dr[m] = kDeltasR1[d][0]; dg[m] = kDeltasR1[d][1]; db[m] = kDeltasR1[d][2];
+      } else {
+        dr[m] = kDeltasR2[d][0]; dg[m] = kDeltasR2[d][1]; db[m] = kDeltasR2[d][2];
+      }
+    }
+  }
+  for (int j = warp; j < n_tile; j += kWarps) {
+    const ScanMoments mom = mom_s[j];
+    float luma[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) luma[i] = luma_s[i][j];
+    const size_t b = (size_t)(b0 + j);
+    int key[kM][8];
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      const int d = lane + 32 * m;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) key[m][t] = 0x7fffffff;
+      if (d < kD) {
+        float e[8];
+        scan_delta<kPerceptual>(mom, luma, dr[m], dg[m], db[m], e);
+        if constexpr (!kShortlist) {
+          float4* o = reinterpret_cast<float4*>(err_out + (b * kD + d) * 8);
+          o[0] = make_float4(e[0], e[1], e[2], e[3]);
+          o[1] = make_float4(e[4], e[5], e[6], e[7]);
+        } else {
+#pragma unroll
+          for (int t = 0; t < 8; ++t) key[m][t] = order_key(e[t]);
+        }
+      }
+    }
+    if constexpr (kWarpSelect)
+      warp_shortlist<kD>(key, lane, k, cand_s[warp], idx_out + b * k);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // palette_errs_packed: exact gamut-clipped error of each block against K
 // packed candidates r5 | g5<<5 | b5<<10 | inten<<15,
 //     err[b,k] = sum_i min_sel || x_i - clip(expand5(c5) + t_sel) ||^2 .
-// One thread per (block, candidate); the palette is built in registers.
+//
+// Replaces _rescore_kernel / palette_errs_packed of basis_universal_tpu/ops/
+// pallas_etc1s.py:91 / :137. Bound: per output, 16 pixels x 4 selectors x
+// (3 subtracts, a multiply, 2 multiply-adds, a min) in float32, which must
+// keep this operation order to give the same bits: ~0.006 ms of issue for
+// the 393 k outputs of K 16 at B 24,576 (4.7 MB of pixels and 1.6 MB of
+// candidates in, 1.6 MB out: 2.4 us). So the kernel is bound by that
+// arithmetic, and the design spends as little else as it can:
+// - a 2-D CTA: threadIdx.x is the candidate, threadIdx.y the block of the
+//   tile (256 / K blocks, at most 64), so no thread divides an index;
+// - the tile's pixels are staged once in shared memory as (r, g, b, 0)
+//   float4, neighbouring threads loading neighbouring pixels; a candidate
+//   reads each pixel with one 16-byte load that its block's K threads share
+//   (a broadcast);
+// - the palette is rebuilt in registers from the packed word, as before.
+// At K 16 the grid is 1,536 CTAs of 256 threads, ~11.6 per SM, taken up as
+// SMs free: the last CTAs leave at most one CTA's time (~1/12 of the run)
+// of imbalance, which a persistent loop (two barriers per tile) would not
+// repay.
 // ---------------------------------------------------------------------------
+constexpr int kRescoreThreads = 256;
+constexpr int kRescoreMaxRows = 64;
+
 template <bool kPerceptual>
-__global__ void rescore_kernel(const float* __restrict__ pixels,
-                               const int32_t* __restrict__ packed,
-                               float* __restrict__ out, int n_blocks,
-                               int n_cand) {
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= (long long)n_blocks * n_cand) return;
-  const int b = (int)(gid / n_cand);
-  const int v = packed[gid];
+__global__ void __launch_bounds__(kRescoreThreads)
+rescore_kernel(const float* __restrict__ pixels,
+               const int32_t* __restrict__ packed, float* __restrict__ out,
+               int n_blocks, int n_cand) {
+  __shared__ float4 px_s[kRescoreMaxRows][16];
+  const int rows = blockDim.y;
+  const int b0 = blockIdx.x * rows;
+  const int n_tile = min(rows, n_blocks - b0);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int n_threads = blockDim.x * blockDim.y;
+  const float* src = pixels + (size_t)b0 * 48;
+  for (int q = tid; q < n_tile * 16; q += n_threads)
+    px_s[q >> 4][q & 15] = make_float4(__ldg(src + q * 3), __ldg(src + q * 3 + 1),
+                                       __ldg(src + q * 3 + 2), 0.f);
+  __syncthreads();
+  const int j = threadIdx.y;
+  if (j >= n_tile) return;
+
+  const size_t o = (size_t)(b0 + j) * n_cand + threadIdx.x;
+  const int v = __ldg(packed + o);
   const float r5 = (float)(v & 31);
   const float g5 = (float)((v >> 5) & 31);
   const float b5 = (float)((v >> 10) & 31);
@@ -219,13 +519,11 @@ __global__ void rescore_kernel(const float* __restrict__ pixels,
     pg[s] = clip255(b8g + tsel);
     pb[s] = clip255(b8b + tsel);
   }
-  const float* px = pixels + (size_t)b * 48;
   float total = 0.f;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    const float r = __ldg(px + i * 3 + 0);
-    const float g = __ldg(px + i * 3 + 1);
-    const float bl = __ldg(px + i * 3 + 2);
+    const float4 p = px_s[j][i];
+    const float r = p.x, g = p.y, bl = p.z;
     float best = 0.f;
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
@@ -243,7 +541,7 @@ __global__ void rescore_kernel(const float* __restrict__ pixels,
     }
     total += best;
   }
-  out[gid] = total;
+  out[o] = total;
 }
 
 // ---------------------------------------------------------------------------
@@ -491,6 +789,45 @@ selbest_mma_kernel(const float* __restrict__ dists,
   }
 }
 
+template <int kD, bool kShortlist>
+int launch_fscan(const float* pixels, const float* base5, float* err,
+                 int64_t* idx, int n_blocks, int perceptual, int k,
+                 cudaStream_t s) {
+  constexpr int kTile = ScanShape<kD>::kTile;
+  constexpr int kThreads = ScanShape<kD>::kThreads;
+  const dim3 grid((n_blocks + kTile - 1) / kTile);
+  const bool ext = base5 != nullptr;
+  if (ext && perceptual)
+    fscan_kernel<kD, kShortlist, true, true><<<grid, kThreads, 0, s>>>(
+        pixels, base5, err, idx, n_blocks, k);
+  else if (ext)
+    fscan_kernel<kD, kShortlist, true, false><<<grid, kThreads, 0, s>>>(
+        pixels, base5, err, idx, n_blocks, k);
+  else if (perceptual)
+    fscan_kernel<kD, kShortlist, false, true><<<grid, kThreads, 0, s>>>(
+        pixels, base5, err, idx, n_blocks, k);
+  else
+    fscan_kernel<kD, kShortlist, false, false><<<grid, kThreads, 0, s>>>(
+        pixels, base5, err, idx, n_blocks, k);
+  return (int)cudaGetLastError();
+}
+
+template <bool kShortlist>
+int launch_fscan_radius(const float* pixels, const float* base5, float* err,
+                        int64_t* idx, int n_blocks, int radius,
+                        int perceptual, int k, cudaStream_t s) {
+  if (radius == 0)
+    return launch_fscan<1, kShortlist>(pixels, base5, err, idx,
+                                               n_blocks, perceptual, k, s);
+  if (radius == 1)
+    return launch_fscan<27, kShortlist>(pixels, base5, err, idx,
+                                                n_blocks, perceptual, k, s);
+  if (radius == 2)
+    return launch_fscan<125, kShortlist>(pixels, base5, err, idx,
+                                                 n_blocks, perceptual, k, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -499,34 +836,35 @@ int etc1s_factorized_scan(const float* pixels, const float* base5, float* out,
                           int n_blocks, int radius, int perceptual,
                           void* stream) {
   if (n_blocks <= 0) return (int)cudaSuccess;
-  const int n_deltas = radius == 0 ? 1 : (radius == 1 ? 27 : 125);
-  const dim3 block(128);
-  const dim3 grid((n_blocks + 127) / 128, n_deltas);
-  cudaStream_t s = (cudaStream_t)stream;
-  const bool ext = base5 != nullptr;
-  if (ext && perceptual)
-    fscan_kernel<true, true><<<grid, block, 0, s>>>(pixels, base5, out, n_blocks, radius);
-  else if (ext)
-    fscan_kernel<true, false><<<grid, block, 0, s>>>(pixels, base5, out, n_blocks, radius);
-  else if (perceptual)
-    fscan_kernel<false, true><<<grid, block, 0, s>>>(pixels, base5, out, n_blocks, radius);
-  else
-    fscan_kernel<false, false><<<grid, block, 0, s>>>(pixels, base5, out, n_blocks, radius);
-  return (int)cudaGetLastError();
+  return launch_fscan_radius<false>(pixels, base5, out, nullptr, n_blocks,
+                                    radius, perceptual, 0,
+                                    (cudaStream_t)stream);
+}
+
+int etc1s_factorized_scan_shortlist(const float* pixels, const float* base5,
+                                    int64_t* out, int n_blocks, int radius,
+                                    int perceptual, int k, void* stream) {
+  if (n_blocks <= 0) return (int)cudaSuccess;
+  if (k < 1 || k > 16 || (radius == 0 && k > 8))
+    return (int)cudaErrorInvalidValue;
+  return launch_fscan_radius<true>(pixels, base5, nullptr, out, n_blocks,
+                                   radius, perceptual, k,
+                                   (cudaStream_t)stream);
 }
 
 int etc1s_palette_errs_packed(const float* pixels, const int32_t* packed,
                               float* out, int n_blocks, int n_cand,
                               int perceptual, void* stream) {
-  const long long total = (long long)n_blocks * n_cand;
-  if (total <= 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const unsigned grid = (unsigned)((total + threads - 1) / threads);
+  if (n_blocks <= 0 || n_cand <= 0) return (int)cudaSuccess;
+  if (n_cand > kRescoreThreads) return (int)cudaErrorInvalidValue;
+  const int rows = max(1, min(kRescoreMaxRows, kRescoreThreads / n_cand));
+  const dim3 block(n_cand, rows);
+  const dim3 grid((n_blocks + rows - 1) / rows);
   cudaStream_t s = (cudaStream_t)stream;
   if (perceptual)
-    rescore_kernel<true><<<grid, threads, 0, s>>>(pixels, packed, out, n_blocks, n_cand);
+    rescore_kernel<true><<<grid, block, 0, s>>>(pixels, packed, out, n_blocks, n_cand);
   else
-    rescore_kernel<false><<<grid, threads, 0, s>>>(pixels, packed, out, n_blocks, n_cand);
+    rescore_kernel<false><<<grid, block, 0, s>>>(pixels, packed, out, n_blocks, n_cand);
   return (int)cudaGetLastError();
 }
 

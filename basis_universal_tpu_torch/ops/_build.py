@@ -71,11 +71,14 @@ def ptxas_report(lib: pathlib.Path) -> str:
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.etc1s_factorized_scan.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+    lib.etc1s_factorized_scan_shortlist.argtypes = [vp, vp, vp, ci, ci, ci,
+                                                    ci, vp]
     lib.etc1s_palette_errs_packed.argtypes = [vp, vp, vp, ci, ci, ci, vp]
     lib.etc1s_palette_errs.argtypes = [vp, vp, vp, ci, ci, vp]
     lib.etc1s_find_best_selector_patterns.argtypes = [vp, vp, vp, vp, ci, ci,
                                                       vp]
-    for fn in (lib.etc1s_factorized_scan, lib.etc1s_palette_errs_packed,
+    for fn in (lib.etc1s_factorized_scan, lib.etc1s_factorized_scan_shortlist,
+               lib.etc1s_palette_errs_packed,
                lib.etc1s_palette_errs, lib.etc1s_find_best_selector_patterns):
         fn.restype = ci
     return lib

@@ -4,8 +4,10 @@ Counterpart of `basis_universal_tpu/ops/pallas_etc1s.py`, all four of its
 kernels: the ETC1S frontend's scan, packed rescore and selector search (the
 UASTC encoder's ETC1 hint and the transcoder's ETC1 re-encode run the scan
 and the packed rescore too), and `palette_errs`, which no path of either
-package calls. Each wrapper checks its inputs, then dispatches on the
-device of the tensors it was given:
+package calls. The scan has two variants: the full (B, D*8) errors, and
+`factorized_scan_shortlist`, which returns only each block's shortlist of
+columns. Each wrapper checks its inputs, then dispatches on the device of
+the tensors it was given:
 
 - a CUDA tensor launches the hand-written kernel of `csrc/etc1s_kernels.cu`
   on the current stream (and raises if the launch is refused);
@@ -22,6 +24,7 @@ from .etc1 import ETC1_INTEN_TABLES
 
 LAUNCHES = {
     "factorized_scan": 0,
+    "factorized_scan_shortlist": 0,
     "palette_errs_packed": 0,
     "palette_errs": 0,
     "find_best_selector_patterns": 0,
@@ -81,6 +84,18 @@ def _n_deltas(radius: int) -> int:
 # factorized_scan
 # ---------------------------------------------------------------------------
 
+def _scan_inputs(pixels, base5):
+    """Checks the scan's inputs; returns (device, pixels) with the pixels
+    16-byte aligned for the kernel's float4 staging loads."""
+    _check(pixels, "pixels", torch.float32, (None, 16, 3))
+    if base5 is not None:
+        _check(base5, "base5", torch.float32, (pixels.shape[0], 3))
+    dev = _same_device(pixels, base5)
+    if dev.type == "cuda" and pixels.data_ptr() % 16:
+        pixels = pixels.clone()
+    return dev, pixels
+
+
 def factorized_scan(pixels, base5=None, radius: int = 1,
                     perceptual: bool = False):
     """Unclipped factorized ETC1S candidate errors, (B, D*8) float32.
@@ -91,32 +106,73 @@ def factorized_scan(pixels, base5=None, radius: int = 1,
     The base colour is the block mean rounded to 5 bits, or `base5` (B, 3)
     float32 when given (the cluster base of `optimize_cluster_endpoints`).
 
-    On the H100 the scan is bound by its output: 216 float32 (radius 1) or
-    1,000 (radius 2) are written per 192 bytes read, a few hundred FLOPs per
-    output. The kernel runs one thread per (block, delta) so the grid has
-    B*D threads, reads the delta, tables and midpoints from constant memory
-    (one address per warp), and writes a (D*8, B) buffer so a warp's stores
-    are 32 neighbouring floats; the result is returned as its transposed
-    (B, D*8) view, without a copy.
+    On the H100 the scan is bound by its arithmetic, 16 pixels x (a compare,
+    a select, two multiply-adds) per column, not by its bytes (PERF.md has
+    both beside the measured times). The kernel stages a tile of blocks in
+    shared memory, computes each block's moments once and loops over the
+    deltas inside the CTA, one warp per block; a warp writes its block's
+    row of the row-major (B, D*8) result, whose rows the segment sum of
+    `optimize_cluster_endpoints` gathers whole.
     """
     n_d = _n_deltas(radius)
-    _check(pixels, "pixels", torch.float32, (None, 16, 3))
-    if base5 is not None:
-        _check(base5, "base5", torch.float32, (pixels.shape[0], 3))
-    dev = _same_device(pixels, base5)
+    dev, pixels = _scan_inputs(pixels, base5)
     if dev.type == "cpu":
         return factorized_scan_reference(pixels, base5, radius, perceptual)
     from ._build import get_lib
 
     b_n = pixels.shape[0]
-    out = torch.empty((n_d * 8, b_n), dtype=torch.float32, device=dev)
+    out = torch.empty((b_n, n_d * 8), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         status = get_lib().etc1s_factorized_scan(
             pixels.data_ptr(), None if base5 is None else base5.data_ptr(),
             out.data_ptr(), b_n, radius, int(bool(perceptual)), _stream(dev))
     LAUNCHES["factorized_scan"] += 1
     _raise_on(status, "factorized_scan")
-    return out.t()
+    return out
+
+
+def factorized_scan_shortlist(pixels, base5=None, radius: int = 1,
+                              perceptual: bool = False, k=None):
+    """The columns of the k smallest `factorized_scan` errors of each block,
+    (B, k) int64, ascending, equal errors by ascending column (also at the
+    k-th place): `_shortlist` of the scan, the order of `lax.top_k(-flat,
+    k)` after the reference's scan. k defaults to min(16, D*8).
+
+    The errors never reach device memory: the kernel runs the full scan's
+    arithmetic (the same device function, so the same bits per column) and
+    each warp selects its block's k smallest columns from registers.
+    """
+    n_cols = _n_deltas(radius) * 8
+    k = min(16, n_cols) if k is None else k
+    if not 1 <= k <= min(16, n_cols):
+        raise ValueError(f"k must be in 1..{min(16, n_cols)} at radius "
+                         f"{radius}, got {k}")
+    dev, pixels = _scan_inputs(pixels, base5)
+    if dev.type == "cpu":
+        return factorized_scan_shortlist_reference(pixels, base5, radius,
+                                                   perceptual, k)
+    from ._build import get_lib
+
+    b_n = pixels.shape[0]
+    out = torch.empty((b_n, k), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        status = get_lib().etc1s_factorized_scan_shortlist(
+            pixels.data_ptr(), None if base5 is None else base5.data_ptr(),
+            out.data_ptr(), b_n, radius, int(bool(perceptual)), k,
+            _stream(dev))
+    LAUNCHES["factorized_scan_shortlist"] += 1
+    _raise_on(status, "factorized_scan_shortlist")
+    return out
+
+
+def factorized_scan_shortlist_reference(pixels, base5=None, radius: int = 1,
+                                        perceptual: bool = False, k=None):
+    """Plain PyTorch version of `factorized_scan_shortlist`: the plain scan,
+    then a stable sort (`etc1s_encode._shortlist`)."""
+    from .etc1s_encode import _shortlist
+
+    flat = factorized_scan_reference(pixels, base5, radius, perceptual)
+    return _shortlist(flat, min(16, flat.shape[1]) if k is None else k)
 
 
 def factorized_scan_reference(pixels, base5=None, radius: int = 1,
@@ -167,13 +223,18 @@ def palette_errs_packed(pixels, packed, perceptual: bool = False):
     through PERC_P when `perceptual`.
 
     On the H100 this is a small compute-bound pass (4 palette entries x 16
-    pixels x ~10 FLOPs per output, 64 bytes in per output): one thread per
-    (block, candidate) rebuilds its palette in registers from the packed
-    word, so no (B, K, 4, 3) palette ever reaches device memory; the
-    perceptual variant is a template flag with the matrix baked in.
+    pixels x 7 float32 operations per output, in an order that must not
+    change): a CTA stages its blocks' pixels in shared memory once and runs
+    one thread per (block, candidate) on a 2-D grid of threads, which
+    rebuilds its palette in registers from the packed word, so no (B, K, 4,
+    3) palette ever reaches device memory; the perceptual variant is a
+    template flag with the matrix baked in. K is at most 256.
     """
     _check(pixels, "pixels", torch.float32, (None, 16, 3))
     _check(packed, "packed", torch.int32, (pixels.shape[0], None))
+    if not 1 <= packed.shape[1] <= 256:
+        raise ValueError(f"packed: 1 to 256 candidates per block, got "
+                         f"{packed.shape[1]}")
     dev = _same_device(pixels, packed)
     if dev.type == "cpu":
         return palette_errs_packed_reference(pixels, packed, perceptual)

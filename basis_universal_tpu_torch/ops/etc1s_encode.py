@@ -1,18 +1,19 @@
 """Device-side ETC1S encoding ops in PyTorch.
 
 Counterpart of `basis_universal_tpu/ops/etc1s_encode.py`, in its
-kernel-shaped formulation: candidate scans go through `factorized_scan`
-(per block, or per block against its cluster base followed by a segment-sum
-to clusters), exact rescoring through `palette_errs_packed` on packed
+kernel-shaped formulation: the per-block candidate scan and its shortlist
+are one kernel, `factorized_scan_shortlist`; the scan against each block's
+cluster base (`factorized_scan`) is segment-summed to clusters before its
+shortlist; exact rescoring goes through `palette_errs_packed` on packed
 candidate descriptors, and the selector search through
-`find_best_selector_patterns`. Those three run as CUDA kernels on CUDA
-tensors and as their plain PyTorch versions on CPU tensors
-(`ops/cuda_etc1s.py`); everything else here is plain PyTorch on the device
-of its inputs.
+`find_best_selector_patterns`. Those run as CUDA kernels on CUDA tensors
+and as their plain PyTorch versions on CPU tensors (`ops/cuda_etc1s.py`);
+everything else here is plain PyTorch on the device of its inputs.
 
 Equivalences with the reference kept on purpose:
-- shortlists use a stable ascending sort, so ties keep the lower index
-  first, as `lax.top_k` does;
+- shortlists are in ascending order with ties to the lower index first, as
+  `lax.top_k` gives them: a stable ascending sort (`_shortlist`), or for
+  the per-block scan the same order selected inside its kernel;
 - the k-means cross term rounds its operands to bf16 when the codebook has
   >= 1024 entries and multiplies in float32, as the reference's bf16 matmul
   with float32 accumulation does;
@@ -158,10 +159,9 @@ def encode_blocks(pixels, radius: int = 1, perceptual: bool = False):
     deltas = torch.as_tensor(_candidate_deltas(radius), device=dev)
     base5 = torch.clamp(torch.round(pixels.mean(1) * C31_255).to(torch.int32),
                         0, 31)
-    flat = cuda_etc1s.factorized_scan(pixels, radius=radius,
-                                      perceptual=perceptual)    # (B,D*8)
     # the unclipped scores shortlist; the exact clipped rescore picks
-    cand = _shortlist(flat, min(16, flat.shape[1]))             # (B,K)
+    cand = cuda_etc1s.factorized_scan_shortlist(
+        pixels, radius=radius, perceptual=perceptual)           # (B,K)
     c5k = torch.clamp(base5[:, None, :] + deltas[cand // 8], 0, 31)
     packed = _pack(c5k, cand % 8)
     cerr = cuda_etc1s.palette_errs_packed(pixels, packed,

@@ -11,11 +11,15 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    and print ptxas' registers and spills per kernel;
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes the paths give it (B = 24,576 blocks of one 768x512 image; the
-   scan at radius 0/1/2, the rescore at K 16 and 8; `palette_errs`, which
-   no path calls, at K 16; the selector search at S 2,731 and at 16,128,
-   the most selector clusters) and time both with CUDA events, beside the
-   least time the card could take (bound) and, where one PyTorch call
-   computes the same function, that call (library);
+   full scan at radius 0/1/2 and the fused scan + shortlist at radius 0/1/2,
+   which must equal the full scan's shortlist bit for bit; the rescore at
+   K 16 and 8; `palette_errs`, which no path calls, at K 16; the selector
+   search at S 2,731 and at 16,128, the most selector clusters) and time
+   both with CUDA events, beside the least time the card could take
+   (bound) and, where one PyTorch call computes the same function, that
+   call (library); the fused scan beside the unfused path it replaces
+   (full scan + stable sort); the segment sum's row gather from the scan's
+   row-major output and from a transposed one;
 4. ETC1S: encode four synthetic 768x512 textures with
    `compressor.compress_batch` at quality 128, effort 1 on the card: check
    that each kernel was launched the expected number of times, decode every
@@ -33,7 +37,11 @@ Phases (any failure raises, so the process exits nonzero with no final line):
 7. determinism: ETC1S and UASTC image 0 encoded twice give the same bytes;
 8. encode one 256x256 texture (ETC1S) on the card and on the CPU, compare;
 9. with `--profile OUT_DIR` only: time 16 images per codec and profile one
-   run of each (device time by kernel in OUT_DIR/profile_*.txt).
+   run of each (device time by kernel in OUT_DIR/profile_*.txt);
+10. with `--ab OTHER_TREE` only: build the kernels of another checkout of
+   the repo (e.g. the parent commit unpacked under `_compare/`), check that
+   its scan and rescore give the same bits as this tree's at every shape of
+   phase 3, and time both in turns (other, this, this, other).
 
 The last two lines are the kernels' JSON record and the result line.
 """
@@ -78,20 +86,23 @@ HEIGHT, WIDTH, N_IMAGES = 512, 768, 4
 QUALITY, EFFORT = 128, 1
 UASTC_EFFORT = 2
 RGBA_SEED = 4
-# kernel launches per image at q128 / effort 1: the scan in encode_blocks
-# and in the one refine pass, the rescore in encode_blocks, the refine's
-# cluster rescore and its reassignment, the selector search in the two
-# selector iterations and the final assignment
-EXPECTED_PER_IMAGE = {"factorized_scan": 2, "palette_errs_packed": 3,
+# kernel launches per image at q128 / effort 1: the fused scan + shortlist
+# in encode_blocks and the full scan in the one refine pass, the rescore in
+# encode_blocks, the refine's cluster rescore and its reassignment, the
+# selector search in the two selector iterations and the final assignment
+EXPECTED_PER_IMAGE = {"factorized_scan": 1, "factorized_scan_shortlist": 1,
+                      "palette_errs_packed": 3,
                       "find_best_selector_patterns": 3}
-# UASTC: per image, one scan (radius 0) and one rescore (K 8) for the ETC1
-# hint; the transcoder's ETC1 target one scan (radius 1) and one rescore
-# (K 16), its ASTC re-encode one UASTC search
-EXPECTED_UASTC_PER_IMAGE = {"factorized_scan": 1, "palette_errs_packed": 1}
+# UASTC: per image, one fused scan (radius 0) and one rescore (K 8) for the
+# ETC1 hint; the transcoder's ETC1 target one fused scan (radius 1) and one
+# rescore (K 16), its ASTC re-encode one UASTC search
+EXPECTED_UASTC_PER_IMAGE = {"factorized_scan_shortlist": 1,
+                            "palette_errs_packed": 1}
 # images each path encodes or transcodes in its counted run
 PATH_IMAGES = {"etc1s": N_IMAGES, "uastc": N_IMAGES + 1, "transcoder": 1}
 PALLAS = "basis_universal_tpu/ops/pallas_etc1s.py"
 REPLACES = {"factorized_scan": f"{PALLAS}:343",
+            "factorized_scan_shortlist": f"{PALLAS}:343",
             "palette_errs_packed": f"{PALLAS}:137",
             "palette_errs": f"{PALLAS}:49",
             "find_best_selector_patterns": f"{PALLAS}:207"}
@@ -118,13 +129,15 @@ def _bound(n_bytes, flops, rate):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _scan_bound(b_n, n_cols, external_base):
-    """factorized_scan: per output column, 16 pixels x (3 threshold
-    compares, a subtract, a multiply-add = 2 FLOPs): 96 FLOPs; bytes: the
-    pixels (and cluster bases) in, the (B, D*8) float32 errors out."""
+def _scan_bound(b_n, n_cols, external_base, k=None):
+    """factorized_scan: per output column, 16 pixels x (a compare, a
+    select, a subtract and a multiply-add = 5 operations): 80 (the
+    shortlist's selection not counted); bytes: the pixels (and cluster
+    bases) in, the (B, D*8) float32 errors out, or with k the (B, k) int64
+    columns of the fused shortlist."""
     n_bytes = b_n * 48 * 4 + (b_n * 12 if external_base else 0) \
-        + b_n * n_cols * 4
-    return _bound(n_bytes, b_n * n_cols * 16 * 6, FP32_FLOP_S)
+        + (b_n * n_cols * 4 if k is None else b_n * k * 8)
+    return _bound(n_bytes, b_n * n_cols * 16 * 5, FP32_FLOP_S)
 
 
 def _rescore_bound(b_n, k, perceptual, palette_bytes):
@@ -161,6 +174,22 @@ def _time_ms(fn, torch, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_ms(torch, fn, n=20):
+    """Device milliseconds per call of fn: the time of every kernel that n
+    calls launch (after a warm-up call), by torch.profiler, over n."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == cuda) / 1e3 / n
 
 
 def phase_env(torch):
@@ -211,6 +240,21 @@ def _close(got, want, mag, what):
     return err.max().item()
 
 
+def _shortlist_close(torch, got, want, flat, mag, what):
+    """Shortlist indices got against want, both (B, k): where they differ,
+    the two columns' plain scores (flat) must tie within the scan's
+    tolerance. Returns the largest such score difference (0 if none)."""
+    rows = torch.arange(got.shape[0], device=got.device)[:, None]
+    a, b = flat[rows, got].double(), flat[rows, want].double()
+    tol = 2.0 * (RTOL * b.abs() + SCAN_MAG_TOL * mag[rows, want].double())
+    differ = got != want
+    if bool(((a - b).abs() > tol)[differ].any()):
+        raise AssertionError(f"{what}: an index differs off a tie")
+    print(f"{what}: {int(differ.any(1).sum())} of {got.shape[0]} rows "
+          "ordered differently from the plain version at ties")
+    return float((a - b).abs()[differ].max()) if bool(differ.any()) else 0.0
+
+
 def phase_kernels(torch, blocks):
     """Each kernel against its plain version at the paths' shapes. Returns
     per kernel the max abs error, the times of its first shape (the ETC1S
@@ -225,17 +269,26 @@ def phase_kernels(torch, blocks):
     b_n = px.shape[0]
     results = {}
 
-    def measure(name, label, run, plain, err, bound, library=None):
+    def measure(name, label, run, plain, err, bound, library=None,
+                unfused=None):
         ms = _time_ms(run, torch)
+        dms = _device_ms(torch, run)
         pms = _time_ms(plain, torch, reps=5)
         lms = None if library is None else _time_ms(library, torch, reps=5)
         bound_ms, bound_by = bound
+        row = dict(shape=label, max_abs_err=err, ms=ms, device_ms=dms,
+                   plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=lms)
+        if unfused is not None:
+            row.update(unfused_ms=_time_ms(unfused, torch),
+                       unfused_device_ms=_device_ms(torch, unfused))
         print(f"{name} {label}: B={b_n} max_abs_err={err:.4g} "
-              f"kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
-              f"{'none' if lms is None else f'{lms:.4f} ms'}, bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
-        row = dict(shape=label, max_abs_err=err, ms=ms, plain_ms=pms,
-                   bound_ms=bound_ms, bound_by=bound_by, library_ms=lms)
+              f"kernel {ms:.4f} ms (device {dms:.4f} ms), plain {pms:.4f} ms"
+              f", library {'none' if lms is None else f'{lms:.4f} ms'}, "
+              f"bound {bound_ms:.4f} ms ({bound_by})"
+              + ("" if unfused is None else
+                 f", unfused path {row['unfused_ms']:.4f} ms (device "
+                 f"{row['unfused_device_ms']:.4f} ms)"))
         res = results.setdefault(name, dict(row, by_shape=[]))
         res["max_abs_err"] = max(res["max_abs_err"], err)
         res["by_shape"].append(row)
@@ -259,6 +312,51 @@ def phase_kernels(torch, blocks):
                 lambda: ck.factorized_scan(px, **kw),
                 lambda: ck.factorized_scan_reference(px, **kw), err,
                 _scan_bound(b_n, got.shape[1], "base5" in kw))
+
+    # -- the segment sum of optimize_cluster_endpoints gathers whole rows of
+    #    the cluster-base scan (`data[order]`): device times from the
+    #    row-major (B, 216) result, and from the transposed view of a
+    #    (216, B) buffer
+    ids = torch.as_tensor(rng.integers(0, 2416, b_n), device=dev)
+    order = torch.sort(ids, stable=True).indices
+    by_row = ck.factorized_scan(px, base5=base5, radius=1)
+    by_col = by_row.t().contiguous().t()
+    dev_ms = [_device_ms(torch, f) for f in (
+        lambda: by_row[order], lambda: by_col[order],
+        lambda: ops.segment_sum(by_row, ids, 2416),
+        lambda: ops.segment_sum(by_col, ids, 2416))]
+    print("segment_sum of the D27 cluster-base scan, row-major vs transposed"
+          f" (device ms): gather {dev_ms[0]:.4f} vs {dev_ms[1]:.4f}, whole "
+          f"sum {dev_ms[2]:.4f} vs {dev_ms[3]:.4f}")
+    del by_row, by_col
+
+    # -- factorized_scan_shortlist at the shapes of encode_blocks (radius 1;
+    #    radius 2 at effort 6 and up; the perceptual metric; radius 0, the
+    #    UASTC hint): equal bit for bit to the full kernel's shortlist, equal
+    #    to the plain version's except where two columns' plain scores tie
+    #    within the scan's tolerance; timed beside the unfused path it
+    #    replaces (the full kernel, then a stable sort)
+    for label, kw in (("D27", dict(radius=1)), ("D125", dict(radius=2)),
+                      ("D27 perceptual", dict(radius=1, perceptual=True)),
+                      ("D1", dict(radius=0))):
+        got = ck.factorized_scan_shortlist(px, **kw)
+        k = got.shape[1]
+        full = ck.factorized_scan(px, **kw)
+        flat = ck.factorized_scan_reference(px, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ops._shortlist(full, k)):
+            raise AssertionError(f"factorized_scan_shortlist {label}: differs "
+                                 "from the full kernel's shortlist")
+        err = _shortlist_close(torch, got, ops._shortlist(flat, k), flat,
+                               scan_term_magnitude(px, **kw),
+                               f"factorized_scan_shortlist {label}")
+        measure("factorized_scan_shortlist", label,
+                lambda: ck.factorized_scan_shortlist(px, **kw),
+                lambda: ck.factorized_scan_shortlist_reference(px, **kw), err,
+                _scan_bound(b_n, full.shape[1], False, k),
+                unfused=lambda: ops._shortlist(ck.factorized_scan(px, **kw),
+                                               k))
+        del full, flat
 
     # -- palette_errs_packed: K = 16 packed candidates, plain and perceptual;
     #    K = 8 (the UASTC hint's rescore)
@@ -487,8 +585,7 @@ def phase_transcoder(torch, uastc_out):
     etc1 = tc.transcode_image_level(0, 0, TF.ETC1_RGB)
     torch.cuda.synchronize()
     etc1_launches = dict(ck.LAUNCHES)
-    _expect(etc1_launches, {"factorized_scan": 1, "palette_errs_packed": 1}, 1,
-            "transcode ETC1_RGB")
+    _expect(etc1_launches, EXPECTED_UASTC_PER_IMAGE, 1, "transcode ETC1_RGB")
     etc1_cpu = cpu.convert_rgba(TF.ETC1_RGB, rgba, nbx, nby, WIDTH, HEIGHT)
 
     def etc1_psnr(e):
@@ -564,6 +661,75 @@ def phase_cuda_vs_cpu(torch):
           f"{res['cpu'][1]} B ({100 * ds:+.3f}%)")
     if abs(dp) > PSNR_TOL_DB or abs(ds) > SIZE_TOL:
         raise AssertionError("cuda and cpu runs of the port disagree")
+
+
+def _other_port(tree):
+    """The port package of another checkout of the repo, imported as
+    `_other_port` (its kernels build into that checkout's own build/)."""
+    import importlib
+    import importlib.util
+    import pathlib
+
+    pkg = pathlib.Path(tree).resolve() / "basis_universal_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "_other_port", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["_other_port"] = mod
+    spec.loader.exec_module(mod)
+    return (importlib.import_module("_other_port.ops.cuda_etc1s"),
+            importlib.import_module("_other_port.ops._build"))
+
+
+def phase_ab(torch, blocks, tree):
+    """`--ab TREE`: this tree's scan and rescore against another checkout's
+    at the shapes of phase 3: whether they give the same bits (the full
+    scan's errors, the rescore's), and their call times (CUDA events) and
+    device times (torch.profiler) in turns: other, this, this, other."""
+    from basis_universal_tpu_torch.ops import cuda_etc1s as ck
+
+    other, other_build = _other_port(tree)
+    t0 = time.time()
+    other_build.get_lib()
+    print(f"ab: {tree}'s kernels built in {time.time() - t0:.1f} s")
+    for line in other_build.ptxas_report(
+            other_build.library_path()).splitlines():
+        print(f"ab ptxas (other): {line.strip()}")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1234)
+    px = torch.as_tensor(blocks, dtype=torch.float32, device=dev).contiguous()
+    b_n = px.shape[0]
+    base5 = torch.as_tensor(rng.integers(0, 32, (b_n, 3)), dtype=torch.float32,
+                            device=dev)
+    c5 = rng.integers(0, 32, (b_n, 16, 3))
+    packed = torch.as_tensor(c5[..., 0] | (c5[..., 1] << 5) | (c5[..., 2] << 10)
+                             | (rng.integers(0, 8, (b_n, 16)) << 15),
+                             dtype=torch.int32, device=dev)
+    cases = [("factorized_scan", label, (px,), kw) for label, kw in (
+        ("D27", dict(radius=1)), ("D27 cluster base", dict(radius=1,
+                                                             base5=base5)),
+        ("D125", dict(radius=2)), ("D27 perceptual", dict(radius=1,
+                                                          perceptual=True)),
+        ("D1", dict(radius=0)))]
+    cases += [("palette_errs_packed", label, (px, pk), dict(perceptual=perc))
+              for label, pk, perc in (
+                  ("K16", packed, False), ("K16 perceptual", packed, True),
+                  ("K8", packed[:, :8].contiguous(), False))]
+    for name, label, args, kw in cases:
+        mine = getattr(ck, name)(*args, **kw)
+        theirs = getattr(other, name)(*args, **kw)
+        torch.cuda.synchronize()
+        n_diff = int((mine != theirs).sum())
+        runs = [lambda m=m: getattr(m, name)(*args, **kw)
+                for m in (other, ck, ck, other)]
+        t = [_time_ms(r, torch) for r in runs]
+        dt = [_device_ms(torch, r) for r in runs]
+        print(f"ab {name} {label}: same bits {n_diff == 0} ({n_diff} of "
+              f"{mine.numel()} differ, max abs "
+              f"{(mine - theirs).abs().max().item():.4g}); call ms other "
+              f"{t[0]:.4f}, this {t[1]:.4f}, this {t[2]:.4f}, other "
+              f"{t[3]:.4f}; device ms other {dt[0]:.4f}, this {dt[1]:.4f}, "
+              f"this {dt[2]:.4f}, other {dt[3]:.4f}")
 
 
 def phase_profile(torch, out_dir, n_images=16):
@@ -726,6 +892,8 @@ def main():
     paths["transcoder"] = phase_transcoder(torch, uastc0)
     phase_determinism(torch, images[0])
     phase_cuda_vs_cpu(torch)
+    if "--ab" in sys.argv:
+        phase_ab(torch, blocks, sys.argv[sys.argv.index("--ab") + 1])
     if "--profile" in sys.argv:
         out_dir = sys.argv[sys.argv.index("--profile") + 1]
         phase_profile(torch, out_dir)

@@ -61,6 +61,66 @@ def test_factorized_scan_on_card(cuda, radius, perceptual):
     assert ck.LAUNCHES["factorized_scan"] == 2
 
 
+def _planted(n, seed):
+    """_blocks with every 7th block saturated (each channel at 0..3 or
+    252..255): clipped deltas coincide there, so columns tie exactly, also
+    across the 16th place."""
+    px = _blocks(n, seed)
+    rng = np.random.default_rng(seed + 1)
+    sat = torch.arange(n) % 7 == 3
+    low = torch.as_tensor(rng.integers(0, 4, (n, 16, 3)), dtype=torch.float32)
+    side = torch.as_tensor(rng.integers(0, 2, (n, 1, 3)), dtype=torch.bool)
+    px[sat] = torch.where(side, 255.0 - low, low)[sat]
+    return px
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("perceptual", [False, True])
+@pytest.mark.parametrize("radius", [0, 1, 2])
+def test_factorized_scan_shortlist_is_the_full_scans_shortlist_on_card(
+        cuda, radius, perceptual):
+    """The fused kernel's columns equal `_shortlist` of the full kernel's
+    errors bit for bit (one device function computes both), ties at the
+    k-th place included, at one block, 300, a ragged 24,575 and the main
+    path's 24,576, with and without a cluster base."""
+    from basis_universal_tpu_torch.ops.etc1s_encode import _shortlist
+
+    kw = dict(radius=radius, perceptual=perceptual)
+    k = min(16, (2 * radius + 1) ** 3 * 8)
+    tied = 0
+    for b in (1, 300, 24575, 24576):
+        px = _planted(b, 50 + b % 7).to(cuda)
+        base5 = torch.as_tensor(np.random.default_rng(b).integers(0, 32, (b, 3)),
+                                dtype=torch.float32).to(cuda)
+        for base in (None, base5):
+            got = ck.factorized_scan_shortlist(px, base, **kw)
+            full = ck.factorized_scan(px, base, **kw)
+            assert got.dtype == torch.int64 and got.shape == (b, k)
+            assert torch.equal(got, _shortlist(full, k))
+            if k < full.shape[1]:
+                srt = torch.sort(full, dim=-1).values
+                tied += int((srt[:, k - 1] == srt[:, k]).sum())
+    assert radius == 0 or tied > 0
+    print(f"shortlist r{radius} perceptual={perceptual}: {tied} rows tie "
+          "at the k-th place")
+
+
+@pytest.mark.cuda
+def test_scan_and_rescore_are_deterministic_on_card(cuda):
+    px = _planted(24576, 11).to(cuda)
+    packed = torch.as_tensor(
+        np.random.default_rng(12).integers(0, 1 << 18, (24576, 16)),
+        dtype=torch.int32).to(cuda)
+    for radius in (0, 1, 2):
+        for fn in (ck.factorized_scan, ck.factorized_scan_shortlist):
+            first = fn(px, radius=radius)
+            assert torch.equal(fn(px, radius=radius), first)
+    for perceptual in (False, True):
+        first = ck.palette_errs_packed(px, packed, perceptual)
+        assert torch.equal(ck.palette_errs_packed(px, packed, perceptual),
+                           first)
+
+
 def _packed(rng, k):
     c5 = rng.integers(0, 32, (B, k, 3))
     return torch.as_tensor(c5[..., 0] | (c5[..., 1] << 5) | (c5[..., 2] << 10)
@@ -136,7 +196,8 @@ def test_uastc_search_on_card_matches_cpu(cuda):
     modes, ls_iters, extra, topk = pack._effort_mode_set(3, True)
     got = encode._search(torch.as_tensor(px).to(cuda), modes, ls_iters, extra,
                          topk)
-    assert ck.LAUNCHES["factorized_scan"] == 1
+    assert ck.LAUNCHES["factorized_scan_shortlist"] == 1
+    assert ck.LAUNCHES["factorized_scan"] == 0
     assert ck.LAUNCHES["palette_errs_packed"] == 1
     want = encode._search(torch.as_tensor(px), modes, ls_iters, extra, topk)
     got_b = pack._pack_from_compact(got, px, modes, extra)
@@ -244,9 +305,11 @@ def test_compress_on_card_launches_each_kernel(cuda):
     knobs, _, _ = frontend._knobs_and_neighbors(
         256, compressor._frontend_params(params, 256), None)
     refine, sel = knobs["refine_iters"], knobs["sel_iters"]
-    # encode_blocks scans and rescores once; each refine pass scans once and
-    # rescores twice; each selector iteration and the final pass search once
-    assert ck.LAUNCHES == {"factorized_scan": 1 + refine,
+    # encode_blocks scans (fused with its shortlist) and rescores once; each
+    # refine pass scans once and rescores twice; each selector iteration and
+    # the final pass search once
+    assert ck.LAUNCHES == {"factorized_scan": refine,
+                           "factorized_scan_shortlist": 1,
                            "palette_errs_packed": 1 + 2 * refine,
                            "palette_errs": 0,
                            "find_best_selector_patterns": sel + 1}
@@ -268,8 +331,10 @@ def test_uastc_compress_on_card(cuda):
     kw = dict(tex_format=BasisTexFormat.UASTC_LDR_4x4, effort=2)
     outs = compressor.compress_batch(imgs, compressor.CompressorParams(
         device="cuda", **kw))
-    # one ETC1 hint per image: one scan (radius 0) and one rescore (K 8)
-    assert ck.LAUNCHES["factorized_scan"] == 2
+    # one ETC1 hint per image: one fused scan (radius 0) and one rescore
+    # (K 8)
+    assert ck.LAUNCHES["factorized_scan_shortlist"] == 2
+    assert ck.LAUNCHES["factorized_scan"] == 0
     assert ck.LAUNCHES["palette_errs_packed"] == 2
     for img, out in zip(imgs, outs):
         cpu = compressor.compress(img, compressor.CompressorParams(

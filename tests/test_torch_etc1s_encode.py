@@ -105,6 +105,28 @@ def test_encode_blocks(radius, perceptual):
 
 
 @pytest.mark.parametrize("perceptual", [False, True])
+@pytest.mark.parametrize("radius", [0, 1, 2])
+def test_encode_blocks_output_unchanged_by_the_fused_shortlist(
+        radius, perceptual, monkeypatch):
+    """encode_blocks shortlists through `factorized_scan_shortlist`; through
+    the full scan and a stable sort, as before the fused kernel, it gives
+    the same dict on the CPU."""
+    px = _t(_blocks(400, 9 + radius))
+    got = tops.encode_blocks(px, radius=radius, perceptual=perceptual)
+
+    def unfused(pixels, radius=1, perceptual=False):
+        flat = tops.cuda_etc1s.factorized_scan(pixels, radius=radius,
+                                               perceptual=perceptual)
+        return tops._shortlist(flat, min(16, flat.shape[1]))
+
+    monkeypatch.setattr(tops.cuda_etc1s, "factorized_scan_shortlist", unfused)
+    want = tops.encode_blocks(px, radius=radius, perceptual=perceptual)
+    assert got.keys() == want.keys()
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
 def test_optimize_cluster_endpoints(perceptual):
     rng = np.random.default_rng(4)
     px = _blocks(600, 5)

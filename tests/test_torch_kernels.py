@@ -124,6 +124,101 @@ def test_factorized_scan_matches_pallas_and_xla(radius, external, perceptual):
                        px, base5, radius, perceptual)
 
 
+def _saturated_blocks(n, seed):
+    """Blocks whose every channel sits at one end of the gamut (0..3 or
+    252..255): the 5-bit base is 0 or 31 on each channel, so deltas clip to
+    the same colour and their columns tie exactly, at the k-th place too."""
+    rng = np.random.default_rng(seed)
+    side = rng.integers(0, 2, (n, 1, 3))
+    low = rng.integers(0, 4, (n, 16, 3))
+    return np.where(side == 1, 255 - low, low).astype(np.float32)
+
+
+def _pallas_top_k(px, radius, perceptual, k):
+    """The reference's shortlist: the Pallas scan (interpret mode), then
+    `lax.top_k(-flat, k)` as in `basis_universal_tpu/ops/etc1s_encode.py`
+    encode_blocks."""
+    flat = pallas_etc1s.factorized_scan(jnp.asarray(px), radius=radius,
+                                        interpret=True, perceptual=perceptual)
+    return np.asarray(jax.lax.top_k(-flat, k)[1])
+
+
+def _equal_but_at_ties(got, px, radius, perceptual):
+    """got (B, k) shortlist indices against the reference's: where they
+    differ, the two columns' scores must tie within the scan's tolerance.
+    Returns the number of rows that differ."""
+    want = _pallas_top_k(px, radius, perceptual, got.shape[1])
+    flat = ck.factorized_scan_reference(torch.from_numpy(px), radius=radius,
+                                        perceptual=perceptual).numpy()
+    mag = scan_term_magnitude(torch.from_numpy(px), None, radius,
+                              perceptual).numpy().astype(np.float64)
+    rows = np.arange(px.shape[0])[:, None]
+    a = flat[rows, got].astype(np.float64)
+    b = flat[rows, want].astype(np.float64)
+    tol = 2 * (RTOL * np.abs(b) + SCAN_MAG_TOL * mag[rows, want])
+    differ = got != want
+    assert np.all(np.abs(a - b)[differ] <= tol[differ]), "differs off a tie"
+    return int(differ.any(1).sum())
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
+@pytest.mark.parametrize("radius", [0, 1, 2])
+def test_factorized_scan_shortlist_matches_plain_and_pallas(radius,
+                                                           perceptual):
+    """The fused scan + shortlist equals `_shortlist` of the plain scan, and
+    the reference's Pallas scan + lax.top_k except where two columns' scores
+    tie within the scan's tolerance (the tie count is printed)."""
+    px = _blocks(B, 61 + radius)
+    k = min(16, (2 * radius + 1) ** 3 * 8)
+    got = ck.factorized_scan_shortlist(torch.from_numpy(px), radius=radius,
+                                       perceptual=perceptual)
+    assert got.shape == (B, k) and got.dtype == torch.int64
+    flat = ck.factorized_scan_reference(torch.from_numpy(px), radius=radius,
+                                        perceptual=perceptual)
+    assert torch.equal(got, tops._shortlist(flat, k))
+    ties = _equal_but_at_ties(got.numpy(), px, radius, perceptual)
+    print(f"shortlist r{radius} perceptual={perceptual}: {ties} of {B} rows "
+          "ordered differently from Pallas + lax.top_k at ties")
+
+
+@pytest.mark.parametrize("perceptual", [False, True])
+@pytest.mark.parametrize("radius", [1, 2])
+def test_factorized_scan_shortlist_ties_go_to_the_lower_column(radius,
+                                                              perceptual):
+    """Saturated blocks tie exactly across the k-th place: the lower column
+    wins, as in a lexicographic (score, column) order and in lax.top_k."""
+    px = _saturated_blocks(B, 70 + radius)
+    got = ck.factorized_scan_shortlist(torch.from_numpy(px), radius=radius,
+                                       perceptual=perceptual).numpy()
+    flat = ck.factorized_scan_reference(torch.from_numpy(px), radius=radius,
+                                        perceptual=perceptual).numpy()
+    s = np.sort(flat, 1)
+    tied = s[:, 15] == s[:, 16]
+    assert tied.sum() >= B // 10, "the set must tie at the 16th place"
+    cols = np.arange(flat.shape[1])
+    lex = np.stack([np.lexsort((cols, row))[:16] for row in flat])
+    np.testing.assert_array_equal(got, lex)
+    ties = _equal_but_at_ties(got, px, radius, perceptual)
+    print(f"saturated r{radius} perceptual={perceptual}: {int(tied.sum())} "
+          f"of {B} rows tie at the 16th place; {ties} rows ordered "
+          "differently from Pallas + lax.top_k at ties")
+
+
+def test_factorized_scan_shortlist_rejects_bad_k_and_radius():
+    px = torch.from_numpy(_blocks(8, 1))
+    for radius, k in ((1, 17), (2, 17), (0, 9), (1, 0)):
+        with pytest.raises(ValueError):
+            ck.factorized_scan_shortlist(px, radius=radius, k=k)
+    with pytest.raises(ValueError):
+        ck.factorized_scan_shortlist(px, radius=3)
+    with pytest.raises(ValueError):
+        ck.factorized_scan_shortlist(px, base5=torch.zeros((7, 3)))
+    with pytest.raises(TypeError):
+        ck.factorized_scan_shortlist(px.double())
+    assert ck.factorized_scan_shortlist(px, radius=0).shape == (8, 8)
+    assert ck.factorized_scan_shortlist(px, radius=2, k=3).shape == (8, 3)
+
+
 @pytest.mark.parametrize("perceptual", [False, True])
 @pytest.mark.parametrize("k", [16, 5])
 def test_palette_errs_packed_matches_pallas_and_xla(k, perceptual):
@@ -377,6 +472,8 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         ck.palette_errs_packed(px, torch.zeros((7, 4), dtype=torch.int32))
     with pytest.raises(ValueError):
+        ck.palette_errs_packed(px, torch.zeros((8, 257), dtype=torch.int32))
+    with pytest.raises(ValueError):
         ck.palette_errs(px, torch.zeros((8, 4, 3, 3)))
     with pytest.raises(TypeError):
         ck.palette_errs(px, torch.zeros((8, 4, 4, 3), dtype=torch.float64))
@@ -392,6 +489,10 @@ def test_cpu_tensors_run_the_plain_version_without_launching():
     np.testing.assert_array_equal(
         ck.factorized_scan(px).numpy(),
         ck.factorized_scan_reference(px).numpy())
+    for radius in (0, 1):
+        np.testing.assert_array_equal(
+            ck.factorized_scan_shortlist(px, radius=radius).numpy(),
+            ck.factorized_scan_shortlist_reference(px, radius=radius).numpy())
     packed = torch.from_numpy(_packed(40, 4, 1))
     np.testing.assert_array_equal(
         ck.palette_errs_packed(px, packed).numpy(),
