@@ -564,8 +564,6 @@ def decode_log_blocks_arith(data: bytes):
     endpoints and (FullArith) weights."""
     import struct
 
-    import zstandard
-
     from ...entropy import arith
     from . import helpers as ah
     from . import xuastc_cems as XC
@@ -576,6 +574,8 @@ def decode_log_blocks_arith(data: bytes):
     syntax = data[0] & 3
     fast = syntax == SYNTAX_HYBRID_ARITH_ZSTD
     if fast:
+        import zstandard    # a FullArith stream needs none
+
         lens = struct.unpack_from("<11I", data, 1)
         pos = 1 + 11 * 4
         arith_bytes = data[pos:pos + lens[0]]

@@ -112,3 +112,21 @@ def scan_term_magnitude(pixels, base5=None, radius: int = 1,
     su2 = ((luma * luma).sum(-1)[None] + 2.0 * (lb * luma.sum(-1)[None]).abs()
            + 16.0 * lb * lb)
     return (q + su2 / 3.0).T.repeat_interleave(8, dim=1)
+
+
+def block_digests(blocks) -> np.ndarray:
+    """(N,) uint16: two bytes of BLAKE2b of each (N, 16) uint8 block, to
+    count the blocks two encodes share without keeping either."""
+    import hashlib
+
+    rows = np.ascontiguousarray(np.asarray(blocks, np.uint8)).reshape(-1, 16)
+    return np.array([int.from_bytes(
+        hashlib.blake2b(r.tobytes(), digest_size=2).digest(), "little")
+        for r in rows], dtype=np.uint16)
+
+
+def bc7_mode_histogram(blocks) -> np.ndarray:
+    """(8,) blocks per BC7 mode: the mode is the position of the lowest set
+    bit of a block's first byte."""
+    first = np.asarray(blocks, np.uint8).reshape(-1, 16)[:, 0].astype(np.int32)
+    return np.bincount(np.log2(first & -first).astype(np.int64), minlength=8)

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's encode paths (ETC1S, UASTC LDR 4x4) and
-its transcoder re-encodes once on one GPU.
+"""Drive the PyTorch + CUDA port's encode paths (ETC1S, UASTC LDR 4x4, the
+BC7 search and XUBC7, ASTC LDR, XUASTC LDR, the HDR modes), its transcoder
+re-encodes and its image metrics once on one GPU.
 
     python3 chip_smoke.py [--profile OUT_DIR]
 
 Phases (any failure raises, so the process exits nonzero with no final line):
 1. require CUDA; print versions and the card's name and power limit; load
-   the port's native host library (fail if it does not load);
+   the port's native host library (fail if it does not load); say whether
+   `zstandard` is installed (a stage that needs it and cannot run is named
+   on a line of its own; every other stage still runs and must pass);
 2. build the hand-written kernels from `basis_universal_tpu_torch/csrc/`
    and print ptxas' registers and spills per kernel;
 3. hold each kernel against its plain PyTorch version on the card at the
@@ -36,9 +39,22 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    CPU;
 7. determinism: ETC1S and UASTC image 0 encoded twice give the same bytes;
 8. encode one 256x256 texture (ETC1S) on the card and on the CPU, compare;
-9. with `--profile OUT_DIR` only: time 16 images per codec and profile one
+9. BC7: `codecs/bc7/encode.encode_blocks` on the card at effort 2 on one
+   RGB and one RGBA 768x512 texture and at effort 1, decoded with
+   `unpack_bc7`: PSNR, mode histogram, wall and device ms, held to the PSNR
+   and the per-block digests recorded from the JAX reference on the CPU; two
+   card runs equal; card == CPU at 256x256;
+10. XUBC7: `compress` lossless (the port's transcoder must return the
+   search's BC7 blocks byte for byte) and, at 384x256, lossy (q 50);
+11. ASTC LDR 4x4 (through the UASTC search: one scan and one rescore launch
+   asserted) and 6x6, XUASTC LDR 4x4 and 6x6 at q 75: decoded through the
+   port's transcoder, held to recorded JAX-CPU values;
+12. the three HDR modes on a 144x96 float texture, through the transcoder,
+   held to the reference's bytes; `ops/metrics.py` on the card against the
+   CPU;
+13. with `--profile OUT_DIR` only: time 16 images per codec and profile one
    run of each (device time by kernel in OUT_DIR/profile_*.txt);
-10. with `--ab OTHER_TREE` only: build the kernels of another checkout of
+14. with `--ab OTHER_TREE` only: build the kernels of another checkout of
    the repo (e.g. the parent commit unpacked under `_compare/`), check that
    its scan and rescore give the same bits as this tree's at every shape of
    phase 3, and time both in turns (other, this, this, other).
@@ -78,6 +94,56 @@ REFERENCE_UASTC_RGBA = dict(
     psnr=41.97688873860354,
     basis_bytes=393316,
 )
+# The encode modes beyond ETC1S and UASTC, recorded from the JAX reference on
+# the CPU (jax 0.9.0) by `tests/test_torch_recorded_reference.py`, which
+# also wrote the BC7 stages' per-block digests to
+# `basis_universal_tpu_torch/testing/bc7_reference_digests.npz`. Textures:
+# image 0 (768x512 RGB), the RGBA texture, and for the slow host stages
+# `synthetic_texture(256, 384, seed=0)` ("small"). BC7: `encode_blocks` at
+# effort 2 / 1, PSNR of `unpack_bc7` against the source blocks, blocks per
+# mode. The others: `compress` (XUBC7 effort 2; ASTC LDR 4x4 effort 2, 6x6
+# effort 1; XUASTC LDR q 75, 4x4 effort 2, 6x6 effort 1), level 0 decoded
+# to RGBA32 by the transcoder, PSNR against the source as RGBA.
+REFERENCE_BC7 = dict(
+    bc7_rgb_e2=dict(psnr=46.15488699663378,
+        modes=[5, 6011, 79, 18473, 0, 0, 8, 0]),
+    bc7_rgba_e2=dict(psnr=42.62174160401629,
+        modes=[0, 472, 8, 1867, 2373, 16728, 2183, 945]),
+    bc7_rgb_e1=dict(psnr=45.39517792894461,
+        modes=[0, 24124, 0, 0, 0, 0, 452, 0]),
+)
+REFERENCE_MODES = dict(
+    xubc7_q100=dict(psnr=45.556007334292595, basis_bytes=308732,
+        sha256="aa06549c52363f51ceb8eb1ceb6ab25c1fc2b4c7a1c17544a04388cd11b6a394"),
+    xubc7_q50_small=dict(psnr=40.809917459146575, basis_bytes=35010,
+        sha256="e1b7f7f455422bf8ceb2e2463eef12e97b62de09293dc91ffe88df3ddc057f77"),
+    astc_4x4=dict(psnr=46.1545033544006, basis_bytes=393316,
+        sha256="75ea7f39ffa751aab1e7cc29a61d3c7c538b07dfb7447e7e1305978eaf7d6e6b"),
+    astc_6x6=dict(psnr=42.29932063730956, basis_bytes=176228,
+        sha256="d2cbee124b25c3b369c6e3667b8e739f840a6c98cc8a1278051aebd44bff1244"),
+    xuastc_4x4=dict(psnr=41.168751727847386, basis_bytes=178643,
+        sha256="6c23faf6cd8d1838d14ed01a828cfa1895587ef64876189034900588d2a08a3e"),
+    xuastc_4x4_arith=dict(psnr=41.168751727847386, basis_bytes=171260,
+        sha256="9ae9203c4a5cd4af401fb8fd3087d0202b11cb7536aafbc5b60739d58e7ea833"),
+    xuastc_6x6_small=dict(psnr=39.616091975408395, basis_bytes=24435,
+        sha256="55fd55794362cafe25e7d2b75e750a71adef6c1a6ac5450738b4e971e43e69e1"),
+    xuastc_6x6_small_arith=dict(psnr=39.616091975408395, basis_bytes=23830,
+        sha256="8ffe8d10484dc7f371f5f5fa10d61e0c27a3de4bd40a3d19def7dd2e85d83c64"),
+)
+# the three HDR modes (host code): sha256 of the reference's .basis of the
+# 144x96 float texture of `_hdr_texture`, effort 1
+REFERENCE_HDR = dict(
+    UASTC_HDR_4x4="d24c545694d3d06b3772de2a7fec54345fc1f7ffb85729c33588e68344f2a8e5",
+    ASTC_HDR_6x6="1bba08294a559c9a155a4dc0ac304affeca3493edc9675d61ecd8de516f5920a",
+    UASTC_HDR_6x6_INTERMEDIATE="00ff110fcb949f1da8023cfd5641f09b9af92b401f254ce64e02cb76c3b2773a",
+)
+# share of BC7 blocks that must be identical to the reference's: the search
+# spells out XLA-CPU's float32 arithmetic, and the CPU tests find every block
+# equal
+MIN_BC7_SHARE = 1.0
+MIN_HDR_HALF_PSNR = 45.0    # dB over half-float bit patterns
+METRICS_RTOL = 1e-4         # card against CPU, float32 sums in another order
+METRICS_DE_RTOL = 1e-2      # Delta-E ITP: 720 x nearly cancelling PQ terms
 # the bound the CPU tests hold the port to
 PSNR_TOL_DB = 0.05
 SIZE_TOL = 0.015
@@ -99,7 +165,8 @@ EXPECTED_PER_IMAGE = {"factorized_scan": 1, "factorized_scan_shortlist": 1,
 EXPECTED_UASTC_PER_IMAGE = {"factorized_scan_shortlist": 1,
                             "palette_errs_packed": 1}
 # images each path encodes or transcodes in its counted run
-PATH_IMAGES = {"etc1s": N_IMAGES, "uastc": N_IMAGES + 1, "transcoder": 1}
+PATH_IMAGES = {"etc1s": N_IMAGES, "uastc": N_IMAGES + 1, "transcoder": 1,
+               "astc_ldr_4x4": 1, "xuastc_ldr_4x4": 1}
 PALLAS = "basis_universal_tpu/ops/pallas_etc1s.py"
 REPLACES = {"factorized_scan": f"{PALLAS}:343",
             "factorized_scan_shortlist": f"{PALLAS}:343",
@@ -213,7 +280,13 @@ def phase_env(torch):
     print(f"native host library: {native.get_lib()._name}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return card
+    import importlib.util
+
+    have_zstd = importlib.util.find_spec("zstandard") is not None
+    print(f"zstandard: {'found' if have_zstd else 'NOT installed'} (the XUBC7 "
+          "stream, the full_zstd / hybrid XUASTC syntaxes and Zstandard KTX2 "
+          "levels need it)")
+    return card, have_zstd
 
 
 def phase_build():
@@ -663,6 +736,293 @@ def phase_cuda_vs_cpu(torch):
         raise AssertionError("cuda and cpu runs of the port disagree")
 
 
+def _decode_level0(data, fmt, device="cuda"):
+    """Level 0 of image 0 of a .basis file through the port's transcoder."""
+    from basis_universal_tpu_torch import transcoder
+
+    return np.asarray(transcoder.BasisTranscoder(
+        data, device=device).transcode_image_level(0, 0, fmt))
+
+
+def _rgba_of(img):
+    if img.shape[-1] == 4:
+        return img
+    return np.concatenate(
+        [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
+
+
+def _hold_mode(label, p, size, ref, exact_size):
+    """PSNR within PSNR_TOL_DB of the recorded JAX-CPU value; the .basis
+    size equal (exact_size) or within SIZE_TOL."""
+    dp, ds = p - ref["psnr"], size / ref["basis_bytes"] - 1.0
+    print(f"{label} vs JAX-CPU reference: PSNR {p:.4f} dB ({dp:+.6f}), "
+          f"{size} vs {ref['basis_bytes']} B ({100 * ds:+.4f}%)")
+    if abs(dp) > PSNR_TOL_DB or (size != ref["basis_bytes"] if exact_size
+                                 else abs(ds) > SIZE_TOL):
+        raise AssertionError(f"{label} drifted from the reference")
+
+
+def phase_bc7(torch, rgb, rgba):
+    """The BC7 search on the card (plain PyTorch, no hand-written kernel):
+    effort 2 on an RGB and an RGBA 768x512 texture (all nine candidates)
+    and effort 1 on the RGB one. Each is decoded with the port's
+    `unpack_bc7` and held to the PSNR and the per-block digests recorded
+    from the JAX reference on the CPU; two card runs must give the same
+    bytes; a 256x256 texture must give the same blocks on the card and on
+    the CPU. It launches none of the hand-written kernels."""
+    import pathlib
+
+    from basis_universal_tpu_torch.codecs.bc7 import encode as bc7
+    from basis_universal_tpu_torch.ops import cuda_etc1s as ck
+    from basis_universal_tpu_torch.ops.etc1 import image_to_blocks
+    from basis_universal_tpu_torch.ops.gpu_unpack import unpack_bc7
+    from basis_universal_tpu_torch.testing import checks
+    from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+
+    digests = np.load(pathlib.Path(checks.__file__).with_name(
+        "bc7_reference_digests.npz"))
+    ck.reset_launch_counts()
+    for name, img, effort in (("bc7_rgb_e2", rgb, 2), ("bc7_rgba_e2", rgba, 2),
+                              ("bc7_rgb_e1", rgb, 1)):
+        px = image_to_blocks(_rgba_of(img)).reshape(-1, 16, 4)
+        run = lambda: bc7.encode_blocks(px, effort=effort, device="cuda")
+        run()                                               # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        blocks = run()
+        wall = time.time() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        dms = _device_ms(torch, run, n=1)
+        again = run()
+        if not np.array_equal(blocks, again):
+            raise AssertionError(f"{name}: two card runs differ")
+        ref = REFERENCE_BC7[name]
+        p = checks.psnr(unpack_bc7(blocks), px)
+        share = float((checks.block_digests(blocks) == digests[name]).mean())
+        modes = checks.bc7_mode_histogram(blocks).tolist()
+        print(f"{name}: {px.shape[0]} blocks, wall {1e3 * wall:.1f} ms, device "
+              f"{dms:.1f} ms, peak memory {peak_gb:.2f} GB, PSNR {p:.4f} dB "
+              f"({p - ref['psnr']:+.6f} vs the JAX-CPU reference), blocks "
+              f"identical to the reference's "
+              f"{share:.6f}, modes {modes} (reference {ref['modes']}), two "
+              "runs equal")
+        if abs(p - ref["psnr"]) > PSNR_TOL_DB or share < MIN_BC7_SHARE:
+            raise AssertionError(f"{name} drifted from the reference")
+    small = image_to_blocks(synthetic_texture(256, 256, seed=6, alpha=True)[0]
+                            ).reshape(-1, 16, 4)
+    for effort in (1, 2):
+        card = bc7.encode_blocks(small, effort=effort, device="cuda")
+        cpu = bc7.encode_blocks(small, effort=effort, device="cpu")
+        same = float((card == cpu).all(1).mean())
+        print(f"bc7 256x256 RGBA effort {effort}: card == cpu on {same:.6f} of "
+              "the blocks")
+        if same != 1.0:
+            raise AssertionError("BC7: the card and the CPU disagree")
+    _expect(dict(ck.LAUNCHES), {}, 1, "BC7 search")
+
+
+def phase_xubc7(torch, rgb, small, have_zstd):
+    """compress(XUBC7): lossless (q 100, 768x512) must hand back, through
+    the port's transcoder, the BC7 blocks of the search byte for byte;
+    lossy (q 50, 384x256: its host entropy search is the slowest stage of
+    all) is held to the recorded JAX-CPU PSNR and size. The stream needs
+    `zstandard`; effort 0 (the mode-5 encoder of `ops/transcode.py`) too."""
+    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.codecs.bc7 import encode as bc7
+    from basis_universal_tpu_torch.formats.constants import BasisTexFormat
+    from basis_universal_tpu_torch.formats.constants import \
+        TranscoderTextureFormat as TF
+    from basis_universal_tpu_torch.ops import cuda_etc1s as ck
+    from basis_universal_tpu_torch.ops.etc1 import image_to_blocks
+    from basis_universal_tpu_torch.testing.checks import psnr
+
+    if not have_zstd:
+        print("XUBC7 stream: NOT RUN for want of the zstandard package (the "
+              "BC7 search it packs ran above)")
+        return
+    ck.reset_launch_counts()
+    for q, name, img in ((100, "xubc7_q100", rgb),
+                         (50, "xubc7_q50_small", small)):
+        t0 = time.time()
+        out = compressor.compress(img, compressor.CompressorParams(
+            tex_format=BasisTexFormat.XUBC7, quality_level=q, effort=2,
+            device="cuda"))
+        dt = time.time() - t0
+        dec = _decode_level0(out.basis_data, TF.RGBA32)
+        p = psnr(dec, _rgba_of(img))
+        print(f"{name}: {dt:.1f} s, {len(out.basis_data)} B .basis, "
+              f"{len(out.ktx2_data)} B .KTX2")
+        _hold_mode(name, p, len(out.basis_data), REFERENCE_MODES[name], False)
+        if q == 100:
+            px = image_to_blocks(_rgba_of(rgb)).reshape(-1, 16, 4)
+            want = bc7.encode_blocks(px, effort=2, perceptual=True,
+                                     device="cuda")
+            got = _decode_level0(out.basis_data, TF.BC7_RGBA).reshape(-1, 16)
+            if not np.array_equal(got, want):
+                raise AssertionError("lossless XUBC7 did not return the BC7 "
+                                     "blocks byte for byte")
+            print("xubc7_q100: the transcoder returns the search's BC7 blocks "
+                  "byte for byte")
+    _expect(dict(ck.LAUNCHES), {}, 1, "XUBC7")
+
+
+def _counted_compress(torch, img, label, per_image, **kw):
+    """One `compress` on the card with the launch counts read around it."""
+    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.ops import cuda_etc1s as ck
+
+    ck.reset_launch_counts()
+    t0 = time.time()
+    out = compressor.compress(img, compressor.CompressorParams(
+        device="cuda", **kw))
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(ck.LAUNCHES)
+    print(f"{label}: {dt:.1f} s, {len(out.basis_data)} B .basis, "
+          f"{len(out.ktx2_data)} B .KTX2")
+    _expect(launches, per_image, 1, label)
+    return out, launches
+
+
+def phase_astc_ldr(torch, rgb):
+    """ASTC LDR: 4x4 at 768x512 through the UASTC search on the card (one
+    fused scan and one rescore, the ETC1 hint) and 6x6 (host code); both
+    decoded by the port's transcoder and held to recorded JAX-CPU
+    values. Returns the 4x4 path's launches."""
+    from basis_universal_tpu_torch.formats.constants import BasisTexFormat
+    from basis_universal_tpu_torch.formats.constants import \
+        TranscoderTextureFormat as TF
+    from basis_universal_tpu_torch.testing.checks import psnr
+
+    out, launches = _counted_compress(
+        torch, rgb, "ASTC LDR 4x4", EXPECTED_UASTC_PER_IMAGE,
+        tex_format=BasisTexFormat.ASTC_LDR_4x4, effort=2)
+    ref = REFERENCE_MODES["astc_4x4"]
+    same = hashlib.sha256(out.basis_data).hexdigest() == ref["sha256"]
+    print(f"ASTC LDR 4x4: .basis bytes {'equal' if same else 'NOT equal'} to "
+          "the JAX-CPU reference's")
+    _hold_mode("ASTC LDR 4x4", psnr(_decode_level0(out.basis_data, TF.RGBA32),
+                                    _rgba_of(rgb)),
+               len(out.basis_data), ref, True)
+    out6, _ = _counted_compress(
+        torch, rgb, "ASTC LDR 6x6", {},
+        tex_format=BasisTexFormat.ASTC_LDR_6x6, effort=1)
+    _hold_mode("ASTC LDR 6x6", psnr(_decode_level0(out6.basis_data, TF.RGBA32),
+                                    _rgba_of(rgb)),
+               len(out6.basis_data), REFERENCE_MODES["astc_6x6"], True)
+    return launches
+
+
+def phase_xuastc(torch, rgb, small, have_zstd):
+    """XUASTC LDR at q 75: 4x4 at 768x512 through the UASTC search on the
+    card in the default full-zstd syntax (the FullArith one, which needs no
+    Zstandard, where `zstandard` is not installed); 6x6 (host code) at
+    384x256 in the FullArith syntax and, where it can, the full-zstd one;
+    decoded by the port's transcoder and held to recorded JAX-CPU values.
+    Returns the 4x4 path's launches."""
+    from basis_universal_tpu_torch.formats.constants import BasisTexFormat
+    from basis_universal_tpu_torch.formats.constants import \
+        TranscoderTextureFormat as TF
+    from basis_universal_tpu_torch.testing.checks import psnr
+
+    main_syntax = "full_zstd" if have_zstd else "arith"
+    if not have_zstd:
+        print("XUASTC LDR full_zstd syntax: NOT RUN for want of the zstandard "
+              "package (the arith syntax runs in its place)")
+    out, launches = _counted_compress(
+        torch, rgb, f"XUASTC LDR 4x4 {main_syntax}", EXPECTED_UASTC_PER_IMAGE,
+        tex_format=BasisTexFormat.XUASTC_LDR_4x4, quality_level=75,
+        effort=2, xuastc_syntax=main_syntax)
+    _hold_mode(f"XUASTC LDR 4x4 {main_syntax}",
+               psnr(_decode_level0(out.basis_data, TF.RGBA32), _rgba_of(rgb)),
+               len(out.basis_data),
+               REFERENCE_MODES["xuastc_4x4" + ("" if have_zstd else "_arith")],
+               False)
+    for syntax, suffix in (("arith", "_arith"), ("full_zstd", "")):
+        if syntax == "full_zstd" and not have_zstd:
+            continue
+        out6, _ = _counted_compress(
+            torch, small, f"XUASTC LDR 6x6 {syntax} (384x256)", {},
+            tex_format=BasisTexFormat.XUASTC_LDR_6x6, quality_level=75,
+            effort=1, xuastc_syntax=syntax)
+        _hold_mode(f"XUASTC LDR 6x6 {syntax}",
+                   psnr(_decode_level0(out6.basis_data, TF.RGBA32),
+                        _rgba_of(small)),
+                   len(out6.basis_data),
+                   REFERENCE_MODES["xuastc_6x6_small" + suffix], True)
+    return launches
+
+
+def _hdr_texture():
+    from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+
+    base = synthetic_texture(96, 144, seed=7)[0].astype(np.float32) / 255.0
+    return (base ** 2.2 * 8.0 + 0.01).astype(np.float32)
+
+
+def phase_hdr(torch):
+    """One 144x96 float texture through the three HDR modes (host code) and
+    back through the port's transcoder: the reference's bytes, decoding to
+    finite half floats of the right shape close to the source."""
+    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.formats.constants import BasisTexFormat
+    from basis_universal_tpu_torch.formats.constants import \
+        TranscoderTextureFormat as TF
+    from basis_universal_tpu_torch.ops import cuda_etc1s as ck
+    from basis_universal_tpu_torch.ops import metrics
+
+    img = _hdr_texture()
+    ck.reset_launch_counts()
+    for fmt in (BasisTexFormat.UASTC_HDR_4x4, BasisTexFormat.ASTC_HDR_6x6,
+                BasisTexFormat.UASTC_HDR_6x6_INTERMEDIATE):
+        t0 = time.time()
+        out = compressor.compress(img, compressor.CompressorParams(
+            tex_format=fmt, effort=1, device="cuda"))
+        dt = time.time() - t0
+        half = _decode_level0(out.basis_data, TF.RGBA_HALF)
+        dec = half.view(np.float16).astype(np.float32)[..., :3]
+        m = metrics.hdr_image_metrics(img, dec, device="cuda")
+        same = hashlib.sha256(out.basis_data).hexdigest() \
+            == REFERENCE_HDR[fmt.name]
+        print(f"{fmt.name}: {dt:.1f} s, {len(out.basis_data)} B .basis "
+              f"({'equal' if same else 'NOT equal'} to the JAX-CPU "
+              f"reference's), {len(out.ktx2_data)} B .KTX2, half-float PSNR "
+              f"{m['half_rgb_psnr']:.3f} dB, log2 PSNR "
+              f"{m['log2_rgb_psnr']:.3f} dB, mean Delta-E ITP "
+              f"{m['mean_delta_itp']:.3f}")
+        if dec.shape != img.shape or not np.isfinite(dec).all() \
+                or m["half_rgb_psnr"] < MIN_HDR_HALF_PSNR or not same:
+            raise AssertionError(f"{fmt.name}: decoded texture is wrong")
+    _expect(dict(ck.LAUNCHES), {}, 1, "HDR modes")
+
+
+def phase_metrics(torch, a, b):
+    """`ops/metrics.py` on the card against the CPU on one 768x512 image
+    pair (relative tolerance METRICS_RTOL; the Delta-E statistics, sums of
+    nearly cancelling float32 terms, METRICS_DE_RTOL)."""
+    from basis_universal_tpu_torch.ops import metrics
+
+    hdr = _hdr_texture()
+    hdr_b = np.abs(hdr + np.random.default_rng(3).normal(
+        0, 0.02, hdr.shape).astype(np.float32))
+    rows = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.time()
+        r = {"ssim": metrics.ssim(a, b, device=device),
+             "psnr_hvs_m": metrics.psnr_hvs_m(a, b, device=device)}
+        r.update(metrics.image_metrics(a, b, device=device))
+        r.update({"hdr_" + k: v for k, v in metrics.hdr_image_metrics(
+            hdr, hdr_b, device=device).items()})
+        rows[device] = r
+        print(f"metrics on {device} ({1e3 * (time.time() - t0):.1f} ms): {r}")
+    for k, want in rows["cpu"].items():
+        tol = METRICS_DE_RTOL if "delta_itp" in k else METRICS_RTOL
+        if abs(rows["cuda"][k] - want) > tol * abs(want):
+            raise AssertionError(f"metrics: {k} {rows['cuda'][k]} on the card,"
+                                 f" {want} on the CPU")
+
+
 def _other_port(tree):
     """The port package of another checkout of the repo, imported as
     `_other_port` (its kernels build into that checkout's own build/)."""
@@ -867,7 +1227,7 @@ def phase_profile_uastc(torch, out_dir, n_images=16):
 def main():
     import torch
 
-    card = phase_env(torch)
+    card, have_zstd = phase_env(torch)
     from basis_universal_tpu_torch import compressor
     from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
 
@@ -892,6 +1252,17 @@ def main():
     paths["transcoder"] = phase_transcoder(torch, uastc0)
     phase_determinism(torch, images[0])
     phase_cuda_vs_cpu(torch)
+    small = synthetic_texture(HEIGHT // 2, WIDTH // 2, seed=0)[0]
+    phase_bc7(torch, images[0], rgba)
+    phase_xubc7(torch, images[0], small, have_zstd)
+    paths["astc_ldr_4x4"] = phase_astc_ldr(torch, images[0])
+    paths["xuastc_ldr_4x4"] = phase_xuastc(torch, images[0], small, have_zstd)
+    phase_hdr(torch)
+    from basis_universal_tpu_torch.formats.constants import \
+        TranscoderTextureFormat as TF
+
+    phase_metrics(torch, _rgba_of(images[0]),
+                  _decode_level0(uastc0.basis_data, TF.RGBA32))
     if "--ab" in sys.argv:
         phase_ab(torch, blocks, sys.argv[sys.argv.index("--ab") + 1])
     if "--profile" in sys.argv:

@@ -345,3 +345,114 @@ def test_uastc_compress_on_card(cuda):
         again = compressor.compress(img, compressor.CompressorParams(
             device="cuda", **kw))
         assert again.basis_data == out.basis_data
+
+
+def _bc7_blocks_with_ties(n=512, seed=9):
+    """(n, 16, 4) uint8: gradients with noise, then blocks that plant ties:
+    solid colours (every palette level and partition ties), two-colour
+    blocks (whole-numbered endpoints, on the 7+1-bit rounding ties), and
+    opaque and translucent halves."""
+    rng = np.random.default_rng(seed)
+    px = np.clip(rng.integers(0, 256, (n, 1, 4))
+                 + rng.integers(-24, 25, (n, 16, 4)), 0, 255)
+    q = n // 4
+    px[:q] = rng.integers(0, 256, (q, 1, 4))
+    two = rng.integers(0, 256, (q, 2, 4))
+    pick = rng.integers(0, 2, (q, 16))
+    px[q:2 * q] = two[np.arange(q)[:, None], pick]
+    px[::2, :, 3] = 255
+    return px.astype(np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("perceptual", [False, True])
+@pytest.mark.parametrize("effort,modes", [(1, None), (2, None), (2, (5, 6)),
+                                          (2, (3,)), (2, (1, 7))])
+def test_bc7_search_on_card_equals_cpu_at_planted_ties(cuda, effort, modes,
+                                                       perceptual):
+    """Every sum of the search is spelled out operator by operator, so the
+    card and the CPU give the same blocks, ties (first minimum) included;
+    the search launches none of the hand-written kernels."""
+    from basis_universal_tpu_torch.codecs.bc7 import encode as bc7
+
+    px = _bc7_blocks_with_ties()
+    kw = dict(effort=effort, modes=modes, perceptual=perceptual)
+    card = bc7.encode_blocks(px, device="cuda", **kw)
+    np.testing.assert_array_equal(card, bc7.encode_blocks(px, device="cpu",
+                                                          **kw))
+    np.testing.assert_array_equal(card, bc7.encode_blocks(px, device="cuda",
+                                                          **kw))
+    assert not any(ck.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_argmin_takes_the_first_minimum_on_card(cuda):
+    x = torch.zeros((1000, 64, 16), device=cuda)
+    assert int(torch.argmin(x, dim=-1).max()) == 0
+    assert int(torch.argmin(x.sum(-1), dim=1).max()) == 0
+    x[:, :, 5:] = -1.0
+    assert bool((torch.argmin(x, dim=-1) == 5).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt_name,kw", [
+    ("ASTC_LDR_4x4", {}), ("XUASTC_LDR_4x4", dict(xuastc_syntax="arith")),
+    ("ASTC_LDR_6x6", {}), ("XUASTC_LDR_6x6", dict(xuastc_syntax="arith")),
+    ("UASTC_HDR_4x4", {})])
+def test_new_modes_on_card_launch_counts_and_bytes(cuda, fmt_name, kw):
+    """Per image level the 4x4 ASTC paths launch one fused scan (radius 0)
+    and one rescore (K 8), the UASTC search's ETC1 hint; the other modes
+    launch no kernel. The files equal the CPU's, twice."""
+    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.formats.constants import BasisTexFormat
+    from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+
+    fmt = BasisTexFormat[fmt_name]
+    if "HDR" in fmt_name:
+        img = np.random.default_rng(2).uniform(0, 4, (40, 48, 3)).astype(
+            np.float32)
+    else:
+        img = synthetic_texture(40, 48, seed=3, alpha=True)[0]
+    params = dict(tex_format=fmt, effort=1, mip_gen=True,
+                  mip_smallest_dimension=16, **kw)
+    out = compressor.compress(img, compressor.CompressorParams(
+        device="cuda", **params))
+    levels = 3                                          # 40x48 .. 10x12
+    want = levels if fmt_name.endswith("LDR_4x4") else 0
+    assert ck.LAUNCHES["factorized_scan_shortlist"] == want
+    assert ck.LAUNCHES["palette_errs_packed"] == want
+    assert ck.LAUNCHES["factorized_scan"] == 0
+    assert ck.LAUNCHES["find_best_selector_patterns"] == 0
+    again = compressor.compress(img, compressor.CompressorParams(
+        device="cuda", **params))
+    assert out.basis_data == again.basis_data
+    cpu = compressor.compress(img, compressor.CompressorParams(
+        device="cpu", **params))
+    if want == 0:
+        assert out.basis_data == cpu.basis_data
+    else:
+        # the hint's scan rounds differently in the kernel and its plain
+        # version: a block may take another ETC1 hint at a tie
+        assert len(out.basis_data) == len(cpu.basis_data) \
+            or "XUASTC" in fmt_name
+
+
+@pytest.mark.cuda
+def test_metrics_on_card_match_cpu(cuda):
+    from basis_universal_tpu_torch.ops import metrics
+
+    rng = np.random.default_rng(4)
+    a = rng.integers(0, 256, (96, 80, 4), dtype=np.uint8)
+    b = np.clip(a.astype(np.int32) + rng.integers(-9, 10, a.shape), 0,
+                255).astype(np.uint8)
+    for fn in (metrics.psnr, metrics.ssim, metrics.psnr_hvs_m):
+        assert fn(a, b, device="cuda") == pytest.approx(
+            fn(a, b, device="cpu"), rel=1e-4)
+    card, cpu = (metrics.image_metrics(a, b, device=d)
+                 for d in ("cuda", "cpu"))
+    assert card == pytest.approx(cpu, rel=1e-4)
+    ha = rng.uniform(0, 60, (48, 40, 3)).astype(np.float32)
+    hb = np.abs(ha + rng.normal(0, 0.4, ha.shape).astype(np.float32))
+    card, cpu = (metrics.hdr_image_metrics(ha, hb, device=d)
+                 for d in ("cuda", "cpu"))
+    assert card == pytest.approx(cpu, rel=1e-2)

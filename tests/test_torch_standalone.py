@@ -6,6 +6,7 @@ reference's member for member, and its native host library builds inside
 the repository."""
 
 import ast
+import difflib
 import enum
 import pathlib
 
@@ -20,9 +21,13 @@ PORT = REPO / "basis_universal_tpu_torch"
 REF = "basis_universal_tpu"
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 # copies that differ from the reference beyond their first docstring line:
-# the native loader builds into the repository's build/ tree, and the
-# transcoder's re-encodes run on the port's device
-EDITED_COPIES = {"native.py", "transcoder.py"}
+# the native loader builds into the repository's build/ tree, the
+# transcoder's re-encodes run on the port's device, and the XUASTC encoder
+# hands `device` to the UASTC search of its 4x4 plan (and imports zstandard
+# only after the FullArith syntax, which needs none, has returned, as the
+# XUASTC decoder imports it only for a hybrid stream)
+EDITED_COPIES = {"native.py", "transcoder.py", "codecs/astc/xuastc_encode.py",
+                 "codecs/astc/xuastc_ldr.py"}
 
 
 def _copies():
@@ -102,11 +107,29 @@ def test_every_host_module_of_the_closure_is_copied():
                 "codecs/astc/xuastc_ldr.py", "codecs/astc/xuastc_dct.py",
                 "codecs/astc/xuastc_cems.py", "codecs/astc/xuastc_tables.py",
                 "codecs/bc7/logical.py", "codecs/bc7/xbc7_decode.py",
+                "codecs/bc7/xbc7_encode.py", "codecs/astc/refine.py",
+                "codecs/astc/scd.py", "codecs/astc/ldr_encode.py",
+                "codecs/astc/xuastc_arith_encode.py",
+                "codecs/astc/xuastc_encode.py",
                 "native.py", "transcoder.py"):
         assert rel in copied, rel
     for npz in ("codecs/astc/xuastc_cfgs.npz", "codecs/astc/xuastc_idct.npz",
                 "codecs/bc7/bc7_tables.npz"):
         assert (PORT / npz).read_bytes() == (REPO / REF / npz).read_bytes()
+
+
+def test_the_xuastc_encoder_copy_is_edited_only_to_thread_the_device():
+    rel = "codecs/astc/xuastc_encode.py"
+    mine = (PORT / rel).read_text().split("\n", 2)[2].splitlines()
+    theirs = (REPO / REF / rel).read_text().splitlines()
+    theirs[0] = theirs[0][3:]                           # the opening quotes
+    diff = [line for line in difflib.ndiff(theirs, mine)
+            if line[:2] in ("- ", "+ ")]
+    added = [line[2:] for line in diff if line[0] == "+"]
+    assert 0 < len(diff) <= 16, diff
+    assert all("device" in line or "zstandard" in line or "LogBlocks" in line
+               or "_plan_4x4" in line
+               or not line.strip() for line in added), added
 
 
 _ENUMS = [name for name, obj in vars(constants).items()
