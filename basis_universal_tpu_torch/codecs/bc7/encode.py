@@ -51,6 +51,8 @@ import numpy as np
 import torch
 
 from ...ops.etc1s_encode import exact_matmuls
+from ...ops.xla_order import (_dot, _dot_mm, _dot_vec16, _fma, _sqrt, _sum,
+                              _sum_tree16)
 from ..etc1s.frontend import resolve_device
 from . import logical as L
 
@@ -73,78 +75,6 @@ def _device_tables(device: str):
     weights4) as int64 tensors on `device`."""
     return tuple(torch.as_tensor(t.astype(np.int64), device=device)
                  for t in (_PARTITION2, _PARTITION3, _W2, _W3, _W4))
-
-
-def _sum(x, dim: int):
-    """Sum over a short axis, added in index order."""
-    parts = x.unbind(dim)
-    acc = parts[0]
-    for p in parts[1:]:
-        acc = acc + p
-    return acc
-
-
-def _fma(a, b, c):
-    """a * b + c rounded once (a fused multiply-add), through float64: the
-    product of two float32 is exact there."""
-    a, b, c = (x.double() if isinstance(x, torch.Tensor) else x
-               for x in (a, b, c))          # a Python float is a double
-    return (a * b + c).float()
-
-
-def _sqrt(x):
-    """Correctly rounded float32 square root on either device (a CPU
-    build's vectorized float32 sqrt is not always the nearest float)."""
-    return x.double().sqrt().float()
-
-
-def _dot(a, b, dim: int = -1):
-    """Sum over a short axis of a * b as a chain of fused multiply-adds in
-    index order."""
-    pa, pb = torch.broadcast_tensors(a, b)
-    pa, pb = pa.unbind(dim), pb.unbind(dim)
-    acc = pa[0] * pb[0]
-    for x, y in zip(pa[1:], pb[1:]):
-        acc = _fma(x, y, acc)
-    return acc
-
-
-def _dot_mm(a, b, dim: int = -1):
-    """Sum over a short axis of a * b in the order of a blocked matrix
-    product: four accumulators take every fourth term as fused
-    multiply-adds and are added pairwise at the end; fewer than four terms
-    are one chain."""
-    pa, pb = torch.broadcast_tensors(a, b)
-    pa, pb = pa.unbind(dim), pb.unbind(dim)
-    if len(pa) < 4:
-        return _dot(a, b, dim)
-    acc = [pa[i] * pb[i] for i in range(4)]
-    for k in range(4, len(pa)):
-        acc[k % 4] = _fma(pa[k], pb[k], acc[k % 4])
-    return (acc[0] + acc[1]) + (acc[2] + acc[3])
-
-
-def _dot_vec16(a, b, dim: int = -1):
-    """Sum over a 16-long axis of a * b in the order of the reference's
-    vector-vector product (one channel): the first eight products are
-    rounded and added in turn, the last eight are fused multiply-adds."""
-    pa, pb = torch.broadcast_tensors(a, b)
-    pa, pb = pa.unbind(dim), pb.unbind(dim)
-    acc = pa[0] * pb[0]
-    for k in range(1, 8):
-        acc = acc + pa[k] * pb[k]
-    for k in range(8, 16):
-        acc = _fma(pa[k], pb[k], acc)
-    return acc
-
-
-def _sum_tree16(x):
-    """Sum over a last axis of 16 in the order of an 8-lane vector loop:
-    the two halves added lane by lane, then the lanes pairwise (4, 2, 1)."""
-    q = x[..., :8] + x[..., 8:]
-    h = q[..., :4] + q[..., 4:]
-    g = h[..., :2] + h[..., 2:]
-    return g[..., 0] + g[..., 1]
 
 
 def _shared_pixels(px, mask):

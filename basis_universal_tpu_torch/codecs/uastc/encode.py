@@ -20,6 +20,18 @@ Equivalences with the reference kept on purpose:
   pixels nearly equidistant from two centres are common there, and a
   centre one ulp away moves them to the other side;
 - argmins take the first minimum, as in JAX;
+- no reduction whose result can round is left to a library call (their
+  summation orders differ between the CPU and the card): the covariances,
+  power iterations, projections and least-squares moments are fused
+  multiply-add chains in index order (`xla_order._dot`), norms and the
+  sums of non-integer errors add in index order (`_sum`), square roots are
+  correctly rounded (`_sqrt`); sums of whole numbers are exact in any order
+  and stay library reductions. So the card gives the CPU's bits;
+- the products XLA's compiled search fuses into their sums are fused here
+  too (`_fma`: the endpoints on the principal axis, `_rec16_fused` for
+  unquantized endpoints, `_ls_endpoints`), so the CPU gives the blocks of
+  the reference as `compressor.compress` runs it, jitted (its eager,
+  op-by-op run rounds otherwise);
 - the ETC1 transcode hint is the port's ETC1S `encode_blocks` at radius 0
   (the hand-written `factorized_scan` and `palette_errs_packed` kernels);
 - the search runs inside `exact_matmuls()` (no TF32).
@@ -33,6 +45,7 @@ import torch
 
 from ...ops import etc1s_encode as etc1s_ops
 from ...ops.cuda_etc1s import THIRD
+from ...ops.xla_order import _dot, _fma, _sqrt, _sum
 from ..etc1s.frontend import resolve_device
 from . import pack
 from . import tables as T
@@ -45,6 +58,28 @@ def _rec16(acc):
     decoder's ((lo*257)*(64-w) + (hi*257)*w + 32) >> 6 >> 8, exact in
     float32 written this way (acc*257 <= 2^22)."""
     return torch.floor((acc * 257.0 + 32.0) * (1.0 / 16384.0))
+
+
+def _rec16_fused(lo, hi, levels):
+    """`_rec16` of lo*(64-w) + hi*w for float (unquantized) endpoints, with
+    the two fused multiply-adds XLA's CPU code makes of it: acc =
+    fma(64-w, lo, hi*w), then fma(acc, 257, 32)."""
+    acc = _fma(64.0 - levels, lo, hi * levels)
+    return torch.floor(_fma(acc, 257.0, 32.0) * (1.0 / 16384.0))
+
+
+def _ls_endpoints(A, Bm, C, P, Q, lo, hi):
+    """The least-squares endpoints of weights with moments A = sum a^2,
+    Bm = sum ab, C = sum b^2, P = sum a v, Q = sum b v (lo, hi where the
+    system is singular), rounded as XLA's CPU code rounds the reference's
+    (each difference of products a fused multiply-add)."""
+    det = _fma(A, C, -(Bm * Bm))
+    ok = det.abs() > 1e-6
+    dd = torch.where(ok, det, 1.0)[:, None]
+    c, bm, a = C[:, None], Bm[:, None], A[:, None]
+    lo_n = torch.where(ok[:, None], _fma(c, P, -(bm * Q)) / dd, lo)
+    hi_n = torch.where(ok[:, None], _fma(a, Q, -(bm * P)) / dd, hi)
+    return lo_n, hi_n
 
 
 def _mean3(x):
@@ -61,7 +96,19 @@ def _sum16(x):
 
 
 def _norm(d):
-    return torch.sqrt((d * d).sum(-1, keepdim=True))
+    return _sqrt(_sum(d * d, -1))[:, None]
+
+
+def _principal_axis(c, iters: int):
+    """Power iteration on the covariance of the centred pixels c (B,16,C):
+    (B, C) unit axis, and the projections (B,16) of c on it."""
+    cov = _dot(c[:, :, :, None], c[:, :, None, :], 1)           # (B,C,C)
+    axis = torch.ones((c.shape[0], c.shape[2]), dtype=torch.float32,
+                      device=c.device)
+    for _ in range(iters):
+        axis = _dot(cov, axis[:, None, :])
+        axis = axis / (_norm(axis) + 1e-6)
+    return axis, _dot(c, axis[:, None, :])
 
 
 def _weight_levels(wb: int) -> np.ndarray:
@@ -126,16 +173,11 @@ def _mode_trial(px, wb: int, ep_range: int, comps: int, ls_iters: int):
     v = _la(px) if comps == 2 else px[..., :comps]
 
     # principal axis by power iteration on the covariance
-    mean = v.mean(1, keepdim=True)
+    mean = _sum(v, 1)[:, None] / 16.0
     c = v - mean
-    cov = torch.einsum("bif,big->bfg", c, c)
-    axis = torch.ones((b, comps), dtype=torch.float32, device=px.device)
-    for _ in range(6):
-        axis = torch.einsum("bfg,bg->bf", cov, axis)
-        axis = axis / (_norm(axis) + 1e-6)
-    proj = torch.einsum("bif,bf->bi", c, axis)                 # (B,16)
-    lo_f = mean[:, 0] + axis * proj.amin(1, keepdim=True)
-    hi_f = mean[:, 0] + axis * proj.amax(1, keepdim=True)
+    axis, proj = _principal_axis(c, 6)                         # (B,C), (B,16)
+    lo_f = _fma(axis, proj.amin(1, keepdim=True), mean[:, 0])
+    hi_f = _fma(axis, proj.amax(1, keepdim=True), mean[:, 0])
 
     def quant_pair(lo_f, hi_f):
         lo_c, hi_c = _quant(inv, lo_f), _quant(inv, hi_f)
@@ -146,8 +188,8 @@ def _mode_trial(px, wb: int, ep_range: int, comps: int, ls_iters: int):
         rec = _rec16(lo_u[:, None, :] * (64.0 - wlev)[None, :, None]
                      + hi_u[:, None, :] * wlev[None, :, None])
         d = v[:, :, None, :] - rec[:, None, :, :]               # (B,16,L,C)
-        e = (d * d).sum(-1)
-        return torch.argmin(e, -1), e.amin(-1).sum(-1)
+        e = _sum(d * d, -1)
+        return torch.argmin(e, -1), _sum(e.amin(-1), -1)
 
     lo_c, hi_c, lo_u, hi_u = quant_pair(lo_f, hi_f)
     w, err = best_weights(lo_u, hi_u)
@@ -159,15 +201,9 @@ def _mode_trial(px, wb: int, ep_range: int, comps: int, ls_iters: int):
         A = (a_k * a_k).sum(1)
         Bm = (a_k * b_k).sum(1)
         C = (b_k * b_k).sum(1)
-        P = torch.einsum("bi,bic->bc", a_k, v)
-        Q = torch.einsum("bi,bic->bc", b_k, v)
-        det = A * C - Bm * Bm
-        ok = det.abs() > 1e-6
-        dd = torch.where(ok, det, 1.0)[:, None]
-        lo_n = torch.where(ok[:, None], (C[:, None] * P - Bm[:, None] * Q) / dd,
-                           lo_f)
-        hi_n = torch.where(ok[:, None], (A[:, None] * Q - Bm[:, None] * P) / dd,
-                           hi_f)
+        P = _dot(a_k[..., None], v, 1)
+        Q = _dot(b_k[..., None], v, 1)
+        lo_n, hi_n = _ls_endpoints(A, Bm, C, P, Q, lo_f, hi_f)
         lo_c2, hi_c2, lo_u2, hi_u2 = quant_pair(torch.clamp(lo_n, 0, 255),
                                                 torch.clamp(hi_n, 0, 255))
         w2, err2 = best_weights(lo_u2, hi_u2)
@@ -206,26 +242,20 @@ def _fit_line_masked(v, mask, levels, ls_iters: int):
     Returns (lo (B,C), hi (B,C), w (B,16) level idx, err (B,) masked SSE).
     """
     cnt = torch.clamp(mask.sum(1, keepdim=True), min=1.0)
-    mean = (v * mask[..., None]).sum(1, keepdim=True) / cnt[..., None]
+    mean = _sum(v * mask[..., None], 1)[:, None] / cnt[..., None]
     c = (v - mean) * mask[..., None]
-    cov = torch.einsum("bif,big->bfg", c, c)
-    d = torch.ones((v.shape[0], v.shape[2]), dtype=torch.float32,
-                   device=v.device)
-    for _ in range(4):
-        d = torch.einsum("bfg,bg->bf", cov, d)
-        d = d / (_norm(d) + 1e-6)
-    proj = torch.einsum("bif,bf->bi", c, d)
+    d, proj = _principal_axis(c, 4)
     inside = mask > 0
     pmin = torch.where(inside, proj, 1e9).amin(1, keepdim=True)
     pmax = torch.where(inside, proj, -1e9).amax(1, keepdim=True)
-    lo = torch.clamp(mean[:, 0] + d * pmin, 0, 255)
-    hi = torch.clamp(mean[:, 0] + d * pmax, 0, 255)
+    lo = torch.clamp(_fma(d, pmin, mean[:, 0]), 0, 255)
+    hi = torch.clamp(_fma(d, pmax, mean[:, 0]), 0, 255)
 
     def weights_for(lo, hi):
-        rec = _rec16(lo[:, None, :] * (64.0 - levels)[None, :, None]
-                     + hi[:, None, :] * levels[None, :, None])
-        e = ((v[:, :, None, :] - rec[:, None, :, :]) ** 2).sum(-1)
-        return torch.argmin(e, -1), (e.amin(-1) * mask).sum(-1)
+        rec = _rec16_fused(lo[:, None, :], hi[:, None, :],
+                           levels[None, :, None])
+        e = _sum((v[:, :, None, :] - rec[:, None, :, :]) ** 2, -1)
+        return torch.argmin(e, -1), _sum(e.amin(-1) * mask, -1)
 
     w, err = weights_for(lo, hi)
     for _ in range(ls_iters):
@@ -234,15 +264,10 @@ def _fit_line_masked(v, mask, levels, ls_iters: int):
         A = (a_k * a_k).sum(1)
         Bm = (a_k * b_k).sum(1)
         C = (b_k * b_k).sum(1)
-        P = torch.einsum("bi,bic->bc", a_k, v)
-        Q = torch.einsum("bi,bic->bc", b_k, v)
-        det = A * C - Bm * Bm
-        ok = det.abs() > 1e-6
-        dd = torch.where(ok, det, 1.0)[:, None]
-        lo2 = torch.clamp(torch.where(
-            ok[:, None], (C[:, None] * P - Bm[:, None] * Q) / dd, lo), 0, 255)
-        hi2 = torch.clamp(torch.where(
-            ok[:, None], (A[:, None] * Q - Bm[:, None] * P) / dd, hi), 0, 255)
+        P = _dot(a_k[..., None], v, 1)
+        Q = _dot(b_k[..., None], v, 1)
+        lo2, hi2 = (torch.clamp(x, 0, 255)
+                    for x in _ls_endpoints(A, Bm, C, P, Q, lo, hi))
         w2, err2 = weights_for(lo2, hi2)
         better = err2 < err
         lo = torch.where(better[:, None], lo2, lo)
@@ -257,8 +282,8 @@ def _subset_rec_err(v, lo_px, hi_px, wlev):
     (w (B,16), err (B,))."""
     rec = _rec16(lo_px[:, :, None, :] * (64.0 - wlev)[None, None, :, None]
                  + hi_px[:, :, None, :] * wlev[None, None, :, None])
-    e_all = ((v[:, :, None, :] - rec) ** 2).sum(-1)             # (B,16,L)
-    return torch.argmin(e_all, -1), e_all.amin(-1).sum(-1)
+    e_all = _sum((v[:, :, None, :] - rec) ** 2, -1)             # (B,16,L)
+    return torch.argmin(e_all, -1), _sum(e_all.amin(-1), -1)
 
 
 def _mode_trial_2subset(px, wb: int, ep_range: int, comps: int,
@@ -337,7 +362,8 @@ def _mode_trial_2subset(px, wb: int, ep_range: int, comps: int,
 
         d_rgb = px[..., :3] - ch(0, 1)[..., None]
         d_a = px[..., 3] - ch(2, 3)
-        best_err = (d_rgb * d_rgb).sum((1, 2)) + (d_a * d_a).sum(1)
+        best_err = (_sum((d_rgb * d_rgb).reshape(b, 48), -1)
+                    + _sum(d_a * d_a, -1))
     return (best_err, best_eps.to(torch.int32), best_w.to(torch.int32),
             best_p.to(torch.int32))
 
@@ -357,7 +383,7 @@ def _mode_trial_3subset(px, ls_iters: int):
     pats = _patterns(3, False, str(dev))                         # (11,16)
 
     luma = _mean3(v)                                             # (B,16)
-    c = torch.stack([luma.amin(1), luma.sum(1) / 16.0, luma.amax(1)], -1)
+    c = torch.stack([luma.amin(1), _sum(luma, 1) / 16.0, luma.amax(1)], -1)
     for _ in range(3):
         lab = torch.argmin((luma[..., None] - c[:, None, :]).abs(), -1)
         one = torch.nn.functional.one_hot(lab, 3).float()         # (B,16,3)

@@ -1,9 +1,11 @@
 // Hand-written Hopper (sm_90a) kernels of the ETC1S encoder.
 //
-// Each kernel replaces one Pallas kernel of basis_universal_tpu/ops/
-// pallas_etc1s.py (all four are here) and computes the same function with
-// the same float32 operation order per element; the plain PyTorch versions
-// live beside the wrappers in basis_universal_tpu_torch/ops/cuda_etc1s.py.
+// Each scan, rescore and selector kernel replaces one Pallas kernel of
+// basis_universal_tpu/ops/pallas_etc1s.py (all four are here); the cross6
+// kernels replace the frontend's two XLA matrix products whose rounding
+// decides its codebooks, and bisect_axis its XLA power iteration. Each computes the same function with the same
+// float32 operation order per element; the plain PyTorch versions live
+// beside the wrappers in basis_universal_tpu_torch/ops/cuda_etc1s.py.
 //
 // Every launcher takes raw device pointers, sizes and a cudaStream_t (the
 // caller's current PyTorch stream), launches asynchronously, allocates and
@@ -97,14 +99,17 @@ __device__ __forceinline__ float expand5f(float c5) {
 //
 // Replaces _fscan_kernel / factorized_scan of basis_universal_tpu/ops/
 // pallas_etc1s.py:249 / :343. The full variant writes the (B, D*8) float32
-// errors, row-major, so the segment sum of optimize_cluster_endpoints
-// gathers whole rows; the shortlist variant writes only the (B, k) int64
+// gray-axis sums sum_i min_k (t_k - u_i)^2 of each column, row-major, which
+// optimize_cluster_endpoints segment-sums to clusters (whole rows) before it
+// adds each cluster's constant part, as the reference's formulation of the
+// cluster scan does; the shortlist variant writes only the (B, k) int64
 // columns of the k smallest errors per block (ascending, equal errors by
 // ascending column: the order of lax.top_k and of a stable sort), so the
 // errors never reach device memory and no sort runs after the scan.
 //
 // Bound at the main path's shape (B 24,576, D 27): the full variant moves
-// 4.7 MB in and 21.2 MB out (7.7 us at 3.35 TB/s); the shortlist variant
+// 5.0 MB in (pixels and bases) and 21.2 MB out (7.8 us at 3.35 TB/s); the
+// shortlist variant
 // 4.7 MB in and 3.1 MB out (2.3 us). Both do B*D*8*16 = 85 M (pixel, table)
 // steps of a compare, a select, a subtract and a multiply-add (~0.01 ms of
 // issue over 132 SMs x 128 lanes), so both are bound by that arithmetic, not
@@ -121,6 +126,14 @@ __device__ __forceinline__ float expand5f(float c5) {
 //   (s - |u|)^2 with s = |u| > m ? a : b: the same square as the three
 //   threshold compares give, bit for bit (negation is exact; at u = 0 both
 //   give b^2; at u = -m, (a - m)^2 = (m - b)^2 exactly).
+// - The rounding is XLA's CPU code's for the reference's scan, read from
+//   its LLVM IR and spelled out with __fmaf_rn / __fmul_rn / __fadd_rn:
+//   su2 and q - su2/3 as fused multiply-adds, the 16 squares summed as its
+//   8-lane vector loop sums them (lane j = fma(d_{j+8}, d_{j+8}, d_j^2),
+//   then lanes pairwise 4, 2, 1) and err = fma(sum, 3, q - su2/3). With
+//   whole-numbered pixels the moments are exact, so every column is the
+//   reference's, and equal errors (exact ties) order as its top_k orders
+//   them.
 // - D = 27 and 125: a warp owns a block and lane l owns deltas l, l + 32,
 //   ...; the full variant's lanes store their 8 errors as two float4, so a
 //   warp writes one contiguous row. D = 1: a thread owns a block (tile 128).
@@ -210,10 +223,12 @@ __device__ __forceinline__ ScanMoments block_moments(
   return m;
 }
 
-// The 8 errors (one per intensity table) of one block against one delta:
-// the one device function behind both scan variants, so they agree bit for
+// The 8 errors (one per intensity table) of one block against one delta,
+// or with kMinterm their gray-axis sums alone (the full variant: the
+// column's fma(sum, 3, constant) is then assembled per cluster): the one
+// device function behind both scan variants, so their sums agree bit for
 // bit per column.
-template <bool kPerceptual>
+template <bool kPerceptual, bool kMinterm>
 __device__ __forceinline__ void scan_delta(const ScanMoments& m,
                                            const float (&luma)[16], int dr,
                                            int dg, int db, float (&err)[8]) {
@@ -233,26 +248,37 @@ __device__ __forceinline__ void scan_delta(const ScanMoments& m,
   }
   const float q = m.sum_x2 - 2.f * (e0 * m.s0 + e1 * m.s1 + e2 * m.s2) +
                   16.f * (e0 * e0 + e1 * e1 + e2 * e2);
-  const float su2 = m.sum_l2 - 2.f * lb * m.sum_l + 16.f * lb * lb;
-  const float cst = q - su2 * THIRD;
+  // the assembly rounded as XLA's CPU code rounds the reference's scan,
+  // each fused multiply-add and sum spelled out
+  const float su2 =
+      __fmaf_rn(lb, 16.f * lb, __fmaf_rn(-2.f * lb, m.sum_l, m.sum_l2));
+  const float cst = __fmaf_rn(-su2, THIRD, q);
 
-  float acc[8];
+  // u rounded before the subtraction, as the three-compare form computed
+  // it: |t_k - u| = s - |u| exactly, so the squares are the same bits
+  float a[16];
 #pragma unroll
-  for (int t = 0; t < 8; ++t) acc[t] = 0.f;
+  for (int i = 0; i < 16; ++i) a[i] = fabsf(__fmul_rn(luma[i] - lb, THIRD));
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    // u rounded before the subtraction, as the three-compare form computed
-    // it: |t_k - u| = s - |u| exactly, so the squares are the same bits
-    const float a = fabsf(__fmul_rn(luma[i] - lb, THIRD));
+  for (int t = 0; t < 8; ++t) {
+    // the 16 squares in the order of XLA's 8-lane vector loop: lane j is
+    // fma(d_{j+8}, d_{j+8}, d_j^2), then the lanes pairwise (4, 2, 1)
+    float lane[8];
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const float s = a > kMids[t][2] ? kTabs[t][3] : kTabs[t][2];
-      const float dv = __fsub_rn(s, a);
-      acc[t] = acc[t] + dv * dv;
+    for (int j = 0; j < 8; ++j) {
+      const float s0 = a[j] > kMids[t][2] ? kTabs[t][3] : kTabs[t][2];
+      const float s8 = a[j + 8] > kMids[t][2] ? kTabs[t][3] : kTabs[t][2];
+      const float d0 = __fsub_rn(s0, a[j]);
+      const float d8 = __fsub_rn(s8, a[j + 8]);
+      lane[j] = __fmaf_rn(d8, d8, __fmul_rn(d0, d0));
     }
+    const float h0 = __fadd_rn(lane[0], lane[4]);
+    const float h1 = __fadd_rn(lane[1], lane[5]);
+    const float h2 = __fadd_rn(lane[2], lane[6]);
+    const float h3 = __fadd_rn(lane[3], lane[7]);
+    const float mt = __fadd_rn(__fadd_rn(h0, h2), __fadd_rn(h1, h3));
+    err[t] = kMinterm ? mt : __fmaf_rn(mt, 3.f, cst);
   }
-#pragma unroll
-  for (int t = 0; t < 8; ++t) err[t] = cst + 3.f * acc[t];
 }
 
 // An integer key that orders as the float does: -0.0 as +0.0, NaN after
@@ -390,7 +416,7 @@ fscan_kernel(const float* __restrict__ pixels,
 #pragma unroll
     for (int i = 0; i < 16; ++i) luma[i] = luma_s[i][j];
     float e[8];
-    scan_delta<kPerceptual>(mom_s[j], luma, 0, 0, 0, e);
+    scan_delta<kPerceptual, !kShortlist>(mom_s[j], luma, 0, 0, 0, e);
     const size_t b = (size_t)(b0 + j);
     if constexpr (!kShortlist) {
       float4* o = reinterpret_cast<float4*>(err_out + b * 8);
@@ -442,7 +468,8 @@ fscan_kernel(const float* __restrict__ pixels,
       for (int t = 0; t < 8; ++t) key[m][t] = 0x7fffffff;
       if (d < kD) {
         float e[8];
-        scan_delta<kPerceptual>(mom, luma, dr[m], dg[m], db[m], e);
+        scan_delta<kPerceptual, !kShortlist>(mom, luma, dr[m], dg[m], db[m],
+                                             e);
         if constexpr (!kShortlist) {
           float4* o = reinterpret_cast<float4*>(err_out + (b * kD + d) * 8);
           o[0] = make_float4(e[0], e[1], e[2], e[3]);
@@ -817,15 +844,184 @@ int launch_fscan_radius(const float* pixels, const float* base5, float* err,
                         int64_t* idx, int n_blocks, int radius,
                         int perceptual, int k, cudaStream_t s) {
   if (radius == 0)
-    return launch_fscan<1, kShortlist>(pixels, base5, err, idx,
-                                               n_blocks, perceptual, k, s);
+    return launch_fscan<1, kShortlist>(pixels, base5, err, idx, n_blocks,
+                                        perceptual, k, s);
   if (radius == 1)
-    return launch_fscan<27, kShortlist>(pixels, base5, err, idx,
-                                                n_blocks, perceptual, k, s);
+    return launch_fscan<27, kShortlist>(pixels, base5, err, idx, n_blocks,
+                                        perceptual, k, s);
   if (radius == 2)
-    return launch_fscan<125, kShortlist>(pixels, base5, err, idx,
-                                                 n_blocks, perceptual, k, s);
+    return launch_fscan<125, kShortlist>(pixels, base5, err, idx, n_blocks,
+                                        perceptual, k, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// cross6_argmin and cross6_distances: the 6-D codebook distances of the
+// frontend's k-means assignment and of the refine's shortlist,
+//     d[n, j] = (r[n] - 2 * x[n, j]) + q[j],   x[n, j] = sum_k a[n,k] c[j,k],
+// with r = 0 for the k-means form q[j] - 2 x[n, j] (the same bits: 0 - 2x is
+// exactly -2x, and -2x + q rounds as q - 2x). cross6_argmin returns each
+// row's first index of least d (the order of torch.argmin and jnp.argmin);
+// cross6_distances writes the (N, C) float32 matrix, row-major, which the
+// refine's stable sort shortlists.
+//
+// These replace no Pallas kernel: in the reference they are XLA's matrix
+// products (basis_universal_tpu/ops/etc1s_encode.py:357, the k-means
+// dot_general, and :452, the refine's blk_vec6 @ cb_vec6.T), whose CPU
+// rounding decides the assignment and the shortlist, hence the codebook
+// bytes. x is summed as XLA's CPU dot sums a 6-long contraction for C
+// columns: two fused multiply-add chains over the even and the odd terms,
+// added at the end, where C mod 64 is 1..32; one chain in index order
+// otherwise (measured on an AVX-512 x86 host, `ops/xla_order._cross6`, which
+// is this kernel's plain version and holds the rule's test). Every rounding
+// is spelled out (__fmul_rn, __fmaf_rn, __fadd_rn, __fsub_rn), so the card
+// gives the plain version's bits.
+//
+// Bound at the main path's shape (N 24,576 blocks, C 2,416 clusters): 59.4 M
+// pairs x 10 operations (6 products and fused multiply-adds, the chain add,
+// the scale, the subtract and the add) = 0.59 GFLOP, 8.9 us at 67 TFLOP/s;
+// the distances variant also writes 237 MB (71 us at 3.35 TB/s), so it is
+// bound by its bytes and the argmin variant by its operations. Design: a CTA
+// of 8 warps owns 64 rows (8 per warp, held in registers with their r), and
+// stages the codebook in tiles of 512 centroids (6 coordinates and q, 7
+// floats a centroid: an odd stride, so 32 lanes reading 32 consecutive
+// centroids hit 32 distinct banks); lane l takes the tile's centroids l, l +
+// 32, ..., so a warp's stores of one row are 128 contiguous bytes, and the
+// argmin keeps (value, index) per lane and row, then reduces across the warp
+// in (value, index) order.
+constexpr int kXWarps = 8;
+constexpr int kXRows = 8;       // rows per warp
+constexpr int kXTile = 512;     // centroids staged per pass
+
+__device__ __forceinline__ float cross6(const float (&a)[6], const float* c,
+                                        bool two_chains) {
+  if (two_chains) {
+    float e = __fmul_rn(a[0], c[0]);
+    float o = __fmul_rn(a[1], c[1]);
+    e = __fmaf_rn(a[2], c[2], e);
+    o = __fmaf_rn(a[3], c[3], o);
+    e = __fmaf_rn(a[4], c[4], e);
+    o = __fmaf_rn(a[5], c[5], o);
+    return __fadd_rn(e, o);
+  }
+  float x = __fmul_rn(a[0], c[0]);
+#pragma unroll
+  for (int k = 1; k < 6; ++k) x = __fmaf_rn(a[k], c[k], x);
+  return x;
+}
+
+template <bool kArgmin>
+__global__ void __launch_bounds__(kXWarps * 32)
+cross6_kernel(const float* __restrict__ a, const float* __restrict__ c,
+              const float* __restrict__ r, const float* __restrict__ q,
+              float* __restrict__ out, int64_t* __restrict__ idx_out, int n,
+              int n_c) {
+  __shared__ float cs[kXTile * 7];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = (blockIdx.x * kXWarps + warp) * kXRows;
+  const int m64 = n_c % 64;
+  const bool two_chains = m64 >= 1 && m64 <= 32;
+  float av[kXRows][6], rv[kXRows], best[kXRows];
+  int bidx[kXRows];
+#pragma unroll
+  for (int i = 0; i < kXRows; ++i) {
+    const int row = min(row0 + i, n - 1);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) av[i][k] = a[(size_t)row * 6 + k];
+    rv[i] = r == nullptr ? 0.f : r[row];
+    best[i] = __int_as_float(0x7f800000);   // +inf
+    bidx[i] = 0;
+  }
+  for (int t0 = 0; t0 < n_c; t0 += kXTile) {
+    const int tn = min(kXTile, n_c - t0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < tn * 7; i += kXWarps * 32) {
+      const int j = i / 7, k = i - j * 7;
+      cs[i] = k < 6 ? c[(size_t)(t0 + j) * 6 + k] : q[t0 + j];
+    }
+    __syncthreads();
+    for (int j = lane; j < tn; j += 32) {
+      const float* cj = cs + j * 7;
+      const float qj = cj[6];
+#pragma unroll
+      for (int i = 0; i < kXRows; ++i) {
+        const float x = cross6(av[i], cj, two_chains);
+        const float d = __fadd_rn(__fsub_rn(rv[i], __fmul_rn(2.f, x)), qj);
+        if constexpr (kArgmin) {
+          if (d < best[i]) {
+            best[i] = d;
+            bidx[i] = t0 + j;
+          }
+        } else if (row0 + i < n) {
+          out[(size_t)(row0 + i) * n_c + t0 + j] = d;
+        }
+      }
+    }
+  }
+  if constexpr (kArgmin) {
+#pragma unroll
+    for (int i = 0; i < kXRows; ++i) {
+      float v = best[i];
+      int ix = bidx[i];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, ix, off);
+        if (ov < v || (ov == v && oi < ix)) {
+          v = ov;
+          ix = oi;
+        }
+      }
+      if (lane == 0 && row0 + i < n) idx_out[row0 + i] = ix;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bisect_axis: each cluster's principal axis for the frontend's bisecting
+// init, four power iterations from (1, ..., 1) on its (6, 6) covariance:
+//     w_f = sum_g cov[f, g] v_g   (the first product rounded, then fused
+//                                  multiply-adds in index order: `_dot`),
+//     v = w / (sqrt(sum_f w_f * w_f) + 1e-9)   (the squares rounded and
+//                                  added in index order, `_sum`; the square
+//                                  root and the division correctly rounded).
+// It replaces no Pallas kernel: in the reference it is XLA's power iteration
+// (basis_universal_tpu/ops/etc1s_encode.py:411), whose CPU rounding decides
+// every bisecting split. The plain version is that loop of six operators
+// per iteration; one thread per cluster here holds its 36 covariances and
+// its axis in registers, so a round of the init is one launch instead of 24.
+// Bound: 4 x ~90 operations and 168 bytes per cluster, a few microseconds
+// at the main path's 4,096 clusters; the launch is the cost.
+constexpr int kAxisThreads = 128;
+
+__global__ void __launch_bounds__(kAxisThreads)
+bisect_axis_kernel(const float* __restrict__ cov, float* __restrict__ axis,
+                   int n_c) {
+  const int c = blockIdx.x * kAxisThreads + threadIdx.x;
+  if (c >= n_c) return;
+  float m[36];
+#pragma unroll
+  for (int i = 0; i < 36; ++i) m[i] = cov[(size_t)c * 36 + i];
+  float v[6] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    float w[6];
+#pragma unroll
+    for (int f = 0; f < 6; ++f) {
+      float acc = __fmul_rn(m[f * 6], v[0]);
+#pragma unroll
+      for (int g = 1; g < 6; ++g) acc = __fmaf_rn(m[f * 6 + g], v[g], acc);
+      w[f] = acc;
+    }
+    float s = __fmul_rn(w[0], w[0]);
+#pragma unroll
+    for (int f = 1; f < 6; ++f) s = __fadd_rn(s, __fmul_rn(w[f], w[f]));
+    const float d = __fadd_rn(__fsqrt_rn(s), 1e-9f);
+#pragma unroll
+    for (int f = 0; f < 6; ++f) v[f] = __fdiv_rn(w[f], d);
+  }
+#pragma unroll
+  for (int f = 0; f < 6; ++f) axis[(size_t)c * 6 + f] = v[f];
 }
 
 }  // namespace
@@ -887,6 +1083,33 @@ int etc1s_find_best_selector_patterns(const float* dists,
   const dim3 grid((n_blocks + kSelRows - 1) / kSelRows);
   selbest_mma_kernel<<<grid, kSelWarps * 32, 0, (cudaStream_t)stream>>>(
       dists, patterns, best, best_err, n_blocks, n_patterns);
+  return (int)cudaGetLastError();
+}
+
+int etc1s_cross6_argmin(const float* a, const float* c, const float* q,
+                        int64_t* out, int n, int n_c, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (n_c <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + kXWarps * kXRows - 1) / (kXWarps * kXRows));
+  cross6_kernel<true><<<grid, kXWarps * 32, 0, (cudaStream_t)stream>>>(
+      a, c, nullptr, q, nullptr, out, n, n_c);
+  return (int)cudaGetLastError();
+}
+
+int etc1s_cross6_distances(const float* a, const float* c, const float* r,
+                           const float* q, float* out, int n, int n_c,
+                           void* stream) {
+  if (n <= 0 || n_c <= 0) return (int)cudaSuccess;
+  const dim3 grid((n + kXWarps * kXRows - 1) / (kXWarps * kXRows));
+  cross6_kernel<false><<<grid, kXWarps * 32, 0, (cudaStream_t)stream>>>(
+      a, c, r, q, out, nullptr, n, n_c);
+  return (int)cudaGetLastError();
+}
+
+int etc1s_bisect_axis(const float* cov, float* axis, int n_c, void* stream) {
+  if (n_c <= 0) return (int)cudaSuccess;
+  bisect_axis_kernel<<<(n_c + kAxisThreads - 1) / kAxisThreads, kAxisThreads,
+                       0, (cudaStream_t)stream>>>(cov, axis, n_c);
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,14 @@
-"""Build and load the hand-written CUDA kernels (csrc/etc1s_kernels.cu).
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-The source is compiled at first use with nvcc into a shared library with a
-plain C interface, for sm_90a (Hopper), and loaded with ctypes. The library
-is cached under `build/torch_kernels/` at the repository root, keyed by the
-hash of the source, as `native.py` does for the host runtime, with ptxas'
-report of each kernel's registers and spills beside it. A failed build or
-load raises: there is no fallback.
+Each source (`etc1s_kernels.cu`, the ETC1S encoder's kernels, and
+`xla_order_kernels.cu`, XLA-CPU's float32 orders) is compiled at first use
+with nvcc into a shared library with a plain C interface, for sm_90a
+(Hopper), and loaded with ctypes. The libraries are cached under
+`build/torch_kernels/` at the repository root, keyed by the hash of their
+source, as `native.py` does for the host runtime, with ptxas' report of
+each kernel's registers and spills beside it. `build_all()` starts one nvcc
+per missing library, all at once. A failed build or load raises: there is
+no fallback.
 """
 
 import ctypes
@@ -17,7 +20,7 @@ import subprocess
 import threading
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "etc1s_kernels.cu"
+SOURCES = ("etc1s_kernels", "xla_order_kernels")
 _BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 _CUDA_ROOTS = ("/usr/local/cuda",)
 
@@ -25,7 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
-_lib = None
+_libs = {}
 
 
 def _nvcc() -> str:
@@ -36,25 +39,45 @@ def _nvcc() -> str:
         if root and (pathlib.Path(root) / "bin" / "nvcc").exists():
             return str(pathlib.Path(root) / "bin" / "nvcc")
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{_SRC.name}")
+                       "the port's kernels (csrc/*.cu)")
 
 
-def library_path() -> pathlib.Path:
-    """Builds the library if it is missing; returns its path."""
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    out = _BUILD_DIR / f"etc1s_kernels_{tag}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
-    _report_path(out).write_text(res.stdout + res.stderr)
-    os.replace(tmp, out)
-    return out
+def _target(name: str) -> pathlib.Path:
+    src = _PKG / "csrc" / f"{name}.cu"
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return _BUILD_DIR / f"{name}_{tag}.so"
+
+
+def build_all(names=SOURCES):
+    """Builds every missing library of `names`, one nvcc each, all started
+    together; returns their paths."""
+    outs = {name: _target(name) for name in names}
+    todo = {name: out for name, out in outs.items() if not out.exists()}
+    if todo:
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = []
+        for name, out in todo.items():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                   str(_PKG / "csrc" / f"{name}.cu")]
+            procs.append((out, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for out, tmp, cmd, proc in procs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+            _report_path(out).write_text(stdout + stderr)
+            os.replace(tmp, out)
+    return outs
+
+
+def library_path(name: str = "etc1s_kernels") -> pathlib.Path:
+    """Builds the library of csrc/<name>.cu if it is missing; returns its
+    path."""
+    return build_all((name,))[name]
 
 
 def _report_path(lib: pathlib.Path) -> pathlib.Path:
@@ -68,6 +91,15 @@ def ptxas_report(lib: pathlib.Path) -> str:
     return path.read_text() if path.exists() else ""
 
 
+def _declare_xla_order(lib):
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    f32 = ctypes.c_float
+    lib.xla_fma.argtypes = [vp, vp, vp, f32, f32, f32, vp, ll, ci, vp, vp]
+    lib.xla_reduce.argtypes = [vp, vp, vp, ll, ci, ll, ll, ci, ci, vp, vp]
+    lib.xla_fma.restype = lib.xla_reduce.restype = ci
+    return lib
+
+
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.etc1s_factorized_scan.argtypes = [vp, vp, vp, ci, ci, ci, vp]
@@ -77,17 +109,23 @@ def _declare(lib):
     lib.etc1s_palette_errs.argtypes = [vp, vp, vp, ci, ci, vp]
     lib.etc1s_find_best_selector_patterns.argtypes = [vp, vp, vp, vp, ci, ci,
                                                       vp]
+    lib.etc1s_cross6_argmin.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    lib.etc1s_cross6_distances.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
+    lib.etc1s_bisect_axis.argtypes = [vp, vp, ci, vp]
     for fn in (lib.etc1s_factorized_scan, lib.etc1s_factorized_scan_shortlist,
                lib.etc1s_palette_errs_packed,
-               lib.etc1s_palette_errs, lib.etc1s_find_best_selector_patterns):
+               lib.etc1s_palette_errs, lib.etc1s_find_best_selector_patterns,
+               lib.etc1s_cross6_argmin, lib.etc1s_cross6_distances,
+               lib.etc1s_bisect_axis):
         fn.restype = ci
     return lib
 
 
-def get_lib():
-    """The loaded kernel library (built on first call)."""
-    global _lib
+def get_lib(name: str = "etc1s_kernels"):
+    """The loaded library of csrc/<name>.cu (built on first call)."""
     with _lock:
-        if _lib is None:
-            _lib = _declare(ctypes.CDLL(str(library_path())))
-        return _lib
+        if name not in _libs:
+            declare = (_declare_xla_order if name == "xla_order_kernels"
+                       else _declare)
+            _libs[name] = declare(ctypes.CDLL(str(library_path(name))))
+        return _libs[name]

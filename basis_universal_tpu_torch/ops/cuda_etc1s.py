@@ -4,17 +4,23 @@ Counterpart of `basis_universal_tpu/ops/pallas_etc1s.py`, all four of its
 kernels: the ETC1S frontend's scan, packed rescore and selector search (the
 UASTC encoder's ETC1 hint and the transcoder's ETC1 re-encode run the scan
 and the packed rescore too), and `palette_errs`, which no path of either
-package calls. The scan has two variants: the full (B, D*8) errors, and
+package calls; and the kernels for operators that are XLA's in the
+reference and whose CPU rounding decides the codebooks: the 6-D codebook
+distances (`cross6_argmin` for the k-means assignment, `cross6_distances`
+for the refine's shortlist) and the bisecting init's power iteration
+(`bisect_axis`). The scan has two variants: `factorized_scan`, the full
+(B, D*8) gray-axis sums that the cluster scan assembles into errors, and
 `factorized_scan_shortlist`, which returns only each block's shortlist of
-columns. Each wrapper checks its inputs, then dispatches on the device of
-the tensors it was given:
+error columns. Each wrapper checks its inputs, then dispatches on the
+device of the tensors it was given:
 
 - a CUDA tensor launches the hand-written kernel of `csrc/etc1s_kernels.cu`
   on the current stream (and raises if the launch is refused);
 - a CPU tensor runs the plain PyTorch version kept beside it (`*_reference`).
 
 The plain version never runs for a CUDA tensor. `LAUNCHES` counts the kernel
-launches of each wrapper; `reset_launch_counts()` zeroes it.
+launches of each wrapper (here and in `ops/xla_order.py`);
+`reset_launch_counts()` zeroes it.
 """
 
 import numpy as np
@@ -28,6 +34,12 @@ LAUNCHES = {
     "palette_errs_packed": 0,
     "palette_errs": 0,
     "find_best_selector_patterns": 0,
+    "cross6_argmin": 0,
+    "cross6_distances": 0,
+    "bisect_axis": 0,
+    # XLA-CPU's float32 orders (`ops/xla_order.py`)
+    "xla_fma": 0,
+    "xla_reduce": 0,
 }
 
 # float32 constants of the kernels, as Python floats holding the exact f32
@@ -98,12 +110,18 @@ def _scan_inputs(pixels, base5):
 
 def factorized_scan(pixels, base5=None, radius: int = 1,
                     perceptual: bool = False):
-    """Unclipped factorized ETC1S candidate errors, (B, D*8) float32.
+    """Gray-axis sums of the factorized ETC1S scan, (B, D*8) float32.
 
-    Replaces `pallas_etc1s.factorized_scan` (`_fscan_kernel`). Column
-    d*8 + t is the error of candidate delta d (`_candidate_deltas(radius)`)
-    with intensity table t: err = q - su2/3 + 3 * sum_i min_k (t_k - u_i)^2.
-    The base colour is the block mean rounded to 5 bits, or `base5` (B, 3)
+    Replaces `pallas_etc1s.factorized_scan` (`_fscan_kernel`) where the
+    reference's errors are summed over clusters. Its unclipped error of
+    candidate delta d (`_candidate_deltas(radius)`) with intensity table t
+    is err = q - su2/3 + 3 * sum_i min_k (t_k - u_i)^2; column d*8 + t holds
+    the gray-axis sum sum_i min_k (t_k - u_i)^2, which
+    `optimize_cluster_endpoints` sums over a cluster's blocks before it adds
+    the cluster's constant part (q - su2/3 from the cluster's moments), as
+    the reference's formulation does. The per-block errors themselves are
+    `factorized_scan_shortlist`'s, which keeps only their shortlist. The
+    base colour is the block mean rounded to 5 bits, or `base5` (B, 3)
     float32 when given (the cluster base of `optimize_cluster_endpoints`).
 
     On the H100 the scan is bound by its arithmetic, 16 pixels x (a compare,
@@ -133,14 +151,16 @@ def factorized_scan(pixels, base5=None, radius: int = 1,
 
 def factorized_scan_shortlist(pixels, base5=None, radius: int = 1,
                               perceptual: bool = False, k=None):
-    """The columns of the k smallest `factorized_scan` errors of each block,
+    """The columns of the k smallest unclipped scan errors of each block,
     (B, k) int64, ascending, equal errors by ascending column (also at the
-    k-th place): `_shortlist` of the scan, the order of `lax.top_k(-flat,
-    k)` after the reference's scan. k defaults to min(16, D*8).
+    k-th place): `_shortlist` of `factorized_scan_errors_reference`, the
+    order of `lax.top_k(-flat, k)` after the reference's scan. k defaults to
+    min(16, D*8).
 
     The errors never reach device memory: the kernel runs the full scan's
-    arithmetic (the same device function, so the same bits per column) and
-    each warp selects its block's k smallest columns from registers.
+    arithmetic (the same device function, so the same gray-axis sums per
+    column), assembles each error and each warp selects its block's k
+    smallest columns from registers.
     """
     n_cols = _n_deltas(radius) * 8
     k = min(16, n_cols) if k is None else k
@@ -167,24 +187,52 @@ def factorized_scan_shortlist(pixels, base5=None, radius: int = 1,
 
 def factorized_scan_shortlist_reference(pixels, base5=None, radius: int = 1,
                                         perceptual: bool = False, k=None):
-    """Plain PyTorch version of `factorized_scan_shortlist`: the plain scan,
-    then a stable sort (`etc1s_encode._shortlist`)."""
+    """Plain PyTorch version of `factorized_scan_shortlist`: the plain
+    errors, then a stable sort (`etc1s_encode._shortlist`)."""
     from .etc1s_encode import _shortlist
 
-    flat = factorized_scan_reference(pixels, base5, radius, perceptual)
+    flat = factorized_scan_errors_reference(pixels, base5, radius, perceptual)
     return _shortlist(flat, min(16, flat.shape[1]) if k is None else k)
 
 
 def factorized_scan_reference(pixels, base5=None, radius: int = 1,
                               perceptual: bool = False):
-    """Plain PyTorch version of `factorized_scan` (the reference's XLA
-    formulation, `etc1s_encode._scan_block_errs`, with the kernel's base)."""
+    """Plain PyTorch version of `factorized_scan`: the gray-axis sums of
+    `factorized_scan_errors_reference`, (B, D*8)."""
+    mt, _ = _scan_terms(pixels, base5, radius, perceptual)
+    return mt.permute(1, 0, 2).reshape(pixels.shape[0], -1)
+
+
+def factorized_scan_errors_reference(pixels, base5=None, radius: int = 1,
+                                     perceptual: bool = False):
+    """The unclipped errors of every column, (B, D*8) float32, in the
+    reference's XLA formulation (`etc1s_encode._scan_block_errs`, with the
+    kernel's base): what `pallas_etc1s.factorized_scan` returns, and what
+    `factorized_scan_shortlist` ranks.
+
+    The assembly is rounded as XLA's CPU code rounds the reference's scan
+    (read from its LLVM IR): su2 = fma(lb, 16 lb, fma(-2 lb, sum_l,
+    sum_l2)), the constant part fma(-su2, 1/3, q), the gray-axis sum over
+    the 16 pixels in 8-lane vector order (`xla_order._sum_sq_tree16`) and
+    err = fma(sum, 3, constant). For whole-numbered pixels without the
+    perceptual metric the moments are exact integers, so the result is the
+    reference's to the bit; the kernel computes the same operations."""
+    from .xla_order import _fma
+
+    mt, cst = _scan_terms(pixels, base5, radius, perceptual)
+    err = _fma(mt, 3.0, cst[..., None])
+    return err.permute(1, 0, 2).reshape(pixels.shape[0], -1)
+
+
+def _scan_terms(pixels, base5, radius: int, perceptual: bool):
+    """The scan's two parts, (D, B, 8) gray-axis sums and (D, B) constant
+    parts q - su2/3, rounded as the docstring above says."""
     from .etc1s_encode import (PERC_P, _block_moments, _candidate_deltas,
                                _gray_axis_minterm, perceptual_transform)
+    from .xla_order import _fma
 
     dev = pixels.device
     px = pixels.float()
-    b_n = px.shape[0]
     deltas = torch.as_tensor(_candidate_deltas(radius), device=dev)
     if base5 is None:
         b5 = torch.clamp(torch.round(px.sum(1) / 16.0 * C31_255), 0.0, 31.0)
@@ -204,10 +252,11 @@ def factorized_scan_reference(pixels, base5=None, radius: int = 1,
     q = (mom["sum_x2"][None]
          - 2.0 * torch.einsum("dbc,bc->db", base8, mom["sum_x"])
          + 16.0 * (base8 * base8).sum(-1))
-    su2 = mom["sum_l2"][None] - 2.0 * lb * mom["sum_l"][None] + 16.0 * lb * lb
+    su2 = _fma(lb, 16.0 * lb, _fma(-2.0 * lb, mom["sum_l"][None],
+                                   mom["sum_l2"][None]))
+    cst = _fma(-su2, THIRD, q)
     u = (mom["luma"][None] - lb[..., None]) * THIRD              # (D,B,16)
-    err = (q - su2 * THIRD)[..., None] + 3.0 * _gray_axis_minterm(u)
-    return err.permute(1, 0, 2).reshape(b_n, -1)
+    return _gray_axis_minterm(u), cst
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +361,132 @@ def palette_errs_reference(pixels, palettes):
     diff = palettes[:, :, :, None, :] - pixels[:, None, None, :, :]
     d = (diff * diff).sum(-1)                                    # (B,K,4,16)
     return d.min(dim=2).values.sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# cross6_argmin / cross6_distances
+# ---------------------------------------------------------------------------
+
+def _cross6_inputs(a, c, q, r=None):
+    _check(a, "a", torch.float32, (None, 6))
+    _check(c, "c", torch.float32, (None, 6))
+    _check(q, "q", torch.float32, (c.shape[0],))
+    if r is not None:
+        _check(r, "r", torch.float32, (a.shape[0],))
+    if c.shape[0] < 1:
+        raise ValueError("c: at least one centroid")
+    return _same_device(a, c, q, r)
+
+
+def cross6_argmin(a, c, q):
+    """argmin_j (q[j] - 2 a[n].c[j]) per row, (N,) int64, the first index on
+    ties: the k-means assignment, q the centroids' squared norms.
+
+    a (N, 6), c (C, 6), q (C,) float32. The product is summed in the order
+    of XLA's CPU matrix product for C columns (`xla_order._cross6`), the
+    reference's `kmeans` cross term (`basis_universal_tpu/ops/
+    etc1s_encode.py:357`), which has no Pallas kernel; the kernel
+    (`cross6_kernel<true>`) spells every rounding out and keeps a running
+    argmin, so no (N, C) matrix reaches device memory. At the main path's
+    shape (24,576 x 2,416) it is bound by its 0.59 GFLOP.
+    """
+    dev = _cross6_inputs(a, c, q)
+    if dev.type == "cpu":
+        return cross6_argmin_reference(a, c, q)
+    from ._build import get_lib
+
+    out = torch.empty(a.shape[0], dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        status = get_lib().etc1s_cross6_argmin(
+            a.data_ptr(), c.data_ptr(), q.data_ptr(), out.data_ptr(),
+            a.shape[0], c.shape[0], _stream(dev))
+    LAUNCHES["cross6_argmin"] += 1
+    _raise_on(status, "cross6_argmin")
+    return out
+
+
+def cross6_argmin_reference(a, c, q):
+    """Plain PyTorch version of `cross6_argmin`."""
+    from .xla_order import _cross6
+
+    return torch.argmin(q[None, :] - 2.0 * _cross6(a, c), dim=-1)
+
+
+def cross6_distances(a, c, r, q):
+    """(r[n] - 2 a[n].c[j]) + q[j], (N, C) float32: the refine's 6-D
+    codebook distances, r the blocks' and q the centroids' squared norms.
+
+    The product is summed as in `cross6_argmin`; this is the reference's
+    `d6` of `refine_endpoint_assignment` (`basis_universal_tpu/ops/
+    etc1s_encode.py:452`, an XLA matrix product) with its 2 x taken out of
+    the product (exact). The kernel (`cross6_kernel<false>`) writes the
+    matrix row-major, 237 MB at the main path's shape, which bounds it.
+    """
+    dev = _cross6_inputs(a, c, q, r)
+    if dev.type == "cpu":
+        return cross6_distances_reference(a, c, r, q)
+    from ._build import get_lib
+
+    out = torch.empty((a.shape[0], c.shape[0]), dtype=torch.float32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        status = get_lib().etc1s_cross6_distances(
+            a.data_ptr(), c.data_ptr(), r.data_ptr(), q.data_ptr(),
+            out.data_ptr(), a.shape[0], c.shape[0], _stream(dev))
+    LAUNCHES["cross6_distances"] += 1
+    _raise_on(status, "cross6_distances")
+    return out
+
+
+def cross6_distances_reference(a, c, r, q):
+    """Plain PyTorch version of `cross6_distances`."""
+    from .xla_order import _cross6
+
+    return (r[:, None] - 2.0 * _cross6(a, c)) + q[None, :]
+
+
+# ---------------------------------------------------------------------------
+# bisect_axis
+# ---------------------------------------------------------------------------
+
+def bisect_axis(cov):
+    """Each cluster's principal axis, (C, 6) float32, from its (6, 6)
+    covariance: four power iterations from (1, ..., 1), v <- cov v, then
+    v / (|v| + 1e-9), rounded as the reference's compiled bisecting init
+    rounds them (`bisect_axis_reference`).
+
+    Replaces XLA's power iteration in the reference's `bisecting_init`
+    (`basis_universal_tpu/ops/etc1s_encode.py:411`), which has no Pallas
+    kernel. The kernel keeps a cluster's covariance and axis in registers
+    and runs the four iterations in one launch (24 operators of the plain
+    version per round of the init).
+    """
+    _check(cov, "cov", torch.float32, (None, 6, 6))
+    dev = _same_device(cov)
+    if dev.type == "cpu":
+        return bisect_axis_reference(cov)
+    from ._build import get_lib
+
+    out = torch.empty((cov.shape[0], 6), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = get_lib().etc1s_bisect_axis(cov.data_ptr(), out.data_ptr(),
+                                             cov.shape[0], _stream(dev))
+    LAUNCHES["bisect_axis"] += 1
+    _raise_on(status, "bisect_axis")
+    return out
+
+
+def bisect_axis_reference(cov):
+    """Plain PyTorch version of `bisect_axis`: the products of w = cov v as
+    a fused multiply-add chain (`xla_order._dot`), the squares rounded and
+    summed in index order (`_sum`), a correctly rounded square root."""
+    from .xla_order import _dot, _sqrt, _sum
+
+    axis = torch.ones(cov.shape[:2], dtype=cov.dtype, device=cov.device)
+    for _ in range(4):
+        axis = _dot(cov, axis[:, None, :])                      # cfg,cg->cf
+        axis = axis / (_sqrt(_sum(axis * axis, -1))[:, None] + 1e-9)
+    return axis
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,14 @@
 
 Counterpart of `basis_universal_tpu/ops/etc1s_encode.py`, in its
 kernel-shaped formulation: the per-block candidate scan and its shortlist
-are one kernel, `factorized_scan_shortlist`; the scan against each block's
-cluster base (`factorized_scan`) is segment-summed to clusters before its
-shortlist; exact rescoring goes through `palette_errs_packed` on packed
-candidate descriptors, and the selector search through
-`find_best_selector_patterns`. Those run as CUDA kernels on CUDA tensors
+are one kernel, `factorized_scan_shortlist`; the gray-axis sums of the
+scan against each block's cluster base (`factorized_scan`) are
+segment-summed to clusters and assembled with the clusters' moments
+before their shortlist; exact rescoring goes through `palette_errs_packed`
+on packed candidate descriptors, the selector search through
+`find_best_selector_patterns`, the k-means and refine distances through
+`cross6_argmin` / `cross6_distances` and the bisecting init's power
+iteration through `bisect_axis`. Those run as CUDA kernels on CUDA tensors
 and as their plain PyTorch versions on CPU tensors (`ops/cuda_etc1s.py`);
 everything else here is plain PyTorch on the device of its inputs.
 
@@ -19,6 +22,13 @@ Equivalences with the reference kept on purpose:
   with float32 accumulation does;
 - float32 matmuls that rank distances must not run in TF32: the frontend
   runs them under `exact_matmuls()`;
+- every operator that ranks rounds as the reference's compiled frontend
+  does on the CPU (XLA's fused multiply-adds and summation orders, read
+  from its LLVM IR, spelled out with `ops/xla_order.py`: the scan's
+  gray-axis sum, the cluster scan's assembly, the bisecting power
+  iteration, the 6-D cross terms of the `cross6_*` kernels), and empty
+  k-means seeds take the training vectors `jax.random.choice` draws
+  (`ops/threefry.py`), so the CPU gives the reference's codebooks;
 - segment sums go through `segment_sum`, which sums each segment in row
   order on every device, so a card run gives the same bits every time (an
   `index_add_` of floats on CUDA sums with atomics, in an order that
@@ -30,9 +40,10 @@ import contextlib
 import numpy as np
 import torch
 
-from . import cuda_etc1s
+from . import cuda_etc1s, threefry
 from .cuda_etc1s import _INTEN_MID, C31_255
 from .etc1 import ETC1_INTEN_TABLES
+from .xla_order import _dot, _fma, _sum, _sum_sq_tree16
 
 # Perceptual (luma-weighted) colour metric, factored as ||P d||^2 and scaled
 # so P @ (1,1,1) = (sqrt(3), 0, 0): see the reference module for the
@@ -101,7 +112,8 @@ def expand5(c5):
 
 def _gray_axis_minterm(u):
     """sum_i min_k (t_k - u_i)^2 per intensity table, for u (..., 16)
-    gray-axis offsets. Returns (..., 8)."""
+    gray-axis offsets. Returns (..., 8), summed in the order of the
+    reference's compiled scan (`xla_order._sum_sq_tree16`)."""
     mids = torch.as_tensor(_INTEN_MID, dtype=torch.float32, device=u.device)
     tabs = _inten(u.device)
     uu = u[..., None, :]                                      # (...,1,16)
@@ -110,8 +122,7 @@ def _gray_axis_minterm(u):
     t0, t1, t2, t3 = (tabs[:, j, None] for j in range(4))
     tk = torch.where(k == 0, t0,
                      torch.where(k == 1, t1, torch.where(k == 2, t2, t3)))
-    d = tk - uu
-    return (d * d).sum(-1)
+    return _sum_sq_tree16(tk - uu)
 
 
 def _block_moments(pixels, gvec=None):
@@ -194,20 +205,21 @@ def optimize_cluster_endpoints(pixels, cluster_ids, cluster_means,
                                perceptual: bool = False):
     """Optimal (color5 (C,3) int32, inten (C,) int32) per endpoint cluster.
 
-    Per-block factorized errors against each block's CLUSTER base are
-    segment-summed to clusters (q and su2 are linear in the block moments,
-    so the sum is exact), shortlisted, and the shortlist is rescored exactly
-    over the member pixels.
+    The reference's formulation: each block's gray-axis sums against its
+    CLUSTER base (`factorized_scan`) are segment-summed to clusters, and
+    each cluster's constant part comes from its summed block moments
+    (`_cluster_scan`); the shortlist of the cluster errors is then
+    rescored exactly over the member pixels.
     """
     dev = pixels.device
     ids = cluster_ids.long()
     deltas = torch.as_tensor(_candidate_deltas(radius), device=dev)
     base5 = torch.clamp(
         torch.round(cluster_means * C31_255).to(torch.int32), 0, 31)  # (C,3)
-    blk_err = cuda_etc1s.factorized_scan(
+    mt = cuda_etc1s.factorized_scan(
         pixels, base5=base5[ids].float().contiguous(), radius=radius,
         perceptual=perceptual)                                  # (B,D*8)
-    flat = segment_sum(blk_err, ids, num_clusters)
+    flat = _cluster_scan(pixels, ids, base5, deltas, mt, perceptual)
     cand = _shortlist(flat, min(16, flat.shape[1]))             # (C,K)
     c5k = torch.clamp(base5[:, None, :] + deltas[cand // 8], 0, 31)
     packed_c = _pack(c5k, cand % 8)                             # (C,K)
@@ -219,30 +231,81 @@ def optimize_cluster_endpoints(pixels, cluster_ids, cluster_means,
     return _unpack(packed_c[c, kbest])
 
 
+def _cluster_scan(pixels, ids, base5, deltas, mt, perceptual: bool):
+    """(C, D*8) unclipped cluster errors from the blocks' gray-axis terms mt
+    (B, D*8), summed per cluster: the constant part of each (delta,
+    cluster) from the members' summed moments, rounded as XLA's CPU code
+    rounds the reference's (q = fma(n, |b|^2, sum|x|^2 - 2 b.sum x), su2 =
+    fma(lb, n lb, fma(-2 sum_l, lb, sum_l2)), err = fma(mt, 3, fma(-su2,
+    1/3, q)))."""
+    num_clusters = base5.shape[0]
+    px = perceptual_transform(pixels) if perceptual else pixels
+    gvec = (torch.as_tensor(PERC_P @ np.ones(3, np.float32),
+                            device=pixels.device) if perceptual else None)
+    mom = _block_moments(px, gvec)
+    ones = torch.ones(pixels.shape[0], dtype=torch.float32,
+                      device=pixels.device)
+    # one segment sum of every per-block column (each column is summed in
+    # row order on its own, so the bits are those of separate sums)
+    sums = segment_sum(torch.cat([
+        ones[:, None], mom["sum_x"], mom["sum_x2"][:, None],
+        mom["sum_l"][:, None], mom["sum_l2"][:, None], mt], 1),
+        ids, num_clusters)
+    npix = 16.0 * sums[:, 0]                                    # (C,)
+    c_sum_x = sums[:, 1:4]
+    c_sum_x2, c_sum_l, c_sum_l2 = sums[:, 4], sums[:, 5], sums[:, 6]
+    mt_ct = sums[:, 7:]
+    c5 = torch.clamp(base5[None] + deltas[:, None, :], 0, 31)    # (D,C,3)
+    base8 = expand5(c5).float()
+    if perceptual:
+        base8 = perceptual_transform(base8)
+        lb = base8 @ gvec
+    else:
+        lb = _sum(base8, -1)                                    # (D,C)
+    q = _fma(npix, _sum(base8 * base8, -1),
+             c_sum_x2 - 2.0 * _dot(base8, c_sum_x[None]))
+    su2 = _fma(lb, npix * lb, _fma(-(2.0 * c_sum_l), lb, c_sum_l2))
+    cst = _fma(-su2, cuda_etc1s.THIRD, q)                       # (D,C)
+    d_n = deltas.shape[0]
+    err = _fma(mt_ct.reshape(num_clusters, d_n, 8), 3.0, cst.T[..., None])
+    return err.reshape(num_clusters, d_n * 8)
+
+
+def kmeans_assign(vecs, centroids, num_clusters: int):
+    """Each vector's nearest centroid by |b|^2 - 2ab, (N,) int64, the first
+    on ties (`cuda_etc1s.cross6_argmin`). The reference's bf16 cross term
+    (>= 1024 clusters): bf16-rounded operands, float32 product."""
+    if num_clusters >= 1024:
+        vecs = vecs.to(torch.bfloat16).float()
+        c_h = centroids.to(torch.bfloat16).float()
+    else:
+        c_h = centroids
+    return cuda_etc1s.cross6_argmin(vecs.contiguous(), c_h.contiguous(),
+                                    _sum(centroids * centroids, -1))
+
+
+def kmeans_update(sums, cnts, centroids):
+    """New centroids from the members' weighted sums and weights; a
+    cluster without members keeps its centroid."""
+    return torch.where(cnts[:, None] > 0,
+                       sums / torch.clamp(cnts[:, None], min=1e-9),
+                       centroids)
+
+
 def kmeans(vecs, weights, init_centroids, num_clusters: int, iters: int = 4):
     """Weighted Lloyd iterations with |a|^2 - 2ab + |b|^2 distances.
 
     vecs (N, F) f32, weights (N,), init_centroids (C, F).
     Returns (centroids (C, F), assignment (N,) int64).
     """
-    w = weights[:, None]
-    wv = vecs * w
-    # the reference's bf16 cross term (>= 1024 clusters): bf16-rounded
-    # operands, float32 product
-    bf16 = num_clusters >= 1024
-    vecs_h = vecs.to(torch.bfloat16).float() if bf16 else vecs
+    wv = vecs * weights[:, None]
     centroids = init_centroids
     assign = None
     for _ in range(iters):
-        c_h = centroids.to(torch.bfloat16).float() if bf16 else centroids
-        cross = vecs_h @ c_h.T                                  # (N,C)
-        d = (centroids * centroids).sum(-1)[None, :] - 2.0 * cross
-        assign = torch.argmin(d, dim=-1)
-        sums = segment_sum(wv, assign, num_clusters)
-        cnts = segment_sum(w[:, 0], assign, num_clusters)
-        centroids = torch.where(cnts[:, None] > 0,
-                                sums / torch.clamp(cnts[:, None], min=1e-9),
-                                centroids)
+        assign = kmeans_assign(vecs, centroids, num_clusters)
+        centroids = kmeans_update(segment_sum(wv, assign, num_clusters),
+                                  segment_sum(weights, assign, num_clusters),
+                                  centroids)
     return centroids, assign
 
 
@@ -253,8 +316,9 @@ def bisecting_init(vecs, weights, num_clusters: int, generator=None,
     leaves' means as seeds.
 
     Empty seeds are replaced by training vectors drawn uniformly with
-    replacement: `fill` (C, F) when given (tests pass the reference's
-    draw), else drawn with `generator`.
+    replacement: `fill` (C, F) when given, else the vectors the reference
+    draws, `jax.random.choice(PRNGKey(seed), vecs, (C,))` with `seed` the
+    generator's (`threefry.choice_indices`, drawn on the host).
     """
     n, f = vecs.shape
     dev = vecs.device
@@ -270,14 +334,12 @@ def bisecting_init(vecs, weights, num_clusters: int, generator=None,
         cnt = m[:, 0]
         mean = m[:, 1:1 + f] / torch.clamp(cnt, min=1e-9)[:, None]
         m2 = m[:, 1 + f:].reshape(c_max, f, f)
-        cov = m2 - cnt[:, None, None] * mean[:, :, None] * mean[:, None, :]
-        axis = torch.ones((c_max, f), dtype=vecs.dtype, device=dev)
-        for _ in range(4):
-            axis = torch.einsum("cfg,cg->cf", cov, axis)
-            axis = axis / (torch.linalg.norm(axis, dim=-1, keepdim=True) + 1e-9)
-        thr = (mean * axis).sum(-1)
+        cov = _fma(-(cnt[:, None, None] * mean[:, :, None]),
+                   mean[:, None, :], m2)
+        axis = cuda_etc1s.bisect_axis(cov)
+        thr = _sum(mean * axis, -1)
         ga = torch.cat([axis, thr[:, None]], -1)[assign]        # (N,F+1)
-        proj = (vecs * ga[:, :f]).sum(-1) - ga[:, f]
+        proj = _dot(vecs, ga[:, :f]) - ga[:, f]
         assign = assign * 2 + (proj > 0).to(torch.int64)
 
     m = segment_sum(feats[:, :1 + f], assign, c_max)
@@ -287,9 +349,9 @@ def bisecting_init(vecs, weights, num_clusters: int, generator=None,
     seeds = mean[top]
     need = cnt[top] <= 0
     if fill is None:
-        idx = torch.randint(0, n, (num_clusters,), generator=generator,
-                            device=dev)
-        fill = vecs[idx]
+        seed = 0 if generator is None else generator.initial_seed()
+        idx = threefry.choice_indices(seed, n, num_clusters)
+        fill = vecs[torch.as_tensor(idx, device=dev)]
     return torch.where(need[:, None], fill, seeds)
 
 
@@ -298,9 +360,9 @@ def refine_endpoint_assignment(pixels, blk_vec6, cb_vec6, cb_color5, cb_inten,
     """Reassign each block to its best endpoint cluster by exact error:
     a shortlist by 6D codebook distance, then the exact clipped rescore.
     Returns (assignment (B,) int64, err (B,) f32)."""
-    d6 = ((blk_vec6 * blk_vec6).sum(-1, keepdim=True)
-          - (2.0 * blk_vec6) @ cb_vec6.T
-          + (cb_vec6 * cb_vec6).sum(-1)[None, :])              # (B,C)
+    d6 = cuda_etc1s.cross6_distances(
+        blk_vec6.contiguous(), cb_vec6.contiguous(),
+        _dot(blk_vec6, blk_vec6), _dot(cb_vec6, cb_vec6))       # (B,C)
     cand = _shortlist(d6, topk)                                 # (B,K)
     ptab = _pack(cb_color5, cb_inten)                           # (C,)
     err_k = cuda_etc1s.palette_errs_packed(

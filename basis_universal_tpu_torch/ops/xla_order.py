@@ -1,0 +1,300 @@
+"""XLA-CPU's float32 orders, spelled out in PyTorch.
+
+The JAX package's results on the CPU are XLA's: its LLVM code contracts a
+product and the sum it feeds into one fused multiply-add, sums a short
+axis in a fixed order, and turns some reductions into 8-lane vector loops.
+Where the port must give the reference's bits (a rounding that decides a
+code, an argmin over ties) it computes with these helpers instead of a
+library reduction, whose order differs between the CPU and the card.
+
+`_fma` and the ordered sums (`_sum`, `_dot`, `_dot_mm`, `_dot_vec16`) are
+wrappers of the kernels of `csrc/xla_order_kernels.cu` (`xla_fma`,
+`xla_reduce`): a float32 CUDA tensor launches the kernel, which spells
+each rounding out (`__fmaf_rn`, `__fadd_rn`), and counts the launch in
+`cuda_etc1s.LAUNCHES`; a CPU tensor runs the plain version beside it
+(`fma_reference`, `reduce_reference`), a chain of elementwise float32
+operators with each fused multiply-add emulated through float64 (the product of two float32 is exact there; the
+sum is rounded twice, which can differ from one rounding in the last bit
+where the float64 sum lands on a float32 midpoint). Integer sums are
+exact in any order and stay a library sum.
+"""
+
+import array
+
+import numpy as np
+import torch
+
+from .cuda_etc1s import LAUNCHES, _raise_on, _stream
+
+_MAX_DIMS = 8
+_ORDERS = {"sum": 0, "dot": 1, "dot_mm": 2, "dot_vec16": 3}
+
+
+def _on_card(*xs) -> bool:
+    return any(isinstance(x, torch.Tensor) and x.is_cuda for x in xs)
+
+
+def _card_operand(x, dev):
+    """A float32 tensor on `dev`, or a Python float that float32 holds
+    exactly (the kernels take their scalars as float32)."""
+    if not isinstance(x, torch.Tensor):
+        if float(np.float32(x)) != float(x):
+            raise ValueError(f"scalar {x!r} is not a float32 value")
+        return float(x)
+    if x.device != dev:
+        raise ValueError(f"tensors on different devices: {dev} vs {x.device}")
+    if x.dtype == torch.float32:
+        return x
+    if x.is_floating_point() or x.is_complex():
+        raise TypeError(f"expected float32, got {x.dtype}")
+    return x.float()                       # integers: exact below 2**24
+
+
+def _broadcast(ops):
+    """The broadcast shape of the tensor operands, and each operand's
+    strides over it (0 along broadcast dims; None for a scalar). Plain
+    Python: `torch.broadcast_shapes` costs more than the launch."""
+    tensors = [x for x in ops if isinstance(x, torch.Tensor)]
+    nd = max(x.dim() for x in tensors)
+    shape = [1] * nd
+    for x in tensors:
+        for d, n in enumerate(x.shape, nd - x.dim()):
+            if n != 1:
+                if shape[d] not in (1, n):
+                    raise ValueError(f"shapes {[tuple(t.shape) for t in tensors]}"
+                                     " do not broadcast")
+                shape[d] = n
+    strides = []
+    for x in ops:
+        if not isinstance(x, torch.Tensor):
+            strides.append(None)
+            continue
+        lead = nd - x.dim()
+        st = x.stride()
+        strides.append([0] * lead + [st[d] if n != 1 else 0
+                                     for d, n in enumerate(x.shape)])
+    return shape, strides
+
+
+def _layout(shape, strides):
+    """(nd, meta) of an output `shape` read at each operand's `strides`
+    (None: a scalar), size-1 dims dropped and dims that every operand steps
+    through contiguously merged: meta is an int64 array of the _MAX_DIMS
+    sizes, then each operand's _MAX_DIMS strides (the kernels' layout)."""
+    sizes, merged = [], [[] for _ in strides]
+    cols = [st if st is not None else [0] * len(shape) for st in strides]
+    for d, n in enumerate(shape):
+        if n == 1:
+            continue
+        if sizes and all(m[-1] == c[d] * n for m, c in zip(merged, cols)):
+            sizes[-1] *= n
+            for m, c in zip(merged, cols):
+                m[-1] = c[d]
+        else:
+            sizes.append(n)
+            for m, c in zip(merged, cols):
+                m.append(c[d])
+    if not sizes:
+        sizes = [1]
+        merged = [[0] for _ in strides]
+    nd = len(sizes)
+    if nd > _MAX_DIMS:
+        raise ValueError(f"{nd} dimensions, at most {_MAX_DIMS}")
+    pad = [0] * (_MAX_DIMS - nd)
+    flat = array.array("q", sizes + pad)
+    for m in merged:
+        flat += array.array("q", m + pad)
+    return nd, flat
+
+
+_lib = None
+
+
+def _launch(dev, name, *args):
+    """Calls the kernel library's `name` with args and the current stream of
+    `dev`, on `dev`; returns its status."""
+    global _lib
+    if _lib is None:
+        from ._build import get_lib
+
+        _lib = get_lib("xla_order_kernels")
+    fn = getattr(_lib, name)
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(dev):
+        return fn(*args, _stream(dev))
+
+
+def _fma_card(a, b, c):
+    dev = next(x.device for x in (a, b, c)
+               if isinstance(x, torch.Tensor) and x.is_cuda)
+    ops = [_card_operand(x, dev) for x in (a, b, c)]
+    shape, strides = _broadcast(ops)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    nd, meta = _layout(shape, strides)
+    ptr = [x.data_ptr() if isinstance(x, torch.Tensor) else None for x in ops]
+    val = [0.0 if isinstance(x, torch.Tensor) else x for x in ops]
+    status = _launch(dev, "xla_fma", *ptr, *val, out.data_ptr(), out.numel(),
+                     nd, meta.buffer_info()[0])
+    LAUNCHES["xla_fma"] += 1
+    _raise_on(status, "xla_fma")
+    return out
+
+
+def _reduce_card(a, b, dim: int, order: str):
+    dev = (a if a.is_cuda else b).device
+    ops = [_card_operand(a, dev)]
+    if b is not None:
+        ops.append(_card_operand(b, dev))
+    shape, strides = _broadcast(ops)
+    dim = dim % len(shape)
+    k_len = shape.pop(dim)
+    k_st = [st.pop(dim) for st in strides]
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    if out.numel() == 0 or k_len == 0:
+        return out.zero_() if k_len == 0 else out
+    nd, meta = _layout(shape, strides)
+    status = _launch(dev, "xla_reduce", ops[0].data_ptr(),
+                     ops[1].data_ptr() if b is not None else None,
+                     out.data_ptr(), out.numel(), k_len, k_st[0],
+                     k_st[1] if b is not None else 0, _ORDERS[order], nd,
+                     meta.buffer_info()[0])
+    LAUNCHES["xla_reduce"] += 1
+    _raise_on(status, "xla_reduce")
+    return out
+
+
+def fma_reference(a, b, c):
+    """Plain version of `_fma`, on any device: through float64, where the
+    product of two float32 is exact."""
+    a, b, c = (x.double() if isinstance(x, torch.Tensor) else x
+               for x in (a, b, c))          # a Python float is a double
+    return (a * b + c).float()
+
+
+def reduce_reference(a, b, dim: int, order: str):
+    """Plain version of the ordered sums, on any device: `order` "sum" adds
+    the terms of a in index order; "dot", "dot_mm" and "dot_vec16" sum a * b
+    as `_dot`, `_dot_mm` and `_dot_vec16` say."""
+    if order == "sum":
+        parts = a.unbind(dim)
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p
+        return acc
+    pa, pb = torch.broadcast_tensors(a, b)
+    pa, pb = pa.unbind(dim), pb.unbind(dim)
+    acc = pa[0] * pb[0]
+    if order == "dot_vec16":
+        for k in range(1, 8):
+            acc = acc + pa[k] * pb[k]
+        for k in range(8, 16):
+            acc = fma_reference(pa[k], pb[k], acc)
+        return acc
+    if order == "dot_mm" and len(pa) >= 4:
+        accs = [pa[i] * pb[i] for i in range(4)]
+        for k in range(4, len(pa)):
+            accs[k % 4] = fma_reference(pa[k], pb[k], accs[k % 4])
+        return (accs[0] + accs[1]) + (accs[2] + accs[3])
+    for x, y in zip(pa[1:], pb[1:]):
+        acc = fma_reference(x, y, acc)
+    return acc
+
+
+def _sum(x, dim: int):
+    """Sum over a short axis, added in index order."""
+    if not x.is_floating_point():
+        return x.sum(dim)
+    if x.is_cuda:
+        return _reduce_card(x, None, dim, "sum")
+    return reduce_reference(x, None, dim, "sum")
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once (a fused multiply-add)."""
+    if _on_card(a, b, c):
+        return _fma_card(a, b, c)
+    return fma_reference(a, b, c)
+
+
+def _sqrt(x):
+    """Correctly rounded float32 square root on either device (a CPU
+    build's vectorized float32 sqrt is not always the nearest float; CUDA's
+    `sqrtf` is, as XLA's is)."""
+    if x.is_cuda and x.dtype == torch.float32:
+        return torch.sqrt(x)
+    return x.double().sqrt().float()
+
+
+def _dot(a, b, dim: int = -1):
+    """Sum over a short axis of a * b as a chain of fused multiply-adds in
+    index order."""
+    if _on_card(a, b):
+        return _reduce_card(a, b, dim, "dot")
+    return reduce_reference(a, b, dim, "dot")
+
+
+def _dot_mm(a, b, dim: int = -1):
+    """Sum over a short axis of a * b in the order of a blocked matrix
+    product: four accumulators take every fourth term as fused
+    multiply-adds and are added pairwise at the end; fewer than four terms
+    are one chain."""
+    if _on_card(a, b):
+        return _reduce_card(a, b, dim, "dot_mm")
+    return reduce_reference(a, b, dim, "dot_mm")
+
+
+def _dot_vec16(a, b, dim: int = -1):
+    """Sum over a 16-long axis of a * b in the order of the reference's
+    vector-vector product (one channel): the first eight products are
+    rounded and added in turn, the last eight are fused multiply-adds."""
+    if _on_card(a, b):
+        return _reduce_card(a, b, dim, "dot_vec16")
+    return reduce_reference(a, b, dim, "dot_vec16")
+
+
+def _tree8(q):
+    """The 8 lanes of a vector loop added pairwise: lane i + lane i+4, then
+    i + i+2, then 0 + 1."""
+    h = q[..., :4] + q[..., 4:]
+    g = h[..., :2] + h[..., 2:]
+    return g[..., 0] + g[..., 1]
+
+
+def _sum_tree16(x):
+    """Sum over a last axis of 16 in the order of an 8-lane vector loop:
+    the two halves added lane by lane, then the lanes pairwise (4, 2, 1)."""
+    return _tree8(x[..., :8] + x[..., 8:])
+
+
+def _cross6(a, b):
+    """(N, C) products of the rows of a (N, 6) and b (C, 6), summed as
+    XLA's CPU matrix product sums them. Its order depends on C alone: two
+    fused multiply-add chains, over the even and the odd terms, added at the
+    end, where C mod 64 is 1..32; one chain in index order (`_dot`) where
+    it is 0 or 33..63. Measured against the reference's jitted dot at C
+    24..8,192 and N 512..24,576 on an x86-64 Intel Xeon with AVX-512 and
+    AMX (XLA's CPU backend tiles its products by the host's vector width,
+    so a host with another ISA may sum otherwise:
+    `tests/test_torch_etc1s_encode.py` holds this rule against
+    `jax.jit(jnp.dot)` on the host that runs it). The plain version of the
+    `cross6_*` kernels, which spell the same rule out on the card."""
+    lanes = 2 if 1 <= b.shape[0] % 64 <= 32 else 1
+    # the fused multiply-adds of `_dot` / `_dot_mm`, with the operands
+    # widened before they are broadcast: one (N, C) float64 pass each
+    a64, b64 = a.double(), b.double()
+    acc = [(a64[:, None, k] * b64[None, :, k]).float() for k in range(lanes)]
+    for k in range(lanes, a.shape[1]):
+        acc[k % lanes] = torch.addcmul(acc[k % lanes].double(),
+                                       a64[:, None, k], b64[None, :, k]).float()
+    return acc[0] if lanes == 1 else acc[0] + acc[1]
+
+
+def _sum_sq_tree16(d):
+    """Sum over a last axis of 16 of d * d in the order of the same vector
+    loop with the second half's squares contracted: lane i is
+    fma(d_{i+8}, d_{i+8}, d_i * d_i), then the lanes pairwise (4, 2, 1)."""
+    lo, hi = d[..., :8], d[..., 8:]
+    return _tree8(_fma(hi, hi, lo * lo))

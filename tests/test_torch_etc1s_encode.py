@@ -109,14 +109,14 @@ def test_encode_blocks(radius, perceptual):
 def test_encode_blocks_output_unchanged_by_the_fused_shortlist(
         radius, perceptual, monkeypatch):
     """encode_blocks shortlists through `factorized_scan_shortlist`; through
-    the full scan and a stable sort, as before the fused kernel, it gives
-    the same dict on the CPU."""
+    the scan's full errors and a stable sort, as before the fused kernel, it
+    gives the same dict on the CPU."""
     px = _t(_blocks(400, 9 + radius))
     got = tops.encode_blocks(px, radius=radius, perceptual=perceptual)
 
     def unfused(pixels, radius=1, perceptual=False):
-        flat = tops.cuda_etc1s.factorized_scan(pixels, radius=radius,
-                                               perceptual=perceptual)
+        flat = tops.cuda_etc1s.factorized_scan_errors_reference(
+            pixels, radius=radius, perceptual=perceptual)
         return tops._shortlist(flat, min(16, flat.shape[1]))
 
     monkeypatch.setattr(tops.cuda_etc1s, "factorized_scan_shortlist", unfused)
@@ -314,3 +314,129 @@ def test_state_dtypes_and_devices():
     with pytest.raises(ValueError):
         state.selector_patterns(np.zeros((2, 15)))
     assert ETC1_INTEN_TABLES.shape == (8, 4)
+
+
+@pytest.mark.parametrize("radius", [0, 1, 2])
+def test_cluster_scan_is_the_references_formulation(radius):
+    """The per-block gray-axis sums against the cluster base (the full
+    scan's columns) equal the reference's `_gray_axis_minterm` of its
+    XLA branch bit for bit, and the assembled (C, D*8) cluster errors equal
+    the reference's `flat` of `optimize_cluster_endpoints` (jitted as the
+    frontend runs it) bit for bit, with whole-numbered pixels."""
+    from basis_universal_tpu_torch.ops import cuda_etc1s as ck
+
+    rng = np.random.default_rng(30 + radius)
+    px = _blocks(500, 31 + radius)
+    c = 37
+    ids = rng.integers(0, c, 500).astype(np.int32)
+    base5 = rng.integers(0, 32, (c, 3)).astype(np.int32)
+    deltas = jops._candidate_deltas(radius)
+    d_n = len(deltas)
+
+    @jax.jit
+    def ref(px, ids, base5):
+        c5s = jnp.clip(base5[None] + jnp.asarray(deltas)[:, None, :], 0, 31)
+        base8 = jops.expand5(c5s).astype(jnp.float32)           # (D,C,3)
+        mom = jops._block_moments(px)
+        seg = lambda x: jax.ops.segment_sum(x, ids, num_segments=c)
+        npix = 16.0 * seg(jnp.ones(px.shape[0], jnp.float32))
+        lb = jnp.sum(base8, axis=-1)
+        q = (seg(mom["sum_x2"])[None]
+             - 2.0 * jnp.einsum("dcx,cx->dc", base8, seg(mom["sum_x"]))
+             + npix[None] * jnp.sum(base8 * base8, axis=-1))
+        su2 = (seg(mom["sum_l2"])[None] - 2.0 * lb * seg(mom["sum_l"])[None]
+               + npix[None] * lb * lb)
+        u = (mom["luma"][None] - lb[:, ids][..., None]) * (1.0 / 3.0)
+        mt = jnp.moveaxis(jops._gray_axis_minterm(u), 0, 1).reshape(-1, d_n * 8)
+        errs = (q - su2 * (1.0 / 3.0)).T[:, :, None] \
+            + 3.0 * seg(mt).reshape(c, d_n, 8)
+        return mt, errs.reshape(c, -1)
+
+    want_mt, want_flat = (np.asarray(x) for x in ref(
+        jnp.asarray(px), jnp.asarray(ids), jnp.asarray(base5)))
+    t_ids = torch.from_numpy(ids).long()
+    t_base5 = torch.from_numpy(base5)
+    mt = ck.factorized_scan(_t(px), base5=t_base5[t_ids].float().contiguous(),
+                            radius=radius)
+    np.testing.assert_array_equal(mt.numpy(), want_mt)
+    flat = tops._cluster_scan(_t(px), t_ids, t_base5,
+                              torch.as_tensor(deltas), mt, False)
+    np.testing.assert_array_equal(flat.numpy(), want_flat)
+
+
+@pytest.mark.parametrize("c", [24, 64, 65, 96, 97, 1000, 2400, 2416])
+def test_cross6_order_is_this_hosts_xla_dot(c):
+    """`xla_order._cross6` names XLA-CPU's summation order of a 6-long
+    contraction by C alone (two interleaved chains where C mod 64 is 1..32,
+    one chain otherwise): held bit for bit against `jax.jit(jnp.dot)` on
+    the host that runs the test, on both sides of the rule, so a host whose
+    XLA tiles its products otherwise fails here and not deep in a
+    codebook."""
+    from basis_universal_tpu_torch.ops.xla_order import _cross6
+
+    rng = np.random.default_rng(c)
+    a = rng.uniform(0, 1, (512, 6)).astype(np.float32)
+    b = rng.uniform(0, 1, (c, 6)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda x, y: x @ y.T)(a, b))
+    np.testing.assert_array_equal(_cross6(_t(a), _t(b)).numpy(), want)
+
+
+@pytest.mark.parametrize("c", [97, 2416])
+def test_cross6_argmin_and_distances_are_the_references(c):
+    """The k-means assignment (`cross6_argmin`, bf16-rounded operands at >=
+    1024 clusters) equals the reference's jitted formulation bit for bit,
+    first index on ties (a duplicated centroid planted); the refine through
+    `cross6_distances` picks the reference's cluster for every block
+    (distinct codebook entries, so no two candidates tie); the CPU
+    launches nothing."""
+    from basis_universal_tpu_torch.ops import cuda_etc1s as ck
+    from basis_universal_tpu_torch.ops.xla_order import _dot, _sum
+
+    rng = np.random.default_rng(c + 1)
+    vecs = rng.uniform(0, 1, (3000, 6)).astype(np.float32)
+    cents = vecs[rng.choice(3000, c, replace=False)].copy()
+    cents[c // 2] = cents[c // 3]                    # an exact tie
+    dt = jnp.bfloat16 if c >= 1024 else jnp.float32
+
+    @jax.jit
+    def ref_assign(v, cb):
+        cross = jax.lax.dot_general(v.astype(dt), cb.astype(dt).T,
+                                    (((1,), (0,)), ((), ())),
+                                    preferred_element_type=jnp.float32)
+        return jnp.argmin(jnp.sum(cb * cb, -1)[None, :] - 2.0 * cross, -1)
+
+    ck.reset_launch_counts()
+    got = tops.kmeans_assign(_t(vecs), _t(cents), c)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(ref_assign(vecs, cents)))
+
+    px = _blocks(500, c)
+    enc = jops.encode_blocks(jnp.asarray(px), radius=1)
+    vec6 = np.concatenate([np.asarray(enc["low"]), np.asarray(enc["high"])],
+                          -1) / 255.0
+    code = rng.choice(32 ** 3 * 8, c, replace=False)
+    c5 = np.stack([code & 31, (code >> 5) & 31, (code >> 10) & 31],
+                  -1).astype(np.int32)
+    it = (code >> 15).astype(np.int32)
+    pal = etc1s_palette(c5, it).astype(np.float32)
+    cb6 = np.concatenate([pal[:, 0], pal[:, 3]], -1) / 255.0
+    g5, gi = state.endpoint_codebook(c5, it)
+    ga, _ = tops.refine_endpoint_assignment(
+        _t(px), state.vectors(vec6), state.vectors(cb6), g5, gi, topk=8)
+    wa, _ = jops.refine_endpoint_assignment(
+        jnp.asarray(px), jnp.asarray(vec6, jnp.float32), jnp.asarray(cb6),
+        jnp.asarray(c5), jnp.asarray(it), topk=8)
+    np.testing.assert_array_equal(ga.numpy(), np.asarray(wa))
+
+    tv, tc = _t(vecs), _t(cents)
+    np.testing.assert_array_equal(
+        ck.cross6_distances(tv, tc, _dot(tv, tv), _dot(tc, tc)).numpy(),
+        ck.cross6_distances_reference(tv, tc, _dot(tv, tv),
+                                      _dot(tc, tc)).numpy())
+    assert ck.LAUNCHES == dict.fromkeys(ck.LAUNCHES, 0)
+    with pytest.raises(ValueError):
+        ck.cross6_argmin(tv[:, :5].contiguous(), tc, _sum(tc * tc, -1))
+    with pytest.raises(ValueError):
+        ck.cross6_distances(tv, tc, _dot(tv, tv)[:-1], _dot(tc, tc))
+    with pytest.raises(TypeError):
+        ck.cross6_argmin(tv.double(), tc, _sum(tc * tc, -1))

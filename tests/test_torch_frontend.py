@@ -2,15 +2,16 @@
 CPU, on synthetic textures from `basis_universal_tpu_torch.testing.synthetic`.
 
 64x64 runs k-means with a float32 cross term (fewer than 1024 endpoint
-clusters), 256x256 with the bf16 one (1,240 clusters at q128). Every file
+clusters), 256x256 with the bf16 one (2,064 clusters at q128). Every file
 is decoded by the reference's host decoder with all CRCs checked.
 
-The port draws the random fill of empty k-means seeds from a
-torch.Generator, the reference from jax.random; the `reference_fill` fixture
-hands the port the reference's draw (through `utils/state.py`), so what is
-left is summation order and ties. PSNR must agree within 0.05 dB and file
-size within 1.5% per image (at 64x64 once exact ties are resolved as the
-reference resolves them, see there).
+The port spells out XLA-CPU's float32 order in every operator that ranks
+(`ops/xla_order.py`) and draws the random fill of empty k-means seeds as
+jax.random does (`ops/threefry.py`), so the files are the reference's bytes.
+Two causes are left (ROADMAP section 3): the perceptual metric's float
+moments, and at larger sizes the reference's refine shortlist, an unstable
+sort that orders equal distances its own way; the perceptual case is held to
+0.1 dB / 3%.
 
 Both compressors must run the same host back end (`same_host_backend`).
 """
@@ -27,13 +28,11 @@ import jax.numpy as jnp
 from basis_universal_tpu import compressor as ref_compressor
 from basis_universal_tpu import native as ref_native
 from basis_universal_tpu.codecs.etc1s import frontend as ref_frontend
-from basis_universal_tpu.ops import etc1s_encode as ref_ops
 from basis_universal_tpu.ops.etc1 import image_to_blocks
 from basis_universal_tpu_torch import compressor, native
 from basis_universal_tpu_torch.codecs.etc1s import frontend
 from basis_universal_tpu_torch.testing.checks import etc1s_psnr
 from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
-from basis_universal_tpu_torch.utils import state
 
 PSNR_TOL_DB = 0.05
 SIZE_TOL = 0.015
@@ -73,23 +72,6 @@ def test_reference_native_loads_again_after_a_lost_build_race(monkeypatch):
     assert _load_reference_native() == native.available()
 
 
-@pytest.fixture
-def reference_fill(monkeypatch):
-    """Seed fills drawn as the reference draws them: jax.random.choice with
-    PRNGKey(seed) over the training vectors, seed = the generator's seed."""
-    ops = frontend.ops
-    port_init = ops.bisecting_init
-
-    def init(vecs, weights, num_clusters, generator=None, fill=None):
-        key = jax.random.PRNGKey(generator.initial_seed())
-        draw = jax.random.choice(key, jnp.asarray(vecs.cpu().numpy()),
-                                 (num_clusters,))
-        return port_init(vecs, weights, num_clusters,
-                         fill=state.vectors(np.asarray(draw), vecs.device))
-
-    monkeypatch.setattr(ops, "bisecting_init", init)
-
-
 def _drift(port_out, ref_out, img):
     """(PSNR port - ref in dB, size port / ref - 1) of one texture."""
     p_port = etc1s_psnr(port_out.basis_data, img)
@@ -100,98 +82,88 @@ def _drift(port_out, ref_out, img):
     return p_port - p_ref, len(port_out.basis_data) / len(ref_out.basis_data) - 1
 
 
-def _agree(port_out, ref_out, img):
-    dp, ds = _drift(port_out, ref_out, img)
-    assert abs(dp) <= PSNR_TOL_DB and abs(ds) <= SIZE_TOL
+def _same_bytes(port_out, ref_out, img):
+    _drift(port_out, ref_out, img)
+    assert port_out.basis_data == ref_out.basis_data
+    assert port_out.ktx2_data == ref_out.ktx2_data
 
 
-def _take_reference_ties(monkeypatch):
-    """Make the port's encode_blocks take the reference's endpoint wherever
-    the two pick different ones, after checking that both choices score the
-    same there (an exact tie, broken by the float rounding of the shortlist
-    scores)."""
-    ops = frontend.ops
-    port_encode = ops.encode_blocks
+def test_seed_fill_is_the_references_draw():
+    """Empty k-means seeds take the training vectors jax.random.choice
+    draws from PRNGKey(seed) (`ops/threefry.py`)."""
+    from basis_universal_tpu_torch.ops import threefry
 
-    def encode(px, radius=1, perceptual=False):
-        got = port_encode(px, radius=radius, perceptual=perceptual)
-        want = ref_ops.encode_blocks(jnp.asarray(px.numpy()), radius=radius,
-                                     perceptual=perceptual)
-        want = {k: torch.from_numpy(np.array(v)) for k, v in want.items()}
-        differ = ~((got["color5"] == want["color5"]).all(-1)
-                   & (got["inten"] == want["inten"]))
-        np.testing.assert_allclose(got["err"][differ], want["err"][differ],
-                                   rtol=1e-5)
-        print(f"encode_blocks: took the reference's choice at "
-              f"{int(differ.sum())} tied blocks")
-        return {k: torch.where(differ.view(-1, *[1] * (v.dim() - 1)),
-                               want[k], v) for k, v in got.items()}
-
-    monkeypatch.setattr(ops, "encode_blocks", encode)
+    for seed in (0, 1, 63, 2**31 - 1, -5):
+        for n, k in ((256, 144), (24576, 2416), (7, 300), (100003, 17)):
+            want = np.asarray(jax.random.choice(jax.random.PRNGKey(seed),
+                                                jnp.arange(n), (k,)))
+            np.testing.assert_array_equal(
+                threefry.choice_indices(seed, n, k), want)
 
 
 @pytest.mark.parametrize("alpha", [False, True])
-def test_compress_matches_reference_64(alpha, reference_fill, monkeypatch):
-    """64x64 (256 blocks, 144 endpoint clusters), each image held to the
-    bound. One exact endpoint tie in encode_blocks broken the other way
-    moves a bisecting split and so the whole small codebook: seed 64 (RGB)
-    drifts by -0.149 dB. An image past the bound is encoded again with the
-    reference's choice at the tied blocks (checked to tie), and must then
-    agree: the drift was the tie's, not the port's."""
-    retried = 0
+def test_compress_matches_reference_64(alpha):
+    """64x64 (256 blocks, 144 endpoint clusters): the reference's bytes, six
+    seeds each. (One exact endpoint tie broken the other way moves a
+    bisecting split and so the whole small codebook: the port spells out
+    XLA-CPU's float32 order in every operator that ranks.)"""
     for seed in range(60, 66):
         img, _ = synthetic_texture(64, 64, seed=seed, alpha=alpha)
-        params = compressor.CompressorParams(device="cpu")
         ref = ref_compressor.compress(img, ref_compressor.CompressorParams())
-        port = compressor.compress(img, params)
+        port = compressor.compress(img, compressor.CompressorParams(
+            device="cpu"))
         assert len(port.slice_endpoints) == (2 if alpha else 1)
-        dp, ds = _drift(port, ref, img)
-        if abs(dp) > PSNR_TOL_DB or abs(ds) > SIZE_TOL:
-            retried += 1
-            with monkeypatch.context() as m:
-                _take_reference_ties(m)
-                port = compressor.compress(img, params)
-            dp, ds = _drift(port, ref, img)
-        assert abs(dp) <= PSNR_TOL_DB and abs(ds) <= SIZE_TOL, seed
-    print(f"64x64 alpha={alpha}: {retried} of 6 images needed the "
-          "reference's tie choice")
+        _same_bytes(port, ref, img)
 
 
-def test_compress_matches_reference_256(reference_fill):
+def test_compress_matches_reference_256():
+    """256x256: 2,064 endpoint clusters, the bf16 k-means cross term."""
     img, _ = synthetic_texture(256, 256, seed=256)
     port = compressor.compress(img, compressor.CompressorParams(device="cpu"))
     ref = ref_compressor.compress(img, ref_compressor.CompressorParams())
-    _agree(port, ref, img)
+    _same_bytes(port, ref, img)
 
 
 @pytest.mark.parametrize("quality,effort,perceptual", [
     (16, 0, False), (255, 0, False), (255, 3, False), (128, 6, True)])
 def test_compress_matches_reference_across_settings(quality, effort,
-                                                    perceptual,
-                                                    reference_fill):
+                                                    perceptual):
     """Other codebook sizes, efforts (radius 2 and a 32-wide shortlist at
     effort 6, three refine passes at 3) and the perceptual metric, on one
-    128x128 RGBA texture. Measured drift over q {16, 128, 255} x effort
-    {0, 1, 3, 6} x perceptual: at most 0.09 dB and 0.75%; the bound here is
-    0.1 dB and 3% per setting."""
+    128x128 RGBA texture: the reference's bytes with the uniform metric.
+    The perceptual metric's float moments are not yet spelled out in the
+    reference's order (ROADMAP section 3): there the bound is 0.1 dB and 3%
+    (measured -0.0008 dB, +0.08%)."""
     img, _ = synthetic_texture(128, 128, seed=77, alpha=True)
     port = compressor.compress(img, compressor.CompressorParams(
         device="cpu", quality_level=quality, effort=effort,
         perceptual_metric=perceptual))
     ref = ref_compressor.compress(img, ref_compressor.CompressorParams(
         quality_level=quality, effort=effort, perceptual_metric=perceptual))
-    dp, ds = _drift(port, ref, img)
-    assert abs(dp) <= 0.1 and abs(ds) <= 0.03
+    if perceptual:
+        dp, ds = _drift(port, ref, img)
+        assert abs(dp) <= 0.1 and abs(ds) <= 0.03
+    else:
+        _same_bytes(port, ref, img)
 
 
-def test_compress_batch_matches_reference_and_is_deterministic(
-        reference_fill):
+def test_compress_batch_matches_reference_and_is_deterministic():
+    """Two 128x128 textures (528 endpoint clusters). Image 6 is the
+    reference's bytes. In image 5 one block's refine shortlist differs: the
+    reference's `approx_min_k` is an unstable sort on the CPU and puts
+    another of several entries at equal 6-D distance in its 16th place, and
+    that entry rescores better (the block's error 70 lower in the port's
+    run). So each image is held to 0.05 dB and 1.5%, and image 6 to the
+    bytes. Given the reference's own shortlist, image 5 is the reference's
+    bytes too (`tests/test_torch_recorded_reference.py`)."""
     imgs = [synthetic_texture(128, 128, seed=s)[0] for s in (5, 6)]
     params = compressor.CompressorParams(device="cpu")
     port = compressor.compress_batch(imgs, params)
     ref = ref_compressor.compress_batch(imgs, ref_compressor.CompressorParams())
     for p, r, img in zip(port, ref, imgs):
-        _agree(p, r, img)
+        dp, ds = _drift(p, r, img)
+        assert abs(dp) <= PSNR_TOL_DB and abs(ds) <= SIZE_TOL
+    _same_bytes(port[1], ref[1], imgs[1])
     again = compressor.compress_batch(imgs, params)
     assert [o.basis_data for o in again] == [o.basis_data for o in port]
 

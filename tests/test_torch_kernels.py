@@ -84,8 +84,9 @@ def _assert_scan_close(got, want, px, base5, radius, perceptual):
                            f"max abs err {np.abs(got - want).max()}")
 
 
-def _xla_scan(px, base5, radius, perceptual):
-    """The reference's XLA candidate scan (`_scan_block_errs`), (B, D*8)."""
+def _xla_scan(px, base5, radius, perceptual, minterm=False):
+    """The reference's XLA candidate scan (`_scan_block_errs`), (B, D*8); with
+    `minterm`, its gray-axis sums (`_gray_axis_minterm` of its u)."""
     deltas = jnp.asarray(jops._candidate_deltas(radius))
     if base5 is None:
         base5 = jnp.clip(jnp.round(jnp.mean(px, axis=1) * (31.0 / 255.0)),
@@ -97,30 +98,51 @@ def _xla_scan(px, base5, radius, perceptual):
     base8 = jops.expand5(c5s).astype(jnp.float32)
     if perceptual:
         base8 = jops.perceptual_transform(base8)
-    err = jops._scan_block_errs(jops._block_moments(px_m, gvec), base8,
-                                gvec=gvec)
-    return np.asarray(jnp.moveaxis(err, 1, 0).reshape(px.shape[0], -1))
+    mom = jops._block_moments(px_m, gvec)
+    if minterm:
+        lb = jnp.sum(base8, axis=-1) if gvec is None else base8 @ gvec
+        u = (mom["luma"][None] - lb[..., None]) * (1.0 / 3.0)
+        err = jops._gray_axis_minterm(u)
+    else:
+        err = jops._scan_block_errs(mom, base8, gvec=gvec)
+    return jnp.moveaxis(err, 1, 0).reshape(px.shape[0], -1)
 
 
 @pytest.mark.parametrize("perceptual", [False, True])
 @pytest.mark.parametrize("external", [False, True])
 @pytest.mark.parametrize("radius", [1, 2])
 def test_factorized_scan_matches_pallas_and_xla(radius, external, perceptual):
+    """The scan's gray-axis sums (what the wrapper returns) equal the
+    reference's XLA sums, jitted, bit for bit with whole-numbered pixels and
+    RGB; the errors assembled from the same terms (what the shortlist
+    ranks) match the reference's Pallas scan and its XLA scan."""
     px = _blocks(B, 11 + radius)
     rng = np.random.default_rng(5)
     base5 = rng.integers(0, 32, (B, 3)).astype(np.float32) if external else None
-    got = ck.factorized_scan(
-        torch.from_numpy(px),
-        None if base5 is None else torch.from_numpy(base5),
-        radius=radius, perceptual=perceptual)
-    assert got.shape == (B, (2 * radius + 1) ** 3 * 8)
+    t_base5 = None if base5 is None else torch.from_numpy(base5)
+    sums = ck.factorized_scan(torch.from_numpy(px), t_base5, radius=radius,
+                              perceptual=perceptual)
+    assert sums.shape == (B, (2 * radius + 1) ** 3 * 8)
+    want_sums = np.asarray(jax.jit(_xla_scan, static_argnums=(2, 3, 4))(
+        jnp.asarray(px), None if base5 is None else jnp.asarray(base5),
+        radius, perceptual, True))
+    if perceptual:
+        # 3 x the sums is the error's share: held to the scan's tolerance
+        _assert_scan_close(3.0 * sums.numpy(), 3.0 * want_sums, px, base5,
+                           radius, perceptual)
+    else:
+        np.testing.assert_array_equal(sums.numpy(), want_sums)
+    got = ck.factorized_scan_errors_reference(torch.from_numpy(px), t_base5,
+                                              radius=radius,
+                                              perceptual=perceptual)
+    assert got.shape == sums.shape
     pallas = pallas_etc1s.factorized_scan(
         jnp.asarray(px), None if base5 is None else jnp.asarray(base5),
         radius=radius, interpret=True, perceptual=perceptual)
     _assert_scan_close(got.numpy(), np.asarray(pallas), px, base5, radius,
                        perceptual)
-    _assert_scan_close(got.numpy(), _xla_scan(jnp.asarray(px), base5, radius,
-                                              perceptual),
+    _assert_scan_close(got.numpy(), np.asarray(_xla_scan(
+                           jnp.asarray(px), base5, radius, perceptual)),
                        px, base5, radius, perceptual)
 
 
@@ -148,8 +170,8 @@ def _equal_but_at_ties(got, px, radius, perceptual):
     differ, the two columns' scores must tie within the scan's tolerance.
     Returns the number of rows that differ."""
     want = _pallas_top_k(px, radius, perceptual, got.shape[1])
-    flat = ck.factorized_scan_reference(torch.from_numpy(px), radius=radius,
-                                        perceptual=perceptual).numpy()
+    flat = ck.factorized_scan_errors_reference(
+        torch.from_numpy(px), radius=radius, perceptual=perceptual).numpy()
     mag = scan_term_magnitude(torch.from_numpy(px), None, radius,
                               perceptual).numpy().astype(np.float64)
     rows = np.arange(px.shape[0])[:, None]
@@ -173,8 +195,8 @@ def test_factorized_scan_shortlist_matches_plain_and_pallas(radius,
     got = ck.factorized_scan_shortlist(torch.from_numpy(px), radius=radius,
                                        perceptual=perceptual)
     assert got.shape == (B, k) and got.dtype == torch.int64
-    flat = ck.factorized_scan_reference(torch.from_numpy(px), radius=radius,
-                                        perceptual=perceptual)
+    flat = ck.factorized_scan_errors_reference(
+        torch.from_numpy(px), radius=radius, perceptual=perceptual)
     assert torch.equal(got, tops._shortlist(flat, k))
     ties = _equal_but_at_ties(got.numpy(), px, radius, perceptual)
     print(f"shortlist r{radius} perceptual={perceptual}: {ties} of {B} rows "
@@ -190,8 +212,8 @@ def test_factorized_scan_shortlist_ties_go_to_the_lower_column(radius,
     px = _saturated_blocks(B, 70 + radius)
     got = ck.factorized_scan_shortlist(torch.from_numpy(px), radius=radius,
                                        perceptual=perceptual).numpy()
-    flat = ck.factorized_scan_reference(torch.from_numpy(px), radius=radius,
-                                        perceptual=perceptual).numpy()
+    flat = ck.factorized_scan_errors_reference(
+        torch.from_numpy(px), radius=radius, perceptual=perceptual).numpy()
     s = np.sort(flat, 1)
     tied = s[:, 15] == s[:, 16]
     assert tied.sum() >= B // 10, "the set must tie at the 16th place"
@@ -481,6 +503,10 @@ def test_wrappers_reject_bad_inputs():
         ck.find_best_selector_patterns(torch.zeros((8, 16, 4)),
                                        torch.zeros((5, 16), dtype=torch.int32),
                                        6)
+    with pytest.raises(ValueError):
+        ck.bisect_axis(torch.zeros((8, 5, 6)))
+    with pytest.raises(TypeError):
+        ck.bisect_axis(torch.zeros((8, 6, 6), dtype=torch.float64))
 
 
 def test_cpu_tensors_run_the_plain_version_without_launching():
@@ -501,4 +527,33 @@ def test_cpu_tensors_run_the_plain_version_without_launching():
     np.testing.assert_array_equal(
         ck.palette_errs(px, pal).numpy(),
         ck.palette_errs_reference(px, pal).numpy())
+    cov = torch.from_numpy(np.random.default_rng(3).normal(
+        0, 1, (40, 6, 6)).astype(np.float32))
+    np.testing.assert_array_equal(ck.bisect_axis(cov).numpy(),
+                                  ck.bisect_axis_reference(cov).numpy())
     assert all(v == 0 for v in ck.LAUNCHES.values())
+
+
+def test_xla_order_layout_merges_contiguous_dims():
+    """The card wrappers of `ops/xla_order.py` hand their kernels an output
+    shape with size-1 dims dropped and dims every operand steps through
+    contiguously merged, and each operand's strides over it (0 where
+    broadcast), as one int64 buffer: 8 sizes, then 8 strides per operand."""
+    from basis_universal_tpu_torch.ops import xla_order as xo
+
+    a, row = torch.zeros((4, 5, 6)), torch.zeros(6)
+    shape, strides = xo._broadcast([a, 2.0, row])
+    assert shape == [4, 5, 6] and strides == [[30, 6, 1], None, [0, 0, 1]]
+    nd, meta = xo._layout(shape, strides)
+    assert nd == 2 and list(meta[:2]) == [20, 6]
+    assert list(meta[8:10]) == [6, 1] and list(meta[16:18]) == [0, 0]
+    assert list(meta[24:26]) == [0, 1]
+    shape, strides = xo._broadcast([a[:, :1, :], torch.zeros((5, 1))])
+    assert shape == [4, 5, 6] and strides == [[30, 0, 1], [0, 1, 0]]
+    nd, meta = xo._layout(*xo._broadcast([torch.zeros(())]))
+    assert nd == 1 and meta[0] == 1
+    with pytest.raises(ValueError):
+        xo._broadcast([torch.zeros((2, 3)), torch.zeros((4, 3))])
+    odd = torch.zeros((2,) * 9).permute(8, 7, 6, 5, 4, 3, 2, 1, 0)
+    with pytest.raises(ValueError):
+        xo._layout(*xo._broadcast([odd, torch.zeros((2,) * 9)]))

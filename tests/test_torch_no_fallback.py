@@ -137,6 +137,40 @@ print("ok")
 """
 
 
+_FRONT_DOORS_RUN = r"""
+import pathlib, sys, tempfile
+BLOCKED = ("basis_universal_tpu", "jax", "jaxlib", "PIL", "zstandard")
+for name in BLOCKED:
+    sys.modules[name] = None
+import numpy as np
+from basis_universal_tpu_torch import api, cli
+from basis_universal_tpu_torch.formats.constants import BasisTexFormat as F
+from basis_universal_tpu_torch.parallel import mesh
+from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+from basis_universal_tpu_torch.utils import image_io, telemetry
+img, _ = synthetic_texture(32, 48, seed=5, alpha=True)
+enc, tr = api.Encoder(device="cpu"), api.Transcoder(device="cpu")
+for fmt in (F.ETC1S, F.UASTC_LDR_4x4):
+    data = enc.compress(img, fmt, 100, 1, api.BasisFlags.SRGB)
+    assert tr.decode_rgba(data).shape == (32, 48, 4), fmt
+d = pathlib.Path(tempfile.mkdtemp())
+image_io.write_dds(d / "t.dds", np.ascontiguousarray(img).tobytes(), 48, 32,
+                   "RGBA8")
+assert cli.main([str(d / "t.dds"), "-basis", "-device", "cpu",
+                 "-output_path", str(d)]) == 0
+assert cli.main([str(d / "t.basis"), "-info", "-device", "cpu"]) == 0
+telemetry.start_device_trace(str(d / "trace"), device="cpu")
+enc.compress(img, F.ETC1S, 50, 1, api.BasisFlags.SRGB)
+telemetry.stop_device_trace()
+assert (d / "trace" / "trace.json").exists()
+assert mesh.texture_batch_mesh(["cpu", "cpu"])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in BLOCKED and sys.modules[m] is not None)
+assert not loaded, loaded
+print("ok")
+"""
+
+
 # the searches are thousands of small operators: one intra-op thread keeps
 # a child process from fighting the test workers for cores
 _ONE_THREAD = dict(os.environ, OMP_NUM_THREADS="1")
@@ -148,6 +182,35 @@ def test_port_imports_and_encodes_without_jax_pil_zstandard():
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.startswith("ok")
+
+
+def test_front_doors_run_without_jax_pil_zstandard():
+    """The API, the CLI on a .dds file (no Pillow), the telemetry's trace
+    and the mesh helpers, with jax, Pillow, zstandard and the reference
+    package unavailable."""
+    res = subprocess.run([sys.executable, "-c", _FRONT_DOORS_RUN], cwd=REPO,
+                         env=_ONE_THREAD, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.splitlines()[-1] == "ok"
+
+
+def test_front_doors_without_cuda_raise(monkeypatch, tmp_path):
+    """The API, the CLI without -device cpu, the codec sweep and the mesh
+    default to the card, and raise where there is none."""
+    from basis_universal_tpu_torch import api, cli
+    from basis_universal_tpu_torch.parallel import mesh
+    from basis_universal_tpu_torch.utils import image_io
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img, _ = synthetic_texture(16, 16, seed=1, alpha=True)
+    dds = tmp_path / "t.dds"
+    image_io.write_dds(dds, np.ascontiguousarray(img).tobytes(), 16, 16,
+                       "RGBA8")
+    for run in (api.Encoder, api.Transcoder, mesh.texture_batch_mesh,
+                lambda: cli.main([str(dds), "-output_path", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run()
 
 
 def test_every_mode_encodes_without_jax_pil_and_the_reference():

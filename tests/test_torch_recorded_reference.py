@@ -13,6 +13,13 @@ identical blocks) to
 the file re-encodes the first blocks of each BC7 stage with the reference
 and with the port and holds both to the recorded digests, and checks that
 the script's constants and the digests describe the same stages.
+
+The stage `etc1s_image0_shortlist` records the refine shortlist that the
+reference's own `approx_min_k` (an unstable sort on the CPU) takes from
+image 0's refine distances, to
+`basis_universal_tpu_torch/testing/etc1s_image0_refine_shortlist.npz`;
+`chip_smoke.py` feeds it to the port on the card, which then gives the
+reference's recorded bytes.
 """
 
 import hashlib
@@ -43,6 +50,8 @@ from basis_universal_tpu_torch.testing.synthetic import \
 
 DIGESTS = (REPO / "basis_universal_tpu_torch" / "testing"
            / "bc7_reference_digests.npz")
+SHORTLIST = (REPO / "basis_universal_tpu_torch" / "testing"
+             / "etc1s_image0_refine_shortlist.npz")
 
 
 def _rgba(img):
@@ -100,6 +109,83 @@ def _stage_pixels(name):
     return image_to_blocks(_rgba(img)).reshape(-1, 16, 4)[:N_CHECKED]
 
 
+def fed_the_references_sort(img, **kw):
+    """The port's ETC1S encode of img on the CPU with every refine
+    shortlist taken by the reference's `jax.lax.approx_min_k` (jitted on
+    the CPU, as in `refine_endpoint_assignment`) from the port's own refine
+    distances in place of the port's stable sort. Returns (the .basis
+    bytes, the shortlists in call order)."""
+    import jax
+    import jax.numpy as jnp
+
+    from basis_universal_tpu_torch import compressor as port_compressor
+    from basis_universal_tpu_torch.ops import etc1s_encode as tops
+
+    amk = jax.jit(lambda d, k: jax.lax.approx_min_k(d, k)[1],
+                  static_argnums=1)
+    stable, refine = tops._shortlist, tops.refine_endpoint_assignment
+    taken = []
+
+    def references_sort(d6, k):
+        taken.append(np.array(amk(jnp.asarray(d6.numpy()), k)))
+        return torch.from_numpy(taken[-1]).long()
+
+    def fed(*args, **kwargs):
+        tops._shortlist = references_sort
+        try:
+            return refine(*args, **kwargs)
+        finally:
+            tops._shortlist = stable
+
+    tops.refine_endpoint_assignment = fed
+    try:
+        out = port_compressor.compress(img, port_compressor.CompressorParams(
+            device="cpu", **kw))
+    finally:
+        tops.refine_endpoint_assignment = refine
+    return out.basis_data, taken
+
+
+def test_port_fed_the_references_sort_gives_the_references_bytes():
+    """The one cause of ETC1S files that differ from the reference's
+    (ROADMAP section 3): with the refine shortlist taken by the
+    reference's own unstable sort from the port's distances, the port's
+    file is the reference's byte for byte, on a texture whose file differs
+    under the port's stable sort (128x128, seed 5, q 128)."""
+    from basis_universal_tpu_torch import compressor as port_compressor
+
+    img = synthetic_texture(128, 128, seed=5)[0]
+    want = compressor.compress(img, compressor.CompressorParams()).basis_data
+    stable = port_compressor.compress(img, port_compressor.CompressorParams(
+        device="cpu")).basis_data
+    got, taken = fed_the_references_sort(img)
+    assert stable != want
+    assert got == want
+    assert [t.shape for t in taken] == [(1024, 16)]
+
+
+def test_recorded_refine_shortlist_gives_image_0_the_references_bytes():
+    """Image 0 (768x512, q 128, effort 1): the reference's sort, taken
+    from the port's refine distances, is the recorded shortlist, and with
+    it the port's file has the reference's recorded sha256."""
+    smoke = _chip_smoke()
+    img = synthetic_texture(512, 768, seed=0)[0]
+    got, taken = fed_the_references_sort(img, quality_level=128, effort=1)
+    assert len(taken) == 1
+    np.testing.assert_array_equal(taken[0], np.load(SHORTLIST)["cand"])
+    assert hashlib.sha256(got).hexdigest() == \
+        smoke.REFERENCE_BASIS_SHA256["etc1s_image0"]
+
+
+def shortlist_stage(name, img):
+    t0 = time.time()
+    data, taken = fed_the_references_sort(img, quality_level=128, effort=1)
+    np.savez_compressed(SHORTLIST, cand=taken[0].astype(np.int16))
+    _emit(name, t0, basis_bytes=len(data),
+          sha256=hashlib.sha256(data).hexdigest(),
+          shortlist=list(taken[0].shape))
+
+
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", REPO / "chip_smoke.py")
@@ -145,6 +231,14 @@ def main():
     small = synthetic_texture(256, 384, seed=0)[0]
     digests = dict(np.load(DIGESTS)) if DIGESTS.exists() else {}
     stages = {
+        "etc1s_image0": lambda: compress_stage(
+            "etc1s_image0", rgb, quality_level=128, effort=1),
+        "etc1s_image0_shortlist": lambda: shortlist_stage(
+            "etc1s_image0_shortlist", rgb),
+        "uastc_image0": lambda: compress_stage(
+            "uastc_image0", rgb, tex_format=F.UASTC_LDR_4x4, effort=2),
+        "uastc_rgba": lambda: compress_stage(
+            "uastc_rgba", rgba, tex_format=F.UASTC_LDR_4x4, effort=2),
         "bc7_rgb_e2": lambda: bc7_stage("bc7_rgb_e2", rgb, 2, digests),
         "bc7_rgba_e2": lambda: bc7_stage("bc7_rgba_e2", rgba, 2, digests),
         "bc7_rgb_e1": lambda: bc7_stage("bc7_rgb_e1", rgb, 1, digests),

@@ -25,9 +25,14 @@ SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 # transcoder's re-encodes run on the port's device, and the XUASTC encoder
 # hands `device` to the UASTC search of its 4x4 plan (and imports zstandard
 # only after the FullArith syntax, which needs none, has returned, as the
-# XUASTC decoder imports it only for a hybrid stream)
+# XUASTC decoder imports it only for a hybrid stream); the front doors
+# (`api`, the CLI, the codec sweep and the parity harness) hand `device` to
+# every encode and transcode, and the telemetry's device trace is a
+# torch.profiler trace
 EDITED_COPIES = {"native.py", "transcoder.py", "codecs/astc/xuastc_encode.py",
-                 "codecs/astc/xuastc_ldr.py"}
+                 "codecs/astc/xuastc_ldr.py", "api.py", "cli.py",
+                 "utils/telemetry.py", "testing/codec_sweep.py",
+                 "testing/reference_parity.py"}
 
 
 def _copies():
@@ -111,7 +116,9 @@ def test_every_host_module_of_the_closure_is_copied():
                 "codecs/astc/scd.py", "codecs/astc/ldr_encode.py",
                 "codecs/astc/xuastc_arith_encode.py",
                 "codecs/astc/xuastc_encode.py",
-                "native.py", "transcoder.py"):
+                "native.py", "transcoder.py", "utils/image_io.py",
+                "utils/telemetry.py", "api.py", "cli.py",
+                "testing/codec_sweep.py", "testing/reference_parity.py"):
         assert rel in copied, rel
     for npz in ("codecs/astc/xuastc_cfgs.npz", "codecs/astc/xuastc_idct.npz",
                 "codecs/bc7/bc7_tables.npz"):

@@ -4,12 +4,9 @@ on the CPU, on synthetic 64x64 RGB and RGBA textures at effort 2, with and
 without the selector RDO.
 
 Bounds: PSNR within 0.05 dB, the same .basis length (a UASTC slice is its
-raw 16-byte blocks), at least 99% of the blocks byte-identical, and every
-block that differs decodes to the same squared error. Measured here: 99.22%
-to 100% of the blocks identical; the few that differ differ only in their
-ETC1 hint bits (an exact tie between two intensity tables of the radius-0
-ETC1S fit) and decode to the same pixels. Every file is decoded with all
-CRCs checked.
+raw 16-byte blocks) and every block byte-identical (the ETC1 hint's scan
+rounds as XLA-CPU's does, so its exact ties order as the reference's).
+Every file is decoded with all CRCs checked.
 """
 
 import numpy as np
@@ -18,10 +15,8 @@ import pytest
 import basis_universal_tpu.ops.etc1s_encode  # noqa: F401  (before tracing)
 from basis_universal_tpu import compressor as ref_compressor
 from basis_universal_tpu import transcoder as ref_transcoder
-from basis_universal_tpu.codecs.uastc.decode import decode_rgba
 from basis_universal_tpu.formats.basis_file import BasisFile
 from basis_universal_tpu.formats.constants import BasisTexFormat
-from basis_universal_tpu.ops.etc1 import image_to_blocks
 from basis_universal_tpu_torch import compressor
 from basis_universal_tpu_torch.testing.checks import (decode_uastc_basis,
                                                       uastc_psnr)
@@ -29,7 +24,7 @@ from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
 
 UASTC = BasisTexFormat.UASTC_LDR_4x4
 PSNR_TOL_DB = 0.05
-MIN_BLOCK_AGREEMENT = 0.99
+MIN_BLOCK_AGREEMENT = 1.0
 
 
 def _blocks_of(data):
@@ -38,27 +33,18 @@ def _blocks_of(data):
                            for i in range(len(f.slices))]).reshape(-1, 16)
 
 
-def _sse(blocks, px):
-    dec = decode_rgba(blocks).reshape(-1, 64).astype(np.float64)
-    return ((dec - px) ** 2).sum(1)
-
-
 def _agree(port, ref, img):
     p_port, p_ref = uastc_psnr(port.basis_data, img), uastc_psnr(
         ref.basis_data, img)
     b_port, b_ref = _blocks_of(port.basis_data), _blocks_of(ref.basis_data)
     same = (b_port == b_ref).all(1)
-    rgba = img if img.shape[-1] == 4 else np.concatenate(
-        [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
-    px = image_to_blocks(rgba).reshape(-1, 64)[~same]
-    np.testing.assert_array_equal(_sse(b_port[~same], px),
-                                  _sse(b_ref[~same], px))
     print(f"PSNR port {p_port:.4f} ref {p_ref:.4f} dB; {len(port.basis_data)}"
           f" vs {len(ref.basis_data)} B; blocks identical {same.mean():.4f}")
     assert p_port > 20.0
     assert abs(p_port - p_ref) <= PSNR_TOL_DB
     assert len(port.basis_data) == len(ref.basis_data)
     assert same.mean() >= MIN_BLOCK_AGREEMENT
+    assert port.basis_data == ref.basis_data
 
 
 @pytest.mark.parametrize("rdo", [0.0, 1.0])
