@@ -29,9 +29,13 @@ Equivalences with the reference kept on purpose:
   and stay library reductions. So the card gives the CPU's bits;
 - the products XLA's compiled search fuses into their sums are fused here
   too (`_fma`: the endpoints on the principal axis, `_rec16_fused` for
-  unquantized endpoints, `_ls_endpoints`), so the CPU gives the blocks of
-  the reference as `compressor.compress` runs it, jitted (its eager,
-  op-by-op run rounds otherwise);
+  unquantized endpoints, the least-squares solve), so the CPU gives the
+  blocks of the reference as `compressor.compress` runs it, jitted (its
+  eager, op-by-op run rounds otherwise);
+- each line fit's power iteration and each least-squares step is one
+  launch on the card (`principal_axis`, `ls_step`, kernels of
+  `csrc/xla_order_kernels.cu`), the same roundings as their plain
+  versions' chains;
 - the ETC1 transcode hint is the port's ETC1S `encode_blocks` at radius 0
   (the hand-written `factorized_scan` and `palette_errs_packed` kernels);
 - the search runs inside `exact_matmuls()` (no TF32).
@@ -44,13 +48,119 @@ import numpy as np
 import torch
 
 from ...ops import etc1s_encode as etc1s_ops
-from ...ops.cuda_etc1s import THIRD
+from ...ops import xla_order
+from ...ops.cuda_etc1s import LAUNCHES, THIRD, _raise_on
 from ...ops.xla_order import _dot, _fma, _sqrt, _sum
 from ..etc1s.frontend import resolve_device
 from . import pack
 from . import tables as T
 
 _INV64 = 1.0 / 64.0
+
+
+# ---------------------------------------------------------------------------
+# the line fits' chains, one launch each on the card
+# ---------------------------------------------------------------------------
+
+def principal_axis(c, iters: int):
+    """Power iteration on the covariance of the centred pixels c (B, 16, C),
+    C 1..4: the (B, C) unit axis and the (B, 16) projections of c on it,
+    rounded as the reference's compiled line fits round them
+    (`principal_axis_reference`). A CUDA tensor launches `xla_principal_axis`
+    (`csrc/xla_order_kernels.cu`), one thread per block with its covariance
+    and axis in registers: one launch for the ~25 of the plain version."""
+    if not c.is_cuda:
+        return principal_axis_reference(c, iters)
+    b_n, p_n, n_ch = c.shape
+    if p_n != 16 or not 1 <= n_ch <= 4 or c.dtype != torch.float32:
+        raise ValueError(f"principal_axis: (B, 16, 1..4) float32, got "
+                         f"{tuple(c.shape)} {c.dtype}")
+    c = c.contiguous()
+    axis = torch.empty((b_n, n_ch), dtype=torch.float32, device=c.device)
+    proj = torch.empty((b_n, 16), dtype=torch.float32, device=c.device)
+    status = xla_order.launch("principal_axis", c.device.index, c.data_ptr(),
+                              axis.data_ptr(), proj.data_ptr(), b_n, n_ch,
+                              iters)
+    LAUNCHES["xla_principal_axis"] += 1
+    _raise_on(status, "xla_principal_axis")
+    return axis, proj
+
+
+def principal_axis_reference(c, iters: int):
+    """Plain version of `principal_axis`, on any device: the covariance as
+    fused multiply-add chains over the pixels (`_dot`), then `iters` times
+    axis = cov axis (`_dot`) divided by its norm (the squares rounded and
+    added in index order, `_sum`; a correctly rounded square root, `_sqrt`)
+    plus 1e-6, from the all-ones axis; the projections as `_dot` chains."""
+    cov = _dot(c[:, :, :, None], c[:, :, None, :], 1)           # (B,C,C)
+    axis = torch.ones((c.shape[0], c.shape[2]), dtype=torch.float32,
+                      device=c.device)
+    for _ in range(iters):
+        axis = _dot(cov, axis[:, None, :])
+        axis = axis / (_sqrt(_sum(axis * axis, -1))[:, None] + 1e-6)
+    return axis, _dot(c, axis[:, None, :])
+
+
+def ls_step(wl, mask, v, lo, hi):
+    """One least-squares step of the UASTC line fits: the endpoints (lo_n,
+    hi_n), (B, C) each, clamped to 0..255, that fit v (B, 16, C) best under
+    the weights wl (B, 16), whole numbers 0..64 (the weight levels), with
+    each pixel's share `mask` (B, 16) of 0 / 1 or None (all), and lo / hi
+    where the 2x2 system is singular; rounded as the reference's compiled
+    fits round them (`ls_step_reference`). A CUDA tensor launches
+    `xla_ls_step` (`csrc/xla_order_kernels.cu`), one thread per block: one
+    launch for the ~12 of the plain version."""
+    if not v.is_cuda:
+        return ls_step_reference(wl, mask, v, lo, hi)
+    b_n, p_n, n_ch = v.shape
+    if p_n != 16 or not 1 <= n_ch <= 4 or v.dtype != torch.float32:
+        raise ValueError(f"ls_step: v (B, 16, 1..4) float32, got "
+                         f"{tuple(v.shape)} {v.dtype}")
+    wl = wl.to(torch.float32).contiguous()
+    lo, hi = lo.contiguous(), hi.contiguous()
+    if mask is not None:
+        mask = mask.to(torch.float32).contiguous()
+    for t, shape in ((wl, (b_n, 16)), (lo, (b_n, n_ch)), (hi, (b_n, n_ch)),
+                     (mask, (b_n, 16))):
+        if t is not None and (tuple(t.shape) != shape
+                              or t.device != v.device):
+            raise ValueError(f"ls_step: {tuple(t.shape)} on {t.device}, "
+                             f"expected {shape} on {v.device}")
+    lo_n = torch.empty((b_n, n_ch), dtype=torch.float32, device=v.device)
+    hi_n = torch.empty_like(lo_n)
+    sb, sp, sc = v.stride()
+    status = xla_order.launch(
+        "ls_step", v.device.index, wl.data_ptr(),
+        None if mask is None else mask.data_ptr(), v.data_ptr(), sb, sp, sc,
+        lo.data_ptr(), hi.data_ptr(), lo_n.data_ptr(), hi_n.data_ptr(), b_n,
+        n_ch)
+    LAUNCHES["xla_ls_step"] += 1
+    _raise_on(status, "xla_ls_step")
+    return lo_n, hi_n
+
+
+def ls_step_reference(wl, mask, v, lo, hi):
+    """Plain version of `ls_step`, on any device: the weights a = (64 - wl)
+    / 64 and b = wl / 64 (times the mask), their moments A, B, C (sums of
+    multiples of 1/4096: exact in any order), P = sum a v and Q = sum b v
+    as `_dot` chains over the pixels, then the solve as XLA's CPU code
+    rounds it, each difference of products a fused multiply-add."""
+    a_k = (64.0 - wl) * _INV64
+    b_k = wl * _INV64
+    if mask is not None:
+        a_k, b_k = a_k * mask, b_k * mask
+    A = (a_k * a_k).sum(1)
+    Bm = (a_k * b_k).sum(1)
+    C = (b_k * b_k).sum(1)
+    P = _dot(a_k[..., None], v, 1)
+    Q = _dot(b_k[..., None], v, 1)
+    det = _fma(A, C, -(Bm * Bm))
+    ok = det.abs() > 1e-6
+    dd = torch.where(ok, det, 1.0)[:, None]
+    c, bm, a = C[:, None], Bm[:, None], A[:, None]
+    lo_n = torch.where(ok[:, None], _fma(c, P, -(bm * Q)) / dd, lo)
+    hi_n = torch.where(ok[:, None], _fma(a, Q, -(bm * P)) / dd, hi)
+    return torch.clamp(lo_n, 0, 255), torch.clamp(hi_n, 0, 255)
 
 
 def _rec16(acc):
@@ -68,20 +178,6 @@ def _rec16_fused(lo, hi, levels):
     return torch.floor(_fma(acc, 257.0, 32.0) * (1.0 / 16384.0))
 
 
-def _ls_endpoints(A, Bm, C, P, Q, lo, hi):
-    """The least-squares endpoints of weights with moments A = sum a^2,
-    Bm = sum ab, C = sum b^2, P = sum a v, Q = sum b v (lo, hi where the
-    system is singular), rounded as XLA's CPU code rounds the reference's
-    (each difference of products a fused multiply-add)."""
-    det = _fma(A, C, -(Bm * Bm))
-    ok = det.abs() > 1e-6
-    dd = torch.where(ok, det, 1.0)[:, None]
-    c, bm, a = C[:, None], Bm[:, None], A[:, None]
-    lo_n = torch.where(ok[:, None], _fma(c, P, -(bm * Q)) / dd, lo)
-    hi_n = torch.where(ok[:, None], _fma(a, Q, -(bm * P)) / dd, hi)
-    return lo_n, hi_n
-
-
 def _mean3(x):
     """Mean over a trailing axis of 3, rounded as the reference's."""
     return x.sum(-1) * THIRD
@@ -93,22 +189,6 @@ def _sum16(x):
     for i in range(1, x.shape[1]):
         acc = acc + x[:, i]
     return acc[:, None]
-
-
-def _norm(d):
-    return _sqrt(_sum(d * d, -1))[:, None]
-
-
-def _principal_axis(c, iters: int):
-    """Power iteration on the covariance of the centred pixels c (B,16,C):
-    (B, C) unit axis, and the projections (B,16) of c on it."""
-    cov = _dot(c[:, :, :, None], c[:, :, None, :], 1)           # (B,C,C)
-    axis = torch.ones((c.shape[0], c.shape[2]), dtype=torch.float32,
-                      device=c.device)
-    for _ in range(iters):
-        axis = _dot(cov, axis[:, None, :])
-        axis = axis / (_norm(axis) + 1e-6)
-    return axis, _dot(c, axis[:, None, :])
 
 
 def _weight_levels(wb: int) -> np.ndarray:
@@ -175,7 +255,7 @@ def _mode_trial(px, wb: int, ep_range: int, comps: int, ls_iters: int):
     # principal axis by power iteration on the covariance
     mean = _sum(v, 1)[:, None] / 16.0
     c = v - mean
-    axis, proj = _principal_axis(c, 6)                         # (B,C), (B,16)
+    axis, proj = principal_axis(c, 6)                          # (B,C), (B,16)
     lo_f = _fma(axis, proj.amin(1, keepdim=True), mean[:, 0])
     hi_f = _fma(axis, proj.amax(1, keepdim=True), mean[:, 0])
 
@@ -196,16 +276,8 @@ def _mode_trial(px, wb: int, ep_range: int, comps: int, ls_iters: int):
 
     for _ in range(ls_iters):
         # least-squares endpoints given the weights
-        a_k = (64.0 - wlev[w]) * _INV64                         # (B,16)
-        b_k = wlev[w] * _INV64
-        A = (a_k * a_k).sum(1)
-        Bm = (a_k * b_k).sum(1)
-        C = (b_k * b_k).sum(1)
-        P = _dot(a_k[..., None], v, 1)
-        Q = _dot(b_k[..., None], v, 1)
-        lo_n, hi_n = _ls_endpoints(A, Bm, C, P, Q, lo_f, hi_f)
-        lo_c2, hi_c2, lo_u2, hi_u2 = quant_pair(torch.clamp(lo_n, 0, 255),
-                                                torch.clamp(hi_n, 0, 255))
+        lo_c2, hi_c2, lo_u2, hi_u2 = quant_pair(
+            *ls_step(wlev[w], None, v, lo_f, hi_f))
         w2, err2 = best_weights(lo_u2, hi_u2)
         better = err2 < err
         bc = better[:, None]
@@ -244,7 +316,7 @@ def _fit_line_masked(v, mask, levels, ls_iters: int):
     cnt = torch.clamp(mask.sum(1, keepdim=True), min=1.0)
     mean = _sum(v * mask[..., None], 1)[:, None] / cnt[..., None]
     c = (v - mean) * mask[..., None]
-    d, proj = _principal_axis(c, 4)
+    d, proj = principal_axis(c, 4)
     inside = mask > 0
     pmin = torch.where(inside, proj, 1e9).amin(1, keepdim=True)
     pmax = torch.where(inside, proj, -1e9).amax(1, keepdim=True)
@@ -259,15 +331,7 @@ def _fit_line_masked(v, mask, levels, ls_iters: int):
 
     w, err = weights_for(lo, hi)
     for _ in range(ls_iters):
-        a_k = (64.0 - levels[w]) * _INV64 * mask
-        b_k = levels[w] * _INV64 * mask
-        A = (a_k * a_k).sum(1)
-        Bm = (a_k * b_k).sum(1)
-        C = (b_k * b_k).sum(1)
-        P = _dot(a_k[..., None], v, 1)
-        Q = _dot(b_k[..., None], v, 1)
-        lo2, hi2 = (torch.clamp(x, 0, 255)
-                    for x in _ls_endpoints(A, Bm, C, P, Q, lo, hi))
+        lo2, hi2 = ls_step(levels[w], mask, v, lo, hi)
         w2, err2 = weights_for(lo2, hi2)
         better = err2 < err
         lo = torch.where(better[:, None], lo2, lo)

@@ -3,7 +3,8 @@
 // Each scan, rescore and selector kernel replaces one Pallas kernel of
 // basis_universal_tpu/ops/pallas_etc1s.py (all four are here); the cross6
 // kernels replace the frontend's two XLA matrix products whose rounding
-// decides its codebooks, and bisect_axis its XLA power iteration. Each computes the same function with the same
+// decides its codebooks, bisect_axis its XLA power iteration and
+// min_k_kernel its ApproxTopK. Each computes the same function with the same
 // float32 operation order per element; the plain PyTorch versions live
 // beside the wrappers in basis_universal_tpu_torch/ops/cuda_etc1s.py.
 //
@@ -13,8 +14,11 @@
 // can raise on a refused launch.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "xla_cpu_sort.h"
 
 namespace {
 
@@ -74,9 +78,35 @@ __constant__ int kDeltasR2[125][3] = {
 #define P20 -0.0580048524f
 #define P21 -0.186444178f
 #define P22 0.244449019f
-#define SQRT3 1.73205078f
+// P (1,1,1) in float32 (ops/etc1s_encode.py GVEC): sqrt(3) and two
+// rounding residues, which the reference's luma products keep
+#define G0 1.73205078f
+#define G1 2.98023224e-08f
+#define G2 -1.49011612e-08f
 #define THIRD 0.333333343f
 #define C31_255 0.121568628f
+
+// One RGB row times P^T in XLA-CPU's order (ops/etc1s_encode.py
+// _perc_rows): a row of its vector loop (vec) takes channels 0 and 1 as
+// (r P_j0 + g P_j1) + b P_j2 from rounded products and channel 2 as the
+// fused multiply-add chain; any other row the chain in all three.
+__device__ __forceinline__ void perc_row(float r, float g, float b, bool vec,
+                                         float& e0, float& e1, float& e2) {
+  const float c0 = __fmaf_rn(b, P02, __fmaf_rn(g, P01, __fmul_rn(r, P00)));
+  const float c1 = __fmaf_rn(b, P12, __fmaf_rn(g, P11, __fmul_rn(r, P10)));
+  e2 = __fmaf_rn(b, P22, __fmaf_rn(g, P21, __fmul_rn(r, P20)));
+  e0 = vec ? __fadd_rn(__fadd_rn(__fmul_rn(r, P00), __fmul_rn(g, P01)),
+                       __fmul_rn(b, P02))
+           : c0;
+  e1 = vec ? __fadd_rn(__fadd_rn(__fmul_rn(r, P10), __fmul_rn(g, P11)),
+                       __fmul_rn(b, P12))
+           : c1;
+}
+
+// x . (G0, G1, G2), a fused multiply-add chain (the reference's luma).
+__device__ __forceinline__ float perc_luma(float e0, float e1, float e2) {
+  return __fmaf_rn(e2, G2, __fmaf_rn(e1, G1, __fmul_rn(e0, G0)));
+}
 
 __device__ __forceinline__ float clip31(float v) {
   return fminf(fmaxf(v, 0.f), 31.f);
@@ -191,26 +221,64 @@ __device__ __forceinline__ ScanMoments block_moments(
     const float bl = v[i * 3 + 2];
     sr += r; sg += g; sb += bl;
     if (kPerceptual) {
-      x0[i] = P00 * r + P01 * g + P02 * bl;
-      x1[i] = P10 * r + P11 * g + P12 * bl;
-      x2[i] = P20 * r + P21 * g + P22 * bl;
+      // the (16 B, 3) pixel rows: all in the reference's vector loop
+      perc_row(r, g, bl, true, x0[i], x1[i], x2[i]);
     } else {
       x0[i] = r; x1[i] = g; x2[i] = bl;
     }
   }
   ScanMoments m;
-  float sum_l = 0.f, sum_l2 = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f, sum_x2 = 0.f;
+  if (kPerceptual) {
+    // each sum in the order of the reference's compiled moments: luma a
+    // chain, sum_l and the channel sums pixel by pixel, sum_l2 a chain,
+    // sum_x2 an 8-lane loop over the pixels (lane j: fma over pixel j's
+    // channels, then pixel j + 8's), the lanes pairwise
+    float sum_l = 0.f, sum_l2 = 0.f, s0 = x0[0], s1 = x1[0], s2 = x2[0];
+    float lane[8];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const float luma = kPerceptual ? SQRT3 * x0[i] : x0[i] + x1[i] + x2[i];
-    luma_out[i * luma_stride] = luma;
-    sum_l += luma;
-    sum_l2 += luma * luma;
-    s0 += x0[i]; s1 += x1[i]; s2 += x2[i];
-    sum_x2 += x0[i] * x0[i] + x1[i] * x1[i] + x2[i] * x2[i];
+    for (int i = 0; i < 16; ++i) {
+      const float luma = perc_luma(x0[i], x1[i], x2[i]);
+      luma_out[i * luma_stride] = luma;
+      sum_l = i == 0 ? luma : __fadd_rn(sum_l, luma);
+      sum_l2 = i == 0 ? __fmul_rn(luma, luma) : __fmaf_rn(luma, luma, sum_l2);
+      if (i > 0) {
+        s0 = __fadd_rn(s0, x0[i]);
+        s1 = __fadd_rn(s1, x1[i]);
+        s2 = __fadd_rn(s2, x2[i]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float a = __fmul_rn(x0[j], x0[j]);
+      a = __fmaf_rn(x1[j], x1[j], a);
+      a = __fmaf_rn(x2[j], x2[j], a);
+      a = __fmaf_rn(x0[j + 8], x0[j + 8], a);
+      a = __fmaf_rn(x1[j + 8], x1[j + 8], a);
+      lane[j] = __fmaf_rn(x2[j + 8], x2[j + 8], a);
+    }
+    const float h0 = __fadd_rn(lane[0], lane[4]);
+    const float h1 = __fadd_rn(lane[1], lane[5]);
+    const float h2 = __fadd_rn(lane[2], lane[6]);
+    const float h3 = __fadd_rn(lane[3], lane[7]);
+    m.sum_x2 = __fadd_rn(__fadd_rn(h0, h2), __fadd_rn(h1, h3));
+    m.sum_l = sum_l; m.sum_l2 = sum_l2;
+    m.s0 = s0; m.s1 = s1; m.s2 = s2;
+  } else {
+    // whole numbers: every sum exact
+    float sum_l = 0.f, sum_l2 = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f;
+    float sum_x2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float luma = x0[i] + x1[i] + x2[i];
+      luma_out[i * luma_stride] = luma;
+      sum_l += luma;
+      sum_l2 += luma * luma;
+      s0 += x0[i]; s1 += x1[i]; s2 += x2[i];
+      sum_x2 += x0[i] * x0[i] + x1[i] * x1[i] + x2[i] * x2[i];
+    }
+    m.sum_l = sum_l; m.sum_l2 = sum_l2;
+    m.s0 = s0; m.s1 = s1; m.s2 = s2; m.sum_x2 = sum_x2;
   }
-  m.sum_l = sum_l; m.sum_l2 = sum_l2;
-  m.s0 = s0; m.s1 = s1; m.s2 = s2; m.sum_x2 = sum_x2;
   if (kExternalBase) {
     m.b5r = base5[(size_t)b * 3 + 0];
     m.b5g = base5[(size_t)b * 3 + 1];
@@ -231,28 +299,34 @@ __device__ __forceinline__ ScanMoments block_moments(
 template <bool kPerceptual, bool kMinterm>
 __device__ __forceinline__ void scan_delta(const ScanMoments& m,
                                            const float (&luma)[16], int dr,
-                                           int dg, int db, float (&err)[8]) {
+                                           int dg, int db, bool vec,
+                                           const float* lb_in, float (&err)[8]) {
   const float c5r = clip31(m.b5r + (float)dr);
   const float c5g = clip31(m.b5g + (float)dg);
   const float c5b = clip31(m.b5b + (float)db);
   const float b8r = expand5f(c5r), b8g = expand5f(c5g), b8b = expand5f(c5b);
   float e0, e1, e2, lb;
   if (kPerceptual) {
-    e0 = P00 * b8r + P01 * b8g + P02 * b8b;
-    e1 = P10 * b8r + P11 * b8g + P12 * b8b;
-    e2 = P20 * b8r + P21 * b8g + P22 * b8b;
-    lb = SQRT3 * e0;
+    // the candidate base as its row of the reference's (D, B, 3) array
+    perc_row(b8r, b8g, b8b, vec, e0, e1, e2);
+    lb = perc_luma(e0, e1, e2);
   } else {
     e0 = b8r; e1 = b8g; e2 = b8b;
     lb = b8r + b8g + b8b;
   }
-  const float q = m.sum_x2 - 2.f * (e0 * m.s0 + e1 * m.s1 + e2 * m.s2) +
-                  16.f * (e0 * e0 + e1 * e1 + e2 * e2);
+  // q = (sum_x2 - 2 e.s) + 16 e.e, the dot products fused multiply-add
+  // chains (exact for whole numbers)
+  const float es = __fmaf_rn(e2, m.s2, __fmaf_rn(e1, m.s1, __fmul_rn(e0, m.s0)));
+  const float ee = __fmaf_rn(e2, e2, __fmaf_rn(e1, e1, __fmul_rn(e0, e0)));
+  const float q = __fadd_rn(__fsub_rn(m.sum_x2, __fmul_rn(2.f, es)),
+                            __fmul_rn(16.f, ee));
   // the assembly rounded as XLA's CPU code rounds the reference's scan,
   // each fused multiply-add and sum spelled out
   const float su2 =
       __fmaf_rn(lb, 16.f * lb, __fmaf_rn(-2.f * lb, m.sum_l, m.sum_l2));
   const float cst = __fmaf_rn(-su2, THIRD, q);
+  // the cluster scan's gray-axis level: the block's cluster's (given)
+  if (lb_in) lb = *lb_in;
 
   // u rounded before the subtraction, as the three-compare form computed
   // it: |t_k - u| = s - |u| exactly, so the squares are the same bits
@@ -377,8 +451,9 @@ __device__ __forceinline__ void warp_shortlist(const int (&key)[(kD + 31) / 32][
 template <int kD, bool kShortlist, bool kExternalBase, bool kPerceptual>
 __global__ void __launch_bounds__(ScanShape<kD>::kThreads)
 fscan_kernel(const float* __restrict__ pixels,
-             const float* __restrict__ base5, float* __restrict__ err_out,
-             int64_t* __restrict__ idx_out, int n_blocks, int k) {
+             const float* __restrict__ base5, const float* __restrict__ lb_in,
+             float* __restrict__ err_out, int64_t* __restrict__ idx_out,
+             int n_blocks, int k, int vec_rows) {
   constexpr int kThreads = ScanShape<kD>::kThreads;
   constexpr int kWarps = ScanShape<kD>::kWarps;
   constexpr int kTile = ScanShape<kD>::kTile;
@@ -416,8 +491,10 @@ fscan_kernel(const float* __restrict__ pixels,
 #pragma unroll
     for (int i = 0; i < 16; ++i) luma[i] = luma_s[i][j];
     float e[8];
-    scan_delta<kPerceptual, !kShortlist>(mom_s[j], luma, 0, 0, 0, e);
     const size_t b = (size_t)(b0 + j);
+    scan_delta<kPerceptual, !kShortlist>(mom_s[j], luma, 0, 0, 0,
+                                         (long long)b < vec_rows,
+                                         lb_in ? lb_in + b : nullptr, e);
     if constexpr (!kShortlist) {
       float4* o = reinterpret_cast<float4*>(err_out + b * 8);
       o[0] = make_float4(e[0], e[1], e[2], e[3]);
@@ -468,8 +545,10 @@ fscan_kernel(const float* __restrict__ pixels,
       for (int t = 0; t < 8; ++t) key[m][t] = 0x7fffffff;
       if (d < kD) {
         float e[8];
-        scan_delta<kPerceptual, !kShortlist>(mom, luma, dr[m], dg[m], db[m],
-                                             e);
+        scan_delta<kPerceptual, !kShortlist>(
+            mom, luma, dr[m], dg[m], db[m],
+            (long long)d * n_blocks + (long long)b < vec_rows,
+            lb_in ? lb_in + b * kD + d : nullptr, e);
         if constexpr (!kShortlist) {
           float4* o = reinterpret_cast<float4*>(err_out + (b * kD + d) * 8);
           o[0] = make_float4(e[0], e[1], e[2], e[3]);
@@ -511,6 +590,7 @@ fscan_kernel(const float* __restrict__ pixels,
 // ---------------------------------------------------------------------------
 constexpr int kRescoreThreads = 256;
 constexpr int kRescoreMaxRows = 64;
+constexpr int kPercTailBit = 1 << 18;  // ops/etc1s_encode.py PERC_TAIL_BIT
 
 template <bool kPerceptual>
 __global__ void __launch_bounds__(kRescoreThreads)
@@ -524,9 +604,19 @@ rescore_kernel(const float* __restrict__ pixels,
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n_threads = blockDim.x * blockDim.y;
   const float* src = pixels + (size_t)b0 * 48;
-  for (int q = tid; q < n_tile * 16; q += n_threads)
-    px_s[q >> 4][q & 15] = make_float4(__ldg(src + q * 3), __ldg(src + q * 3 + 1),
-                                       __ldg(src + q * 3 + 2), 0.f);
+  for (int q = tid; q < n_tile * 16; q += n_threads) {
+    const float r = __ldg(src + q * 3), g = __ldg(src + q * 3 + 1),
+                bl = __ldg(src + q * 3 + 2);
+    if (kPerceptual) {
+      // the pixels transformed apart from the palettes, as the reference's
+      // (16 B, 3) rows (all in its vector loop)
+      float x0, x1, x2;
+      perc_row(r, g, bl, true, x0, x1, x2);
+      px_s[q >> 4][q & 15] = make_float4(x0, x1, x2, 0.f);
+    } else {
+      px_s[q >> 4][q & 15] = make_float4(r, g, bl, 0.f);
+    }
+  }
   __syncthreads();
   const int j = threadIdx.y;
   if (j >= n_tile) return;
@@ -539,12 +629,16 @@ rescore_kernel(const float* __restrict__ pixels,
   const int tt = (v >> 15) & 7;
   const float b8r = expand5f(r5), b8g = expand5f(g5), b8b = expand5f(b5);
   float pr[4], pg[4], pb[4];
+  // a palette flagged kPercTailBit is transformed as the reference's rows
+  // past its vector loop (the refine's last codebook palette at odd C)
+  const bool vec = (v & kPercTailBit) == 0;
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     const float tsel = kTabs[tt][s];
     pr[s] = clip255(b8r + tsel);
     pg[s] = clip255(b8g + tsel);
     pb[s] = clip255(b8b + tsel);
+    if (kPerceptual) perc_row(pr[s], pg[s], pb[s], vec, pr[s], pg[s], pb[s]);
   }
   float total = 0.f;
 #pragma unroll
@@ -554,19 +648,20 @@ rescore_kernel(const float* __restrict__ pixels,
     float best = 0.f;
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-      const float dr = r - pr[s], dg = g - pg[s], db = bl - pb[s];
       float dist;
       if (kPerceptual) {
-        const float d0 = P00 * dr + P01 * dg + P02 * db;
-        const float d1 = P10 * dr + P11 * dg + P12 * db;
-        const float d2 = P20 * dr + P21 * dg + P22 * db;
-        dist = d0 * d0 + d1 * d1 + d2 * d2;
+        // the reference's order: the squares a fused multiply-add chain
+        // over the channels, the minima added pixel by pixel
+        const float d0 = __fsub_rn(pr[s], r), d1 = __fsub_rn(pg[s], g),
+                    d2 = __fsub_rn(pb[s], bl);
+        dist = __fmaf_rn(d2, d2, __fmaf_rn(d1, d1, __fmul_rn(d0, d0)));
       } else {
-        dist = dr * dr + dg * dg + db * db;
+        const float dr = r - pr[s], dg = g - pg[s], db = bl - pb[s];
+        dist = dr * dr + dg * dg + db * db;     // whole numbers: exact
       }
       best = s == 0 ? dist : fminf(best, dist);
     }
-    total += best;
+    total = kPerceptual ? __fadd_rn(total, best) : total + best;
   }
   out[o] = total;
 }
@@ -816,42 +911,53 @@ selbest_mma_kernel(const float* __restrict__ dists,
   }
 }
 
+// How many leading rows of an (m, 3) product with P^T XLA-CPU computes in
+// its vector loop (ops/etc1s_encode.py _perc_vector_rows).
+long long perc_vector_rows(long long m) {
+  if (m < 16 || (m >= 20 && m < 24) || (m >= 28 && m < 32)) return 0;
+  return m - m % 8;
+}
+
 template <int kD, bool kShortlist>
-int launch_fscan(const float* pixels, const float* base5, float* err,
-                 int64_t* idx, int n_blocks, int perceptual, int k,
-                 cudaStream_t s) {
+int launch_fscan(const float* pixels, const float* base5, const float* lb,
+                 float* err, int64_t* idx, int n_blocks, int perceptual,
+                 int k, cudaStream_t s) {
   constexpr int kTile = ScanShape<kD>::kTile;
   constexpr int kThreads = ScanShape<kD>::kThreads;
   const dim3 grid((n_blocks + kTile - 1) / kTile);
   const bool ext = base5 != nullptr;
+  // the candidate bases' rows of the reference's (D, B, 3) array
+  const long long rows = perc_vector_rows((long long)kD * n_blocks);
+  const int vec_rows = (int)(rows < INT_MAX ? rows : INT_MAX);
   if (ext && perceptual)
     fscan_kernel<kD, kShortlist, true, true><<<grid, kThreads, 0, s>>>(
-        pixels, base5, err, idx, n_blocks, k);
+        pixels, base5, lb, err, idx, n_blocks, k, vec_rows);
   else if (ext)
     fscan_kernel<kD, kShortlist, true, false><<<grid, kThreads, 0, s>>>(
-        pixels, base5, err, idx, n_blocks, k);
+        pixels, base5, lb, err, idx, n_blocks, k, vec_rows);
   else if (perceptual)
     fscan_kernel<kD, kShortlist, false, true><<<grid, kThreads, 0, s>>>(
-        pixels, base5, err, idx, n_blocks, k);
+        pixels, base5, lb, err, idx, n_blocks, k, vec_rows);
   else
     fscan_kernel<kD, kShortlist, false, false><<<grid, kThreads, 0, s>>>(
-        pixels, base5, err, idx, n_blocks, k);
+        pixels, base5, lb, err, idx, n_blocks, k, vec_rows);
   return (int)cudaGetLastError();
 }
 
 template <bool kShortlist>
-int launch_fscan_radius(const float* pixels, const float* base5, float* err,
-                        int64_t* idx, int n_blocks, int radius,
-                        int perceptual, int k, cudaStream_t s) {
+int launch_fscan_radius(const float* pixels, const float* base5,
+                        const float* lb, float* err, int64_t* idx,
+                        int n_blocks, int radius, int perceptual, int k,
+                        cudaStream_t s) {
   if (radius == 0)
-    return launch_fscan<1, kShortlist>(pixels, base5, err, idx, n_blocks,
-                                        perceptual, k, s);
+    return launch_fscan<1, kShortlist>(pixels, base5, lb, err, idx, n_blocks,
+                                       perceptual, k, s);
   if (radius == 1)
-    return launch_fscan<27, kShortlist>(pixels, base5, err, idx, n_blocks,
-                                        perceptual, k, s);
+    return launch_fscan<27, kShortlist>(pixels, base5, lb, err, idx,
+                                        n_blocks, perceptual, k, s);
   if (radius == 2)
-    return launch_fscan<125, kShortlist>(pixels, base5, err, idx, n_blocks,
-                                        perceptual, k, s);
+    return launch_fscan<125, kShortlist>(pixels, base5, lb, err, idx,
+                                         n_blocks, perceptual, k, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -863,7 +969,7 @@ int launch_fscan_radius(const float* pixels, const float* base5, float* err,
 // exactly -2x, and -2x + q rounds as q - 2x). cross6_argmin returns each
 // row's first index of least d (the order of torch.argmin and jnp.argmin);
 // cross6_distances writes the (N, C) float32 matrix, row-major, which the
-// refine's stable sort shortlists.
+// refine shortlists (etc1s_encode._refine_shortlist).
 //
 // These replace no Pallas kernel: in the reference they are XLA's matrix
 // products (basis_universal_tpu/ops/etc1s_encode.py:357, the k-means
@@ -1024,16 +1130,189 @@ bisect_axis_kernel(const float* __restrict__ cov, float* __restrict__ axis,
   for (int f = 0; f < 6; ++f) axis[(size_t)c * 6 + f] = v[f];
 }
 
+// ---------------------------------------------------------------------------
+// min_k_kernel: the refine's shortlist in XLA-CPU's tie order.
+//
+// The columns of each row's k smallest distances in the order the
+// reference's `approx_min_k` gives them on the CPU (the first k of
+// libstdc++'s `std::sort` of the row's (value, column) pairs by value):
+// xla_cpu_sort.h's `sort_first_k`, whose sequential form the host library
+// runs (host_sort.cpp, the plain version). It replaces no Pallas kernel: in
+// the reference it is XLA's ApproxTopK on the distances of `d6`
+// (basis_universal_tpu/ops/etc1s_encode.py:457).
+//
+// Equal values order as the introsort leaves them, which depends on the
+// whole row, so every step of the sort is kept; one warp sorts one row, in
+// shared memory where the row fits (kMinKSmemN), else in the caller's
+// global scratch. The warp runs the introsort's control flow in step (the
+// parts, the depth limit, the pruning past k: uniform across the lanes),
+// lane 0 the short sequential steps (median of three, the heap fallback,
+// the final insertion sort over the first ~16-32 places), and the whole
+// warp each Hoare partition, which is most of the work (`warp_partition`).
+// One thread per row, the first form of this kernel, took 7.06 ms on the
+// H100 at the main path's 24,576 x 2,416 (PERF.md): its lanes' sorts
+// diverge.
+constexpr int kMinKSmemN = 8192;     // longest row sorted in shared memory
+constexpr int kMinKSmemBlock = 96 * 1024;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct MinKPart {
+  int first, last, depth;
+};
+
+__host__ __device__ inline size_t min_k_row_bytes(int n) {
+  return ((size_t)n * sizeof(xla_cpu_sort::Entry) + 15) / 16 * 16;
+}
+
+__host__ __device__ inline size_t min_k_warp_bytes(int n) {
+  return min_k_row_bytes(n) + ((size_t)(n / 2 + 1) * 4 + 15) / 16 * 16;
+}
+
+// libstdc++'s __unguarded_partition(row + lo, row + hi, row + lo - 1) by
+// one warp; returns the cut, and leaves every entry where the sequential
+// loop leaves it. That loop stops its left finger at the left stops
+// (!(a < p)) and its right finger at the right stops (!(p < a)) and swaps
+// the t-th left stop with the t-th right stop from the right, in original
+// values, for as long as the former lies left of the latter: fingers never
+// pass a swapped place before they cross. So with L_t, R_t the t-th left
+// stop from the left and right stop from the right (in [lo, hi)), it swaps
+// L_t with R_t for every t < t*, the first t with L_t >= R_t, and returns
+// min(L_t*, R_t*-1) (the left finger's last stop: at the latest the swapped
+// R_t*-1). L_t < R_t holds iff more than t right stops lie right of L_t,
+// which is monotone in t, so one pass finds t*. Passes: (A) count the right
+// stops; (B) rank the left stops until the first with too few right stops
+// beyond it (t*, L_t*); (C) place R_0 .. R_t*-1 from the right; (D) rank the
+// left stops left of the cut again and swap each with its R. The pairs are
+// disjoint, and no pass reads a place an earlier one swapped.
+__device__ int warp_partition(xla_cpu_sort::Entry* row, int* posr, int lo,
+                              int hi, int lane) {
+  const float p = row[lo - 1].v;
+  const unsigned below = (1u << lane) - 1u;
+  int total_le = 0;
+  for (int base = lo; base < hi; base += 32) {
+    const int x = base + lane;
+    total_le += __popc(__ballot_sync(kFull, x < hi && !(p < row[x].v)));
+  }
+  int n_ge = 0, n_le = 0, t_star = -1, l_star = hi;
+  for (int base = lo; base < hi; base += 32) {
+    const int x = base + lane;
+    const float v = x < hi ? row[x].v : 0.f;
+    const bool ge = x < hi && !(v < p);
+    const bool le = x < hi && !(p < v);
+    const unsigned gm = __ballot_sync(kFull, ge);
+    const unsigned lm = __ballot_sync(kFull, le);
+    const int t = n_ge + __popc(gm & below);
+    const int le_incl = n_le + __popc(lm & (below | (1u << lane)));
+    const unsigned fail = __ballot_sync(kFull, ge && total_le - le_incl < t + 1);
+    if (fail) {
+      const int f = __ffs(fail) - 1;
+      t_star = n_ge + __popc(gm & ((1u << f) - 1u));
+      l_star = base + f;
+      break;
+    }
+    n_ge += __popc(gm);
+    n_le += __popc(lm);
+  }
+  if (t_star < 0) t_star = n_ge;
+  int n_r = 0;
+  for (int top = hi - 1; n_r < t_star; top -= 32) {
+    const int x = top - lane;
+    const bool le = x >= lo && !(p < row[x].v);
+    const unsigned lm = __ballot_sync(kFull, le);
+    const int s = n_r + __popc(lm & below);
+    if (le && s < t_star) posr[s] = x;
+    n_r += __popc(lm);
+  }
+  __syncwarp();
+  int cut = l_star;
+  if (t_star > 0 && posr[t_star - 1] < cut) cut = posr[t_star - 1];
+  int n_l = 0;
+  for (int base = lo; base < cut; base += 32) {
+    const int x = base + lane;
+    const bool ge = x < cut && !(row[x].v < p);
+    const unsigned gm = __ballot_sync(kFull, ge);
+    if (ge) {
+      const int y = posr[n_l + __popc(gm & below)];
+      const xla_cpu_sort::Entry e = row[x];
+      row[x] = row[y];
+      row[y] = e;
+    }
+    n_l += __popc(gm);
+  }
+  __syncwarp();
+  return cut;
+}
+
+template <bool kShared>
+__global__ void min_k_kernel(const float* __restrict__ d,
+                             xla_cpu_sort::Entry* work, int* posr_all,
+                             int64_t* __restrict__ out, int rows, int n, int k,
+                             int cap) {
+  extern __shared__ __align__(16) unsigned char min_k_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (r >= rows) return;  // the whole warp
+  xla_cpu_sort::Entry* row;
+  int* posr;
+  if (kShared) {
+    row = (xla_cpu_sort::Entry*)(min_k_smem + warp * min_k_warp_bytes(n));
+    posr = (int*)((unsigned char*)row + min_k_row_bytes(n));
+  } else {
+    row = work + (size_t)r * n;
+    posr = posr_all + (size_t)r * (n / 2 + 1);
+  }
+  const float* src = d + (size_t)r * n;
+  for (int i = lane; i < n; i += 32) row[i] = xla_cpu_sort::Entry{src[i], i};
+  __syncwarp();
+  // xla_cpu_sort::sort_first_k, its parts and depths kept alike by every
+  // lane
+  MinKPart stack[64];
+  int top = 0;
+  stack[top++] = MinKPart{0, n, (int)xla_cpu_sort::depth_limit(n, cap)};
+  int limit = n;
+  while (top > 0) {
+    MinKPart part = stack[--top];
+    while (part.last - part.first > xla_cpu_sort::kThreshold) {
+      if (part.depth == 0) {
+        if (lane == 0)
+          xla_cpu_sort::heap_sort(row + part.first, row + part.last);
+        __syncwarp();
+        break;
+      }
+      --part.depth;
+      if (lane == 0) {
+        const int mid = part.first + (part.last - part.first) / 2;
+        xla_cpu_sort::move_median_to_first(row + part.first,
+                                           row + part.first + 1, row + mid,
+                                           row + part.last - 1);
+      }
+      __syncwarp();
+      const int cut = warp_partition(row, posr, part.first + 1, part.last,
+                                     lane);
+      if (cut < k)
+        stack[top++] = MinKPart{cut, part.last, part.depth};
+      else if (cut < limit)
+        limit = cut;
+      part.last = cut;
+    }
+  }
+  if (lane == 0) xla_cpu_sort::final_insertion_sort(row, row + limit);
+  __syncwarp();
+  for (int j = lane; j < k; j += 32) out[(size_t)r * k + j] = row[j].col;
+}
+
 }  // namespace
 
 extern "C" {
 
-int etc1s_factorized_scan(const float* pixels, const float* base5, float* out,
-                          int n_blocks, int radius, int perceptual,
-                          void* stream) {
+// lb: null, or (n_blocks, D) gray-axis levels of the perceptual cluster
+// scan (each block's cluster's), used in place of its own base's.
+int etc1s_factorized_scan(const float* pixels, const float* base5,
+                          const float* lb, float* out, int n_blocks,
+                          int radius, int perceptual, void* stream) {
   if (n_blocks <= 0) return (int)cudaSuccess;
-  return launch_fscan_radius<false>(pixels, base5, out, nullptr, n_blocks,
-                                    radius, perceptual, 0,
+  return launch_fscan_radius<false>(pixels, base5, lb, out, nullptr,
+                                    n_blocks, radius, perceptual, 0,
                                     (cudaStream_t)stream);
 }
 
@@ -1043,8 +1322,8 @@ int etc1s_factorized_scan_shortlist(const float* pixels, const float* base5,
   if (n_blocks <= 0) return (int)cudaSuccess;
   if (k < 1 || k > 16 || (radius == 0 && k > 8))
     return (int)cudaErrorInvalidValue;
-  return launch_fscan_radius<true>(pixels, base5, nullptr, out, n_blocks,
-                                   radius, perceptual, k,
+  return launch_fscan_radius<true>(pixels, base5, nullptr, nullptr, out,
+                                   n_blocks, radius, perceptual, k,
                                    (cudaStream_t)stream);
 }
 
@@ -1110,6 +1389,36 @@ int etc1s_bisect_axis(const float* cov, float* axis, int n_c, void* stream) {
   if (n_c <= 0) return (int)cudaSuccess;
   bisect_axis_kernel<<<(n_c + kAxisThreads - 1) / kAxisThreads, kAxisThreads,
                        0, (cudaStream_t)stream>>>(cov, axis, n_c);
+  return (int)cudaGetLastError();
+}
+
+// out: (rows, k) int64. work / posr: scratch for rows longer than
+// kMinKSmemN ((rows, n) pairs of 8 bytes, (rows, n / 2 + 1) int32), else
+// unused. cap: the depth limit (xla_cpu_sort::depth_limit; -1 for
+// libstdc++'s).
+int etc1s_xla_cpu_min_k(const float* d, void* work, void* posr, int64_t* out,
+                        int rows, int n, int k, int cap, void* stream) {
+  if (rows <= 0) return (int)cudaSuccess;
+  if (n < 1 || k < 1 || k > n || cap < -1 || cap > 62)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= kMinKSmemN) {
+    const size_t per = min_k_warp_bytes(n);
+    const int w = (int)(kMinKSmemBlock / per) < 1 ? 1
+                  : (int)(kMinKSmemBlock / per) > 8 ? 8
+                  : (int)(kMinKSmemBlock / per);
+    const size_t smem = per * w;
+    cudaError_t e = cudaFuncSetAttribute(
+        min_k_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    min_k_kernel<true><<<(rows + w - 1) / w, 32 * w, smem, s>>>(
+        d, nullptr, nullptr, out, rows, n, k, cap);
+  } else {
+    if (!work || !posr) return (int)cudaErrorInvalidValue;
+    min_k_kernel<false><<<(rows + 3) / 4, 128, 0, s>>>(
+        d, (xla_cpu_sort::Entry*)work, (int*)posr, out, rows, n, k, cap);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -7,6 +7,11 @@ Builds the shared library on first use into `build/native/` at the
 repository root, keyed by the hash of the source; every entry point has a
 bit-identical Python fallback in codecs/etc1s/{backend,stream}.py so the
 framework degrades gracefully without a compiler.
+
+The port's own host source `basis_universal_tpu_torch/csrc/host_sort.cpp`
+(the refine shortlist in the tie order of the reference's `approx_min_k`
+on XLA-CPU, with its header `xla_cpu_sort.h`) builds the same way, with
+`get_host_sort()`; it has no fallback: a failed build or load raises.
 """
 
 import ctypes
@@ -19,6 +24,8 @@ import threading
 
 _REPO = pathlib.Path(__file__).resolve().parent.parent
 _SRC = _REPO / "native" / "slice_codec.cpp"
+_SORT_SRC = _REPO / "basis_universal_tpu_torch" / "csrc" / "host_sort.cpp"
+_SORT_HEADER = _SORT_SRC.with_name("xla_cpu_sort.h")
 _CACHE_DIR = _REPO / "build" / "native"
 
 _lock = threading.Lock()
@@ -26,18 +33,18 @@ _lib = None
 _tried = False
 
 
-def _build() -> pathlib.Path:
-    src = _SRC.read_bytes()
+def _build(src_path=_SRC, extra=(), headers=()) -> pathlib.Path:
+    src = src_path.read_bytes() + b"".join(h.read_bytes() for h in headers)
     tag = hashlib.sha256(src).hexdigest()[:16]
-    out = _CACHE_DIR / f"slice_codec_{tag}.so"
+    out = _CACHE_DIR / f"{src_path.stem}_{tag}.so"
     if out.exists():
         return out
     _CACHE_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
     subprocess.run(
         ["g++", "-O3", "-march=native", "-funroll-loops",
-         "-shared", "-fPIC", "-std=c++17",
-         str(_SRC), "-o", str(tmp)],
+         "-shared", "-fPIC", "-std=c++17", *extra,
+         str(src_path), "-o", str(tmp)],
         check=True, capture_output=True)
     os.replace(tmp, out)
     return out
@@ -131,3 +138,26 @@ def get_lib():
 
 def available() -> bool:
     return get_lib() is not None
+
+
+_sort_lib = None
+
+
+def get_host_sort():
+    """The loaded library of csrc/host_sort.cpp (built on first call);
+    raises if it cannot be built or loaded."""
+    global _sort_lib
+    with _lock:
+        if _sort_lib is None:
+            try:
+                path = _build(_SORT_SRC, ("-pthread",), (_SORT_HEADER,))
+            except subprocess.CalledProcessError as e:
+                raise RuntimeError(
+                    f"g++ failed on {_SORT_SRC}: {e.stderr.decode()}") from e
+            lib = ctypes.CDLL(str(path))
+            lib.xla_cpu_min_k_rows.restype = ctypes.c_int
+            lib.xla_cpu_min_k_rows.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            _sort_lib = lib
+        return _sort_lib

@@ -5,8 +5,9 @@ Each source (`etc1s_kernels.cu`, the ETC1S encoder's kernels, and
 with nvcc into a shared library with a plain C interface, for sm_90a
 (Hopper), and loaded with ctypes. The libraries are cached under
 `build/torch_kernels/` at the repository root, keyed by the hash of their
-source, as `native.py` does for the host runtime, with ptxas' report of
-each kernel's registers and spills beside it. `build_all()` starts one nvcc
+source and the headers beside it, as `native.py` does for the host
+runtime, with ptxas' report of each kernel's registers and spills beside
+it. `build_all()` starts one nvcc
 per missing library, all at once. A failed build or load raises: there is
 no fallback.
 """
@@ -43,8 +44,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    src = _PKG / "csrc" / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    csrc = _PKG / "csrc"
+    # the source and every header beside it that it may include
+    data = (csrc / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(csrc.glob("*.h")))
+    tag = hashlib.sha256(data).hexdigest()[:16]
     return _BUILD_DIR / f"{name}_{tag}.so"
 
 
@@ -96,13 +100,18 @@ def _declare_xla_order(lib):
     f32 = ctypes.c_float
     lib.xla_fma.argtypes = [vp, vp, vp, f32, f32, f32, vp, ll, ci, vp, vp]
     lib.xla_reduce.argtypes = [vp, vp, vp, ll, ci, ll, ll, ci, ci, vp, vp]
-    lib.xla_fma.restype = lib.xla_reduce.restype = ci
+    lib.xla_principal_axis.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+    lib.xla_ls_step.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, ci,
+                                ci, vp]
+    for fn in (lib.xla_fma, lib.xla_reduce, lib.xla_principal_axis,
+               lib.xla_ls_step):
+        fn.restype = ci
     return lib
 
 
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.etc1s_factorized_scan.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+    lib.etc1s_factorized_scan.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
     lib.etc1s_factorized_scan_shortlist.argtypes = [vp, vp, vp, ci, ci, ci,
                                                     ci, vp]
     lib.etc1s_palette_errs_packed.argtypes = [vp, vp, vp, ci, ci, ci, vp]
@@ -112,11 +121,12 @@ def _declare(lib):
     lib.etc1s_cross6_argmin.argtypes = [vp, vp, vp, vp, ci, ci, vp]
     lib.etc1s_cross6_distances.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
     lib.etc1s_bisect_axis.argtypes = [vp, vp, ci, vp]
+    lib.etc1s_xla_cpu_min_k.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
     for fn in (lib.etc1s_factorized_scan, lib.etc1s_factorized_scan_shortlist,
                lib.etc1s_palette_errs_packed,
                lib.etc1s_palette_errs, lib.etc1s_find_best_selector_patterns,
                lib.etc1s_cross6_argmin, lib.etc1s_cross6_distances,
-               lib.etc1s_bisect_axis):
+               lib.etc1s_bisect_axis, lib.etc1s_xla_cpu_min_k):
         fn.restype = ci
     return lib
 

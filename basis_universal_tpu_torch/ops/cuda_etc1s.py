@@ -8,7 +8,10 @@ package calls; and the kernels for operators that are XLA's in the
 reference and whose CPU rounding decides the codebooks: the 6-D codebook
 distances (`cross6_argmin` for the k-means assignment, `cross6_distances`
 for the refine's shortlist) and the bisecting init's power iteration
-(`bisect_axis`). The scan has two variants: `factorized_scan`, the full
+(`bisect_axis`), and the refine shortlist in the tie order of the
+reference's `approx_min_k` on the CPU (`xla_cpu_min_k`, whose plain version
+is the same sort on the host, `csrc/host_sort.cpp`: no PyTorch operator
+orders ties that way). The scan has two variants: `factorized_scan`, the full
 (B, D*8) gray-axis sums that the cluster scan assembles into errors, and
 `factorized_scan_shortlist`, which returns only each block's shortlist of
 error columns. Each wrapper checks its inputs, then dispatches on the
@@ -37,9 +40,12 @@ LAUNCHES = {
     "cross6_argmin": 0,
     "cross6_distances": 0,
     "bisect_axis": 0,
+    "xla_cpu_min_k": 0,
     # XLA-CPU's float32 orders (`ops/xla_order.py`)
     "xla_fma": 0,
     "xla_reduce": 0,
+    "xla_principal_axis": 0,
+    "xla_ls_step": 0,
 }
 
 # float32 constants of the kernels, as Python floats holding the exact f32
@@ -109,7 +115,7 @@ def _scan_inputs(pixels, base5):
 
 
 def factorized_scan(pixels, base5=None, radius: int = 1,
-                    perceptual: bool = False):
+                    perceptual: bool = False, lb=None):
     """Gray-axis sums of the factorized ETC1S scan, (B, D*8) float32.
 
     Replaces `pallas_etc1s.factorized_scan` (`_fscan_kernel`) where the
@@ -123,6 +129,10 @@ def factorized_scan(pixels, base5=None, radius: int = 1,
     `factorized_scan_shortlist`'s, which keeps only their shortlist. The
     base colour is the block mean rounded to 5 bits, or `base5` (B, 3)
     float32 when given (the cluster base of `optimize_cluster_endpoints`).
+    With the perceptual metric, lb (B, D) float32 gives each block's
+    gray-axis level of each candidate (its cluster's, transformed as the
+    reference transforms the (D, C, 3) cluster bases) in place of the one
+    its own base would give.
 
     On the H100 the scan is bound by its arithmetic, 16 pixels x (a compare,
     a select, two multiply-adds) per column, not by its bytes (PERF.md has
@@ -134,8 +144,12 @@ def factorized_scan(pixels, base5=None, radius: int = 1,
     """
     n_d = _n_deltas(radius)
     dev, pixels = _scan_inputs(pixels, base5)
+    if lb is not None:
+        _check(lb, "lb", torch.float32, (pixels.shape[0], n_d))
+        _same_device(pixels, lb)
     if dev.type == "cpu":
-        return factorized_scan_reference(pixels, base5, radius, perceptual)
+        return factorized_scan_reference(pixels, base5, radius, perceptual,
+                                         lb)
     from ._build import get_lib
 
     b_n = pixels.shape[0]
@@ -143,7 +157,8 @@ def factorized_scan(pixels, base5=None, radius: int = 1,
     with torch.cuda.device(dev):
         status = get_lib().etc1s_factorized_scan(
             pixels.data_ptr(), None if base5 is None else base5.data_ptr(),
-            out.data_ptr(), b_n, radius, int(bool(perceptual)), _stream(dev))
+            None if lb is None else lb.data_ptr(), out.data_ptr(), b_n,
+            radius, int(bool(perceptual)), _stream(dev))
     LAUNCHES["factorized_scan"] += 1
     _raise_on(status, "factorized_scan")
     return out
@@ -196,10 +211,10 @@ def factorized_scan_shortlist_reference(pixels, base5=None, radius: int = 1,
 
 
 def factorized_scan_reference(pixels, base5=None, radius: int = 1,
-                              perceptual: bool = False):
+                              perceptual: bool = False, lb=None):
     """Plain PyTorch version of `factorized_scan`: the gray-axis sums of
     `factorized_scan_errors_reference`, (B, D*8)."""
-    mt, _ = _scan_terms(pixels, base5, radius, perceptual)
+    mt, _ = _scan_terms(pixels, base5, radius, perceptual, lb)
     return mt.permute(1, 0, 2).reshape(pixels.shape[0], -1)
 
 
@@ -224,12 +239,18 @@ def factorized_scan_errors_reference(pixels, base5=None, radius: int = 1,
     return err.permute(1, 0, 2).reshape(pixels.shape[0], -1)
 
 
-def _scan_terms(pixels, base5, radius: int, perceptual: bool):
+def _scan_terms(pixels, base5, radius: int, perceptual: bool, lb=None):
     """The scan's two parts, (D, B, 8) gray-axis sums and (D, B) constant
-    parts q - su2/3, rounded as the docstring above says."""
-    from .etc1s_encode import (PERC_P, _block_moments, _candidate_deltas,
+    parts q - su2/3, rounded as the docstring above says; with the
+    perceptual metric the moments, the transforms (the candidate bases as
+    the (D, B, 3) array of the reference's scan) and the dot products are
+    XLA-CPU's too (`etc1s_encode._block_moments`, `perceptual_transform`,
+    `xla_order._dot`), and lb (B, D), where given, replaces the gray-axis
+    levels of the bases in the gray-axis sums (a cluster's, in the cluster
+    scan)."""
+    from .etc1s_encode import (GVEC, _block_moments, _candidate_deltas,
                                _gray_axis_minterm, perceptual_transform)
-    from .xla_order import _fma
+    from .xla_order import _dot, _fma
 
     dev = pixels.device
     px = pixels.float()
@@ -241,21 +262,21 @@ def _scan_terms(pixels, base5, radius: int, perceptual: bool):
     c5 = torch.clamp(b5[None] + deltas[:, None, :].float(), 0.0, 31.0)
     base8 = c5 * 8.0 + torch.floor(c5 * 0.25)                    # (D,B,3)
     if perceptual:
-        gvec = torch.as_tensor(PERC_P @ np.ones(3, np.float32), device=dev)
+        gvec = torch.as_tensor(GVEC, device=dev)
         px = perceptual_transform(px)
         base8 = perceptual_transform(base8)
-        lb = base8 @ gvec                                        # (D,B)
+        lb_base = _dot(base8, gvec)                              # (D,B)
     else:
         gvec = None
-        lb = base8.sum(-1)
+        lb_base = base8.sum(-1)
     mom = _block_moments(px, gvec)
-    q = (mom["sum_x2"][None]
-         - 2.0 * torch.einsum("dbc,bc->db", base8, mom["sum_x"])
-         + 16.0 * (base8 * base8).sum(-1))
-    su2 = _fma(lb, 16.0 * lb, _fma(-2.0 * lb, mom["sum_l"][None],
-                                   mom["sum_l2"][None]))
+    q = ((mom["sum_x2"][None] - 2.0 * _dot(base8, mom["sum_x"][None]))
+         + 16.0 * _dot(base8, base8))
+    su2 = _fma(lb_base, 16.0 * lb_base, _fma(-2.0 * lb_base, mom["sum_l"][None],
+                                             mom["sum_l2"][None]))
     cst = _fma(-su2, THIRD, q)
-    u = (mom["luma"][None] - lb[..., None]) * THIRD              # (D,B,16)
+    lb_u = lb_base if lb is None else lb.T
+    u = (mom["luma"][None] - lb_u[..., None]) * THIRD            # (D,B,16)
     return _gray_axis_minterm(u), cst
 
 
@@ -268,8 +289,11 @@ def palette_errs_packed(pixels, packed, perceptual: bool = False):
 
     Replaces `pallas_etc1s.palette_errs_packed` (`_rescore_kernel`).
     packed: (B, K) int32, r5 | g5<<5 | b5<<10 | inten<<15. err[b, k] =
-    sum_i min_sel ||x_bi - clip(expand5(c5) + t_sel)||^2, the distance taken
-    through PERC_P when `perceptual`.
+    sum_i min_sel ||x_bi - clip(expand5(c5) + t_sel)||^2; with
+    `perceptual` the pixels and the palette are transformed apart and the
+    distance rounds as the reference's (`palette_errs_packed_reference`;
+    bit 18, `etc1s_encode.PERC_TAIL_BIT`, flags a palette that the
+    reference transforms past its vector loop).
 
     On the H100 this is a small compute-bound pass (4 palette entries x 16
     pixels x 7 float32 operations per output, in an order that must not
@@ -301,8 +325,15 @@ def palette_errs_packed(pixels, packed, perceptual: bool = False):
 
 
 def palette_errs_packed_reference(pixels, packed, perceptual: bool = False):
-    """Plain PyTorch version of `palette_errs_packed`."""
-    from .etc1s_encode import PERC_P
+    """Plain PyTorch version of `palette_errs_packed`. With the perceptual
+    metric it is the reference's XLA formulation, rounded as XLA-CPU
+    rounds it: the pixels and the palettes transformed apart
+    (`etc1s_encode.perceptual_transform`; a palette flagged
+    `PERC_TAIL_BIT` as the reference's last rows), the squared distances
+    fused multiply-add chains over the channels, the 16 minima added in
+    pixel order."""
+    from .etc1s_encode import PERC_TAIL_BIT, _perc_rows, perceptual_transform
+    from .xla_order import _dot, _sum
 
     dev = pixels.device
     v = packed.to(torch.int32)
@@ -311,11 +342,16 @@ def palette_errs_packed_reference(pixels, packed, perceptual: bool = False):
     tsel = tabs[((v >> 15) & 7).long()]                          # (B,K,4)
     b8 = c5 * 8.0 + torch.floor(c5 * 0.25)                       # (B,K,3)
     pal = torch.clamp(b8[:, :, None, :] + tsel[..., None], 0.0, 255.0)
-    diff = pixels.float()[:, None, None, :, :] - pal[:, :, :, None, :]
-    if perceptual:
-        diff = diff @ torch.as_tensor(PERC_P, device=dev).T
-    dist = (diff * diff).sum(-1)                                 # (B,K,4,16)
-    return dist.min(dim=2).values.sum(-1)
+    if not perceptual:
+        diff = pixels.float()[:, None, None, :, :] - pal[:, :, :, None, :]
+        dist = (diff * diff).sum(-1)                             # (B,K,4,16)
+        return dist.min(dim=2).values.sum(-1)
+    vector = ((v & PERC_TAIL_BIT) == 0)[..., None].expand(
+        *v.shape, 4).reshape(-1)
+    pal = _perc_rows(pal.reshape(-1, 3), vector).reshape(pal.shape)
+    px = perceptual_transform(pixels.float())
+    diff = pal[:, :, :, None, :] - px[:, None, None, :, :]
+    return _sum(_dot(diff, diff).min(dim=2).values, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -487,6 +523,83 @@ def bisect_axis_reference(cov):
         axis = _dot(cov, axis[:, None, :])                      # cfg,cg->cf
         axis = axis / (_sqrt(_sum(axis * axis, -1))[:, None] + 1e-9)
     return axis
+
+
+# ---------------------------------------------------------------------------
+# xla_cpu_min_k
+# ---------------------------------------------------------------------------
+
+# rows up to this long are sorted in shared memory (`kMinKSmemN`); longer
+# ones in scratch the wrapper allocates
+_MIN_K_SMEM_N = 8192
+
+
+def xla_cpu_min_k(d, k: int, depth_cap: int = -1):
+    """The columns of the k smallest values of each row of d (R, n) float32,
+    (R, k) int64, in the order the reference's `jax.lax.approx_min_k` gives
+    them on the CPU: the first k of libstdc++'s `std::sort` of the row's
+    (value, column) pairs by value alone, so equal values (-0.0 and +0.0
+    too) come out in its introsort's order, which depends on the whole row.
+
+    Replaces XLA's ApproxTopK in the reference's `refine_endpoint_assignment`
+    (`basis_universal_tpu/ops/etc1s_encode.py:457`), which has no Pallas
+    kernel. The kernel (`min_k_kernel`) runs `csrc/xla_cpu_sort.h`'s
+    introsort, pruned to the first k places, one warp a row in shared
+    memory, each Hoare partition across the warp's lanes; the plain version
+    runs the same source sequentially on the host. k >= 2 where n > 1: at
+    k = 1 `approx_min_k` is another operator. `depth_cap` >= 0 replaces the
+    introsort's depth limit (2 lg n), to reach its heap fallback in tests.
+    """
+    _check(d, "d", torch.float32, (None, None))
+    dev = _same_device(d)
+    n = d.shape[1]
+    if not 1 <= k <= n or (k == 1 and n > 1):
+        raise ValueError(f"xla_cpu_min_k: k {k} for rows of {n}")
+    if not -1 <= depth_cap <= 62:
+        raise ValueError(f"xla_cpu_min_k: depth_cap {depth_cap}")
+    if dev.type == "cpu":
+        return xla_cpu_min_k_reference(d, k, depth_cap=depth_cap)
+    from ._build import get_lib
+
+    out = torch.empty((d.shape[0], k), dtype=torch.int64, device=dev)
+    work = posr = None
+    if n > _MIN_K_SMEM_N:
+        work = torch.empty((d.shape[0], n), dtype=torch.int64, device=dev)
+        posr = torch.empty((d.shape[0], n // 2 + 1), dtype=torch.int32,
+                           device=dev)
+    with torch.cuda.device(dev):
+        status = get_lib().etc1s_xla_cpu_min_k(
+            d.data_ptr(), None if work is None else work.data_ptr(),
+            None if posr is None else posr.data_ptr(), out.data_ptr(),
+            d.shape[0], n, k, depth_cap, _stream(dev))
+    LAUNCHES["xla_cpu_min_k"] += 1
+    _raise_on(status, "xla_cpu_min_k")
+    return out
+
+
+# the host library's ways through a row (`csrc/host_sort.cpp`)
+_HOST_SORT_MODES = {"pruned": 0, "std_sort": 1, "heap": 2,
+                    "std_partial_sort": 3}
+
+
+def xla_cpu_min_k_reference(d, k: int, mode: str = "pruned",
+                            depth_cap: int = -1):
+    """Plain version of `xla_cpu_min_k`, on the host, for a CPU tensor d:
+    the same introsort (`csrc/xla_cpu_sort.h`) over the rows, split over
+    the cores (`depth_cap` as there). `mode` "std_sort" takes the first k
+    of libstdc++'s `std::sort` itself; "heap" and "std_partial_sort" the
+    first k of the introsort's heap fallback over the whole row and of
+    libstdc++'s `std::partial_sort`, for tests."""
+    from .. import native
+
+    d = d.to(torch.float32).contiguous()
+    out = torch.empty((d.shape[0], k), dtype=torch.int64)
+    status = native.get_host_sort().xla_cpu_min_k_rows(
+        d.data_ptr(), d.shape[0], d.shape[1], k, out.data_ptr(),
+        _HOST_SORT_MODES[mode], depth_cap)
+    if status != 0:
+        raise ValueError(f"xla_cpu_min_k: bad sizes {tuple(d.shape)}, k {k}")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -8,15 +8,18 @@ segment-summed to clusters and assembled with the clusters' moments
 before their shortlist; exact rescoring goes through `palette_errs_packed`
 on packed candidate descriptors, the selector search through
 `find_best_selector_patterns`, the k-means and refine distances through
-`cross6_argmin` / `cross6_distances` and the bisecting init's power
-iteration through `bisect_axis`. Those run as CUDA kernels on CUDA tensors
+`cross6_argmin` / `cross6_distances`, the bisecting init's power
+iteration through `bisect_axis` and the refine's shortlist through
+`xla_cpu_min_k`. Those run as CUDA kernels on CUDA tensors
 and as their plain PyTorch versions on CPU tensors (`ops/cuda_etc1s.py`);
 everything else here is plain PyTorch on the device of its inputs.
 
 Equivalences with the reference kept on purpose:
 - shortlists are in ascending order with ties to the lower index first, as
   `lax.top_k` gives them: a stable ascending sort (`_shortlist`), or for
-  the per-block scan the same order selected inside its kernel;
+  the per-block scan the same order selected inside its kernel; the
+  refine's shortlist, `approx_min_k` in the reference, orders ties as
+  XLA-CPU's `std::sort` does (`_refine_shortlist`, `xla_cpu_min_k`);
 - the k-means cross term rounds its operands to bf16 when the codebook has
   >= 1024 entries and multiplies in float32, as the reference's bf16 matmul
   with float32 accumulation does;
@@ -43,7 +46,7 @@ import torch
 from . import cuda_etc1s, threefry
 from .cuda_etc1s import _INTEN_MID, C31_255
 from .etc1 import ETC1_INTEN_TABLES
-from .xla_order import _dot, _fma, _sum, _sum_sq_tree16
+from .xla_order import _dot, _fma, _sum, _sum_sq_tree16, _tree8
 
 # Perceptual (luma-weighted) colour metric, factored as ||P d||^2 and scaled
 # so P @ (1,1,1) = (sqrt(3), 0, 0): see the reference module for the
@@ -92,9 +95,48 @@ def _inten(device):
                            device=device)
 
 
+GVEC = (PERC_P @ np.ones(3, np.float32)).astype(np.float32)  # P (1,1,1)
+PERC_TAIL_BIT = 1 << 18          # in a packed candidate: see `_perc_rows`
+
+
 def perceptual_transform(x):
-    """y = P x over the trailing RGB axis."""
-    return x @ torch.as_tensor(PERC_P, device=x.device).T
+    """y = P x over the trailing RGB axis, rounded as XLA-CPU rounds the
+    reference's product of x, its leading axes flattened to M rows, with
+    the constant P^T (`_perc_rows`)."""
+    flat = x.reshape(-1, 3)
+    vector = torch.arange(flat.shape[0], device=x.device) < _perc_vector_rows(
+        flat.shape[0])
+    return _perc_rows(flat, vector).reshape(x.shape)
+
+
+def _perc_vector_rows(m: int) -> int:
+    """How many leading rows of an (m, 3) product with P^T XLA-CPU computes
+    in its vector loop (`_perc_rows`): whole 8-row blocks, none below 16
+    rows or at 20-23 and 28-31 (measured at m 1..160 and beyond)."""
+    if m < 16 or 20 <= m < 24 or 28 <= m < 32:
+        return 0
+    return m - m % 8
+
+
+def _perc_rows(flat, vector):
+    """The rows of flat (M, 3) times P^T in XLA-CPU's order: a row of a whole
+    8-row block (`vector`, (M,) bool) takes its first two channels j as
+    (x0 P_j0 + x1 P_j1) + x2 P_j2 from rounded products and its third as
+    the fused multiply-add chain fma(x2, P_22, fma(x1, P_21, x0 P_20)); the
+    other rows (`_perc_vector_rows`) take the chain in all three (measured
+    against the reference's jitted product at M 1..1,572,864 on an x86-64
+    Intel Xeon with AVX-512, as `_cross6`'s rule; `tests/
+    test_torch_etc1s_encode.py` holds it against the host that runs it). A
+    packed candidate whose palette the reference transforms among those
+    other rows (the refine's codebook of an odd size) carries
+    `PERC_TAIL_BIT`."""
+    pm = torch.as_tensor(PERC_P, device=flat.device)           # (3,3) P[j,k]
+    prod = [flat[:, k, None] * pm[:, k] for k in range(3)]      # (M,3) each
+    chain = _fma(flat[:, 2, None], pm[:, 2],
+                 _fma(flat[:, 1, None], pm[:, 1], prod[0]))
+    summed = (prod[0] + prod[1]) + prod[2]
+    lanes = torch.tensor([True, True, False], device=flat.device)
+    return torch.where(vector[:, None] & lanes, summed, chain)
 
 
 def _candidate_deltas(radius: int) -> np.ndarray:
@@ -127,15 +169,33 @@ def _gray_axis_minterm(u):
 
 def _block_moments(pixels, gvec=None):
     """Per-block sufficient statistics of the factorized scan; gvec is the
-    gray axis in pixel space (None: uniform RGB)."""
-    luma = pixels.sum(-1) if gvec is None else pixels @ gvec
-    return dict(
-        luma=luma,
-        sum_l=luma.sum(-1),
-        sum_l2=(luma * luma).sum(-1),
-        sum_x=pixels.sum(1),
-        sum_x2=(pixels * pixels).sum((1, 2)),
-    )
+    gray axis in pixel space (None: uniform RGB, whole numbers, every sum
+    exact). With gvec (the perceptual metric) each sum rounds as XLA-CPU
+    rounds the reference's: the luma a fused multiply-add chain over the
+    channels, sum_l and sum_x added pixel by pixel, sum_l2 a fused
+    multiply-add chain, sum_x2 an 8-lane vector loop over the pixels
+    (`_sum_sq_pixels`)."""
+    if gvec is None:
+        luma = pixels.sum(-1)
+        return dict(luma=luma, sum_l=luma.sum(-1),
+                    sum_l2=(luma * luma).sum(-1), sum_x=pixels.sum(1),
+                    sum_x2=(pixels * pixels).sum((1, 2)))
+    luma = _dot(pixels, gvec)
+    return dict(luma=luma, sum_l=_sum(luma, -1), sum_l2=_dot(luma, luma),
+                sum_x=_sum(pixels, 1), sum_x2=_sum_sq_pixels(pixels))
+
+
+def _sum_sq_pixels(x):
+    """sum over a block's 16 pixels and 3 channels of x^2, (B,), in the
+    order of XLA's 8-lane vector loop: lane j chains fma(v, v, acc) over
+    the channels of pixel j, then of pixel j + 8; the lanes pairwise."""
+    lane = x[:, :8, 0] * x[:, :8, 0]
+    for half in (0, 8):
+        for ch in range(3):
+            if half or ch:
+                v = x[:, half:half + 8, ch]
+                lane = _fma(v, v, lane)
+    return _tree8(lane)
 
 
 def _pack(c5, inten):
@@ -153,10 +213,18 @@ def _unpack(pk):
 def _shortlist(flat, k: int):
     """Indices of the k smallest entries per row, ascending, equal values by
     ascending index, also at the k-th place: the order of `lax.top_k(-flat,
-    k)` and of the reference's exact `approx_min_k` on the CPU. torch.topk
-    promises no tie order; a stable sort does, and on the H100 it is also
-    the faster of the two (PERF.md, PR 1)."""
+    k)`. torch.topk promises no tie order; a stable sort does, and on the
+    H100 it is also the faster of the two (PERF.md)."""
     return torch.sort(flat, dim=-1, stable=True).indices[:, :k]
+
+
+def _refine_shortlist(d6, k: int):
+    """The refine's shortlist, (B, min(k, C)) int64: the columns of each
+    row's k smallest distances in the order the reference's `approx_min_k`
+    gives them on the CPU, where it is a full sort of each row by
+    `std::sort` with a comparator on the value alone (XLA-CPU's ApproxTopK
+    fallback): `cuda_etc1s.xla_cpu_min_k`, on the card and on the host."""
+    return cuda_etc1s.xla_cpu_min_k(d6, min(k, d6.shape[1]))
 
 
 def encode_blocks(pixels, radius: int = 1, perceptual: bool = False):
@@ -216,10 +284,20 @@ def optimize_cluster_endpoints(pixels, cluster_ids, cluster_means,
     deltas = torch.as_tensor(_candidate_deltas(radius), device=dev)
     base5 = torch.clamp(
         torch.round(cluster_means * C31_255).to(torch.int32), 0, 31)  # (C,3)
+    base8 = expand5(torch.clamp(base5[None] + deltas[:, None, :], 0,
+                                31)).float()                    # (D,C,3)
+    lb = None
+    if perceptual:
+        # the reference's gray-axis levels of the cluster bases, (D, C),
+        # each block's taken by its cluster's (row d * C + c of the
+        # transform, not one of the block's own)
+        base8 = perceptual_transform(base8)
+        lb = _dot(base8, torch.as_tensor(GVEC, device=dev))
     mt = cuda_etc1s.factorized_scan(
         pixels, base5=base5[ids].float().contiguous(), radius=radius,
-        perceptual=perceptual)                                  # (B,D*8)
-    flat = _cluster_scan(pixels, ids, base5, deltas, mt, perceptual)
+        perceptual=perceptual,
+        lb=None if lb is None else lb[:, ids].T.contiguous())  # (B,D*8)
+    flat = _cluster_scan(pixels, ids, base8, lb, mt, perceptual)
     cand = _shortlist(flat, min(16, flat.shape[1]))             # (C,K)
     c5k = torch.clamp(base5[:, None, :] + deltas[cand // 8], 0, 31)
     packed_c = _pack(c5k, cand % 8)                             # (C,K)
@@ -231,17 +309,18 @@ def optimize_cluster_endpoints(pixels, cluster_ids, cluster_means,
     return _unpack(packed_c[c, kbest])
 
 
-def _cluster_scan(pixels, ids, base5, deltas, mt, perceptual: bool):
+def _cluster_scan(pixels, ids, base8, lb, mt, perceptual: bool):
     """(C, D*8) unclipped cluster errors from the blocks' gray-axis terms mt
     (B, D*8), summed per cluster: the constant part of each (delta,
     cluster) from the members' summed moments, rounded as XLA's CPU code
-    rounds the reference's (q = fma(n, |b|^2, sum|x|^2 - 2 b.sum x), su2 =
+    rounds the reference's (q = fma(n, b.b, sum|x|^2 - 2 b.sum x), su2 =
     fma(lb, n lb, fma(-2 sum_l, lb, sum_l2)), err = fma(mt, 3, fma(-su2,
-    1/3, q)))."""
-    num_clusters = base5.shape[0]
+    1/3, q)), the dot products fused multiply-add chains). base8 (D, C, 3)
+    are the cluster bases (perceptually transformed with the metric), lb
+    (D, C) their gray-axis levels under the metric (None: their sums)."""
+    num_clusters = base8.shape[1]
     px = perceptual_transform(pixels) if perceptual else pixels
-    gvec = (torch.as_tensor(PERC_P @ np.ones(3, np.float32),
-                            device=pixels.device) if perceptual else None)
+    gvec = torch.as_tensor(GVEC, device=pixels.device) if perceptual else None
     mom = _block_moments(px, gvec)
     ones = torch.ones(pixels.shape[0], dtype=torch.float32,
                       device=pixels.device)
@@ -255,18 +334,13 @@ def _cluster_scan(pixels, ids, base5, deltas, mt, perceptual: bool):
     c_sum_x = sums[:, 1:4]
     c_sum_x2, c_sum_l, c_sum_l2 = sums[:, 4], sums[:, 5], sums[:, 6]
     mt_ct = sums[:, 7:]
-    c5 = torch.clamp(base5[None] + deltas[:, None, :], 0, 31)    # (D,C,3)
-    base8 = expand5(c5).float()
-    if perceptual:
-        base8 = perceptual_transform(base8)
-        lb = base8 @ gvec
-    else:
+    if lb is None:
         lb = _sum(base8, -1)                                    # (D,C)
-    q = _fma(npix, _sum(base8 * base8, -1),
+    q = _fma(npix, _dot(base8, base8),
              c_sum_x2 - 2.0 * _dot(base8, c_sum_x[None]))
     su2 = _fma(lb, npix * lb, _fma(-(2.0 * c_sum_l), lb, c_sum_l2))
     cst = _fma(-su2, cuda_etc1s.THIRD, q)                       # (D,C)
-    d_n = deltas.shape[0]
+    d_n = base8.shape[0]
     err = _fma(mt_ct.reshape(num_clusters, d_n, 8), 3.0, cst.T[..., None])
     return err.reshape(num_clusters, d_n * 8)
 
@@ -363,8 +437,15 @@ def refine_endpoint_assignment(pixels, blk_vec6, cb_vec6, cb_color5, cb_inten,
     d6 = cuda_etc1s.cross6_distances(
         blk_vec6.contiguous(), cb_vec6.contiguous(),
         _dot(blk_vec6, blk_vec6), _dot(cb_vec6, cb_vec6))       # (B,C)
-    cand = _shortlist(d6, topk)                                 # (B,K)
+    cand = _refine_shortlist(d6, topk)                          # (B,K)
     ptab = _pack(cb_color5, cb_inten)                           # (C,)
+    if perceptual:
+        # the reference transforms the (C, 4, 3) palettes as 4C rows: those
+        # past its vector loop's rows (the last 4 where C is odd) flagged
+        first = -(-_perc_vector_rows(4 * ptab.shape[0]) // 4)
+        if first < ptab.shape[0]:
+            ptab = ptab.clone()
+            ptab[first:] |= PERC_TAIL_BIT
     err_k = cuda_etc1s.palette_errs_packed(
         pixels, ptab[cand].contiguous(), perceptual=perceptual)
     best = torch.argmin(err_k, dim=-1)
@@ -373,9 +454,10 @@ def refine_endpoint_assignment(pixels, blk_vec6, cb_vec6, cb_color5, cb_inten,
 
 
 def block_selector_distances(pixels, pal):
-    """d[b, i, k] = ||pixel_bi - pal_bk||^2, (B, 16, 4)."""
+    """d[b, i, k] = ||pixel_bi - pal_bk||^2, (B, 16, 4), the squares a
+    fused multiply-add chain over the channels, as XLA-CPU sums them."""
     diff = pixels[:, :, None, :] - pal[:, None, :, :]
-    return (diff * diff).sum(-1)
+    return _dot(diff, diff)
 
 
 def find_best_selector_patterns(dists, patterns, num_patterns: int):

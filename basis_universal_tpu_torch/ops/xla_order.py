@@ -17,6 +17,11 @@ operators with each fused multiply-add emulated through float64 (the product of 
 sum is rounded twice, which can differ from one rounding in the last bit
 where the float64 sum lands on a float32 midpoint). Integer sums are
 exact in any order and stay a library sum.
+
+The same library holds two kernels of whole chains of these helpers, the
+UASTC line fits' power iteration and least-squares step
+(`xla_principal_axis`, `xla_ls_step`), whose wrappers live with the
+search in `codecs/uastc/encode.py` and launch through `launch()`.
 """
 
 import array
@@ -24,7 +29,7 @@ import array
 import numpy as np
 import torch
 
-from .cuda_etc1s import LAUNCHES, _raise_on, _stream
+from .cuda_etc1s import LAUNCHES, _raise_on
 
 _MAX_DIMS = 8
 _ORDERS = {"sum": 0, "dot": 1, "dot_mm": 2, "dot_vec16": 3}
@@ -52,8 +57,7 @@ def _card_operand(x, dev):
 
 def _broadcast(ops):
     """The broadcast shape of the tensor operands, and each operand's
-    strides over it (0 along broadcast dims; None for a scalar). Plain
-    Python: `torch.broadcast_shapes` costs more than the launch."""
+    strides over it (0 along broadcast dims; None for a scalar)."""
     tensors = [x for x in ops if isinstance(x, torch.Tensor)]
     nd = max(x.dim() for x in tensors)
     shape = [1] * nd
@@ -107,62 +111,136 @@ def _layout(shape, strides):
     return nd, flat
 
 
-_lib = None
+# The launch path of every call on the card: the kernel library's functions
+# (argument types declared once, in `_build`), the current stream by its
+# raw handle, and a plan per (operand shapes, strides, dtypes, devices;
+# scalar values) that holds the output shape and the kernels' layout
+# buffer, built once by `_broadcast` / `_layout` after the operands are
+# checked (`_float32_ops`), and reused after.
+_card = None
+_PLANS = {}
+_MAX_PLANS = 4096
 
 
-def _launch(dev, name, *args):
-    """Calls the kernel library's `name` with args and the current stream of
-    `dev`, on `dev`; returns its status."""
-    global _lib
-    if _lib is None:
+class _Card:
+    def __init__(self):
         from ._build import get_lib
 
-        _lib = get_lib("xla_order_kernels")
-    fn = getattr(_lib, name)
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
-    with torch.cuda.device(dev):
-        return fn(*args, _stream(dev))
+        lib = get_lib("xla_order_kernels")
+        self.fma, self.reduce = lib.xla_fma, lib.xla_reduce
+        self.principal_axis = lib.xla_principal_axis
+        self.ls_step = lib.xla_ls_step
+        self.stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+            or (lambda idx: torch.cuda.current_stream(idx).cuda_stream)
+        self.current = getattr(torch._C, "_cuda_getDevice", None) \
+            or torch.cuda.current_device
+
+
+def _lib() -> _Card:
+    global _card
+    if _card is None:
+        _card = _Card()
+    return _card
+
+
+def launch(kernel: str, idx, *args):
+    """The library's function `kernel` on device idx with *args and the
+    current stream of that device; returns its status."""
+    card = _card or _lib()
+    fn = getattr(card, kernel)
+    if idx == card.current():
+        return fn(*args, card.stream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, card.stream(idx))
+
+
+def _key(x):
+    if isinstance(x, torch.Tensor):
+        return x.shape, x.stride(), x.dtype, x.device
+    return x
+
+
+def _float32_ops(ops):
+    """The operands as the kernels take them: float32 tensors on one card
+    (integer tensors converted), Python floats that float32 holds exactly;
+    and their device."""
+    dev = next(x.device for x in ops
+               if isinstance(x, torch.Tensor) and x.is_cuda)
+    return tuple(_card_operand(x, dev) for x in ops), dev
+
+
+def _store(key, plan):
+    if len(_PLANS) >= _MAX_PLANS:
+        _PLANS.clear()
+    _PLANS[key] = plan
+    return plan
+
+
+def _numel(shape):
+    n = 1
+    for d in shape:
+        n *= d
+    return n
 
 
 def _fma_card(a, b, c):
-    dev = next(x.device for x in (a, b, c)
-               if isinstance(x, torch.Tensor) and x.is_cuda)
-    ops = [_card_operand(x, dev) for x in (a, b, c)]
-    shape, strides = _broadcast(ops)
+    key = ("fma", _key(a), _key(b), _key(c))
+    plan = _PLANS.get(key)
+    if plan is None:
+        ops, dev = _float32_ops((a, b, c))
+        if any(x is not y for x, y in zip(ops, (a, b, c))
+               if isinstance(y, torch.Tensor)):
+            return _fma_card(*ops)               # integer tensors converted
+        shape, strides = _broadcast(ops)
+        nd, meta = _layout(shape, strides)
+        plan = _store(key, (tuple(shape), _numel(shape), nd,
+                            meta.buffer_info()[0], dev, dev.index,
+                            isinstance(a, torch.Tensor),
+                            isinstance(b, torch.Tensor),
+                            isinstance(c, torch.Tensor), meta))
+    shape, n, nd, meta_ptr, dev, idx, ta, tb, tc, _ = plan
     out = torch.empty(shape, dtype=torch.float32, device=dev)
-    if out.numel() == 0:
+    if n == 0:
         return out
-    nd, meta = _layout(shape, strides)
-    ptr = [x.data_ptr() if isinstance(x, torch.Tensor) else None for x in ops]
-    val = [0.0 if isinstance(x, torch.Tensor) else x for x in ops]
-    status = _launch(dev, "xla_fma", *ptr, *val, out.data_ptr(), out.numel(),
-                     nd, meta.buffer_info()[0])
+    status = launch("fma", idx, a.data_ptr() if ta else None,
+                    b.data_ptr() if tb else None,
+                    c.data_ptr() if tc else None, 0.0 if ta else a,
+                    0.0 if tb else b, 0.0 if tc else c, out.data_ptr(), n,
+                    nd, meta_ptr)
     LAUNCHES["xla_fma"] += 1
-    _raise_on(status, "xla_fma")
+    if status:
+        _raise_on(status, "xla_fma")
     return out
 
 
 def _reduce_card(a, b, dim: int, order: str):
-    dev = (a if a.is_cuda else b).device
-    ops = [_card_operand(a, dev)]
-    if b is not None:
-        ops.append(_card_operand(b, dev))
-    shape, strides = _broadcast(ops)
-    dim = dim % len(shape)
-    k_len = shape.pop(dim)
-    k_st = [st.pop(dim) for st in strides]
+    key = ("reduce", dim, _key(a), _key(b))
+    plan = _PLANS.get(key)
+    if plan is None:
+        ops, dev = _float32_ops((a,) if b is None else (a, b))
+        if not all(isinstance(x, torch.Tensor) for x in ops):
+            raise TypeError("the ordered sums take tensors")
+        if ops[0] is not a or (b is not None and ops[1] is not b):
+            return _reduce_card(*ops, dim, order) if b is not None \
+                else _reduce_card(ops[0], None, dim, order)
+        shape, strides = _broadcast(ops)
+        d = dim % len(shape)
+        k_len = shape.pop(d)
+        k_st = [st.pop(d) for st in strides] + [0]
+        nd, meta = _layout(shape, strides)
+        plan = _store(key, (tuple(shape), _numel(shape), k_len, k_st[0],
+                            k_st[1], nd, meta.buffer_info()[0], dev,
+                            dev.index, meta))
+    shape, n, k_len, ka, kb, nd, meta_ptr, dev, idx, _ = plan
     out = torch.empty(shape, dtype=torch.float32, device=dev)
-    if out.numel() == 0 or k_len == 0:
+    if n == 0 or k_len == 0:
         return out.zero_() if k_len == 0 else out
-    nd, meta = _layout(shape, strides)
-    status = _launch(dev, "xla_reduce", ops[0].data_ptr(),
-                     ops[1].data_ptr() if b is not None else None,
-                     out.data_ptr(), out.numel(), k_len, k_st[0],
-                     k_st[1] if b is not None else 0, _ORDERS[order], nd,
-                     meta.buffer_info()[0])
+    status = launch("reduce", idx, a.data_ptr(),
+                    None if b is None else b.data_ptr(), out.data_ptr(), n,
+                    k_len, ka, kb, _ORDERS[order], nd, meta_ptr)
     LAUNCHES["xla_reduce"] += 1
-    _raise_on(status, "xla_reduce")
+    if status:
+        _raise_on(status, "xla_reduce")
     return out
 
 

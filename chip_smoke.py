@@ -3,7 +3,7 @@
 BC7 search and XUBC7, ASTC LDR, XUASTC LDR, the HDR modes), its transcoder
 re-encodes and its image metrics once on one GPU.
 
-    python3 chip_smoke.py [--profile OUT_DIR]
+    python3 chip_smoke.py [--profile OUT_DIR] [--ab OTHER_TREE]
 
 Phases (any failure raises, so the process exits nonzero with no final line):
 1. require CUDA; print versions and the card's name and power limit; load
@@ -19,20 +19,25 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    errors' shortlist bit for bit in RGB; the rescore at
    K 16 and 8; `palette_errs`, which no path calls, at K 16; the selector
    search at S 2,731 and at 16,128, the most selector clusters; the
-   k-means argmin and the refine's distances at 24,576 x 2,416) and time
-   both with CUDA events, beside the least time the card could take
-   (bound) and, where one PyTorch call computes the same function, that
-   call (library); the segment sum's row gather from the scan's row-major
+   k-means argmin, the refine's distances and their shortlist in XLA-CPU's
+   tie order (`xla_cpu_min_k`, held to `std::sort` on the host) at
+   24,576 x 2,416; the XLA-order kernels at a UASTC line fit's shapes: `xla_fma`, `xla_reduce`
+   and the fused `xla_principal_axis` and `xla_ls_step`) and time both
+   with CUDA events, beside the least time the card could take (bound)
+   and, where one PyTorch call computes the same function, that call
+   (library); the segment sum's row gather from the scan's row-major
    output and from a transposed one;
 4. ETC1S: encode four synthetic 768x512 textures with
    `compressor.compress_batch` at quality 128, effort 1 on the card: check
    that each kernel was launched the expected number of times, decode every
    .basis with the port's host decoder (slice CRCs, PSNR), and hold
-   image 0 against values recorded from the JAX reference on the CPU;
+   image 0 to the JAX-CPU reference's recorded bytes (sha256);
 5. UASTC LDR 4x4: the same four textures through `compress_batch` at
    effort 2, then one 768x512 RGBA texture through `compress`: one scan and
-   one rescore launch per image (the ETC1 hint), every file decoded (CRCs,
-   PSNR), image 0 and the RGBA texture held to recorded JAX-CPU values;
+   one rescore launch per image (the ETC1 hint) and the XLA-order kernels'
+   launches per RGB and RGBA image (`EXPECTED_UASTC_XLA`), every file
+   decoded (CRCs, PSNR), image 0 and the RGBA texture held to the recorded
+   JAX-CPU bytes;
 6. transcoder: the port's `BasisTranscoder` turns image 0's UASTC file into
    ETC1_RGB (an ETC1S re-encode on the card) and ASTC_4x4_RGBA, and the
    engine's ASTC re-encode of decoded pixels runs the UASTC search on the
@@ -54,11 +59,15 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    held to the reference's bytes; `ops/metrics.py` on the card against the
    CPU;
 13. with `--profile OUT_DIR` only: time 16 images per codec and profile one
-   run of each (device time by kernel in OUT_DIR/profile_*.txt);
+   run of each (device time by kernel in OUT_DIR/profile_*.txt), and trace
+   one BC7 search of image 0 at effort 2; with `--ab` as well, the 16-image
+   profiles of the other tree and of this one in turns (other, this, this,
+   other), each in a process of its own;
 14. with `--ab OTHER_TREE` only: build the kernels of another checkout of
    the repo (e.g. the parent commit unpacked under `_compare/`), check that
-   its scan and rescore give the same bits as this tree's at every shape of
-   phase 3, and time both in turns (other, this, this, other);
+   its scan, rescore, `xla_fma` and `xla_reduce` give the same bits as this
+   tree's at the shapes of phase 3, and time both in turns (other, this,
+   this, other);
 15. front doors, at 768x512: `api.Encoder(device="cuda")` (ETC1S q 50 =
    native 128, effort 1: its bytes equal `compressor.compress`'s; UASTC
    LDR 4x4 and ASTC LDR 4x4: the JAX-CPU reference's bytes) and
@@ -71,17 +80,19 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    torch.profiler device trace around one API encode (`utils/telemetry`);
    launches counted per path (`api`, `cli`);
 16. ETC1S image 0, card against CPU: the bytes of the card and of the CPU
-   (equal, asserted), of the card with the selector search's plain version
-   run on the CPU in place of its kernel, and of the card with the refine
-   shortlist that the reference's own unstable sort takes (recorded; the
-   reference's sha256, asserted), with the codebook entries and bytes that
-   differ.
+   (equal, and the reference's sha256, asserted), of the card with the
+   selector search's plain version run on the CPU in place of its kernel,
+   and of the card with the refine shortlist that the reference's own
+   unstable sort takes (recorded; the reference's sha256, asserted: the
+   witness that the port's own shortlist orders ties as that sort does),
+   with the codebook entries and bytes that differ.
 
 The last two lines are the kernels' JSON record and the result line.
 """
 
 import hashlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -181,12 +192,13 @@ RGBA_SEED = 4
 # in encode_blocks and the full scan in the one refine pass, the rescore in
 # encode_blocks, the refine's cluster rescore and its reassignment, the
 # selector search in the two selector iterations and the final assignment,
-# the k-means assignment in its two iterations and the refine's distances,
-# and the bisecting init's power iterations
+# the k-means assignment in its two iterations, the refine's distances and
+# their shortlist, and the bisecting init's power iterations
 EXPECTED_PER_IMAGE = {"factorized_scan": 1, "factorized_scan_shortlist": 1,
                       "palette_errs_packed": 3,
                       "find_best_selector_patterns": 3,
                       "cross6_argmin": 2, "cross6_distances": 1,
+                      "xla_cpu_min_k": 1,
                       # one per round of the bisecting init: ceil(log2 2416)
                       "bisect_axis": 12}
 # UASTC: per image, one fused scan (radius 0) and one rescore (K 8) for the
@@ -211,11 +223,27 @@ REPLACES = {"factorized_scan": f"{PALLAS}:343",
             "cross6_argmin": "basis_universal_tpu/ops/etc1s_encode.py:357",
             "cross6_distances": "basis_universal_tpu/ops/etc1s_encode.py:452",
             "bisect_axis": "basis_universal_tpu/ops/etc1s_encode.py:411",
+            # no Pallas kernel: XLA's ApproxTopK (a std::sort on the CPU)
+            "xla_cpu_min_k": "basis_universal_tpu/ops/etc1s_encode.py:457",
             # no Pallas kernel: XLA's fused multiply-adds and ordered sums in
             # the reference's compiled searches (e.g. the UASTC line fit)
             "xla_fma": "basis_universal_tpu/codecs/uastc/encode.py:90",
-            "xla_reduce": "basis_universal_tpu/codecs/uastc/encode.py:119"}
-XLA_ORDER_KERNELS = ("xla_fma", "xla_reduce")
+            "xla_reduce": "basis_universal_tpu/codecs/uastc/encode.py:119",
+            # the line fits' power iteration and least-squares step
+            "xla_principal_axis":
+                "basis_universal_tpu/codecs/uastc/encode.py:77",
+            "xla_ls_step": "basis_universal_tpu/codecs/uastc/encode.py:185"}
+XLA_ORDER_KERNELS = ("xla_fma", "xla_reduce", "xla_principal_axis",
+                     "xla_ls_step")
+# XLA-order launches per UASTC effort-2 image (RGB; RGBA): every line fit's
+# power iteration is one `xla_principal_axis`, every least-squares step one
+# `xla_ls_step`, and the rest of the search's spelled-out orders the generic
+# kernels (`tests/test_torch_uastc_encode.py` counts the same on the CPU)
+EXPECTED_UASTC_XLA = {
+    False: {"xla_reduce": 146, "xla_fma": 140, "xla_principal_axis": 26,
+            "xla_ls_step": 26},
+    True: {"xla_reduce": 304, "xla_fma": 304, "xla_principal_axis": 56,
+           "xla_ls_step": 56}}
 SOURCES = {name: "basis_universal_tpu_torch/csrc/"
            + ("xla_order_kernels.cu" if name in XLA_ORDER_KERNELS
               else "etc1s_kernels.cu") for name in REPLACES}
@@ -405,14 +433,16 @@ def phase_kernels(torch, blocks):
         dms = _device_ms(torch, run)
         pms = _time_ms(plain, torch, reps=5)
         lms = None if library is None else _time_ms(library, torch, reps=5)
+        ldms = None if library is None else _device_ms(torch, library)
         bound_ms, bound_by = bound
         row = dict(shape=label, max_abs_err=err, ms=ms, device_ms=dms,
                    plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=lms)
+                   library_ms=lms, library_device_ms=ldms)
+        lib_txt = "none" if lms is None else \
+            f"{lms:.4f} ms (device {ldms:.4f} ms)"
         print(f"{name} {label}: B={b_n} max_abs_err={err:.4g} "
               f"kernel {ms:.4f} ms (device {dms:.4f} ms), plain {pms:.4f} ms"
-              f", library {'none' if lms is None else f'{lms:.4f} ms'}, "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+              f", library {lib_txt}, bound {bound_ms:.4f} ms ({bound_by})")
         res = results.setdefault(name, dict(row, by_shape=[]))
         res["max_abs_err"] = max(res["max_abs_err"], err)
         res["by_shape"].append(row)
@@ -420,9 +450,8 @@ def phase_kernels(torch, blocks):
     # -- factorized_scan, the gray-axis sums of the refine's cluster scan:
     #    radius 1 (216 columns) against per-block cluster bases, the main
     #    path's shape; radius 2 (1,000 columns, effort 6 and up) and the
-    #    perceptual variant. Whole-numbered pixels in RGB give the plain
-    #    version's bits; the perceptual sums are held at 3x (the error's
-    #    share) to the scan's tolerance.
+    #    perceptual variant: the plain version's bits (whole-numbered pixels
+    #    in RGB; the perceptual metric's XLA order spelled out in both)
     base5 = torch.as_tensor(rng.integers(0, 32, (b_n, 3)), dtype=torch.float32,
                             device=dev)
     for label, kw in (("D27 cluster base", dict(radius=1, base5=base5)),
@@ -432,14 +461,11 @@ def phase_kernels(torch, blocks):
         got = ck.factorized_scan(px, **kw)
         want = ck.factorized_scan_reference(px, **kw)
         torch.cuda.synchronize()
-        if kw.get("perceptual"):
-            err = _close(3.0 * got, 3.0 * want, scan_term_magnitude(px, **kw),
-                         f"factorized_scan {label}")
-        elif not torch.equal(got, want):
-            raise AssertionError(f"factorized_scan {label}: whole-numbered "
-                                 "pixels must give the plain version's bits")
-        else:
-            err = 0.0
+        if not torch.equal(got, want):
+            raise AssertionError(f"factorized_scan {label}: "
+                                 f"{int((got != want).sum())} values differ "
+                                 "from the plain version's")
+        err = 0.0
         measure("factorized_scan", label,
                 lambda: ck.factorized_scan(px, **kw),
                 lambda: ck.factorized_scan_reference(px, **kw), err,
@@ -465,9 +491,8 @@ def phase_kernels(torch, blocks):
     # -- factorized_scan_shortlist at the shapes of encode_blocks (radius 1;
     #    radius 2 at effort 6 and up; the perceptual metric; radius 0, the
     #    UASTC hint): equal to `_shortlist` of the plain errors, bit for bit
-    #    in RGB (whole-numbered pixels: the plain errors are exact, as the
-    #    kernel's are), with the perceptual metric except where two columns'
-    #    plain scores tie within the scan's tolerance
+    #    (whole-numbered pixels in RGB: the plain errors are exact, as the
+    #    kernel's are; with the perceptual metric both round in XLA's order)
     for label, kw in (("D27", dict(radius=1)), ("D125", dict(radius=2)),
                       ("D27 perceptual", dict(radius=1, perceptual=True)),
                       ("D1", dict(radius=0))):
@@ -475,8 +500,7 @@ def phase_kernels(torch, blocks):
         k = got.shape[1]
         flat = ck.factorized_scan_errors_reference(px, **kw)
         torch.cuda.synchronize()
-        if not kw.get("perceptual") and not torch.equal(
-                got, ops._shortlist(flat, k)):
+        if not torch.equal(got, ops._shortlist(flat, k)):
             raise AssertionError(f"factorized_scan_shortlist {label}: differs "
                                  "from the plain errors' shortlist")
         err = _shortlist_close(torch, got, ops._shortlist(flat, k), flat,
@@ -500,7 +524,11 @@ def phase_kernels(torch, blocks):
         got = ck.palette_errs_packed(px, pk, perceptual=perceptual)
         want = ck.palette_errs_packed_reference(px, pk, perceptual=perceptual)
         torch.cuda.synchronize()
-        err = _close(got, want, 0.0, f"palette_errs_packed {label}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"palette_errs_packed {label}: "
+                                 f"{int((got != want).sum())} errors differ "
+                                 "from the plain version's")
+        err = 0.0
         measure("palette_errs_packed", label,
                 lambda: ck.palette_errs_packed(px, pk, perceptual=perceptual),
                 lambda: ck.palette_errs_packed_reference(
@@ -612,6 +640,36 @@ def phase_kernels(torch, blocks):
             _cross6_bound(b_n, 2416, True),
             library=lambda: torch.addmm(bias, vec6, cents.T, alpha=-2.0))
 
+    # -- xla_cpu_min_k on those distances (24,576 x 2,416, whole-numbered
+    #    centroid components, so most rows tie among their 17 smallest, as
+    #    on the main path): the columns of std::sort on the host, bit for
+    #    bit. No PyTorch call orders ties so; torch.topk, which takes the
+    #    same 16 values in another order, is timed beside it.
+    d6 = ck.cross6_distances(vec6, cents, r, q)
+    d6_host = d6.cpu()
+    stv = torch.sort(d6_host, dim=-1, stable=True).values
+    tied = int((stv[:, 1:17] == stv[:, :16]).any(1).sum())
+    del stv
+    got = ck.xla_cpu_min_k(d6, 16)
+    want = ck.xla_cpu_min_k_reference(d6_host, 16, mode="std_sort")
+    torch.cuda.synchronize()
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(
+            f"xla_cpu_min_k: {int((got.cpu() != want).any(1).sum())} of "
+            f"{b_n} rows differ from std::sort on the host")
+    topk_ms = _time_ms(lambda: torch.topk(d6, 16, largest=False), torch,
+                       reps=5)
+    print(f"xla_cpu_min_k: {tied} of {b_n} rows tie among their 17 smallest;"
+          f" torch.topk of the same 16 (another tie order) {topk_ms:.4f} ms")
+    # bound: the distances read once, the columns written; about 2n compares
+    # a row for the pruned sort, at most 2n lg n, far below the bytes
+    measure("xla_cpu_min_k", "N24576 C2416 k16",
+            lambda: ck.xla_cpu_min_k(d6, 16),
+            lambda: ck.xla_cpu_min_k_reference(d6_host, 16), 0.0,
+            _bound(d6.numel() * 4 + b_n * 16 * 8,
+                   2.0 * d6.numel() * math.log2(2416), FP32_FLOP_S))
+    del d6, d6_host, got, want
+
     # -- bisect_axis at the main path's 4,096 bisecting clusters, from the
     #    covariances of a random split of the 24,576 endpoint vectors (every
     #    tenth cluster empty): the plain version's bits
@@ -647,6 +705,12 @@ def phase_kernels(torch, blocks):
     w = torch.as_tensor(rng.uniform(0, 1, (b_n, 16, 1)), dtype=torch.float32,
                         device=dev)
     m = v.mean(1, keepdim=True)
+    # what any kernel takes at this size: PyTorch's copy of v (its bytes
+    # read and written, about xla_fma's traffic), on the device
+    copy_dms = _device_ms(torch, lambda: v.clone())
+    print(f"copy of v ({v.numel() * 4} B read and written): device "
+          f"{copy_dms:.4f} ms, bound "
+          f"{_bound(8 * v.numel(), 0, FP32_FLOP_S)[0]:.4f} ms")
     for name, label, run, plain, lib, bound in (
             ("xla_fma", "B24576x16x3 broadcast+scalar",
              lambda: xo._fma(v, 257.0, m),
@@ -673,6 +737,63 @@ def phase_kernels(torch, blocks):
               "off the plain version (its double rounding)")
         measure(name, label, run, plain, float((got - want).abs().max()),
                 bound, library=lib)
+
+    # -- the fused chains of the UASTC line fits at the search's shapes
+    #    (24,576 blocks): the power iteration of a mode trial (RGB, 6
+    #    iterations) and of a fit (RGBA, 4), and the least-squares step of
+    #    a mode trial (RGB pixels read through a strided view, no mask) and
+    #    of a masked fit. Their plain versions are the Python compositions
+    #    of `_dot`, `_sum`, `_sqrt` and `_fma`, which on the card launch the
+    #    generic kernels, whose bits they must give, every value (the same
+    #    roundings, spelled out alike). No one PyTorch call computes either.
+    from basis_universal_tpu_torch.codecs.uastc import encode as uenc
+
+    rgba = torch.cat([px, torch.as_tensor(rng.integers(0, 256, (b_n, 16, 1)),
+                                          dtype=torch.float32, device=dev)],
+                     -1).contiguous()
+    for label, n_ch, iters in (("C3 iters 6", 3, 6), ("C4 iters 4", 4, 4)):
+        c = rgba[..., :n_ch] - rgba[..., :n_ch].mean(1, keepdim=True)
+        c = c.contiguous()
+        got = uenc.principal_axis(c, iters)
+        want = uenc.principal_axis_reference(c, iters)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"xla_principal_axis {label}: differs from "
+                                 "the plain version")
+        flops = b_n * (n_ch * n_ch * 32 + iters * (2 * n_ch * n_ch
+                                                    + 3 * n_ch + 2)
+                       + 32 * n_ch)
+        measure("xla_principal_axis", label,
+                lambda: uenc.principal_axis(c, iters),
+                lambda: uenc.principal_axis_reference(c, iters), 0.0,
+                _bound(4 * b_n * (16 * n_ch + n_ch + 16), flops,
+                       FP32_FLOP_S))
+    wlev = torch.tensor([0.0, 21.0, 43.0, 64.0], device=dev)
+    wl = wlev[torch.as_tensor(rng.integers(0, 4, (b_n, 16)), device=dev)]
+    wl[::10] = 21.0                                     # singular systems
+    lo = torch.as_tensor(rng.uniform(-5, 260, (b_n, 4)), dtype=torch.float32,
+                         device=dev)
+    hi = torch.as_tensor(rng.uniform(-5, 260, (b_n, 4)), dtype=torch.float32,
+                         device=dev)
+    half = torch.as_tensor(rng.random((b_n, 16)) < 0.5, dtype=torch.float32,
+                           device=dev)
+    for label, mask, n_ch in (("C3 strided", None, 3),
+                              ("C4 masked", half, 4)):
+        v = rgba[..., :n_ch]
+        args = (wl, mask, v, lo[:, :n_ch].contiguous(),
+                hi[:, :n_ch].contiguous())
+        got = uenc.ls_step(*args)
+        want = uenc.ls_step_reference(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"xla_ls_step {label}: differs from the "
+                                 "plain version")
+        n_in = 16 + (16 if mask is not None else 0) + 16 * n_ch + 2 * n_ch
+        flops = b_n * (16 * (8 + (2 if mask is not None else 0))
+                       + 64 * n_ch + 10 + 8 * n_ch)
+        measure("xla_ls_step", label, lambda: uenc.ls_step(*args),
+                lambda: uenc.ls_step_reference(*args), 0.0,
+                _bound(4 * b_n * (n_in + 2 * n_ch), flops, FP32_FLOP_S))
     return results
 
 
@@ -715,6 +836,8 @@ def phase_main_path(torch, images):
                   f"size {100 * ds:+.3f}%")
             if abs(dp) > PSNR_TOL_DB or abs(ds) > SIZE_TOL:
                 raise AssertionError("image 0 drifted from the reference")
+            _same_as_reference("ETC1S image 0", out.basis_data,
+                               REFERENCE_BASIS_SHA256["etc1s_image0"])
     return launches, outs[0].basis_data
 
 
@@ -734,10 +857,23 @@ def _expect(launches, per_image, n, what):
 
 
 def _expect_xla_order(launches, what):
-    """The path ran both XLA-order kernels."""
-    for name in XLA_ORDER_KERNELS:
+    """The path ran both generic XLA-order kernels."""
+    for name in ("xla_fma", "xla_reduce"):
         if launches[name] <= 0:
             raise AssertionError(f"{what}: {name} was never launched")
+
+
+def _expect_uastc_xla(launches, n_rgb, n_rgba, what):
+    """The XLA-order kernels' launches of n_rgb RGB and n_rgba RGBA UASTC
+    effort-2 images, exactly."""
+    for name in XLA_ORDER_KERNELS:
+        want = (EXPECTED_UASTC_XLA[False][name] * n_rgb
+                + EXPECTED_UASTC_XLA[True][name] * n_rgba)
+        if launches[name] != want:
+            raise AssertionError(f"{what}: {name} launched "
+                                 f"{launches[name]} times, expected {want}")
+    print(f"{what}: XLA-order launches as expected "
+          f"({ {k: launches[k] for k in XLA_ORDER_KERNELS} })")
 
 
 def _hold(label, p, size, ref):
@@ -788,7 +924,7 @@ def phase_uastc(torch, images, rgba):
     batch = dict(ck.LAUNCHES)
     print(f"UASTC: {len(images)} x {WIDTH}x{HEIGHT} effort {UASTC_EFFORT}: "
           f"{dt:.3f} s = {mpix / dt:.3f} Mpix/s (first run {t_first:.3f} s)")
-    _expect_xla_order(batch, "UASTC compress_batch")
+    _expect_uastc_xla(batch, len(images), 0, "UASTC compress_batch")
     _expect(batch, EXPECTED_UASTC_PER_IMAGE, len(images),
             "UASTC compress_batch")
     for i, (img, out) in enumerate(zip(images, outs)):
@@ -808,6 +944,7 @@ def phase_uastc(torch, images, rgba):
     torch.cuda.synchronize()
     single = dict(ck.LAUNCHES)
     _expect(single, EXPECTED_UASTC_PER_IMAGE, 1, "UASTC compress RGBA")
+    _expect_uastc_xla(single, 0, 1, "UASTC compress RGBA")
     _hold("UASTC RGBA", uastc_psnr(out.basis_data, rgba),
           len(out.basis_data), REFERENCE_UASTC_RGBA)
     _same_as_reference("UASTC RGBA", out.basis_data,
@@ -1222,7 +1359,8 @@ def _other_port(tree):
     sys.modules["_other_port"] = mod
     spec.loader.exec_module(mod)
     return (importlib.import_module("_other_port.ops.cuda_etc1s"),
-            importlib.import_module("_other_port.ops._build"))
+            importlib.import_module("_other_port.ops._build"),
+            importlib.import_module("_other_port.ops.xla_order"))
 
 
 def phase_ab(torch, blocks, tree):
@@ -1231,8 +1369,9 @@ def phase_ab(torch, blocks, tree):
     scan's shortlists, the rescore's errors), and their call times (CUDA events) and
     device times (torch.profiler) in turns: other, this, this, other."""
     from basis_universal_tpu_torch.ops import cuda_etc1s as ck
+    from basis_universal_tpu_torch.ops import xla_order as xo
 
-    other, other_build = _other_port(tree)
+    other, other_build, other_xo = _other_port(tree)
     t0 = time.time()
     other_build.get_lib()
     print(f"ab: {tree}'s kernels built in {time.time() - t0:.1f} s")
@@ -1260,6 +1399,27 @@ def phase_ab(torch, blocks, tree):
               for label, pk, perc in (
                   ("K16", packed, False), ("K16 perceptual", packed, True),
                   ("K8", packed[:, :8].contiguous(), False))]
+    # the generic XLA-order kernels at phase 3's shapes (a UASTC line fit)
+    w = torch.as_tensor(rng.uniform(0, 1, (b_n, 16, 1)), dtype=torch.float32,
+                        device=dev)
+    m = px.mean(1, keepdim=True)
+    xla = {"xla_fma": lambda mod: mod._fma(px, 257.0, m),
+           "xla_reduce": lambda mod: mod._dot(w, px, 1)}
+    for name, run in xla.items():
+        mine, theirs = run(xo), run(other_xo)
+        torch.cuda.synchronize()
+        n_diff = int((mine != theirs).sum())
+        runs = [lambda mod=mod_: run(mod)
+                for mod_ in (other_xo, xo, xo, other_xo)]
+        t = [_time_ms(r, torch) for r in runs]
+        dt = [_device_ms(torch, r) for r in runs]
+        print(f"ab {name}: same bits {n_diff == 0} ({n_diff} of "
+              f"{mine.numel()} differ); call ms other {t[0]:.4f}, this "
+              f"{t[1]:.4f}, this {t[2]:.4f}, other {t[3]:.4f}; device ms "
+              f"other {dt[0]:.4f}, this {dt[1]:.4f}, this {dt[2]:.4f}, other "
+              f"{dt[3]:.4f}")
+        if n_diff:
+            raise AssertionError(f"ab {name}: the two trees' bits differ")
     for name, label, args, kw in cases:
         mine = getattr(ck, name)(*args, **kw)
         theirs = getattr(other, name)(*args, **kw)
@@ -1407,6 +1567,56 @@ def phase_profile_uastc(torch, out_dir, n_images=16):
           f"(serial) {t_pack:.3f} s ({1e3 * t_pack / n_images:.2f} ms/image)")
     _trace(torch, lambda: compressor.compress_batch(images, params),
            pathlib.Path(out_dir) / "profile_uastc_device_time.txt", n_images)
+
+
+def phase_profile_bc7(torch, img, out_dir):
+    """The BC7 search (`--profile OUT_DIR`): one effort-2 encode of image 0
+    traced after a warm-up run (device time by kernel in
+    OUT_DIR/profile_bc7_device_time.txt)."""
+    import pathlib
+
+    from basis_universal_tpu_torch.codecs.bc7 import encode as bc7
+    from basis_universal_tpu_torch.ops.etc1 import image_to_blocks
+
+    px = image_to_blocks(_rgba_of(img)).reshape(-1, 16, 4)
+    run = lambda: bc7.encode_blocks(px, effort=2, device="cuda")
+    run()
+    torch.cuda.synchronize()
+    _trace(torch, run, pathlib.Path(out_dir) / "profile_bc7_device_time.txt",
+           1)
+
+
+_PROFILE_RUN = ("import sys, torch; sys.path.insert(0, '.'); "
+                "import chip_smoke as c; c.phase_env(torch); "
+                "c.phase_profile(torch, {out!r}); "
+                "c.phase_profile_uastc(torch, {out!r})")
+
+
+def phase_profile_ab(tree, out_dir, timeout=1500):
+    """`--profile OUT_DIR --ab TREE`: the 16-image profiles of both lanes
+    (`phase_profile`, `phase_profile_uastc`) of the other checkout and of
+    this one in turns, other, this, this, other, each in a process of its
+    own started from its tree's root (tables under OUT_DIR/ab_<i>_<tree>)."""
+    import pathlib
+
+    here = pathlib.Path(__file__).resolve().parent
+    for i, (label, root) in enumerate((("other", pathlib.Path(tree)),
+                                       ("this", here), ("this", here),
+                                       ("other", pathlib.Path(tree)))):
+        out = pathlib.Path(out_dir).resolve() / f"ab_{i}_{label}"
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-c",
+                               _PROFILE_RUN.format(out=str(out))],
+                              cwd=str(root.resolve()), capture_output=True,
+                              text=True, timeout=timeout)
+        for line in proc.stdout.splitlines():
+            if line.startswith("profile"):
+                print(f"profile-ab {i} {label}: {line}")
+        print(f"profile-ab {i} {label}: {time.time() - t0:.1f} s, exit "
+              f"{proc.returncode}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"profile of {root} failed:\n"
+                               f"{proc.stderr[-4000:]}")
 
 
 def _sha(data):
@@ -1613,16 +1823,16 @@ def _fed_shortlist(ops, cand):
     only) whose shortlist is `cand`, the one the reference's own unstable
     sort takes from image 0's refine distances (recorded by
     `tests/test_torch_recorded_reference.py --only etc1s_image0_shortlist`),
-    in place of the port's stable sort."""
-    refine, stable = ops.refine_endpoint_assignment, ops._shortlist
+    in place of the port's own (`_refine_shortlist`)."""
+    refine, own = ops.refine_endpoint_assignment, ops._refine_shortlist
 
     def fed(pixels, *args, **kwargs):
         want = cand.to(pixels.device)
-        ops._shortlist = lambda d6, k: want
+        ops._refine_shortlist = lambda d6, k: want
         try:
             return refine(pixels, *args, **kwargs)
         finally:
-            ops._shortlist = stable
+            ops._refine_shortlist = own
 
     return refine, fed
 
@@ -1709,6 +1919,8 @@ def phase_selector_cause(torch, img0, card_bytes):
     if card_bytes != cpu.basis_data:
         raise AssertionError("ETC1S image 0: the card's bytes differ from "
                              "the CPU's")
+    if _sha(card_bytes) != want:
+        raise AssertionError("ETC1S image 0: not the reference's bytes")
     if _sha(fed) != want:
         raise AssertionError("ETC1S image 0 with the reference's refine "
                              "shortlist: not the reference's bytes")
@@ -1768,12 +1980,18 @@ def main():
                                                       work_dir)
     phase_mesh_graft_trace(torch, images, work_dir)
     phase_selector_cause(torch, images[0], etc1s_image0)
-    if "--ab" in sys.argv:
-        phase_ab(torch, blocks, sys.argv[sys.argv.index("--ab") + 1])
+    tree = sys.argv[sys.argv.index("--ab") + 1] if "--ab" in sys.argv \
+        else None
+    if tree:
+        phase_ab(torch, blocks, tree)
     if "--profile" in sys.argv:
         out_dir = sys.argv[sys.argv.index("--profile") + 1]
-        phase_profile(torch, out_dir)
-        phase_profile_uastc(torch, out_dir)
+        if tree:
+            phase_profile_ab(tree, out_dir)
+        else:
+            phase_profile(torch, out_dir)
+            phase_profile_uastc(torch, out_dir)
+        phase_profile_bc7(torch, images[0], out_dir)
 
     record = [dict(name=name, route="cuda", source=SOURCES[name],
                    replaces=REPLACES[name],

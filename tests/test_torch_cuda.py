@@ -326,7 +326,8 @@ def test_compress_on_card_launches_each_kernel(cuda):
         "palette_errs_packed": 1 + 2 * refine, "palette_errs": 0,
         "find_best_selector_patterns": sel + 1,
         "cross6_argmin": knobs["kmeans_iters"], "cross6_distances": refine,
-        "bisect_axis": int(np.ceil(np.log2(knobs["num_e"])))}
+        "bisect_axis": int(np.ceil(np.log2(knobs["num_e"]))),
+        "xla_cpu_min_k": refine, "xla_principal_axis": 0, "xla_ls_step": 0}
     cpu = compressor.compress(img, compressor.CompressorParams(device="cpu"))
     assert out.basis_data == cpu.basis_data
     assert etc1s_psnr(out.basis_data, img) > 25.0
@@ -570,6 +571,45 @@ def test_cross6_on_card(cuda, n, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,levels,zeros", [
+    (300, 17, 3, False), (300, 17, 3, True), (4096, 2416, 3, False),
+    (4096, 2416, 40, False), (4096, 2416, 2000, False), (1024, 2416, 3, True)])
+def test_xla_cpu_min_k_on_card(cuda, rows, n, levels, zeros):
+    """The refine shortlist's kernel gives the columns of libstdc++'s
+    `std::sort` on the host (the definition of `approx_min_k`'s order on
+    XLA-CPU), bit for bit, on tie-heavy rows, signed zeros included."""
+    rng = np.random.default_rng(rows + n + levels)
+    if zeros:
+        d = rng.integers(-2, 3, (rows, n)).astype(np.float32)
+        z = d == 0
+        d[z] = np.where(rng.random(z.sum()) < 0.5, -0.0, 0.0)
+    else:
+        d = rng.integers(0, levels, (rows, n)).astype(np.float32)
+    d = torch.as_tensor(d)
+    for k in (2, 16):
+        got = ck.xla_cpu_min_k(d.to(cuda), k)
+        want = ck.xla_cpu_min_k_reference(d, k, mode="std_sort")
+        assert torch.equal(got.cpu(), want)
+    assert ck.LAUNCHES["xla_cpu_min_k"] == 2
+    # the heap fallback, reached by a low depth limit: the host's steps
+    part = d[:256]
+    for cap in (0, 1, 3):
+        assert torch.equal(
+            ck.xla_cpu_min_k(part.to(cuda), 16, depth_cap=cap).cpu(),
+            ck.xla_cpu_min_k_reference(part, 16, depth_cap=cap))
+
+
+@pytest.mark.cuda
+def test_xla_cpu_min_k_long_rows_on_card(cuda):
+    """Rows too long for shared memory sort in global scratch, alike."""
+    rng = np.random.default_rng(9000)
+    d = torch.as_tensor(rng.integers(0, 5, (64, 9000)).astype(np.float32))
+    got = ck.xla_cpu_min_k(d.to(cuda), 16)
+    assert torch.equal(got.cpu(),
+                       ck.xla_cpu_min_k_reference(d, 16, mode="std_sort"))
+
+
+@pytest.mark.cuda
 def test_xla_order_kernels_on_card(cuda):
     """`_fma` and the ordered sums launch their kernels on the card and give
     the plain versions' bits: contiguous, broadcast, strided and transposed
@@ -624,3 +664,282 @@ def test_bisect_axis_on_card(cuda):
     assert torch.equal(got.cpu(), ck.bisect_axis_reference(cov))
     assert torch.equal(got, ck.bisect_axis_reference(cov.to(cuda)))
     assert ck.LAUNCHES["bisect_axis"] == 1
+
+
+def _same_bits_or_ulp(got, want):
+    """got (card kernel) against want (the plain version, float64
+    emulation on the CPU): equal but for at most 1e-6 of the values (and
+    one more), each one ulp off (the plain version's double rounding)."""
+    got, want = got.cpu(), want.cpu()
+    differ = got != want
+    ulp = (torch.nextafter(want, torch.full_like(want, float("inf")))
+           - want).abs()
+    assert int(differ.sum()) <= 1e-6 * got.numel() + 1
+    assert not bool(((got - want).abs() > ulp)[differ].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "1d_rows", "1d_ragged", "rows_broadcast_col", "rows_broadcast_row",
+    "misaligned", "strided", "three_dims", "scalars_only_one_tensor"])
+def test_xla_fma_layouts_on_card(cuda, case):
+    """`xla_fma` on each layout its launcher tells apart: one contiguous
+    row (the float4 path) and one of a length no multiple of 4, rows of a
+    multiple of 4 with an operand broadcast along the row or a row vector
+    broadcast over the rows (float4), an operand at an address off 16
+    bytes, strided views, three dimensions (the fast-divmod path), and two
+    scalars; the plain version's bits, and one launch each."""
+    from basis_universal_tpu_torch.ops import xla_order as xo
+
+    rng = np.random.default_rng(hash(case) % 2**32)
+
+    def t(*shape):
+        return torch.as_tensor(rng.normal(0, 10, shape), dtype=torch.float32)
+
+    ops = {"1d_rows": (t(4096), t(4096), t(4096)),
+           "1d_ragged": (t(4099), 3.0, t(4099)),
+           "rows_broadcast_col": (t(300, 64), t(300, 1), 32.0),
+           "rows_broadcast_row": (t(300, 64), t(1, 64), t(300, 64)),
+           "misaligned": (t(4097)[1:], t(4096), t(4096)),
+           "strided": (t(300, 128)[:, ::2], t(64), t(300, 1)),
+           "three_dims": (t(500, 16, 3), 257.0, t(500, 1, 3)),
+           "scalars_only_one_tensor": (t(77, 5), 0.5, -2.0)}[case]
+    dev = [x.to(cuda) if isinstance(x, torch.Tensor) else x for x in ops]
+    got = xo._fma(*dev)
+    assert ck.LAUNCHES["xla_fma"] == 1
+    _same_bits_or_ulp(got, xo.fma_reference(*ops))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 16])
+def test_xla_dot_mm_short_axes_on_card(cuda, k):
+    """`_dot_mm` below four terms is one chain, from four on four
+    accumulators: the plain version's bits at K 1-5 and 16, on a
+    contiguous and on a transposed operand."""
+    from basis_universal_tpu_torch.ops import xla_order as xo
+
+    rng = np.random.default_rng(k)
+    x = torch.as_tensor(rng.normal(0, 3, (700, k, 5)), dtype=torch.float32)
+    y = torch.as_tensor(rng.normal(0, 3, (1, k, 5)), dtype=torch.float32)
+    _same_bits_or_ulp(xo._dot_mm(x.to(cuda), y.to(cuda), 1),
+                      xo._dot_mm(x, y, 1))
+    xt = x.transpose(0, 1)
+    _same_bits_or_ulp(xo._dot_mm(xt.to(cuda), y[0][:, None].to(cuda), 0),
+                      xo._dot_mm(xt, y[0][:, None], 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["1d", "wide_span", "pixels", "broadcast_b",
+                                  "last_axis"])
+def test_xla_reduce_layouts_on_card(cuda, case):
+    """`xla_reduce` where its block stages the slices in shared memory
+    (a (B, 16, 3) sum over the pixels, a dot with a broadcast operand, a
+    sum over the last axis) and where the span is too wide for that (a
+    column sum of a tall matrix, read in place), and a 1-dimensional sum
+    to one value: the plain version's bits."""
+    from basis_universal_tpu_torch.ops import xla_order as xo
+
+    rng = np.random.default_rng(len(case))
+
+    def t(*shape):
+        return torch.as_tensor(rng.normal(0, 10, shape), dtype=torch.float32)
+
+    if case == "1d":
+        x = t(37)
+        _same_bits_or_ulp(xo._sum(x.to(cuda), 0), xo._sum(x, 0))
+    elif case == "wide_span":
+        x = t(20000, 7)
+        _same_bits_or_ulp(xo._sum(x.to(cuda), 0), xo._sum(x, 0))
+    elif case == "pixels":
+        x, w = t(24576, 16, 3), t(24576, 16, 1)
+        _same_bits_or_ulp(xo._dot(w.to(cuda), x.to(cuda), 1),
+                          xo._dot(w, x, 1))
+        _same_bits_or_ulp(xo._sum(x.to(cuda), 1), xo._sum(x, 1))
+    elif case == "broadcast_b":
+        x, y = t(900, 16, 4), t(1, 16, 1)
+        _same_bits_or_ulp(xo._dot_vec16(x.to(cuda), y.to(cuda), 1),
+                          xo._dot_vec16(x, y, 1))
+    else:
+        x = t(3000, 16, 8, 3)
+        _same_bits_or_ulp(xo._sum(x.to(cuda), -1), xo._sum(x, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fma_offsets", "fma_outputs",
+                                  "reduce_offsets"])
+def test_xla_order_64_bit_layouts_on_card(cuda, case):
+    """Past 2^31 elements the kernels index in 64 bits (`xla_fma_kernel64`,
+    `xla_reduce_kernel64`): an operand read at offsets past 2^31 (two rows
+    2^31 apart in one 8.6 GB buffer), and an output of 2^31 + 8 values;
+    the plain version's bits on what they compute."""
+    from basis_universal_tpu_torch.ops import xla_order as xo
+
+    rng = np.random.default_rng(31)
+    n = 2 ** 31
+    if case == "fma_outputs":
+        a = torch.tensor([1.5], device=cuda)
+        got = xo._fma(a.expand(n + 8), 3.0, 0.25)
+        assert got.shape == (n + 8,)
+        for part in (got[:64], got[n - 8:]):
+            assert bool((part == 4.75).all())
+        del got
+        return
+    big = torch.empty(n + 64, dtype=torch.float32, device=cuda)
+    if case == "fma_offsets":
+        a = big.as_strided((2, 16), (n, 1))
+        a.copy_(torch.as_tensor(rng.normal(0, 10, (2, 16)),
+                                dtype=torch.float32))
+        c = torch.as_tensor(rng.normal(0, 10, (16,)), dtype=torch.float32,
+                            device=cuda)
+        _same_bits_or_ulp(xo._fma(a, 257.0, c),
+                          xo.fma_reference(a.cpu(), 257.0, c.cpu()))
+    else:
+        a = big.as_strided((2, 16, 3), (n, 3, 1))
+        a.copy_(torch.as_tensor(rng.normal(0, 10, (2, 16, 3)),
+                                dtype=torch.float32))
+        w = torch.as_tensor(rng.normal(0, 1, (2, 16, 1)), dtype=torch.float32,
+                            device=cuda)
+        _same_bits_or_ulp(xo._dot(w, a, 1), xo._dot(w.cpu(), a.cpu(), 1))
+        _same_bits_or_ulp(xo._sum(a, 1), xo._sum(a.cpu(), 1))
+    del big
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ch", [1, 2, 3, 4])
+def test_principal_axis_on_card(cuda, n_ch):
+    """One `xla_principal_axis` launch gives the bits of its plain version
+    run on the card (the generic kernels' chains), at 6 and 4 iterations,
+    blocks of one colour (a zero covariance) included; and the CPU's but
+    for the plain version's double rounding."""
+    from basis_universal_tpu_torch.codecs.uastc import encode as uenc
+
+    px = _blocks(2000, n_ch)[..., :1].repeat(1, 1, n_ch) \
+        + torch.as_tensor(np.random.default_rng(n_ch).integers(
+            -9, 10, (2000, 16, n_ch)), dtype=torch.float32)
+    px[::9] = px[::9, :1]
+    c = (px - px.mean(1, keepdim=True)).contiguous()
+    for iters in (6, 4):
+        ck.reset_launch_counts()
+        got = uenc.principal_axis(c.to(cuda), iters)
+        assert ck.LAUNCHES["xla_principal_axis"] == 1
+        assert ck.LAUNCHES["xla_reduce"] == 0
+        want = uenc.principal_axis_reference(c.to(cuda), iters)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        cpu = uenc.principal_axis_reference(c, iters)
+        assert int(sum((g.cpu() != w).sum() for g, w in zip(got, cpu))) \
+            <= 1e-4 * c.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n_ch", [1, 2, 3, 4])
+def test_ls_step_on_card(cuda, n_ch, masked):
+    """One `xla_ls_step` launch gives the bits of its plain version on the
+    card and on the CPU: pixels through a strided view, singular systems
+    (one weight for all pixels) keeping lo / hi, out-of-range endpoints
+    clamped."""
+    from basis_universal_tpu_torch.codecs.uastc import encode as uenc
+
+    rng = np.random.default_rng(4 * n_ch + masked)
+    n = 3000
+    px = torch.cat([_blocks(n, n_ch), _blocks(n, n_ch + 9)[..., :1]], -1)
+    lev = np.array([0, 9, 18, 27, 37, 46, 55, 64], np.float32)
+    wl = torch.as_tensor(lev[rng.integers(0, 8, (n, 16))])
+    wl[::7] = 27.0
+    mask = torch.as_tensor(rng.random((n, 16)) < 0.5,
+                           dtype=torch.float32) if masked else None
+    lo = torch.as_tensor(rng.uniform(-9, 270, (n, n_ch)), dtype=torch.float32)
+    hi = torch.as_tensor(rng.uniform(-9, 270, (n, n_ch)), dtype=torch.float32)
+    args = (wl, mask, px[..., :n_ch], lo, hi)
+    card = [a.to(cuda) if a is not None else None for a in args]
+    got = uenc.ls_step(*card)
+    assert ck.LAUNCHES["xla_ls_step"] == 1
+    for g, w in zip(got, uenc.ls_step_reference(*card)):
+        assert torch.equal(g, w)
+    for g, w in zip(got, uenc.ls_step_reference(*args)):
+        _same_bits_or_ulp(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [False, True])
+def test_uastc_search_launches_on_card(cuda, alpha):
+    """The effort-2 search launches, per image, one `xla_principal_axis`
+    per line fit and one `xla_ls_step` per least-squares step, and the
+    generic kernels for the rest (RGB 146 sums, 140 fused multiply-adds;
+    RGBA 304, 304); its blocks are the CPU's."""
+    from basis_universal_tpu_torch.codecs.uastc import encode, pack
+    from basis_universal_tpu_torch.ops.etc1 import image_to_blocks
+    from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+
+    img = synthetic_texture(64, 64, seed=5, alpha=alpha)[0]
+    if not alpha:
+        img = np.concatenate([img, np.full((64, 64, 1), 255, np.uint8)], -1)
+    px = torch.as_tensor(image_to_blocks(img).reshape(-1, 16, 4),
+                         dtype=torch.float32)
+    modes, ls_iters, extra, topk = pack._effort_mode_set(2, alpha)
+    got = encode._search(px.to(cuda), modes, ls_iters, extra, topk)
+    want = dict(xla_reduce=304, xla_fma=304, xla_principal_axis=56,
+                xla_ls_step=56) if alpha else dict(
+        xla_reduce=146, xla_fma=140, xla_principal_axis=26, xla_ls_step=26)
+    assert {k: ck.LAUNCHES[k] for k in want} == want
+    np.testing.assert_array_equal(
+        got, encode._search(px, modes, ls_iters, extra, topk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [0, 1, 2])
+def test_perceptual_scan_and_rescore_on_card_are_the_plain_versions(
+        cuda, radius):
+    """With the perceptual metric the scan (its shortlist, and the cluster
+    scan's gray-axis sums at given cluster levels) and the rescore (a
+    palette flagged as the transform's trailing rows included) give their
+    plain versions' bits on the card; at 525 blocks the candidate-base
+    array has trailing rows."""
+    from basis_universal_tpu_torch.ops import etc1s_encode as ops
+
+    px = _blocks(525, 40 + radius)
+    got = ck.factorized_scan_shortlist(px.to(cuda), radius=radius,
+                                       perceptual=True)
+    want = ck.factorized_scan_shortlist_reference(px, radius=radius,
+                                                  perceptual=True)
+    assert torch.equal(got.cpu(), want)
+    rng = np.random.default_rng(radius)
+    n_d = (2 * radius + 1) ** 3
+    base5 = torch.as_tensor(rng.integers(0, 32, (525, 3)),
+                            dtype=torch.float32)
+    lb = torch.as_tensor(rng.uniform(0, 500, (525, n_d)), dtype=torch.float32)
+    got = ck.factorized_scan(px.to(cuda), base5=base5.to(cuda), radius=radius,
+                             perceptual=True, lb=lb.to(cuda))
+    want = ck.factorized_scan_reference(px, base5, radius, True, lb)
+    assert torch.equal(got.cpu(), want)
+    c5 = rng.integers(0, 32, (525, 16, 3))
+    packed = torch.as_tensor(c5[..., 0] | (c5[..., 1] << 5)
+                             | (c5[..., 2] << 10)
+                             | (rng.integers(0, 8, (525, 16)) << 15),
+                             dtype=torch.int32)
+    packed[::7, 3] |= ops.PERC_TAIL_BIT
+    got = ck.palette_errs_packed(px.to(cuda), packed.to(cuda),
+                                 perceptual=True)
+    assert torch.equal(got.cpu(), ck.palette_errs_packed_reference(
+        px, packed, perceptual=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,quality,effort", [
+    ((84, 100), 128, 1), ((128, 128), 80, 2)])
+def test_perceptual_compress_on_card_gives_the_cpus_bytes(cuda, size,
+                                                          quality, effort):
+    """ETC1S with the perceptual metric: the card's file is the CPU's (which
+    the CPU tests hold to the reference's bytes), at settings whose
+    transforms have trailing rows (525 blocks; odd codebooks)."""
+    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+
+    img, _ = synthetic_texture(*size, seed=8)
+    kw = dict(quality_level=quality, effort=effort, perceptual_metric=True)
+    card = compressor.compress(img, compressor.CompressorParams(
+        device="cuda", **kw))
+    cpu = compressor.compress(img, compressor.CompressorParams(
+        device="cpu", **kw))
+    assert card.basis_data == cpu.basis_data

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from basis_universal_tpu.ops import etc1s_encode as jops
 from basis_universal_tpu.ops.etc1 import ETC1_INTEN_TABLES, etc1s_palette
+from basis_universal_tpu_torch.ops import cuda_etc1s as ck
 from basis_universal_tpu_torch.ops import etc1s_encode as tops
 from basis_universal_tpu_torch.utils import state
 
@@ -246,6 +247,9 @@ def test_refine_endpoint_assignment(perceptual):
     np.testing.assert_allclose(ge, we, rtol=RTOL, atol=1e-2)
     differ = ga != wa
     print(f"refine_endpoint_assignment perc={perceptual}: ties {differ.sum()}/400")
+    if not perceptual:
+        # the shortlist orders the duplicate's tie as approx_min_k does
+        assert differ.sum() == 0
 
 
 def test_selector_ops():
@@ -323,7 +327,6 @@ def test_cluster_scan_is_the_references_formulation(radius):
     XLA branch bit for bit, and the assembled (C, D*8) cluster errors equal
     the reference's `flat` of `optimize_cluster_endpoints` (jitted as the
     frontend runs it) bit for bit, with whole-numbered pixels."""
-    from basis_universal_tpu_torch.ops import cuda_etc1s as ck
 
     rng = np.random.default_rng(30 + radius)
     px = _blocks(500, 31 + radius)
@@ -359,8 +362,9 @@ def test_cluster_scan_is_the_references_formulation(radius):
     mt = ck.factorized_scan(_t(px), base5=t_base5[t_ids].float().contiguous(),
                             radius=radius)
     np.testing.assert_array_equal(mt.numpy(), want_mt)
-    flat = tops._cluster_scan(_t(px), t_ids, t_base5,
-                              torch.as_tensor(deltas), mt, False)
+    base8 = tops.expand5(torch.clamp(
+        t_base5[None] + torch.as_tensor(deltas)[:, None, :], 0, 31)).float()
+    flat = tops._cluster_scan(_t(px), t_ids, base8, None, mt, False)
     np.testing.assert_array_equal(flat.numpy(), want_flat)
 
 
@@ -440,3 +444,167 @@ def test_cross6_argmin_and_distances_are_the_references(c):
         ck.cross6_distances(tv, tc, _dot(tv, tv)[:-1], _dot(tc, tc))
     with pytest.raises(TypeError):
         ck.cross6_argmin(tv.double(), tc, _sum(tc * tc, -1))
+
+
+def _tied_rows(n, levels, seed, zeros=False):
+    """256 rows of n whole-numbered distances over `levels` values (ties
+    everywhere when levels is small); with `zeros`, values in -2..2 whose
+    zeros are -0.0 or +0.0 at random (equal to the comparator)."""
+    rng = np.random.default_rng(seed)
+    if zeros:
+        d = rng.integers(-2, 3, (256, n)).astype(np.float32)
+        z = d == 0
+        d[z] = np.where(rng.random(z.sum()) < 0.5, -0.0, 0.0)
+        return d
+    return rng.integers(0, levels, (256, n)).astype(np.float32)
+
+
+_AMK = jax.jit(lambda d, k: jax.lax.approx_min_k(d, k)[1], static_argnums=1)
+
+
+@pytest.mark.parametrize("n,levels,zeros", [
+    (17, 2, False), (17, 5, False), (17, 40, False), (17, 3, True),
+    (2416, 3, False), (2416, 40, False), (2416, 2000, False),
+    (2416, 3, True)])
+def test_host_sort_is_approx_min_k(n, levels, zeros):
+    """The host sort (`xla_cpu_min_k_reference`: `std::sort` of the whole
+    row, and the card kernel's introsort pruned to the first k places) and
+    the refine shortlist built on it give the columns of the reference's
+    jitted `jax.lax.approx_min_k` in its order on every row, where a stable
+    sort orders the ties otherwise."""
+    d = _tied_rows(n, levels, seed=n + levels, zeros=zeros)
+    for k in (2, 16):
+        want = np.asarray(_AMK(jnp.asarray(d), k))
+        full = ck.xla_cpu_min_k_reference(_t(d), k, mode="std_sort").numpy()
+        pruned = ck.xla_cpu_min_k_reference(_t(d), k).numpy()
+        np.testing.assert_array_equal(full, want)
+        np.testing.assert_array_equal(pruned, want)
+        np.testing.assert_array_equal(
+            tops._refine_shortlist(_t(d), k).numpy(), want)
+    stable = tops._shortlist(_t(d), 16).numpy()
+    print(f"n {n} levels {levels} zeros {zeros}: the stable sort agrees on "
+          f"{(stable == want).all(1).sum()} of 256 rows")
+
+
+def test_refine_shortlist_sends_only_rows_with_ties_to_the_host():
+    """Every row goes through the one sort now (on the card, its kernel),
+    and rows whose k + 1 smallest distances are all different get the
+    stable sort's columns from it (the only order there is); rows with a
+    tie there get `approx_min_k`'s. Bad sizes raise."""
+    rng = np.random.default_rng(3)
+    d = rng.permutation(np.arange(300 * 40, dtype=np.float32)).reshape(300, 40)
+    tied = np.arange(0, 300, 7)
+    d[tied, 1:4] = d[tied].min(1)[:, None]      # ties among the 17 smallest
+    d[::5, -1] = -1.0
+    d[::5, -2] = -1.0                           # a tie at the very front
+    got = tops._refine_shortlist(_t(d), 16).numpy()
+    flagged = np.zeros(300, bool)
+    flagged[tied] = flagged[::5] = True
+    stable = tops._shortlist(_t(d), 16).numpy()
+    np.testing.assert_array_equal(got[~flagged], stable[~flagged])
+    np.testing.assert_array_equal(got, np.asarray(_AMK(jnp.asarray(d), 16)))
+    np.testing.assert_array_equal(
+        tops._refine_shortlist(_t(d[:, :1].copy()), 16).numpy(),
+        np.zeros((300, 1)))
+    for k in (1, 41):
+        with pytest.raises(ValueError):
+            ck.xla_cpu_min_k(_t(d), k)
+    with pytest.raises(ValueError):
+        ck.xla_cpu_min_k_reference(_t(d[:, :4]), 5)
+
+
+@pytest.mark.parametrize("n,levels", [(2, 2), (17, 3), (40, 2), (100, 5),
+                                      (2416, 3), (2416, 2000)])
+def test_host_sort_heap_is_libstdcxx_partial_sort(n, levels):
+    """The introsort's fallback where its depth limit runs out, the heap of
+    `csrc/xla_cpu_sort.h` (which the card kernel runs too), orders a whole
+    tie-heavy row as libstdc++'s `std::partial_sort(first, last, last)`."""
+    d = _tied_rows(n, levels, seed=7 * n + levels)
+    np.testing.assert_array_equal(
+        ck.xla_cpu_min_k_reference(_t(d), n, mode="heap").numpy(),
+        ck.xla_cpu_min_k_reference(_t(d), n, mode="std_partial_sort").numpy())
+    z = _tied_rows(n, levels, seed=n, zeros=True)
+    np.testing.assert_array_equal(
+        ck.xla_cpu_min_k_reference(_t(z), n, mode="heap").numpy(),
+        ck.xla_cpu_min_k_reference(_t(z), n, mode="std_partial_sort").numpy())
+    # a depth limit of 0 sends the introsort to the heap at once
+    k = min(n, 16)
+    np.testing.assert_array_equal(
+        ck.xla_cpu_min_k(_t(d), k, depth_cap=0).numpy(),
+        ck.xla_cpu_min_k_reference(_t(d), n, mode="heap").numpy()[:, :k])
+
+
+@pytest.mark.parametrize("m", [1, 7, 8, 17, 20, 28, 36, 100, 2112, 27 * 525,
+                               65536])
+def test_perceptual_transform_is_this_hosts_xla_product(m):
+    """`perceptual_transform` rounds as the reference's jitted product with
+    the constant P^T on the host that runs the test (whole 8-row blocks
+    and the trailing M mod 8 rows in their two orders), bit for bit."""
+    x = np.random.default_rng(m).uniform(-300, 300, (m, 3)).astype(np.float32)
+    x[: m // 2] = np.round(x[: m // 2])
+    want = np.asarray(jax.jit(jops.perceptual_transform)(x))
+    np.testing.assert_array_equal(tops.perceptual_transform(_t(x)).numpy(),
+                                  want)
+
+
+def test_perceptual_moments_are_the_references():
+    """The perceptual block moments (luma, its sum and sum of squares, the
+    channel sums, the 48-term sum of squares) are the reference's jitted
+    `_block_moments` of the transformed pixels, bit for bit."""
+    px = _blocks(600, 12)
+    g = jnp.asarray(tops.GVEC)
+    want = jax.jit(lambda p: jops._block_moments(
+        jops.perceptual_transform(p), g))(jnp.asarray(px))
+    got = tops._block_moments(tops.perceptual_transform(_t(px)),
+                              torch.as_tensor(tops.GVEC))
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), k)
+
+
+@pytest.mark.parametrize("c", [60, 61])
+def test_perceptual_rescore_is_the_references(c):
+    """`palette_errs_packed` (its plain version) with the perceptual metric
+    is the reference's XLA rescore bit for bit: against the refine's form
+    (the (C, 4, 3) codebook palettes transformed, then gathered by the
+    shortlist; with C odd the last palette is flagged as the transform's
+    trailing rows) and the per-block form of encode_blocks."""
+    from basis_universal_tpu_torch.ops import cuda_etc1s as ck
+
+    rng = np.random.default_rng(c)
+    px = _blocks(300, c)
+    c5 = rng.integers(0, 32, (c, 3)).astype(np.int32)
+    it = rng.integers(0, 8, c).astype(np.int32)
+    cand = rng.integers(0, c, (300, 16))
+    cand[:, 0] = c - 1                           # the last palette, always
+
+    @jax.jit
+    def ref(px, c5, it, cand):
+        pal = jnp.clip(jops.expand5(c5).astype(jnp.float32)[:, None, :]
+                       + jops._INTEN[it][:, :, None], 0.0, 255.0)
+        return jops._palette_errs(jops.perceptual_transform(px),
+                                  jops.perceptual_transform(pal)[cand])
+
+    want = np.asarray(ref(jnp.asarray(px), jnp.asarray(c5), jnp.asarray(it),
+                          jnp.asarray(cand)))
+    ptab = tops._pack(_t(c5), _t(it))
+    if c % 2:
+        ptab[-1] |= tops.PERC_TAIL_BIT
+    got = ck.palette_errs_packed(_t(px), ptab[_t(cand)].contiguous(),
+                                 perceptual=True)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    # encode_blocks' form: (B, K, 4, 3) palettes, 64 B rows, transformed
+    # as they are
+    @jax.jit
+    def ref_blocks(px, pal):
+        return jops._palette_errs(jops.perceptual_transform(px),
+                                  jops.perceptual_transform(pal))
+
+    pk = tops._pack(_t(c5[cand]), _t(it[cand]))
+    c5b, itb = tops._unpack(pk)
+    pal = np.clip(np.asarray(etc1s_palette(c5b.numpy().reshape(-1, 3),
+                                           itb.numpy().reshape(-1)),
+                             np.float32).reshape(300, 16, 4, 3), 0, 255)
+    np.testing.assert_array_equal(
+        ck.palette_errs_packed(_t(px), pk, perceptual=True).numpy(),
+        np.asarray(ref_blocks(jnp.asarray(px), jnp.asarray(pal))))

@@ -450,6 +450,15 @@ def test_selector_fragment_mirror_follows_the_cuda_source():
     assert frag[0, 7, 0].tolist() == [0, 0]                  # sels 2, 3
 
 
+def test_min_k_shared_memory_limit_matches_the_cuda_source():
+    """The wrapper allocates global scratch for exactly the rows that the
+    kernel does not sort in shared memory."""
+    src = (pathlib.Path(ck.__file__).resolve().parent.parent / "csrc"
+           / "etc1s_kernels.cu").read_text()
+    got = re.search(r"constexpr int kMinKSmemN = (\d+);", src).group(1)
+    assert int(got) == ck._MIN_K_SMEM_N
+
+
 def _cu_array(src, name):
     body = re.search(name + r"\[[^\]]*\](?:\[[^\]]*\])?\s*=\s*\{(.*?)\};", src,
                      re.S).group(1)
@@ -468,11 +477,14 @@ def test_cuda_source_constants_match_python():
     for r, name in ((1, "kDeltasR1"), (2, "kDeltasR2")):
         np.testing.assert_array_equal(_cu_array(src, name).reshape(-1, 3),
                                       tops._candidate_deltas(r))
-    defs = dict(re.findall(r"#define (\w+) (-?[\d.]+)f", src))
+    defs = dict(re.findall(r"#define (\w+) (-?[\d.]+(?:e[-+]?\d+)?)f", src))
     for i in range(3):
         for j in range(3):
             assert np.float32(defs[f"P{i}{j}"]) == tops.PERC_P[i, j]
-    assert np.float32(defs["SQRT3"]) == np.float32(np.sqrt(3.0))
+    for i in range(3):
+        assert np.float32(defs[f"G{i}"]) == tops.GVEC[i]
+    assert "kPercTailBit = 1 << 18;" in src
+    assert tops.PERC_TAIL_BIT == 1 << 18
     assert np.float32(defs["THIRD"]) == np.float32(1.0 / 3.0)
     assert np.float32(defs["C31_255"]) == np.float32(31.0 / 255.0)
 

@@ -113,54 +113,57 @@ def fed_the_references_sort(img, **kw):
     """The port's ETC1S encode of img on the CPU with every refine
     shortlist taken by the reference's `jax.lax.approx_min_k` (jitted on
     the CPU, as in `refine_endpoint_assignment`) from the port's own refine
-    distances in place of the port's stable sort. Returns (the .basis
+    distances in place of the port's own shortlist. Returns (the .basis
     bytes, the shortlists in call order)."""
     import jax
     import jax.numpy as jnp
 
-    from basis_universal_tpu_torch import compressor as port_compressor
-    from basis_universal_tpu_torch.ops import etc1s_encode as tops
-
     amk = jax.jit(lambda d, k: jax.lax.approx_min_k(d, k)[1],
                   static_argnums=1)
-    stable, refine = tops._shortlist, tops.refine_endpoint_assignment
     taken = []
 
     def references_sort(d6, k):
         taken.append(np.array(amk(jnp.asarray(d6.numpy()), k)))
         return torch.from_numpy(taken[-1]).long()
 
-    def fed(*args, **kwargs):
-        tops._shortlist = references_sort
-        try:
-            return refine(*args, **kwargs)
-        finally:
-            tops._shortlist = stable
+    return _port_with_refine_shortlist(img, references_sort, **kw), taken
 
-    tops.refine_endpoint_assignment = fed
+
+def _port_with_refine_shortlist(img, shortlist, **kw):
+    """The port's ETC1S .basis bytes of img on the CPU with `shortlist(d6,
+    k)` in place of the refine's own (`etc1s_encode._refine_shortlist`)."""
+    from basis_universal_tpu_torch import compressor as port_compressor
+    from basis_universal_tpu_torch.ops import etc1s_encode as tops
+
+    own = tops._refine_shortlist
+    tops._refine_shortlist = shortlist
     try:
         out = port_compressor.compress(img, port_compressor.CompressorParams(
             device="cpu", **kw))
     finally:
-        tops.refine_endpoint_assignment = refine
-    return out.basis_data, taken
+        tops._refine_shortlist = own
+    return out.basis_data
 
 
 def test_port_fed_the_references_sort_gives_the_references_bytes():
-    """The one cause of ETC1S files that differ from the reference's
-    (ROADMAP section 3): with the refine shortlist taken by the
-    reference's own unstable sort from the port's distances, the port's
-    file is the reference's byte for byte, on a texture whose file differs
-    under the port's stable sort (128x128, seed 5, q 128)."""
+    """The witness of the refine shortlist's tie order (ROADMAP section 3):
+    with the refine shortlist taken by the reference's own unstable sort
+    from the port's distances, the port's file is the reference's byte for
+    byte, on a texture whose file differs under a stable sort (128x128,
+    seed 5, q 128); the port's own shortlist, which orders ties as that
+    sort does, gives the same bytes."""
     from basis_universal_tpu_torch import compressor as port_compressor
+    from basis_universal_tpu_torch.ops import etc1s_encode as tops
 
     img = synthetic_texture(128, 128, seed=5)[0]
     want = compressor.compress(img, compressor.CompressorParams()).basis_data
-    stable = port_compressor.compress(img, port_compressor.CompressorParams(
+    stable = _port_with_refine_shortlist(img, tops._shortlist)
+    own = port_compressor.compress(img, port_compressor.CompressorParams(
         device="cpu")).basis_data
     got, taken = fed_the_references_sort(img)
     assert stable != want
     assert got == want
+    assert own == want
     assert [t.shape for t in taken] == [(1024, 16)]
 
 
@@ -192,6 +195,21 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def test_port_gives_image_0_the_references_bytes():
+    """Image 0 (768x512, q 128, effort 1) through the port's own refine
+    shortlist, which orders ties as the reference's `approx_min_k` does:
+    the reference's recorded sha256 (46,997 B), as `chip_smoke.py` asserts
+    on the card."""
+    from basis_universal_tpu_torch import compressor as port_compressor
+
+    img = synthetic_texture(512, 768, seed=0)[0]
+    got = port_compressor.compress(img, port_compressor.CompressorParams(
+        device="cpu", quality_level=128, effort=1)).basis_data
+    assert len(got) == 46997
+    assert hashlib.sha256(got).hexdigest() == \
+        _chip_smoke().REFERENCE_BASIS_SHA256["etc1s_image0"]
 
 
 def test_recorded_bc7_digests_are_the_reference_and_the_port():

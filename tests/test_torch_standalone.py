@@ -163,3 +163,12 @@ def test_native_library_builds_inside_the_repository():
     lib = native.get_lib()
     if lib is not None:                     # where a compiler is present
         assert pathlib.Path(lib._name).parent == native._CACHE_DIR
+
+
+def test_host_sort_builds_inside_the_repository():
+    """The port's own host source (the refine shortlist's tie order) builds
+    with g++ into the same build/native/ tree, and loads."""
+    assert native._SORT_SRC == PORT / "csrc" / "host_sort.cpp"
+    lib = native.get_host_sort()
+    assert pathlib.Path(lib._name).parent == native._CACHE_DIR
+    assert pathlib.Path(lib._name).name.startswith("host_sort_")

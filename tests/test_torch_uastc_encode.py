@@ -207,3 +207,107 @@ def test_encode_blocks_batch_equals_encode_blocks():
         np.testing.assert_array_equal(
             ub, port_encode.encode_blocks(px, effort=1, has_alpha=True,
                                           device="cpu"))
+
+
+def _reference_ls_step(wl, mask, v, lo, hi):
+    """One pass of the least-squares loop of the reference's
+    `_fit_line_masked` (its body as written there), jitted below."""
+    a_k = (64.0 - wl) * (1.0 / 64.0) * mask
+    b_k = wl * (1.0 / 64.0) * mask
+    A = jnp.sum(a_k * a_k, 1)
+    Bm = jnp.sum(a_k * b_k, 1)
+    C = jnp.sum(b_k * b_k, 1)
+    P = jnp.einsum("bi,bic->bc", a_k, v)
+    Q = jnp.einsum("bi,bic->bc", b_k, v)
+    det = A * C - Bm * Bm
+    ok = jnp.abs(det) > 1e-6
+    dd = jnp.where(ok, det, 1.0)
+    lo2 = jnp.clip(jnp.where(
+        ok[:, None], (C[:, None] * P - Bm[:, None] * Q) / dd[:, None], lo),
+        0, 255)
+    hi2 = jnp.clip(jnp.where(
+        ok[:, None], (A[:, None] * Q - Bm[:, None] * P) / dd[:, None], hi),
+        0, 255)
+    return lo2, hi2
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n_ch", [1, 2, 3, 4])
+def test_ls_step_plain_version_is_the_references_step(n_ch, masked,
+                                                      rgba_blocks):
+    """`ls_step` (its plain version on the CPU) gives the bits of
+    the reference's least-squares step, jitted, on every block: seeded
+    weight levels (a tenth of the blocks with one weight for all pixels, a
+    singular system that keeps lo / hi), fallback endpoints out of range
+    (clamped), the pixels a strided view of the RGBA blocks."""
+    rng = np.random.default_rng(n_ch + 10 * masked)
+    px = rgba_blocks
+    n = px.shape[0]
+    lev = port_encode._weight_levels(2)
+    wl = lev[rng.integers(0, len(lev), (n, 16))].astype(np.float32)
+    wl[::10] = lev[1]
+    mask = ((rng.random((n, 16)) < 0.6) if masked
+            else np.ones((n, 16))).astype(np.float32)
+    lo = rng.uniform(-5, 260, (n, n_ch)).astype(np.float32)
+    hi = rng.uniform(-5, 260, (n, n_ch)).astype(np.float32)
+    v = torch.from_numpy(px)[..., :n_ch]
+    want = jax.jit(_reference_ls_step)(
+        jnp.asarray(wl), jnp.asarray(mask), jnp.asarray(v.numpy()),
+        jnp.asarray(lo), jnp.asarray(hi))
+    ck.reset_launch_counts()
+    got = port_encode.ls_step(torch.from_numpy(wl),
+                              torch.from_numpy(mask) if masked else None, v,
+                              torch.from_numpy(lo), torch.from_numpy(hi))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert ck.LAUNCHES["xla_ls_step"] == 0          # the CPU launches nothing
+
+
+@pytest.mark.parametrize("alpha", [False, True])
+def test_search_runs_each_line_fit_as_one_chain_of_each(alpha, rgba_blocks):
+    """The effort-2 search calls `principal_axis` once per line fit (26 in
+    an RGB search, 56 with alpha) and `ls_step` once per least-squares
+    step (as many), and of the generic XLA-order operators leaves the
+    counts `chip_smoke.py` asserts per image on the card: 146 ordered sums
+    and 140 fused multiply-adds (RGB), 304 and 304 (RGBA); the ETC1 hint's
+    scan, a kernel on the card, is not counted. The principal axes are held
+    to the reference's bits inside its jitted mode trials
+    (`test_mode_trial_matches_reference`, `test_search_matches_reference`):
+    jitted alone, the reference's power iteration rounds otherwise."""
+    from basis_universal_tpu_torch.ops import xla_order as xo
+
+    calls = dict(principal_axis=0, ls_step=0, fma=0, reduce=0, hint=0)
+    depth = [0]
+
+    def counted(name, fn):
+        def run(*args, **kw):
+            if not depth[0]:
+                calls[name] += 1
+            depth[0] += name in ("principal_axis", "ls_step", "hint")
+            try:
+                return fn(*args, **kw)
+            finally:
+                depth[0] -= name in ("principal_axis", "ls_step", "hint")
+        return run
+
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(port_encode, "principal_axis",
+                   counted("principal_axis", port_encode.principal_axis))
+        mp.setattr(port_encode, "ls_step",
+                   counted("ls_step", port_encode.ls_step))
+        mp.setattr(xo, "fma_reference", counted("fma", xo.fma_reference))
+        mp.setattr(xo, "reduce_reference",
+                   counted("reduce", xo.reduce_reference))
+        mp.setattr(port_encode.etc1s_ops, "encode_blocks",
+                   counted("hint", port_encode.etc1s_ops.encode_blocks))
+        px = rgba_blocks if alpha else _blocks(7, alpha=False)
+        modes, ls_iters, extra, topk = pack._effort_mode_set(2, alpha)
+        port_encode._search(torch.from_numpy(px), modes, ls_iters, extra,
+                            topk)
+    finally:
+        mp.undo()
+    want = (dict(principal_axis=56, ls_step=56, fma=304, reduce=304, hint=1)
+            if alpha else
+            dict(principal_axis=26, ls_step=26, fma=140, reduce=146, hint=1))
+    assert calls == want
