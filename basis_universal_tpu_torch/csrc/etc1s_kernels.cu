@@ -3,7 +3,7 @@
 // Each scan, rescore and selector kernel replaces one Pallas kernel of
 // basis_universal_tpu/ops/pallas_etc1s.py (all four are here); the cross6
 // kernels replace the frontend's two XLA matrix products whose rounding
-// decides its codebooks, bisect_axis its XLA power iteration and
+// decides its codebooks, bisect_axis its XLA power iteration,
 // min_k_kernel its ApproxTopK. Each computes the same function with the same
 // float32 operation order per element; the plain PyTorch versions live
 // beside the wrappers in basis_universal_tpu_torch/ops/cuda_etc1s.py.
@@ -17,6 +17,12 @@
 #include <limits.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <map>
+#include <mutex>
+#include <type_traits>
+#include <utility>
 
 #include "xla_cpu_sort.h"
 
@@ -1142,163 +1148,464 @@ bisect_axis_kernel(const float* __restrict__ cov, float* __restrict__ axis,
 // (basis_universal_tpu/ops/etc1s_encode.py:457).
 //
 // Equal values order as the introsort leaves them, which depends on the
-// whole row, so every step of the sort is kept; one warp sorts one row, in
-// shared memory where the row fits (kMinKSmemN), else in the caller's
-// global scratch. The warp runs the introsort's control flow in step (the
-// parts, the depth limit, the pruning past k: uniform across the lanes),
-// lane 0 the short sequential steps (median of three, the heap fallback,
-// the final insertion sort over the first ~16-32 places), and the whole
-// warp each Hoare partition, which is most of the work (`warp_partition`).
+// whole row, so every step of the sort is kept. One warp sorts one row. The
+// introsort's control flow (`xla_cpu_sort::introsort_first_k`: the parts,
+// the depth limit, the pruning past k) runs alike in every lane; lane 0 the
+// median of three and the heap fallback, short and rare; the whole warp
+// each Hoare partition (`warp_partition`, most of the work) and the final
+// insertion sort, as each entry's stable rank (`warp_stable_first_k`).
+// xla_cpu_sort.h's `sort_first_k_pairs` is this algorithm sequentially
+// (host mode "pairs", held to std::sort by the CPU tests).
+//
+// Bound at the main path's shape: the sort reads its 237 MB once (71 us at
+// 3.35 TB/s), and its compares are ~2n a row (the partitions' visits). It
+// is latency-bound: each partition is a chain of shared-memory reads,
+// ballots, shuffles and counts, so the more rows an SM holds, the better
+// their chains overlap. So a row takes little shared memory: values as
+// float, columns and swap pairs as 16 bits (n <= kMinKSmemN), each 32-entry
+// chunk's stops as two masks (19.9 KB a row at n 2,416); the CTA is sized
+// from the SM's shared memory and registers (`make_min_k_plan`: the fewest
+// warps that come within 10% of the most rows per SM, since a CTA holds its
+// memory until its slowest row is done; made once per device and n); a
+// partition reads the values once and works from the masks after that
+// (`warp_partition`). Computing the distances in the kernel instead of
+// reading them was slower on the H100: the staged codebook (68 KB at n
+// 2,416) leaves room for 9 rows per SM instead of 11 (PERF.md).
 // One thread per row, the first form of this kernel, took 7.06 ms on the
-// H100 at the main path's 24,576 x 2,416 (PERF.md): its lanes' sorts
-// diverge.
+// H100 at 24,576 x 2,416, and a warp per row with (value, column) pairs
+// in 24 KB of shared memory, four reads of the values per partition and
+// lane 0's insertion sort 0.82-0.93 (PERF.md).
 constexpr int kMinKSmemN = 8192;     // longest row sorted in shared memory
-constexpr int kMinKSmemBlock = 96 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
-struct MinKPart {
-  int first, last, depth;
+__host__ __device__ inline size_t round16(size_t b) { return (b + 15) / 16 * 16; }
+
+__host__ __device__ inline int min_k_chunks(int n) { return (n + 31) / 32; }
+
+// A row's buffers: its values, then (the "aux" part) its columns, a
+// partition's swap pairs (L_t, R_t as two positions; a partition of m
+// entries swaps at most m / 2) and its chunks' masks, each 16-byte aligned;
+// positions of type Idx.
+__host__ __device__ inline size_t min_k_val_bytes(int n) {
+  return round16((size_t)n * 4);
+}
+
+template <class Idx>
+__host__ __device__ inline size_t min_k_pair_bytes(int n) {
+  return round16((size_t)(n / 2 + 1) * 2 * sizeof(Idx));
+}
+
+template <class Idx>
+__host__ __device__ inline size_t min_k_aux_bytes(int n) {
+  return round16((size_t)n * sizeof(Idx)) + min_k_pair_bytes<Idx>(n)
+         + round16((size_t)min_k_chunks(n) * 8);
+}
+
+template <class Idx>
+struct WarpRow {
+  float* v;        // values
+  Idx* c;          // columns
+  Idx* pairs;      // L_0, R_0, L_1, R_1, ... of a partition
+  uint32_t* ge;    // per chunk: the left stops, !(v < p)
+  uint32_t* le;    // per chunk: the right stops, !(p < v)
+
+  __device__ static WarpRow at(float* v, unsigned char* aux, int n) {
+    WarpRow w;
+    w.v = v;
+    w.c = (Idx*)aux;
+    w.pairs = (Idx*)(aux + round16((size_t)n * sizeof(Idx)));
+    w.ge = (uint32_t*)((unsigned char*)w.pairs + min_k_pair_bytes<Idx>(n));
+    w.le = w.ge + min_k_chunks(n);
+    return w;
+  }
 };
 
-__host__ __device__ inline size_t min_k_row_bytes(int n) {
-  return ((size_t)n * sizeof(xla_cpu_sort::Entry) + 15) / 16 * 16;
+// a partition's t-th swap pair (L_t, R_t), as one load
+__device__ __forceinline__ void load_pair(const uint16_t* pairs, int t,
+                                          int& x, int& y) {
+  const uint32_t xy = reinterpret_cast<const uint32_t*>(pairs)[t];
+  x = (int)(xy & 0xffffu);
+  y = (int)(xy >> 16);
 }
 
-__host__ __device__ inline size_t min_k_warp_bytes(int n) {
-  return min_k_row_bytes(n) + ((size_t)(n / 2 + 1) * 4 + 15) / 16 * 16;
+__device__ __forceinline__ void load_pair(const int* pairs, int t, int& x,
+                                          int& y) {
+  const int2 xy = reinterpret_cast<const int2*>(pairs)[t];
+  x = xy.x;
+  y = xy.y;
 }
 
-// libstdc++'s __unguarded_partition(row + lo, row + hi, row + lo - 1) by
-// one warp; returns the cut, and leaves every entry where the sequential
-// loop leaves it. That loop stops its left finger at the left stops
-// (!(a < p)) and its right finger at the right stops (!(p < a)) and swaps
-// the t-th left stop with the t-th right stop from the right, in original
-// values, for as long as the former lies left of the latter: fingers never
-// pass a swapped place before they cross. So with L_t, R_t the t-th left
-// stop from the left and right stop from the right (in [lo, hi)), it swaps
-// L_t with R_t for every t < t*, the first t with L_t >= R_t, and returns
-// min(L_t*, R_t*-1) (the left finger's last stop: at the latest the swapped
-// R_t*-1). L_t < R_t holds iff more than t right stops lie right of L_t,
-// which is monotone in t, so one pass finds t*. Passes: (A) count the right
-// stops; (B) rank the left stops until the first with too few right stops
-// beyond it (t*, L_t*); (C) place R_0 .. R_t*-1 from the right; (D) rank the
-// left stops left of the cut again and swap each with its R. The pairs are
-// disjoint, and no pass reads a place an earlier one swapped.
-__device__ int warp_partition(xla_cpu_sort::Entry* row, int* posr, int lo,
-                              int hi, int lane) {
-  const float p = row[lo - 1].v;
-  const unsigned below = (1u << lane) - 1u;
-  int total_le = 0;
-  for (int base = lo; base < hi; base += 32) {
-    const int x = base + lane;
-    total_le += __popc(__ballot_sync(kFull, x < hi && !(p < row[x].v)));
+// bits of a mask at or below bit b
+__device__ __forceinline__ unsigned upto(int b) { return (2u << b) - 1u; }
+
+// The t-th left stop at bit b of a chunk (n_ge, n_le: the stops before the
+// chunk) lies at or right of R_t: no more than t right stops right of it.
+__device__ __forceinline__ bool pair_fails(int total_le, int n_ge, int n_le,
+                                           unsigned gm, unsigned lm, int b) {
+  const int t = n_ge + __popc(gm & (upto(b) >> 1));
+  return total_le - (n_le + __popc(lm & upto(b))) < t + 1;
+}
+
+// Inclusive prefix sums of x over the warp's lanes.
+__device__ __forceinline__ int warp_scan(int x, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, off);
+    if (lane >= off) x += y;
   }
-  int n_ge = 0, n_le = 0, t_star = -1, l_star = hi;
-  for (int base = lo; base < hi; base += 32) {
-    const int x = base + lane;
-    const float v = x < hi ? row[x].v : 0.f;
-    const bool ge = x < hi && !(v < p);
-    const bool le = x < hi && !(p < v);
-    const unsigned gm = __ballot_sync(kFull, ge);
-    const unsigned lm = __ballot_sync(kFull, le);
-    const int t = n_ge + __popc(gm & below);
-    const int le_incl = n_le + __popc(lm & (below | (1u << lane)));
-    const unsigned fail = __ballot_sync(kFull, ge && total_le - le_incl < t + 1);
-    if (fail) {
-      const int f = __ffs(fail) - 1;
-      t_star = n_ge + __popc(gm & ((1u << f) - 1u));
-      l_star = base + f;
-      break;
+  return x;
+}
+
+// The first t_star stops of `mask` (one word per 32-entry chunk from lo),
+// counted from the left, or from the right (kFromRight), into out[0],
+// out[2], ...: lane j counts chunk j of a group of 32 chunks, a
+// scan gives each chunk's first rank, then the group's chunks that hold
+// ranks below t_star are taken one after another, the lanes as the chunk's
+// 32 bits (no step waits on the one before).
+template <bool kFromRight, class Idx>
+__device__ __forceinline__ void list_stops(const uint32_t* __restrict__ mask,
+                                           Idx* __restrict__ out, int lo,
+                                           int n_chunks, int t_star,
+                                           int lane) {
+  const unsigned side = kFromRight ? ~upto(lane) : (1u << lane) - 1u;
+  int done = 0;
+  for (int g = 0; g < n_chunks && done < t_star; g += 32) {
+    const int c = kFromRight ? n_chunks - 1 - g - lane : g + lane;
+    const unsigned mine = c >= 0 && c < n_chunks ? mask[c] : 0u;
+    const int incl = warp_scan(__popc(mine), lane);
+    const int start = done + incl - __popc(mine);
+    const int used = 32 - __clz(__ballot_sync(kFull, start < t_star && mine));
+#pragma unroll 4
+    for (int j = 0; j < used; ++j) {
+      const unsigned m = __shfl_sync(kFull, mine, j);
+      const int s = __shfl_sync(kFull, start, j) + __popc(m & side);
+      if (((m >> lane) & 1u) && s < t_star)
+        out[2 * s] = (Idx)(lo + ((kFromRight ? n_chunks - 1 - g - j : g + j)
+                                 << 5) + lane);
     }
-    n_ge += __popc(gm);
-    n_le += __popc(lm);
+    done += __shfl_sync(kFull, incl, 31);
   }
-  if (t_star < 0) t_star = n_ge;
-  int n_r = 0;
-  for (int top = hi - 1; n_r < t_star; top -= 32) {
-    const int x = top - lane;
-    const bool le = x >= lo && !(p < row[x].v);
-    const unsigned lm = __ballot_sync(kFull, le);
-    const int s = n_r + __popc(lm & below);
-    if (le && s < t_star) posr[s] = x;
-    n_r += __popc(lm);
+}
+
+// libstdc++'s __unguarded_partition(lo, hi, pivot lo - 1) by one warp, as
+// its swap pairs (xla_cpu_sort::pair_partition, whose comment gives the
+// steps); returns the cut, and leaves every entry where the sequential loop
+// leaves it. The steps take the chunks 32 at a time, a chunk per lane for
+// the counts; (A) reads the values eight chunks at a time, (C) lists the
+// pairs (`list_stops`) and (D) swaps them by rank, 32 a round, the reads of
+// four rounds before their writes (the pairs are disjoint), so a warp's
+// shared-memory reads go out back to back.
+template <class Idx>
+__device__ int warp_partition(float* __restrict__ v, Idx* __restrict__ cc,
+                              Idx* __restrict__ pairs,
+                              uint32_t* __restrict__ ge,
+                              uint32_t* __restrict__ le, int lo, int hi,
+                              int lane) {
+  const float p = v[lo - 1];
+  const int n_chunks = (hi - lo + 31) >> 5;
+  // (A) one read of the values: each chunk's stops as masks, lane j keeping
+  // those of chunk c0 + j; eight chunks' reads before their ballots
+  int total_le = 0;
+  for (int c0 = 0; c0 < n_chunks; c0 += 32) {
+    const int nc = min(32, n_chunks - c0);
+    unsigned my_g = 0, my_l = 0;
+    for (int j0 = 0; j0 < nc; j0 += 8) {
+      float val[8];
+      bool in[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int x = lo + ((c0 + j0 + u) << 5) + lane;
+        in[u] = j0 + u < nc && x < hi;
+        val[u] = in[u] ? v[x] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const unsigned gm = __ballot_sync(kFull, in[u] && !(val[u] < p));
+        const unsigned lm = __ballot_sync(kFull, in[u] && !(p < val[u]));
+        if (lane == j0 + u) {
+          my_g = gm;
+          my_l = lm;
+        }
+        total_le += __popc(lm);
+      }
+    }
+    if (lane < nc) {
+      ge[c0 + lane] = my_g;
+      le[c0 + lane] = my_l;
+    }
   }
   __syncwarp();
-  int cut = l_star;
-  if (t_star > 0 && posr[t_star - 1] < cut) cut = posr[t_star - 1];
-  int n_l = 0;
-  for (int base = lo; base < cut; base += 32) {
-    const int x = base + lane;
-    const bool ge = x < cut && !(row[x].v < p);
-    const unsigned gm = __ballot_sync(kFull, ge);
-    if (ge) {
-      const int y = posr[n_l + __popc(gm & below)];
-      const xla_cpu_sort::Entry e = row[x];
-      row[x] = row[y];
-      row[y] = e;
+  // (B) t* and L_t*: the first chunk whose last left stop fails, then the
+  // first failing left stop in it
+  int n_ge = 0, n_le = 0, t_star = -1, l_star = hi;
+  for (int c0 = 0; c0 < n_chunks; c0 += 32) {
+    const int c = c0 + lane;
+    const unsigned gm = c < n_chunks ? ge[c] : 0u;
+    const unsigned lm = c < n_chunks ? le[c] : 0u;
+    const int gx = warp_scan(__popc(gm), lane);
+    const int lx = warp_scan(__popc(lm), lane);
+    const int ge0 = n_ge + gx - __popc(gm), le0 = n_le + lx - __popc(lm);
+    const unsigned fails = __ballot_sync(
+        kFull, gm && pair_fails(total_le, ge0, le0, gm, lm, 31 - __clz(gm)));
+    if (fails) {
+      const int f = __ffs(fails) - 1;
+      const unsigned fgm = __shfl_sync(kFull, gm, f);
+      const unsigned flm = __shfl_sync(kFull, lm, f);
+      const int fge = __shfl_sync(kFull, ge0, f);
+      const int fle = __shfl_sync(kFull, le0, f);
+      const unsigned bits = __ballot_sync(
+          kFull, ((fgm >> lane) & 1u)
+                     && pair_fails(total_le, fge, fle, fgm, flm, lane));
+      const int b = __ffs(bits) - 1;
+      t_star = fge + __popc(fgm & ((1u << b) - 1u));
+      l_star = lo + ((c0 + f) << 5) + b;
+      break;
     }
-    n_l += __popc(gm);
+    n_ge += __shfl_sync(kFull, gx, 31);
+    n_le += __shfl_sync(kFull, lx, 31);
+  }
+  if (t_star < 0) t_star = n_ge;
+  // (C) L_0 .. L_t*-1 from the left, R_0 .. R_t*-1 from the right
+  list_stops<false>(ge, pairs, lo, n_chunks, t_star, lane);
+  list_stops<true>(le, pairs + 1, lo, n_chunks, t_star, lane);
+  __syncwarp();
+  int cut = l_star;
+  if (t_star > 0 && (int)pairs[2 * t_star - 1] < cut)
+    cut = pairs[2 * t_star - 1];
+  // (D) L_t swapped with R_t for every t < t*, 32 pairs a round, the reads
+  // of four rounds before their writes
+  for (int t0 = 0; t0 < t_star; t0 += 128) {
+    int x[4], y[4];
+    float vx[4], vy[4];
+    Idx cx[4], cy[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int t = t0 + (u << 5) + lane;
+      x[u] = -1;
+      if (t < t_star) {
+        load_pair(pairs, t, x[u], y[u]);
+        vx[u] = v[x[u]];
+        vy[u] = v[y[u]];
+        cx[u] = cc[x[u]];
+        cy[u] = cc[y[u]];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (x[u] >= 0) {
+        v[x[u]] = vy[u];
+        v[y[u]] = vx[u];
+        cc[x[u]] = cy[u];
+        cc[y[u]] = cx[u];
+      }
+    }
   }
   __syncwarp();
   return cut;
 }
 
+// The columns of the first k entries of the stable sort of [0, limit) by
+// value, which the final insertion sort leaves there
+// (xla_cpu_sort::stable_first_k): lane l ranks entry base + l against every
+// entry (a broadcast read each) until all 32 ranks reach k, and the chunks
+// stop once k columns are out. limit is ~k + 16 but where the heap fallback
+// ran; any limit works.
+template <class Idx>
+__device__ void warp_stable_first_k(const WarpRow<Idx>& w, int limit, int k,
+                                    int64_t* out, int lane) {
+  int found = 0;
+  for (int base = 0; base < limit && found < k; base += 32) {
+    const int i = base + lane;
+    const bool in = i < limit;
+    const float v = in ? w.v[i] : 0.f;
+    int rank = in ? 0 : k;
+    for (int j0 = 0; j0 < limit; j0 += 32) {
+      const int jn = min(32, limit - j0);
+      for (int jj = 0; jj < jn; ++jj) {
+        const float u = w.v[j0 + jj];
+        rank += (u < v) | ((u == v) & (j0 + jj < i));
+      }
+      if (__all_sync(kFull, rank >= k)) break;
+    }
+    if (rank < k) out[rank] = w.c[i];
+    found += __popc(__ballot_sync(kFull, rank < k));
+  }
+}
+
+// The introsort's steps as the warp takes them (xla_cpu_sort::SeqSteps on
+// the host)
+template <class Idx>
+struct WarpSteps {
+  WarpRow<Idx> w;
+  int lane;
+  __host__ __device__ void heap(int first, int last) {
+#ifdef __CUDA_ARCH__
+    if (lane == 0)
+      xla_cpu_sort::heap_sort(xla_cpu_sort::SoaRow<Idx>{w.v, w.c}, first,
+                              last);
+    __syncwarp();
+#endif
+  }
+  __host__ __device__ void median(int first, int last) {
+#ifdef __CUDA_ARCH__
+    // lanes 0-2 read the three candidates at once
+    const int a = first + 1, b = first + (last - first) / 2, c = last - 1;
+    const float val = w.v[lane == 0 ? a : lane == 1 ? b : c];
+    const int m = (int)xla_cpu_sort::median_pick(
+        __shfl_sync(kFull, val, 0), __shfl_sync(kFull, val, 1),
+        __shfl_sync(kFull, val, 2), a, b, c);
+    if (lane == 0)
+      xla_cpu_sort::iter_swap(xla_cpu_sort::SoaRow<Idx>{w.v, w.c}, first, m);
+    __syncwarp();
+#endif
+  }
+  __host__ __device__ int partition(int first, int last) {
+#ifdef __CUDA_ARCH__
+    return warp_partition(w.v, w.c, w.pairs, w.ge, w.le, first + 1, last,
+                          lane);
+#else
+    return 0;
+#endif
+  }
+};
+
+// Sorts the row (values and columns in place) and writes its first k
+// columns. stage < 2 stops early, for measurement only: 0 after the load,
+// 1 after the partitions (the first k columns as they stand then).
+template <class Idx>
+__device__ void min_k_sort_row(const WarpRow<Idx>& w, int n, int k, int cap,
+                               int stage, int64_t* out, int lane) {
+  int limit = k;
+  if (stage >= 1) {
+    WarpSteps<Idx> steps{w, lane};
+    limit = xla_cpu_sort::introsort_first_k<int>(n, k, cap, steps);
+  }
+  if (stage >= 2) {
+    warp_stable_first_k(w, limit, k, out, lane);
+  } else {
+    for (int j = lane; j < k; j += 32) out[j] = w.c[j];
+  }
+}
+
+template <class Idx>
+__device__ void min_k_columns(Idx* c, int n, int lane) {
+  for (int i = lane; i < n; i += 32) c[i] = (Idx)i;
+}
+
+// xla_cpu_min_k: rows from device memory. kShared: the CTA's warps' rows in
+// shared memory (all values, then all aux parts); else each row's buffers
+// in the caller's global scratch (min_k_val_bytes + min_k_aux_bytes<int>
+// per row).
 template <bool kShared>
 __global__ void min_k_kernel(const float* __restrict__ d,
-                             xla_cpu_sort::Entry* work, int* posr_all,
-                             int64_t* __restrict__ out, int rows, int n, int k,
-                             int cap) {
+                             unsigned char* scratch, int64_t* __restrict__ out,
+                             int rows, int n, int k, int cap, int stage) {
   extern __shared__ __align__(16) unsigned char min_k_smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * (blockDim.x >> 5) + warp;
+  using Idx = typename std::conditional<kShared, uint16_t, int>::type;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5,
+            lane = threadIdx.x & 31;
+  const int r = blockIdx.x * warps + warp;
   if (r >= rows) return;  // the whole warp
-  xla_cpu_sort::Entry* row;
-  int* posr;
+  float* v;
+  unsigned char* aux;
   if (kShared) {
-    row = (xla_cpu_sort::Entry*)(min_k_smem + warp * min_k_warp_bytes(n));
-    posr = (int*)((unsigned char*)row + min_k_row_bytes(n));
+    v = (float*)(min_k_smem + warp * min_k_val_bytes(n));
+    aux = min_k_smem + warps * min_k_val_bytes(n)
+          + warp * min_k_aux_bytes<Idx>(n);
   } else {
-    row = work + (size_t)r * n;
-    posr = posr_all + (size_t)r * (n / 2 + 1);
+    v = (float*)(scratch
+                 + (size_t)r * (min_k_val_bytes(n) + min_k_aux_bytes<Idx>(n)));
+    aux = (unsigned char*)v + min_k_val_bytes(n);
   }
+  const WarpRow<Idx> w = WarpRow<Idx>::at(v, aux, n);
   const float* src = d + (size_t)r * n;
-  for (int i = lane; i < n; i += 32) row[i] = xla_cpu_sort::Entry{src[i], i};
-  __syncwarp();
-  // xla_cpu_sort::sort_first_k, its parts and depths kept alike by every
-  // lane
-  MinKPart stack[64];
-  int top = 0;
-  stack[top++] = MinKPart{0, n, (int)xla_cpu_sort::depth_limit(n, cap)};
-  int limit = n;
-  while (top > 0) {
-    MinKPart part = stack[--top];
-    while (part.last - part.first > xla_cpu_sort::kThreshold) {
-      if (part.depth == 0) {
-        if (lane == 0)
-          xla_cpu_sort::heap_sort(row + part.first, row + part.last);
-        __syncwarp();
-        break;
-      }
-      --part.depth;
-      if (lane == 0) {
-        const int mid = part.first + (part.last - part.first) / 2;
-        xla_cpu_sort::move_median_to_first(row + part.first,
-                                           row + part.first + 1, row + mid,
-                                           row + part.last - 1);
-      }
-      __syncwarp();
-      const int cut = warp_partition(row, posr, part.first + 1, part.last,
-                                     lane);
-      if (cut < k)
-        stack[top++] = MinKPart{cut, part.last, part.depth};
-      else if (cut < limit)
-        limit = cut;
-      part.last = cut;
-    }
+  if ((((uintptr_t)src) & 15) == 0) {
+    const int n4 = n >> 2;
+#pragma unroll 8
+    for (int i = lane; i < n4; i += 32)
+      reinterpret_cast<float4*>(v)[i] = __ldcs(
+          reinterpret_cast<const float4*>(src) + i);
+    for (int i = 4 * n4 + lane; i < n; i += 32) v[i] = __ldcs(src + i);
+  } else {
+#pragma unroll 8
+    for (int i = lane; i < n; i += 32) v[i] = __ldcs(src + i);
   }
-  if (lane == 0) xla_cpu_sort::final_insertion_sort(row, row + limit);
+  min_k_columns(w.c, n, lane);
   __syncwarp();
-  for (int j = lane; j < k; j += 32) out[(size_t)r * k + j] = row[j].col;
+  min_k_sort_row(w, n, k, cap, stage, out + (size_t)r * k, lane);
+}
+
+// How min_k_kernel<true> is launched for rows of n: warps per CTA and
+// bytes of dynamic shared memory (0 warps where no row fits).
+struct MinKPlan {
+  int warps, smem;
+};
+
+// The fewest warps per CTA whose rows per SM come within 10% of the most (a
+// CTA holds its memory until its slowest row is done), from the device's
+// shared memory and the kernel's registers.
+inline MinKPlan make_min_k_plan(int dev, int n) {
+  int per_sm = 0, per_block = 0, reserved = 0;
+  cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                         dev);
+  cudaDeviceGetAttribute(&per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock,
+                         dev);
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, min_k_kernel<true>) != cudaSuccess)
+    return MinKPlan{0, 0};
+  const int max_warps = min(32, attr.maxThreadsPerBlock / 32);
+  const int regs = max(attr.numRegs, 1);
+  const size_t per_warp = min_k_val_bytes(n) + min_k_aux_bytes<uint16_t>(n);
+  auto fits = [&](int w) {
+    return w <= max_warps && w * per_warp <= (size_t)per_block;
+  };
+  auto resident = [&](int w) {
+    const int by_smem = (int)(per_sm / (w * per_warp + reserved));
+    const int by_regs = 65536 / (regs * 32 * w);
+    return min(min(by_smem, by_regs), min(32, 64 / w)) * w;
+  };
+  int most = 0;
+  for (int w = 1; fits(w); ++w) most = max(most, resident(w));
+  for (int w = 1; fits(w); ++w)
+    if (10 * resident(w) >= 9 * most) return MinKPlan{w, (int)(w * per_warp)};
+  return MinKPlan{0, 0};
+}
+
+// The plan for rows of n on the current device, made once per (device, n),
+// with the kernel's shared-memory attributes set where it needs more than
+// the device's plans before it (the limit only rises, so each of them stays
+// valid).
+inline cudaError_t min_k_plan(int n, MinKPlan* plan) {
+  static std::mutex mu;
+  static std::map<std::pair<int, int>, MinKPlan> plans;
+  static std::map<int, int> smem_set;  // per device, the limit set so far
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto found = plans.find({dev, n});
+  if (found != plans.end()) {
+    *plan = found->second;
+    return cudaSuccess;
+  }
+  const MinKPlan p = make_min_k_plan(dev, n);
+  const auto set = smem_set.find(dev);
+  if (p.warps > 0 && (set == smem_set.end() || p.smem > set->second)) {
+    e = cudaFuncSetAttribute(min_k_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             p.smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(min_k_kernel<true>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    smem_set[dev] = p.smem;
+  }
+  plans[{dev, n}] = p;
+  *plan = p;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1392,34 +1699,34 @@ int etc1s_bisect_axis(const float* cov, float* axis, int n_c, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// out: (rows, k) int64. work / posr: scratch for rows longer than
-// kMinKSmemN ((rows, n) pairs of 8 bytes, (rows, n / 2 + 1) int32), else
-// unused. cap: the depth limit (xla_cpu_sort::depth_limit; -1 for
-// libstdc++'s).
-int etc1s_xla_cpu_min_k(const float* d, void* work, void* posr, int64_t* out,
-                        int rows, int n, int k, int cap, void* stream) {
+// out: (rows, k) int64. scratch: for rows longer than kMinKSmemN,
+// etc1s_min_k_scratch_bytes(n) bytes per row, else unused. cap: the depth
+// limit (xla_cpu_sort::depth_limit; -1 for libstdc++'s). stage: 2, or for
+// measurement 0 / 1 (min_k_sort_row).
+int etc1s_xla_cpu_min_k(const float* d, void* scratch, int64_t* out, int rows,
+                        int n, int k, int cap, int stage, void* stream) {
   if (rows <= 0) return (int)cudaSuccess;
-  if (n < 1 || k < 1 || k > n || cap < -1 || cap > 62)
+  if (n < 1 || k < 1 || k > n || cap < -1 || cap > 62 || stage < 0 ||
+      stage > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= kMinKSmemN) {
-    const size_t per = min_k_warp_bytes(n);
-    const int w = (int)(kMinKSmemBlock / per) < 1 ? 1
-                  : (int)(kMinKSmemBlock / per) > 8 ? 8
-                  : (int)(kMinKSmemBlock / per);
-    const size_t smem = per * w;
-    cudaError_t e = cudaFuncSetAttribute(
-        min_k_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    MinKPlan p;
+    const cudaError_t e = min_k_plan(n, &p);
     if (e != cudaSuccess) return (int)e;
-    min_k_kernel<true><<<(rows + w - 1) / w, 32 * w, smem, s>>>(
-        d, nullptr, nullptr, out, rows, n, k, cap);
+    if (p.warps == 0) return (int)cudaErrorInvalidValue;
+    min_k_kernel<true><<<(rows + p.warps - 1) / p.warps, 32 * p.warps,
+                         p.smem, s>>>(d, nullptr, out, rows, n, k, cap, stage);
   } else {
-    if (!work || !posr) return (int)cudaErrorInvalidValue;
+    if (!scratch) return (int)cudaErrorInvalidValue;
     min_k_kernel<false><<<(rows + 3) / 4, 128, 0, s>>>(
-        d, (xla_cpu_sort::Entry*)work, (int*)posr, out, rows, n, k, cap);
+        d, (unsigned char*)scratch, out, rows, n, k, cap, stage);
   }
   return (int)cudaGetLastError();
+}
+
+long long etc1s_min_k_scratch_bytes(int n) {
+  return (long long)(min_k_val_bytes(n) + min_k_aux_bytes<int>(n));
 }
 
 }  // extern "C"

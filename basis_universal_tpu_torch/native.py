@@ -158,6 +158,7 @@ def get_host_sort():
             lib.xla_cpu_min_k_rows.restype = ctypes.c_int
             lib.xla_cpu_min_k_rows.argtypes = [
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
             _sort_lib = lib
         return _sort_lib

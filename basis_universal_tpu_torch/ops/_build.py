@@ -121,7 +121,9 @@ def _declare(lib):
     lib.etc1s_cross6_argmin.argtypes = [vp, vp, vp, vp, ci, ci, vp]
     lib.etc1s_cross6_distances.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
     lib.etc1s_bisect_axis.argtypes = [vp, vp, ci, vp]
-    lib.etc1s_xla_cpu_min_k.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.etc1s_xla_cpu_min_k.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.etc1s_min_k_scratch_bytes.argtypes = [ci]
+    lib.etc1s_min_k_scratch_bytes.restype = ctypes.c_longlong
     for fn in (lib.etc1s_factorized_scan, lib.etc1s_factorized_scan_shortlist,
                lib.etc1s_palette_errs_packed,
                lib.etc1s_palette_errs, lib.etc1s_find_best_selector_patterns,

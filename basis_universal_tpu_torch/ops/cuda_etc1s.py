@@ -534,7 +534,7 @@ def bisect_axis_reference(cov):
 _MIN_K_SMEM_N = 8192
 
 
-def xla_cpu_min_k(d, k: int, depth_cap: int = -1):
+def xla_cpu_min_k(d, k: int, depth_cap: int = -1, *, stage: int = 2):
     """The columns of the k smallest values of each row of d (R, n) float32,
     (R, k) int64, in the order the reference's `jax.lax.approx_min_k` gives
     them on the CPU: the first k of libstdc++'s `std::sort` of the row's
@@ -545,10 +545,14 @@ def xla_cpu_min_k(d, k: int, depth_cap: int = -1):
     (`basis_universal_tpu/ops/etc1s_encode.py:457`), which has no Pallas
     kernel. The kernel (`min_k_kernel`) runs `csrc/xla_cpu_sort.h`'s
     introsort, pruned to the first k places, one warp a row in shared
-    memory, each Hoare partition across the warp's lanes; the plain version
-    runs the same source sequentially on the host. k >= 2 where n > 1: at
-    k = 1 `approx_min_k` is another operator. `depth_cap` >= 0 replaces the
+    memory, each Hoare partition across the warp's lanes as its swap pairs
+    and the final insertion sort as stable ranks; the plain version runs
+    the same source sequentially on the host. k >= 2 where n > 1: at k = 1
+    `approx_min_k` is another operator. `depth_cap` >= 0 replaces the
     introsort's depth limit (2 lg n), to reach its heap fallback in tests.
+    For measurement on the card, `stage` 0 stops the kernel after loading
+    the rows and 1 after the partitions (the columns are then not the
+    sort's).
     """
     _check(d, "d", torch.float32, (None, None))
     dev = _same_device(d)
@@ -558,20 +562,21 @@ def xla_cpu_min_k(d, k: int, depth_cap: int = -1):
     if not -1 <= depth_cap <= 62:
         raise ValueError(f"xla_cpu_min_k: depth_cap {depth_cap}")
     if dev.type == "cpu":
+        if stage != 2:
+            raise ValueError("xla_cpu_min_k: stages are the kernel's")
         return xla_cpu_min_k_reference(d, k, depth_cap=depth_cap)
     from ._build import get_lib
 
+    lib = get_lib()
     out = torch.empty((d.shape[0], k), dtype=torch.int64, device=dev)
-    work = posr = None
+    scratch = None
     if n > _MIN_K_SMEM_N:
-        work = torch.empty((d.shape[0], n), dtype=torch.int64, device=dev)
-        posr = torch.empty((d.shape[0], n // 2 + 1), dtype=torch.int32,
-                           device=dev)
+        scratch = torch.empty((d.shape[0], lib.etc1s_min_k_scratch_bytes(n)),
+                              dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        status = get_lib().etc1s_xla_cpu_min_k(
-            d.data_ptr(), None if work is None else work.data_ptr(),
-            None if posr is None else posr.data_ptr(), out.data_ptr(),
-            d.shape[0], n, k, depth_cap, _stream(dev))
+        status = lib.etc1s_xla_cpu_min_k(
+            d.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            out.data_ptr(), d.shape[0], n, k, depth_cap, stage, _stream(dev))
     LAUNCHES["xla_cpu_min_k"] += 1
     _raise_on(status, "xla_cpu_min_k")
     return out
@@ -579,24 +584,38 @@ def xla_cpu_min_k(d, k: int, depth_cap: int = -1):
 
 # the host library's ways through a row (`csrc/host_sort.cpp`)
 _HOST_SORT_MODES = {"pruned": 0, "std_sort": 1, "heap": 2,
-                    "std_partial_sort": 3}
+                    "std_partial_sort": 3, "pairs": 4, "final_insertion": 5}
 
 
 def xla_cpu_min_k_reference(d, k: int, mode: str = "pruned",
-                            depth_cap: int = -1):
+                            depth_cap: int = -1, visits=None):
     """Plain version of `xla_cpu_min_k`, on the host, for a CPU tensor d:
     the same introsort (`csrc/xla_cpu_sort.h`) over the rows, split over
     the cores (`depth_cap` as there). `mode` "std_sort" takes the first k
-    of libstdc++'s `std::sort` itself; "heap" and "std_partial_sort" the
-    first k of the introsort's heap fallback over the whole row and of
-    libstdc++'s `std::partial_sort`, for tests."""
+    of libstdc++'s `std::sort` itself; "pairs" runs the card's algorithm
+    sequentially (each partition as its swap pairs, the final step as
+    stable ranks); "heap", "std_partial_sort" and "final_insertion" the
+    first k of the introsort's heap fallback, of libstdc++'s
+    `std::partial_sort` and of the final insertion sort over the whole row
+    (whose least value must lie in its first 16 places), for tests.
+    `visits`, an (R,) int64 CPU tensor, receives in mode "pruned" the
+    number of entries each row's partitions visited."""
     from .. import native
 
     d = d.to(torch.float32).contiguous()
+    if visits is not None:
+        _check(visits, "visits", torch.int64, (d.shape[0],))
+        if visits.device.type != "cpu" or mode != "pruned":
+            raise ValueError("xla_cpu_min_k: visits is a CPU tensor, counted "
+                             "in mode 'pruned'")
     out = torch.empty((d.shape[0], k), dtype=torch.int64)
     status = native.get_host_sort().xla_cpu_min_k_rows(
         d.data_ptr(), d.shape[0], d.shape[1], k, out.data_ptr(),
-        _HOST_SORT_MODES[mode], depth_cap)
+        _HOST_SORT_MODES[mode], depth_cap,
+        None if visits is None else visits.data_ptr())
+    if status == -2:
+        raise ValueError("xla_cpu_min_k: final_insertion needs each row's "
+                         "least value in its first 16 places")
     if status != 0:
         raise ValueError(f"xla_cpu_min_k: bad sizes {tuple(d.shape)}, k {k}")
     return out

@@ -20,8 +20,9 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    K 16 and 8; `palette_errs`, which no path calls, at K 16; the selector
    search at S 2,731 and at 16,128, the most selector clusters; the
    k-means argmin, the refine's distances and their shortlist in XLA-CPU's
-   tie order (`xla_cpu_min_k`, held to `std::sort` on the host) at
-   24,576 x 2,416; the XLA-order kernels at a UASTC line fit's shapes: `xla_fma`, `xla_reduce`
+   tie order (`xla_cpu_min_k`, held to `std::sort` on the host on every
+   row; its time split by its steps, `min_k_split`) at 24,576 x 2,416; the XLA-order
+   kernels at a UASTC line fit's shapes: `xla_fma`, `xla_reduce`
    and the fused `xla_principal_axis` and `xla_ls_step`) and time both
    with CUDA events, beside the least time the card could take (bound)
    and, where one PyTorch call computes the same function, that call
@@ -65,9 +66,9 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    other), each in a process of its own;
 14. with `--ab OTHER_TREE` only: build the kernels of another checkout of
    the repo (e.g. the parent commit unpacked under `_compare/`), check that
-   its scan, rescore, `xla_fma` and `xla_reduce` give the same bits as this
-   tree's at the shapes of phase 3, and time both in turns (other, this,
-   this, other);
+   its scan, rescore, `xla_fma`, `xla_reduce` and refine shortlist give the
+   same bits as this tree's at the shapes of phase 3, and time both in
+   turns (other, this, this, other);
 15. front doors, at 768x512: `api.Encoder(device="cuda")` (ETC1S q 50 =
    native 128, effort 1: its bytes equal `compressor.compress`'s; UASTC
    LDR 4x4 and ASTC LDR 4x4: the JAX-CPU reference's bytes) and
@@ -92,7 +93,6 @@ The last two lines are the kernels' JSON record and the result line.
 
 import hashlib
 import json
-import math
 import statistics
 import subprocess
 import sys
@@ -252,43 +252,50 @@ SCAN_MAG_TOL = 1e-6     # ~8 float32 ulps of the scan's cancelled terms
 SEL_S = (2731, 16128)   # selector patterns: the main path's, and the most
 
 # Published peaks of one H100 SXM at its full 700 W power limit (NVIDIA's
-# data sheet, dense): HBM bytes/s, float32 FLOP/s outside the tensor cores,
-# bf16 tensor-core FLOP/s. A kernel's bound is the larger of its bytes (each
-# input read once, each output written once) over the first and its
-# operations over the rate of their type.
+# data sheet, dense): HBM bytes/s and bf16 tensor-core FLOP/s. Operations
+# outside the tensor cores are counted as instructions, one per lane for a
+# fused multiply-add, a multiply, an add, a compare or a select, at the
+# card's issue rate, SMs x 128 lanes x the SM's top clock, read in this run
+# (`phase_env`, `INSTR_S`): on the H100 SXM 132 x 128 x 1,980 MHz = 33.5e12
+# per second, which is the data sheet's 67 TFLOP/s float32 with a fused
+# multiply-add counted as its two FLOPs. A kernel's bound is the larger of
+# its bytes (each input read once, each output written once) over the first
+# and its operations over their rate.
 HBM_BYTES_S = 3.35e12
-FP32_FLOP_S = 67e12
 BF16_TC_FLOP_S = 989e12
+INSTR_S = None
 
 
-def _bound(n_bytes, flops, rate):
-    """(bound ms, what sets it) of a call moving n_bytes and doing flops at
-    rate FLOP/s."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_S, flops / rate
+def _bound(n_bytes, ops, rate=None):
+    """(bound ms, what sets it) of a call moving n_bytes and doing ops
+    instructions (or, with rate, ops operations at rate per second)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, ops / (rate or INSTR_S)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
 def _scan_bound(b_n, n_cols, external_base, k=None):
     """factorized_scan: per output column, 16 pixels x (a compare, a
-    select, a subtract and a multiply-add = 5 operations): 80 (the
+    select, a subtract and a multiply-add = 4 instructions): 64 (the
     shortlist's selection not counted); bytes: the pixels (and cluster
     bases) in, the (B, D*8) float32 sums out, or with k the (B, k) int64
     columns of the fused shortlist."""
     n_bytes = b_n * 48 * 4 + (b_n * 12 if external_base else 0) \
         + (b_n * n_cols * 4 if k is None else b_n * k * 8)
-    return _bound(n_bytes, b_n * n_cols * 16 * 5, FP32_FLOP_S)
+    return _bound(n_bytes, b_n * n_cols * 16 * 4)
 
 
 def _rescore_bound(b_n, k, perceptual, palette_bytes):
     """palette_errs(_packed): per output, 16 pixels x 4 selectors x (3
-    subtracts, a multiply and two multiply-adds = 8 FLOPs; +18 for the
-    perceptual 3x3 transform) plus 16 x (3 mins, an add); bytes: pixels,
-    the candidates (palette_bytes each) and the errors."""
-    per_sel = 8 + (18 if perceptual else 0)
-    flops = b_n * k * 16 * (4 * per_sel + 4)
+    subtracts, a multiply and two multiply-adds = 6 instructions) plus 16
+    x (3 mins, an add); with the perceptual metric the 3x3 transform (3
+    products and 6 multiply-adds) of the output's 4 palette colours and of
+    each block's 16 pixels; bytes: pixels, the candidates (palette_bytes
+    each) and the errors."""
+    ops = b_n * k * (16 * (4 * 6 + 4) + (4 * 9 if perceptual else 0)) \
+        + (b_n * 16 * 9 if perceptual else 0)
     n_bytes = b_n * 48 * 4 + b_n * k * (palette_bytes + 4)
-    return _bound(n_bytes, flops, FP32_FLOP_S)
+    return _bound(n_bytes, ops)
 
 
 def _selector_bound(b_n, s):
@@ -299,13 +306,20 @@ def _selector_bound(b_n, s):
                   2.0 * b_n * s * 64, BF16_TC_FLOP_S)
 
 
+def _cross6_ops(c, argmin=False):
+    """Instructions per (row, centroid) pair of the 6-D distances: 6
+    products and fused multiply-adds, the two chains' add where C mod 64
+    is 1..32, the scale, the subtract and the add; the argmin's compare and
+    select."""
+    return 9 + (1 <= c % 64 <= 32) + (2 if argmin else 0)
+
+
 def _cross6_bound(n, c, matrix):
-    """cross6_*: per (row, centroid) pair 6 products and fused
-    multiply-adds, the chain add, the scale, the subtract and the add = 10
-    operations; bytes: a (N, 6), c (C, 6), q (C,) (and r (N,)) in, the
-    (N, C) float32 distances or the (N,) int64 indices out."""
+    """cross6_*: `_cross6_ops` per pair; bytes: a (N, 6), c (C, 6), q (C,)
+    (and r (N,)) in, the (N, C) float32 distances or the (N,) int64
+    indices out."""
     n_bytes = n * 24 + c * 28 + (n * 4 + n * c * 4 if matrix else n * 8)
-    return _bound(n_bytes, 10.0 * n * c, FP32_FLOP_S)
+    return _bound(n_bytes, float(n * c * _cross6_ops(c, not matrix)))
 
 
 def _time_ms(fn, torch, reps=20, warmup=3):
@@ -323,6 +337,18 @@ def _time_ms(fn, torch, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _host_us(torch, fn, n=100):
+    """Host microseconds per call of fn: n calls queued without a wait."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / n
 
 
 def _device_ms(torch, fn, n=20):
@@ -354,6 +380,18 @@ def phase_env(torch):
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {card}")
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if clock.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {clock.stderr}")
+    global INSTR_S
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(clock.stdout.strip().splitlines()[0])
+    INSTR_S = sms * 128 * mhz * 1e6
+    print(f"issue rate: {sms} SMs x 128 lanes x {mhz:.0f} MHz = "
+          f"{INSTR_S:.4g} instructions/s")
     from basis_universal_tpu_torch import native
 
     if not native.available():
@@ -412,6 +450,19 @@ def _shortlist_close(torch, got, want, flat, mag, what):
     print(f"{what}: {int(differ.any(1).sum())} of {got.shape[0]} rows "
           "ordered differently from the plain version at ties")
     return float((a - b).abs()[differ].max()) if bool(differ.any()) else 0.0
+
+
+def min_k_split(torch, ck, d, k=16):
+    """The sort kernel stopped after each of its steps on the same rows:
+    the row loaded only, loaded and partitioned (no final step), and the
+    whole kernel: call and device ms of each (`xla_cpu_min_k`'s `stage`)."""
+    split = {}
+    for stage, label in ((0, "load"), (1, "load + partitions"), (2, "full")):
+        run = lambda: ck.xla_cpu_min_k(d, k, stage=stage)  # noqa: E731
+        split[label] = (_time_ms(run, torch), _device_ms(torch, run))
+        print(f"xla_cpu_min_k split, {label}: call {split[label][0]:.4f} ms, "
+              f"device {split[label][1]:.4f} ms")
+    return split
 
 
 def phase_kernels(torch, blocks):
@@ -643,31 +694,39 @@ def phase_kernels(torch, blocks):
     # -- xla_cpu_min_k on those distances (24,576 x 2,416, whole-numbered
     #    centroid components, so most rows tie among their 17 smallest, as
     #    on the main path): the columns of std::sort on the host, bit for
-    #    bit. No PyTorch call orders ties so; torch.topk, which takes the
-    #    same 16 values in another order, is timed beside it.
+    #    bit, every row; the sort stopped after each step (`min_k_split`).
+    #    No PyTorch call orders ties so; torch.topk, which takes the same 16
+    #    values in another order, is timed beside.
     d6 = ck.cross6_distances(vec6, cents, r, q)
     d6_host = d6.cpu()
     stv = torch.sort(d6_host, dim=-1, stable=True).values
     tied = int((stv[:, 1:17] == stv[:, :16]).any(1).sum())
     del stv
-    got = ck.xla_cpu_min_k(d6, 16)
     want = ck.xla_cpu_min_k_reference(d6_host, 16, mode="std_sort")
-    torch.cuda.synchronize()
-    if not torch.equal(got.cpu(), want):
+    visits = torch.zeros(b_n, dtype=torch.int64)
+    ck.xla_cpu_min_k_reference(d6_host, 16, visits=visits)
+    got = ck.xla_cpu_min_k(d6, 16).cpu()
+    if not torch.equal(got, want):
         raise AssertionError(
-            f"xla_cpu_min_k: {int((got.cpu() != want).any(1).sum())} of "
-            f"{b_n} rows differ from std::sort on the host")
-    topk_ms = _time_ms(lambda: torch.topk(d6, 16, largest=False), torch,
-                       reps=5)
+            f"xla_cpu_min_k: {int((got != want).any(1).sum())} of {b_n} rows "
+            "differ from std::sort on the host")
+    print("xla_cpu_min_k: every row std::sort's; host "
+          f"{_host_us(torch, lambda: ck.xla_cpu_min_k(d6, 16)):.1f} us per "
+          "call (the wrapper and the launch)")
+    min_k_split(torch, ck, d6)
+    topk = lambda: torch.topk(d6, 16, largest=False)  # noqa: E731
     print(f"xla_cpu_min_k: {tied} of {b_n} rows tie among their 17 smallest;"
-          f" torch.topk of the same 16 (another tie order) {topk_ms:.4f} ms")
-    # bound: the distances read once, the columns written; about 2n compares
-    # a row for the pruned sort, at most 2n lg n, far below the bytes
+          f" the partitions visit {int(visits.sum())} entries "
+          f"({float(visits.sum()) / d6.numel():.3f} per entry of the row); "
+          f"torch.topk of the same 16 (another tie order) "
+          f"{_time_ms(topk, torch, reps=5):.4f} ms, device "
+          f"{_device_ms(torch, topk):.4f} ms")
+    # bound: the distances read once and the columns written; one compare
+    # per entry each partition visits (counted on the host for these rows)
     measure("xla_cpu_min_k", "N24576 C2416 k16",
             lambda: ck.xla_cpu_min_k(d6, 16),
             lambda: ck.xla_cpu_min_k_reference(d6_host, 16), 0.0,
-            _bound(d6.numel() * 4 + b_n * 16 * 8,
-                   2.0 * d6.numel() * math.log2(2416), FP32_FLOP_S))
+            _bound(d6.numel() * 4 + b_n * 16 * 8, float(visits.sum())))
     del d6, d6_host, got, want
 
     # -- bisect_axis at the main path's 4,096 bisecting clusters, from the
@@ -689,7 +748,7 @@ def phase_kernels(torch, blocks):
                              "values differ from the plain version")
     measure("bisect_axis", "C4096", lambda: ck.bisect_axis(cov),
             lambda: ck.bisect_axis_reference(cov), 0.0,
-            _bound(4096 * (36 + 6) * 4, 4096 * 4 * 90.0, FP32_FLOP_S))
+            _bound(4096 * (36 + 6) * 4, 4096 * 4 * 55.0))
 
     # -- the XLA-order kernels at a UASTC line fit's shapes (24,576 blocks x
     #    16 pixels x 3 channels): a fused multiply-add with a broadcast and a
@@ -710,20 +769,19 @@ def phase_kernels(torch, blocks):
     copy_dms = _device_ms(torch, lambda: v.clone())
     print(f"copy of v ({v.numel() * 4} B read and written): device "
           f"{copy_dms:.4f} ms, bound "
-          f"{_bound(8 * v.numel(), 0, FP32_FLOP_S)[0]:.4f} ms")
+          f"{_bound(8 * v.numel(), 0)[0]:.4f} ms")
     for name, label, run, plain, lib, bound in (
             ("xla_fma", "B24576x16x3 broadcast+scalar",
              lambda: xo._fma(v, 257.0, m),
              lambda: xo.fma_reference(v, 257.0, m),
              lambda: torch.addcmul(m, v, torch.tensor(257.0, device=dev)),
-             _bound(4 * (v.numel() * 2 + m.numel()), 2.0 * v.numel(),
-                    FP32_FLOP_S)),
+             _bound(4 * (v.numel() * 2 + m.numel()), float(v.numel()))),
             ("xla_reduce", "dot K16 B24576x3",
              lambda: xo._dot(w, v, 1),
              lambda: xo.reduce_reference(w, v, 1, "dot"),
              lambda: torch.einsum("bik,bic->bc", w, v),
              _bound(4 * (v.numel() + w.numel() + b_n * 3),
-                    2.0 * v.numel(), FP32_FLOP_S))):
+                    float(v.numel())))):
         got, want = run(), plain()
         torch.cuda.synchronize()
         n_diff = int((got != want).sum())
@@ -760,14 +818,15 @@ def phase_kernels(torch, blocks):
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"xla_principal_axis {label}: differs from "
                                  "the plain version")
-        flops = b_n * (n_ch * n_ch * 32 + iters * (2 * n_ch * n_ch
-                                                    + 3 * n_ch + 2)
-                       + 32 * n_ch)
+        # the covariance's 16 n^2 fused multiply-adds; per iteration n^2 for
+        # the product, n for the norm, its root and add, n divisions; the
+        # 16 n projections
+        ops = b_n * (n_ch * n_ch * 16 + iters * (n_ch * n_ch + 2 * n_ch + 2)
+                     + 16 * n_ch)
         measure("xla_principal_axis", label,
                 lambda: uenc.principal_axis(c, iters),
                 lambda: uenc.principal_axis_reference(c, iters), 0.0,
-                _bound(4 * b_n * (16 * n_ch + n_ch + 16), flops,
-                       FP32_FLOP_S))
+                _bound(4 * b_n * (16 * n_ch + n_ch + 16), ops))
     wlev = torch.tensor([0.0, 21.0, 43.0, 64.0], device=dev)
     wl = wlev[torch.as_tensor(rng.integers(0, 4, (b_n, 16)), device=dev)]
     wl[::10] = 21.0                                     # singular systems
@@ -789,11 +848,13 @@ def phase_kernels(torch, blocks):
             raise AssertionError(f"xla_ls_step {label}: differs from the "
                                  "plain version")
         n_in = 16 + (16 if mask is not None else 0) + 16 * n_ch + 2 * n_ch
-        flops = b_n * (16 * (8 + (2 if mask is not None else 0))
-                       + 64 * n_ch + 10 + 8 * n_ch)
+        # per pixel the weights' 4 (+1 with a mask) and 2 n_ch moments'
+        # fused multiply-adds; the 2x2 solve and the endpoints
+        ops = b_n * (16 * (4 + (1 if mask is not None else 0))
+                     + 32 * n_ch + 5 + 4 * n_ch)
         measure("xla_ls_step", label, lambda: uenc.ls_step(*args),
                 lambda: uenc.ls_step_reference(*args), 0.0,
-                _bound(4 * b_n * (n_in + 2 * n_ch), flops, FP32_FLOP_S))
+                _bound(4 * b_n * (n_in + 2 * n_ch), ops))
     return results
 
 
@@ -1364,10 +1425,12 @@ def _other_port(tree):
 
 
 def phase_ab(torch, blocks, tree):
-    """`--ab TREE`: this tree's scan and rescore against another checkout's
-    at the shapes of phase 3: whether they give the same bits (the fused
-    scan's shortlists, the rescore's errors), and their call times (CUDA events) and
-    device times (torch.profiler) in turns: other, this, this, other."""
+    """`--ab TREE`: this tree's scan, rescore, generic XLA-order kernels
+    and refine shortlist against another checkout's at the shapes of phase
+    3: whether they give the same bits (the fused scan's shortlists, the
+    rescore's errors, the refine's columns), and their call times (CUDA
+    events) and device times (torch.profiler) in turns: other, this, this,
+    other."""
     from basis_universal_tpu_torch.ops import cuda_etc1s as ck
     from basis_universal_tpu_torch.ops import xla_order as xo
 
@@ -1420,6 +1483,32 @@ def phase_ab(torch, blocks, tree):
               f"{dt[3]:.4f}")
         if n_diff:
             raise AssertionError(f"ab {name}: the two trees' bits differ")
+    # the refine shortlist of the main path, `cross6_distances` then
+    # `xla_cpu_min_k`, of both trees at phase 3's shape
+    from basis_universal_tpu_torch.ops import etc1s_encode as ops
+
+    enc = ops.encode_blocks(px, radius=1)
+    vec6 = torch.cat([enc["low"], enc["high"]], -1) * (1.0 / 255.0)
+    cents = vec6[torch.as_tensor(rng.choice(b_n, 2416, replace=False),
+                                 device=dev)].contiguous()
+    rq = (xo._dot(vec6, vec6), xo._dot(cents, cents))
+
+    def refine(mod):
+        return mod.xla_cpu_min_k(mod.cross6_distances(vec6, cents, *rq), 16)
+
+    mine, theirs = refine(ck), refine(other)
+    torch.cuda.synchronize()
+    n_diff = int((mine != theirs).any(1).sum())
+    runs = [lambda m=m: refine(m) for m in (other, ck, ck, other)]
+    t = [_time_ms(r, torch) for r in runs]
+    dt = [_device_ms(torch, r) for r in runs]
+    print(f"ab refine shortlist N24576 C2416 k16: same columns {n_diff == 0} "
+          f"({n_diff} of {b_n} rows differ); call ms other {t[0]:.4f}, this "
+          f"{t[1]:.4f}, this {t[2]:.4f}, other {t[3]:.4f}; device ms other "
+          f"{dt[0]:.4f}, this {dt[1]:.4f}, this {dt[2]:.4f}, other "
+          f"{dt[3]:.4f}")
+    if n_diff:
+        raise AssertionError("ab refine shortlist: the two trees differ")
     for name, label, args, kw in cases:
         mine = getattr(ck, name)(*args, **kw)
         theirs = getattr(other, name)(*args, **kw)

@@ -327,7 +327,8 @@ def test_compress_on_card_launches_each_kernel(cuda):
         "find_best_selector_patterns": sel + 1,
         "cross6_argmin": knobs["kmeans_iters"], "cross6_distances": refine,
         "bisect_axis": int(np.ceil(np.log2(knobs["num_e"]))),
-        "xla_cpu_min_k": refine, "xla_principal_axis": 0, "xla_ls_step": 0}
+        "xla_cpu_min_k": refine,
+        "xla_principal_axis": 0, "xla_ls_step": 0}
     cpu = compressor.compress(img, compressor.CompressorParams(device="cpu"))
     assert out.basis_data == cpu.basis_data
     assert etc1s_psnr(out.basis_data, img) > 25.0
@@ -586,11 +587,12 @@ def test_xla_cpu_min_k_on_card(cuda, rows, n, levels, zeros):
     else:
         d = rng.integers(0, levels, (rows, n)).astype(np.float32)
     d = torch.as_tensor(d)
-    for k in (2, 16):
+    ks = [k for k in (2, 16, 32) if k <= n]
+    for k in ks:
         got = ck.xla_cpu_min_k(d.to(cuda), k)
         want = ck.xla_cpu_min_k_reference(d, k, mode="std_sort")
         assert torch.equal(got.cpu(), want)
-    assert ck.LAUNCHES["xla_cpu_min_k"] == 2
+    assert ck.LAUNCHES["xla_cpu_min_k"] == len(ks)
     # the heap fallback, reached by a low depth limit: the host's steps
     part = d[:256]
     for cap in (0, 1, 3):
@@ -601,12 +603,46 @@ def test_xla_cpu_min_k_on_card(cuda, rows, n, levels, zeros):
 
 @pytest.mark.cuda
 def test_xla_cpu_min_k_long_rows_on_card(cuda):
-    """Rows too long for shared memory sort in global scratch, alike."""
+    """Rows too long for shared memory sort in global scratch, alike, k up
+    to 32 and the heap fallback included."""
     rng = np.random.default_rng(9000)
     d = torch.as_tensor(rng.integers(0, 5, (64, 9000)).astype(np.float32))
-    got = ck.xla_cpu_min_k(d.to(cuda), 16)
-    assert torch.equal(got.cpu(),
-                       ck.xla_cpu_min_k_reference(d, 16, mode="std_sort"))
+    for k in (2, 16, 32):
+        got = ck.xla_cpu_min_k(d.to(cuda), k)
+        assert torch.equal(got.cpu(),
+                           ck.xla_cpu_min_k_reference(d, k, mode="std_sort"))
+    assert torch.equal(ck.xla_cpu_min_k(d.to(cuda), 16, depth_cap=3).cpu(),
+                       ck.xla_cpu_min_k_reference(d, 16, depth_cap=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(4096, 2416), (4096, 2400), (1000, 97),
+                                 (1000, 1025), (300, 64), (300, 17),
+                                 (256, 6000), (256, 8192), (64, 8193)])
+def test_refine_shortlist_on_card(cuda, n, c):
+    """The refine's shortlist on the card, `cross6_distances` then
+    `xla_cpu_min_k`, gives the plain distances' bits and the columns of
+    `std::sort` of them on the host, on every row, with whole-numbered
+    centroid components so that rows tie, at C on both sides of the C mod
+    64 rule and past the longest row sorted in shared memory, k 2 to
+    32."""
+    from basis_universal_tpu_torch.ops.xla_order import _dot
+
+    rng = np.random.default_rng(n + c)
+    a = torch.as_tensor(rng.integers(0, 4, (n, 6)) / 4.0, dtype=torch.float32)
+    cb = torch.as_tensor(rng.integers(0, 3, (c, 6)) / 4.0,
+                         dtype=torch.float32)
+    r, q = _dot(a, a), _dot(cb, cb)
+    d6 = ck.cross6_distances(*[t.to(cuda) for t in (a, cb, r, q)])
+    plain = ck.cross6_distances_reference(a, cb, r, q)
+    assert torch.equal(d6.cpu(), plain)
+    ks = [k for k in (2, 16, 32) if k <= c]
+    for k in ks:
+        assert torch.equal(ck.xla_cpu_min_k(d6, k).cpu(),
+                           ck.xla_cpu_min_k_reference(plain, k,
+                                                      mode="std_sort"))
+    assert ck.LAUNCHES["cross6_distances"] == 1
+    assert ck.LAUNCHES["xla_cpu_min_k"] == len(ks)
 
 
 @pytest.mark.cuda

@@ -534,6 +534,89 @@ def test_host_sort_heap_is_libstdcxx_partial_sort(n, levels):
         ck.xla_cpu_min_k_reference(_t(d), n, mode="heap").numpy()[:, :k])
 
 
+@pytest.mark.parametrize("n,levels,zeros", [
+    (n, levels, False) for n in (17, 2416, 9000) for levels in (2, 3, 40, 2000)]
+    + [(n, 3, True) for n in (17, 2416, 9000)])
+def test_host_sort_pairs_is_std_sort(n, levels, zeros):
+    """The card's algorithm run sequentially (`xla_cpu_min_k_reference`
+    mode "pairs": each Hoare partition as its swap pairs from 32-entry
+    chunk masks, the final insertion sort as stable ranks) gives the
+    columns of `std::sort` for every k up to 32 and of the jitted
+    `jax.lax.approx_min_k`, on tie-heavy rows (signed zeros included); with
+    a depth limit of 0, 1 and 3 those of the introsort run step for step
+    (mode "pruned"), at 0 the heap fallback's."""
+    d = _tied_rows(n, levels, seed=3 * n + levels, zeros=zeros)
+    full = ck.xla_cpu_min_k_reference(_t(d), min(n, 32), mode="std_sort")
+    for k in range(1, min(n, 32) + 1):
+        np.testing.assert_array_equal(
+            ck.xla_cpu_min_k_reference(_t(d), k, mode="pairs").numpy(),
+            full[:, :k].numpy())
+    for k in (2, 16, 32):
+        if k <= n:
+            np.testing.assert_array_equal(full[:, :k].numpy(),
+                                          np.asarray(_AMK(jnp.asarray(d), k)))
+    for cap in (0, 1, 3):
+        for k in (2, 16):
+            np.testing.assert_array_equal(
+                ck.xla_cpu_min_k_reference(_t(d), k, mode="pairs",
+                                           depth_cap=cap).numpy(),
+                ck.xla_cpu_min_k_reference(_t(d), k,
+                                           depth_cap=cap).numpy())
+    np.testing.assert_array_equal(
+        ck.xla_cpu_min_k_reference(_t(d), 16, mode="pairs",
+                                   depth_cap=0).numpy(),
+        ck.xla_cpu_min_k_reference(_t(d), n, mode="heap").numpy()[:, :16])
+
+
+@pytest.mark.parametrize("n,levels,zeros", [
+    (2, 2, False), (16, 3, False), (17, 3, False), (40, 2, False),
+    (100, 5, True), (2416, 3, False), (2416, 2000, False), (2416, 3, True)])
+def test_final_insertion_sort_is_a_stable_sort(n, levels, zeros):
+    """libstdc++'s final insertion sort (`xla_cpu_sort.h`, mode
+    "final_insertion"), over a range whose least value lies in its first
+    16 places as the introsort leaves it, is the stable sort of the range
+    by value, -0.0 equal to +0.0: what the card's final step (stable
+    ranks) computes in its place. A row that breaks the condition is
+    refused."""
+    d = _tied_rows(n, levels, seed=11 * n + levels, zeros=zeros)
+    rng = np.random.default_rng(n)
+    d[np.arange(256), rng.integers(0, min(n, 16), 256)] = d.min()
+    got = ck.xla_cpu_min_k_reference(_t(d), n, mode="final_insertion")
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.argsort(d, axis=1, kind="stable"))
+    if n > 16:
+        bad = np.zeros((1, n), np.float32)
+        bad[0, -1] = -1.0
+        with pytest.raises(ValueError):
+            ck.xla_cpu_min_k_reference(_t(bad), n, mode="final_insertion")
+
+
+@pytest.mark.parametrize("c", [17, 64, 65, 100, 600])
+def test_refine_shortlist_is_the_references_d6_and_approx_min_k(c):
+    """The refine's shortlist as the port takes it, `cross6_distances` then
+    `_refine_shortlist` (on the card their two kernels), gives the
+    reference's own `d6` (`refine_endpoint_assignment`) and the columns of
+    its jitted `approx_min_k`, with whole-numbered centroid components so
+    that rows tie, at C on both sides of the C mod 64 rule, k 2 to 32."""
+    from basis_universal_tpu_torch.ops.xla_order import _dot
+
+    rng = np.random.default_rng(c)
+    a = rng.integers(0, 4, (300, 6)).astype(np.float32) / 4.0
+    cb = rng.integers(0, 3, (c, 6)).astype(np.float32) / 4.0
+    d6 = ck.cross6_distances(_t(a), _t(cb), _dot(_t(a), _t(a)),
+                             _dot(_t(cb), _t(cb)))
+    ja, jc = jnp.asarray(a), jnp.asarray(cb)
+    want = (jnp.sum(ja * ja, -1, keepdims=True) - 2.0 * ja @ jc.T
+            + jnp.sum(jc * jc, -1)[None, :])
+    np.testing.assert_array_equal(d6.numpy(), np.asarray(want))
+    for k in (2, 16, 32):
+        if k <= c:
+            np.testing.assert_array_equal(
+                tops._refine_shortlist(d6, k).numpy(),
+                np.asarray(_AMK(want, k)))
+    assert ck.LAUNCHES["xla_cpu_min_k"] == 0
+
+
 @pytest.mark.parametrize("m", [1, 7, 8, 17, 20, 28, 36, 100, 2112, 27 * 525,
                                65536])
 def test_perceptual_transform_is_this_hosts_xla_product(m):

@@ -457,6 +457,9 @@ def test_min_k_shared_memory_limit_matches_the_cuda_source():
            / "etc1s_kernels.cu").read_text()
     got = re.search(r"constexpr int kMinKSmemN = (\d+);", src).group(1)
     assert int(got) == ck._MIN_K_SMEM_N
+    # rows in shared memory keep their columns and swap lists in 16 bits
+    assert "std::conditional<kShared, uint16_t, int>" in src
+    assert ck._MIN_K_SMEM_N <= 1 << 16
 
 
 def _cu_array(src, name):
