@@ -3,7 +3,7 @@
 // Each scan, rescore and selector kernel replaces one Pallas kernel of
 // basis_universal_tpu/ops/pallas_etc1s.py (all four are here); the cross6
 // kernels replace the frontend's two XLA matrix products whose rounding
-// decides its codebooks, bisect_axis its XLA power iteration,
+// decides its codebooks, bisect_rows and bisect_round its bisecting init,
 // min_k_kernel its ApproxTopK. Each computes the same function with the same
 // float32 operation order per element; the plain PyTorch versions live
 // beside the wrappers in basis_universal_tpu_torch/ops/cuda_etc1s.py.
@@ -13,6 +13,7 @@
 // synchronises nothing, and returns cudaGetLastError() so the Python wrapper
 // can raise on a refused launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <cuda_bf16.h>
@@ -27,6 +28,8 @@
 #include "xla_cpu_sort.h"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 // ETC1 intensity modifier tables (ops/etc1.py ETC1_INTEN_TABLES), selector
 // 0..3 low to high.
@@ -971,11 +974,10 @@ int launch_fscan_radius(const float* pixels, const float* base5,
 // cross6_argmin and cross6_distances: the 6-D codebook distances of the
 // frontend's k-means assignment and of the refine's shortlist,
 //     d[n, j] = (r[n] - 2 * x[n, j]) + q[j],   x[n, j] = sum_k a[n,k] c[j,k],
-// with r = 0 for the k-means form q[j] - 2 x[n, j] (the same bits: 0 - 2x is
-// exactly -2x, and -2x + q rounds as q - 2x). cross6_argmin returns each
-// row's first index of least d (the order of torch.argmin and jnp.argmin);
-// cross6_distances writes the (N, C) float32 matrix, row-major, which the
-// refine shortlists (etc1s_encode._refine_shortlist).
+// with r = 0 for the k-means form q[j] - 2 x[n, j]. cross6_argmin returns
+// each row's first index of least d (the order of torch.argmin and
+// jnp.argmin); cross6_distances writes the (N, C) float32 matrix, row-major,
+// which the refine shortlists (etc1s_encode._refine_shortlist).
 //
 // These replace no Pallas kernel: in the reference they are XLA's matrix
 // products (basis_universal_tpu/ops/etc1s_encode.py:357, the k-means
@@ -988,61 +990,55 @@ int launch_fscan_radius(const float* pixels, const float* base5,
 // is this kernel's plain version and holds the rule's test). Every rounding
 // is spelled out (__fmul_rn, __fmaf_rn, __fadd_rn, __fsub_rn), so the card
 // gives the plain version's bits.
-//
-// Bound at the main path's shape (N 24,576 blocks, C 2,416 clusters): 59.4 M
-// pairs x 10 operations (6 products and fused multiply-adds, the chain add,
-// the scale, the subtract and the add) = 0.59 GFLOP, 8.9 us at 67 TFLOP/s;
-// the distances variant also writes 237 MB (71 us at 3.35 TB/s), so it is
-// bound by its bytes and the argmin variant by its operations. Design: a CTA
-// of 8 warps owns 64 rows (8 per warp, held in registers with their r), and
-// stages the codebook in tiles of 512 centroids (6 coordinates and q, 7
-// floats a centroid: an odd stride, so 32 lanes reading 32 consecutive
-// centroids hit 32 distinct banks); lane l takes the tile's centroids l, l +
-// 32, ..., so a warp's stores of one row are 128 contiguous bytes, and the
-// argmin keeps (value, index) per lane and row, then reduces across the warp
-// in (value, index) order.
 constexpr int kXWarps = 8;
 constexpr int kXRows = 8;       // rows per warp
 constexpr int kXTile = 512;     // centroids staged per pass
 
-__device__ __forceinline__ float cross6(const float (&a)[6], const float* c,
-                                        bool two_chains) {
-  if (two_chains) {
-    float e = __fmul_rn(a[0], c[0]);
-    float o = __fmul_rn(a[1], c[1]);
-    e = __fmaf_rn(a[2], c[2], e);
-    o = __fmaf_rn(a[3], c[3], o);
-    e = __fmaf_rn(a[4], c[4], e);
-    o = __fmaf_rn(a[5], c[5], o);
+template <bool kTwoChains>
+__device__ __forceinline__ float cross6(const float (&a)[6], float c0, float c1,
+                                        float c2, float c3, float c4,
+                                        float c5) {
+  if (kTwoChains) {
+    float e = __fmul_rn(a[0], c0);
+    float o = __fmul_rn(a[1], c1);
+    e = __fmaf_rn(a[2], c2, e);
+    o = __fmaf_rn(a[3], c3, o);
+    e = __fmaf_rn(a[4], c4, e);
+    o = __fmaf_rn(a[5], c5, o);
     return __fadd_rn(e, o);
   }
-  float x = __fmul_rn(a[0], c[0]);
-#pragma unroll
-  for (int k = 1; k < 6; ++k) x = __fmaf_rn(a[k], c[k], x);
-  return x;
+  float x = __fmul_rn(a[0], c0);
+  x = __fmaf_rn(a[1], c1, x);
+  x = __fmaf_rn(a[2], c2, x);
+  x = __fmaf_rn(a[3], c3, x);
+  x = __fmaf_rn(a[4], c4, x);
+  return __fmaf_rn(a[5], c5, x);
 }
 
-template <bool kArgmin>
+// cross6_distances. Bound at the main path's shape (N 24,576 blocks, C 2,416
+// clusters): 59.4 M pairs x 9 instructions (6 products and fused
+// multiply-adds, the scale, the subtract and the add), and 237 MB written
+// (71 us at 3.35 TB/s): bound by its bytes. A CTA of 8 warps owns 64 rows (8
+// per warp, held in registers with their r), and stages the codebook in
+// tiles of 512 centroids (6 coordinates and q, 7 floats a centroid: an odd
+// stride, so 32 lanes reading 32 consecutive centroids hit 32 distinct
+// banks); lane l takes the tile's centroids l, l + 32, ..., so a warp's
+// stores of one row are 128 contiguous bytes.
+template <bool kTwoChains>
 __global__ void __launch_bounds__(kXWarps * 32)
 cross6_kernel(const float* __restrict__ a, const float* __restrict__ c,
               const float* __restrict__ r, const float* __restrict__ q,
-              float* __restrict__ out, int64_t* __restrict__ idx_out, int n,
-              int n_c) {
+              float* __restrict__ out, int n, int n_c) {
   __shared__ float cs[kXTile * 7];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = (blockIdx.x * kXWarps + warp) * kXRows;
-  const int m64 = n_c % 64;
-  const bool two_chains = m64 >= 1 && m64 <= 32;
-  float av[kXRows][6], rv[kXRows], best[kXRows];
-  int bidx[kXRows];
+  float av[kXRows][6], rv[kXRows];
 #pragma unroll
   for (int i = 0; i < kXRows; ++i) {
     const int row = min(row0 + i, n - 1);
 #pragma unroll
     for (int k = 0; k < 6; ++k) av[i][k] = a[(size_t)row * 6 + k];
-    rv[i] = r == nullptr ? 0.f : r[row];
-    best[i] = __int_as_float(0x7f800000);   // +inf
-    bidx[i] = 0;
+    rv[i] = r[row];
   }
   for (int t0 = 0; t0 < n_c; t0 += kXTile) {
     const int tn = min(kXTile, n_c - t0);
@@ -1057,83 +1053,612 @@ cross6_kernel(const float* __restrict__ a, const float* __restrict__ c,
       const float qj = cj[6];
 #pragma unroll
       for (int i = 0; i < kXRows; ++i) {
-        const float x = cross6(av[i], cj, two_chains);
+        const float x = cross6<kTwoChains>(av[i], cj[0], cj[1], cj[2], cj[3],
+                                           cj[4], cj[5]);
         const float d = __fadd_rn(__fsub_rn(rv[i], __fmul_rn(2.f, x)), qj);
-        if constexpr (kArgmin) {
-          if (d < best[i]) {
-            best[i] = d;
-            bidx[i] = t0 + j;
-          }
-        } else if (row0 + i < n) {
-          out[(size_t)(row0 + i) * n_c + t0 + j] = d;
-        }
+        if (row0 + i < n) out[(size_t)(row0 + i) * n_c + t0 + j] = d;
       }
-    }
-  }
-  if constexpr (kArgmin) {
-#pragma unroll
-    for (int i = 0; i < kXRows; ++i) {
-      float v = best[i];
-      int ix = bidx[i];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, ix, off);
-        if (ov < v || (ov == v && oi < ix)) {
-          v = ov;
-          ix = oi;
-        }
-      }
-      if (lane == 0 && row0 + i < n) idx_out[row0 + i] = ix;
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// bisect_axis: each cluster's principal axis for the frontend's bisecting
-// init, four power iterations from (1, ..., 1) on its (6, 6) covariance:
-//     w_f = sum_g cov[f, g] v_g   (the first product rounded, then fused
-//                                  multiply-adds in index order: `_dot`),
-//     v = w / (sqrt(sum_f w_f * w_f) + 1e-9)   (the squares rounded and
-//                                  added in index order, `_sum`; the square
-//                                  root and the division correctly rounded).
-// It replaces no Pallas kernel: in the reference it is XLA's power iteration
-// (basis_universal_tpu/ops/etc1s_encode.py:411), whose CPU rounding decides
-// every bisecting split. The plain version is that loop of six operators
-// per iteration; one thread per cluster here holds its 36 covariances and
-// its axis in registers, so a round of the init is one launch instead of 24.
-// Bound: 4 x ~90 operations and 168 bytes per cluster, a few microseconds
-// at the main path's 4,096 clusters; the launch is the cost.
-constexpr int kAxisThreads = 128;
+// Asynchronous 16-byte copies from global to shared memory (cp.async, which
+// waits on no register: completion is counted per commit group).
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-__global__ void __launch_bounds__(kAxisThreads)
-bisect_axis_kernel(const float* __restrict__ cov, float* __restrict__ axis,
-                   int n_c) {
-  const int c = blockIdx.x * kAxisThreads + threadIdx.x;
-  if (c >= n_c) return;
-  float m[36];
+// count floats from src (16-byte aligned) to dst by the CTA's threads: the
+// whole 16-byte chunks by cp.async, the rest by plain copies
+__device__ __forceinline__ void stage_floats(float* dst, const float* src,
+                                             int count) {
+  const int n4 = count >> 2;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    cp_async16(dst + 4 * i, src + 4 * i);
+  for (int i = 4 * n4 + threadIdx.x; i < count; i += blockDim.x)
+    dst[i] = src[i];
+}
+
+// cross6_argmin, redesigned for Hopper. d = q - 2x is one fused multiply-add,
+// fma(-2, x, q): -2x is exact (a power of two times a float32 far from
+// overflow), so the fused form rounds once where q - 2x rounds once (signed
+// zeros agree too: q is a sum of squares, never -0). Bound at the main
+// path's shape: 59.4 M pairs x 9 instructions (6 products and fused
+// multiply-adds, the fold, the compare and the select; + the chains' add
+// where C mod 64 is 1..32), 16.0 us at the issue rate; its bytes are 0.7
+// MB. So it is bound by its instructions, and the design keeps every
+// instruction that is not one of those off the inner loop: a warp holds 16
+// rows in registers (each lane all 16), lane l takes the centroids l, l +
+// 32, ... and reads each from shared memory as three float2 and q (4 loads
+// and the loop's step per 16 pairs; a warp's reads are conflict-free); the
+// running argmin is a compare and two selects per pair (the first index on
+// ties: a lane walks its centroids in increasing order and keeps a strictly
+// smaller value; lanes meet in (value, index) order). The CTA stages up to
+// 2,432 centroids at once (68 KB by cp.async: the main path's whole
+// codebook), read by 12 warps of 16 rows (the most that 168 registers a
+// thread allow on an SM): 128 CTAs at the main path's shape, one an SM, so
+// each SM stages the codebook once.
+constexpr int kAWarps = 12;
+constexpr int kARows = 16;      // rows per warp, all held by every lane
+constexpr int kATile = 2432;    // centroids staged at once
+constexpr int kASmem = kATile * 7 * 4;
+
+// where the staged q start, in floats: 16-byte aligned for cp.async
+__host__ __device__ constexpr int a_q_offset(int n_c) {
+  return ((n_c < kATile ? n_c : kATile) * 6 + 3) & ~3;
+}
+
+template <bool kTwoChains>
+__global__ void __launch_bounds__(kAWarps * 32, 1)
+cross6_argmin_kernel(const float* __restrict__ a, const float* __restrict__ c,
+                     const float* __restrict__ q, int64_t* __restrict__ idx_out,
+                     int n, int n_c) {
+  extern __shared__ float4 a_smem[];
+  float* cs = reinterpret_cast<float*>(a_smem);   // (tile, 6)
+  float* qs = cs + a_q_offset(n_c);                // (tile,)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = (blockIdx.x * kAWarps + warp) * kARows;
+  float av[kARows][6], best[kARows];
+  int bidx[kARows];
 #pragma unroll
-  for (int i = 0; i < 36; ++i) m[i] = cov[(size_t)c * 36 + i];
+  for (int i = 0; i < kARows; ++i) {
+    const int row = min(row0 + i, n - 1);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) av[i][k] = a[(size_t)row * 6 + k];
+    best[i] = __int_as_float(0x7f800000);   // +inf
+    bidx[i] = 0;
+  }
+  for (int t0 = 0; t0 < n_c; t0 += kATile) {
+    const int tn = min(kATile, n_c - t0);
+    __syncthreads();
+    stage_floats(cs, c + (size_t)t0 * 6, tn * 6);
+    stage_floats(qs, q + t0, tn);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll 2
+    for (int j = lane; j < tn; j += 32) {
+      const float2* cj = reinterpret_cast<const float2*>(cs + j * 6);
+      const float2 c01 = cj[0], c23 = cj[1], c45 = cj[2];
+      const float qj = qs[j];
+      const int jj = t0 + j;
+#pragma unroll
+      for (int i = 0; i < kARows; ++i) {
+        const float x = cross6<kTwoChains>(av[i], c01.x, c01.y, c23.x, c23.y,
+                                           c45.x, c45.y);
+        const float d = __fmaf_rn(-2.f, x, qj);
+        const bool lt = d < best[i];
+        best[i] = lt ? d : best[i];
+        bidx[i] = lt ? jj : bidx[i];
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kARows; ++i) {
+    float v = best[i];
+    int ix = bidx[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, ix, off);
+      if (ov < v || (ov == v && oi < ix)) {
+        v = ov;
+        ix = oi;
+      }
+    }
+    if (lane == 0 && row0 + i < n) idx_out[row0 + i] = ix;
+  }
+}
+
+// the argmin kernels' shared-memory limit, raised once per device
+inline cudaError_t cross6_argmin_attrs() {
+  static std::mutex mu;
+  static std::map<int, bool> done;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count(dev)) return cudaSuccess;
+  for (auto fn : {cross6_argmin_kernel<true>, cross6_argmin_kernel<false>}) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kASmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+  }
+  done[dev] = true;
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// bisect_rows and bisect_round: the frontend's bisecting init
+// (basis_universal_tpu/ops/etc1s_encode.py:375-434), one launch per
+// bisecting round (`round_body`, :403) after one that lays out the rows.
+//
+// The reference splits every cluster in each round by the sign of each
+// member's projection on the cluster's principal axis, from the cluster's
+// moment sums: a segment sum of the 43 columns w, v w and (v_f v_g) w over
+// the rows (XLA-CPU adds each column of each cluster in row order, and the
+// codebook's bytes depend on that order), the mean and covariance, four
+// power iterations, the threshold mean . axis. Here the members of every
+// cluster are kept contiguous and in ascending row order, cluster after
+// cluster (`starts`, C + 1 offsets), as member rows of 32 bytes (kBisectM
+// floats: v, w, 0). A round then needs no sort, gather or segment
+// reduction: for each cluster it
+//   1. sums the 28 distinct moment columns (w, the 6 v_f w, the 21 (v_f
+//      v_g) w with f <= g, each formed as the reference rounds it: the
+//      coordinates' product, then by the weight; (v_g v_f) w has the same
+//      bits) over the members, each column one chain of float32 adds from 0
+//      in ascending row order (lane l of the cluster's first warp adds
+//      column l), the order of the reference's sum;
+//   2. forms the mean m_f / max(cnt, 1e-9) (correctly rounded), the
+//      covariance fma(-(cnt mean_f), mean_g, M2_fg) and runs the four power
+//      iterations of the reference's compiled loop (w = cov v: the first
+//      product rounded, then fused multiply-adds in index order; v = w /
+//      (sqrt(sum w_f w_f) + 1e-9): the squares rounded, added in index
+//      order, the root and the division correctly rounded), then the
+//      threshold: the products mean_f axis_f rounded and added in index
+//      order;
+//   3. projects each member, v . axis (the first product rounded, then
+//      fused multiply-adds) minus the threshold, and partitions the members
+//      stably into child 2s (projection <= 0) and 2s + 1 (> 0): the next
+//      round's member rows and offsets, each child's members again in row
+//      order.
+// With kLast the kernel then sums w and v w over both children in the same
+// order and writes each leaf's count and mean. Each step's arithmetic is
+// that of the port's plain version (`bisect_round_reference`, today's
+// composition of segment_sum, _fma, the power iteration, _sum and _dot),
+// spelled out here with __fadd_rn, __fmul_rn, __fmaf_rn, __fdiv_rn.
+//
+// What bounds it on the card: neither bytes (a round reads and writes each
+// 32-byte member row: 1.6 MB, 0.5 us at the main path's 24,576 rows) nor
+// operations, but the chain of dependent adds of the largest cluster: each
+// add waits for the one before (4 cycles), so a round takes at least 4
+// cycles per member of its largest cluster (round 0: all 24,576, 50 us).
+// The design gives the summing warp little to do but its adds. A warp that
+// loads its own rows waits on memory at every step, even with 64 loads in
+// flight (the card tracks a warp's outstanding loads on a few scoreboards,
+// so an add waits on loads issued just before it), and one that also
+// issues its own cp.async copies stalls its adds behind them. So S
+// producer warps take the cluster's stages of 32 members in turn (producer
+// p stages p, p + S, ...): each copies its stage's member rows a lap ahead
+// into shared memory (cp.async, which no barrier waits for), forms each
+// member's 28 moment columns into its slot of a ring in shared memory
+// (kBisectSlot: a column's 32 rows together, padded so that the stores and
+// the summing warp's 16-byte reads are free of bank conflicts), and
+// signals the summing warp through a pair of named barriers per slot
+// (full, empty); the summing warp reads stage k + 1 into registers before
+// it adds stage k, with no branch between (one there held the adds up).
+// The partition reads each member row four chunks of 32 members ahead of
+// its ballots and writes whole 32-byte rows (half rows wrote slower), its
+// members split among all the warps (each counts its segment's
+// zero bits, then places its members after the zeros and ones of the
+// warps before it). The first rounds (8 clusters or fewer) give each
+// cluster a thread block cluster of 8 CTAs of 16 warps, so its partition
+// draws on 8 SMs' bandwidth; the next ones (fewer than 128) a CTA of 16
+// warps with 6 producers; the rest a CTA of 4 warps with 3 producers.
+constexpr int kBisectM = 8;       // floats per member row: v, w, 0
+
+// index of the moment (v_f v_g) w among a cluster's sums (not recursive,
+// so an unrolled loop folds it to a constant)
+__host__ __device__ constexpr int bisect_pair_col_le(int f, int g) {
+  return 7 + f * 6 - f * (f - 1) / 2 + (g - f);   // f <= g
+}
+__host__ __device__ constexpr int bisect_pair_col(int f, int g) {
+  return f <= g ? bisect_pair_col_le(f, g) : bisect_pair_col_le(g, f);
+}
+
+__global__ void bisect_rows_kernel(const float* __restrict__ vecs,
+                                   const float* __restrict__ w,
+                                   float* __restrict__ members,
+                                   int* __restrict__ starts, int n) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t == 0) {
+    starts[0] = 0;
+    starts[1] = n;
+  }
+  if (t >= (long long)n * kBisectM) return;
+  const int i = (int)(t / kBisectM), m = (int)(t - (long long)i * kBisectM);
+  members[t] = m < 6 ? vecs[(size_t)i * 6 + m] : (m == 6 ? w[i] : 0.f);
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A ring slot: stage k's 28 moment columns of its 32 members, column c of
+// member r at c * kBisectCol + r (a column's 32 rows and 4 floats of
+// padding, so both the producer's stores and the summing warp's 16-byte
+// reads are free of bank conflicts).
+constexpr int kBisectCol = 36;
+constexpr int kBisectSlot = 32 * kBisectCol;
+
+// The sums of the 28 moment columns over members 0 .. len - 1 of `mem`, each
+// one chain of adds from 0 in member order: the first warp returns column
+// `lane`'s sum (lanes 28-31 hold nothing of use), every other warp 0. Warps
+// 1 .. S produce (see above): `ring` is S slots of kBisectSlot floats,
+// `staging` S x 2 x 32 x 8. Slot p's barriers are 1 + p (full) and 1 + S + p
+// (empty), for the first warp and producer p; each is used in balanced
+// pairs, so the next call can use them again.
+template <int S>
+__device__ float bisect_sums(const float* mem, int len, float* ring,
+                             float* staging, int warp, int lane) {
+  const int n_st = (len + 31) >> 5;
+  if (warp == 0) {
+    float acc = 0.f;
+    if (n_st == 0) return acc;
+    auto fetch = [&](float (&v)[32], int k) {
+      named_bar_sync(1 + k % S, 64);
+      const float4* s4 = reinterpret_cast<const float4*>(
+          ring + (k % S) * kBisectSlot + lane * kBisectCol);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float4 t = s4[q];
+        v[4 * q] = t.x;
+        v[4 * q + 1] = t.y;
+        v[4 * q + 2] = t.z;
+        v[4 * q + 3] = t.w;
+      }
+    };
+    // the slot is free once its values are added; its producer waits for
+    // that only where it has a stage for it
+    auto release = [&](int k) {
+      if (k + S < n_st) named_bar_arrive(1 + S + k % S, 64);
+    };
+    auto add = [&](const float (&v)[32], int rows) {
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+        if (r < rows) acc = __fadd_rn(acc, v[r]);
+    };
+    auto add_all = [&](const float (&v)[32]) {
+#pragma unroll
+      for (int r = 0; r < 32; ++r) acc = __fadd_rn(acc, v[r]);
+    };
+    float x[32], y[32];
+    fetch(x, 0);
+    // whole stages, two at a time, with no branch between a stage's reads
+    // and the adds after them
+    int k = 0;
+    for (; k + 2 < n_st; k += 2) {
+      fetch(y, k + 1);
+      add_all(x);
+      release(k);
+      fetch(x, k + 2);
+      add_all(y);
+      release(k + 1);
+    }
+    // the last one or two stages
+    if (k + 1 < n_st) {
+      fetch(y, k + 1);
+      add_all(x);
+      release(k);
+      add(y, len - (k + 1) * 32);
+    } else {
+      add(x, len - k * 32);
+    }
+    return acc;
+  }
+  if (warp > S) return 0.f;
+  // producer p: lane r forms member r's 28 columns of each of its stages
+  const int p = warp - 1;
+  float* col = ring + p * kBisectSlot + lane;
+  // the member row of stage j into one of this producer's two staging
+  // buffers, by cp.async (a barrier does not wait for it, as it would for
+  // a load into registers); each lane reads back only its own row
+  auto stage_row = [&](int j, int buf) {
+    const int i = j * 32 + lane;
+    if (j < n_st && i < len) {
+      float* dst = staging + (2 * p + buf) * 256 + lane * 8;
+      cp_async16(dst, mem + (size_t)i * kBisectM);
+      cp_async16(dst + 4, mem + (size_t)i * kBisectM + 4);
+    }
+    cp_async_commit();
+  };
+  stage_row(p, 0);
+  stage_row(p + S, 1);
+  for (int j = p, t = 0; j < n_st; j += S, t ^= 1) {
+    cp_async_wait<1>();
+    const float4* st = reinterpret_cast<const float4*>(
+        staging + (2 * p + t) * 256 + lane * 8);
+    const float4 a = st[0], b = st[1];
+    const float v[6] = {a.x, a.y, a.z, a.w, b.x, b.y};
+    const float w = b.z;
+    if (j >= S) named_bar_sync(1 + S + p, 64);
+    col[0] = w;
+#pragma unroll
+    for (int f = 0; f < 6; ++f) col[(1 + f) * kBisectCol] = __fmul_rn(v[f], w);
+#pragma unroll
+    for (int f = 0; f < 6; ++f)
+#pragma unroll
+      for (int g = f; g < 6; ++g)
+        col[bisect_pair_col(f, g) * kBisectCol] =
+            __fmul_rn(__fmul_rn(v[f], v[g]), w);
+    named_bar_arrive(1 + p, 64);
+    stage_row(j + 2 * S, t);
+  }
+  cp_async_wait<0>();
+  return 0.f;
+}
+
+// axis[0..5] and axis[6] = the threshold, from the cluster's 28 moment sums
+// m (m[0] the count, m[1 + f] the sums of v_f w, m[bisect_pair_col(f, g)]).
+__device__ __forceinline__ void bisect_axis_of(const float (&m)[28],
+                                               float (&axis)[7]) {
+  const float cnt = m[0];
+  const float den = fmaxf(cnt, 1e-9f);
+  float mean[6];
+#pragma unroll
+  for (int f = 0; f < 6; ++f) mean[f] = __fdiv_rn(m[1 + f], den);
+  float cov[36];
+#pragma unroll
+  for (int f = 0; f < 6; ++f)
+#pragma unroll
+    for (int g = 0; g < 6; ++g)
+      cov[f * 6 + g] = __fmaf_rn(-__fmul_rn(cnt, mean[f]), mean[g],
+                                 m[bisect_pair_col(f, g)]);
   float v[6] = {1.f, 1.f, 1.f, 1.f, 1.f, 1.f};
 #pragma unroll
   for (int it = 0; it < 4; ++it) {
-    float w[6];
+    float wv[6];
 #pragma unroll
     for (int f = 0; f < 6; ++f) {
-      float acc = __fmul_rn(m[f * 6], v[0]);
+      float acc = __fmul_rn(cov[f * 6], v[0]);
 #pragma unroll
-      for (int g = 1; g < 6; ++g) acc = __fmaf_rn(m[f * 6 + g], v[g], acc);
-      w[f] = acc;
+      for (int g = 1; g < 6; ++g) acc = __fmaf_rn(cov[f * 6 + g], v[g], acc);
+      wv[f] = acc;
     }
-    float s = __fmul_rn(w[0], w[0]);
+    float s = __fmul_rn(wv[0], wv[0]);
 #pragma unroll
-    for (int f = 1; f < 6; ++f) s = __fadd_rn(s, __fmul_rn(w[f], w[f]));
+    for (int f = 1; f < 6; ++f) s = __fadd_rn(s, __fmul_rn(wv[f], wv[f]));
     const float d = __fadd_rn(__fsqrt_rn(s), 1e-9f);
 #pragma unroll
-    for (int f = 0; f < 6; ++f) v[f] = __fdiv_rn(w[f], d);
+    for (int f = 0; f < 6; ++f) v[f] = __fdiv_rn(wv[f], d);
   }
+  float thr = __fmul_rn(mean[0], v[0]);
 #pragma unroll
-  for (int f = 0; f < 6; ++f) axis[(size_t)c * 6 + f] = v[f];
+  for (int f = 1; f < 6; ++f) thr = __fadd_rn(thr, __fmul_rn(mean[f], v[f]));
+#pragma unroll
+  for (int f = 0; f < 6; ++f) axis[f] = v[f];
+  axis[6] = thr;
+}
+
+// whether a member with v (v0..v3 in a, v4..v5 in b.x, b.y) goes to child
+// 2s + 1
+__device__ __forceinline__ bool bisect_bit(float4 a, float4 b,
+                                           const float (&axis)[7]) {
+  float p = __fmul_rn(a.x, axis[0]);
+  p = __fmaf_rn(a.y, axis[1], p);
+  p = __fmaf_rn(a.z, axis[2], p);
+  p = __fmaf_rn(a.w, axis[3], p);
+  p = __fmaf_rn(b.x, axis[4], p);
+  p = __fmaf_rn(b.y, axis[5], p);
+  return __fsub_rn(p, axis[6]) > 0.f;
+}
+
+constexpr int kBisectBatch = 4;   // chunks of 32 members a partition step reads
+
+// a barrier of the CTA, or with CS > 1 of the thread block cluster
+template <int CS>
+__device__ __forceinline__ void bisect_sync() {
+  if constexpr (CS > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// p in rank r's shared memory (its own where CS is 1)
+template <int CS, typename T>
+__device__ __forceinline__ T* bisect_remote(T* p, int r) {
+  if constexpr (CS > 1)
+    return cg::this_cluster().map_shared_rank(p, r);
+  else
+    return p;
+}
+
+// One round: cluster s of the round is taken by CS CTAs of W warps (a
+// thread block cluster where CS > 1), rank 0 of which sums and finds the
+// axis; all CS x W warps partition.
+template <int W, int S, int CS, bool kLast>
+__global__ void __launch_bounds__(W * 32)
+bisect_round_kernel(const float* __restrict__ in, float* out,
+                    const int* __restrict__ starts, int* __restrict__ starts_out,
+                    float* __restrict__ leaves, int n_c) {
+  static_assert(W > S && 2 * S < 16, "a summing warp, S producers, 2S barriers");
+  static_assert(W * 256 <= S * kBisectSlot, "the partition's rows fit the ring");
+  static_assert(CS * W <= 32 * 8, "a lane sums at most 8 warps' counts");
+  __shared__ __align__(16) float ring[S * kBisectSlot];
+  __shared__ __align__(16) float staging[S * 512];
+  __shared__ float s_axis[7];
+  __shared__ int s_zeros[W];
+  const int s = blockIdx.x / CS, rank = blockIdx.x % CS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned full = 0xffffffffu;
+  const int off = starts[s], len = starts[s + 1] - off;
+
+  // 1-2: the moment sums, the axis and the threshold
+  if (rank == 0) {
+    const float sum = bisect_sums<S>(in + (size_t)off * kBisectM, len, ring,
+                                     staging, warp, lane);
+    if (warp == 0) {
+      float m[28];
+#pragma unroll
+      for (int k = 0; k < 28; ++k) m[k] = __shfl_sync(full, sum, k);
+      float ax[7];
+      bisect_axis_of(m, ax);
+      if (lane == 0) {
+#pragma unroll
+        for (int f = 0; f < 7; ++f) s_axis[f] = ax[f];
+      }
+    }
+  }
+  bisect_sync<CS>();
+  float axis[7];
+  const float* ax0 = bisect_remote<CS>(s_axis, 0);
+#pragma unroll
+  for (int f = 0; f < 7; ++f) axis[f] = ax0[f];
+
+  // 3: the stable partition; warp gw of the CS x W takes members s0 .. s1 - 1
+  const int gw = rank * W + warp;
+  const int seg = (len + CS * W * 32 - 1) / (CS * W * 32) * 32;
+  const int s0 = min(len, gw * seg), s1 = min(len, s0 + seg);
+  const float4* src = reinterpret_cast<const float4*>(in + (size_t)off * kBisectM);
+  constexpr int B = kBisectBatch;
+  int zeros = 0;
+  for (int b = s0; b < s1; b += 32 * B) {
+    float4 va[B], vb[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const int i = b + 32 * u + lane;
+      if (i < s1) {
+        va[u] = src[2 * i];
+        vb[u] = src[2 * i + 1];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const bool valid = b + 32 * u + lane < s1;
+      const bool bit = valid && bisect_bit(va[u], vb[u], axis);
+      zeros += __popc(__ballot_sync(full, valid && !bit));
+    }
+  }
+  if (lane == 0) s_zeros[warp] = zeros;
+  bisect_sync<CS>();
+  // the zero bits of the warps before this one, and of all
+  int before = 0, all = 0;
+#pragma unroll
+  for (int e = lane; e < CS * W; e += 32) {
+    const int z = bisect_remote<CS>(s_zeros, e / W)[e % W];
+    before += e < gw ? z : 0;
+    all += z;
+  }
+  int zb = __reduce_add_sync(full, before);
+  const int total = __reduce_add_sync(full, all);
+  // no CTA of the cluster may leave while another reads its counts
+  if constexpr (CS > 1) bisect_sync<CS>();
+  int ob = s0 - zb;
+  if (rank == 0 && threadIdx.x == 0) {
+    starts_out[2 * s] = off;
+    starts_out[2 * s + 1] = off + total;
+    if (s == n_c - 1) starts_out[2 * n_c] = off + len;
+  }
+  const unsigned lt = (1u << lane) - 1u;
+  float4* dst = reinterpret_cast<float4*>(out + (size_t)off * kBisectM);
+  // a chunk's members are placed in this warp's 32 rows of the (now idle)
+  // ring, its zeros then its ones, and written from there two lanes a row,
+  // so each 32-byte row is one store
+  float4* wst = reinterpret_cast<float4*>(ring) + warp * 64;
+  for (int b = s0; b < s1; b += 32 * B) {
+    float4 va[B], vb[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const int i = b + 32 * u + lane;
+      if (i < s1) {
+        va[u] = src[2 * i];
+        vb[u] = src[2 * i + 1];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const bool valid = b + 32 * u + lane < s1;
+      const bool bit = valid && bisect_bit(va[u], vb[u], axis);
+      const unsigned m0 = __ballot_sync(full, valid && !bit);
+      const unsigned m1 = __ballot_sync(full, bit);
+      const int nz = __popc(m0), no = __popc(m1);
+      if (valid) {
+        const int i = bit ? nz + __popc(m1 & lt) : __popc(m0 & lt);
+        wst[2 * i] = va[u];
+        wst[2 * i + 1] = vb[u];
+      }
+      __syncwarp();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = h * 16 + (lane >> 1);
+        if (i < nz + no) {
+          const int to = i < nz ? zb + i : total + ob + (i - nz);
+          dst[2 * to + (lane & 1)] = wst[2 * i + (lane & 1)];
+        }
+      }
+      __syncwarp();
+      zb += nz;
+      ob += no;
+    }
+  }
+
+  // the leaves: both children's count and mean (after the last round)
+  if (kLast) {
+    bisect_sync<CS>();
+    if (rank == 0) {
+      const float* kids = out + (size_t)off * kBisectM;
+#pragma unroll
+      for (int child = 0; child < 2; ++child) {
+        const float sum_c = bisect_sums<S>(
+            kids + (child ? (size_t)total * kBisectM : 0),
+            child ? len - total : total, ring, staging, warp, lane);
+        if (warp == 0) {
+          const float cnt = __shfl_sync(full, sum_c, 0);
+          if (lane < 7)
+            leaves[(size_t)(2 * s + child) * 7 + lane] =
+                lane == 0 ? sum_c : __fdiv_rn(sum_c, fmaxf(cnt, 1e-9f));
+        }
+        __syncthreads();
+      }
+    }
+  }
+}
+
+template <int W, int S, int CS>
+cudaError_t launch_bisect_round(const float* in, float* out, const int* starts,
+                                int* starts_out, float* leaves, int n_c,
+                                cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_c * CS);
+  cfg.blockDim = dim3(W * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CS > 1 ? 1 : 0;
+  return leaves ? cudaLaunchKernelEx(&cfg, bisect_round_kernel<W, S, CS, true>,
+                                     in, out, starts, starts_out, leaves, n_c)
+                : cudaLaunchKernelEx(&cfg, bisect_round_kernel<W, S, CS, false>,
+                                     in, out, starts, starts_out, leaves, n_c);
 }
 
 // ---------------------------------------------------------------------------
@@ -1676,9 +2201,16 @@ int etc1s_cross6_argmin(const float* a, const float* c, const float* q,
                         int64_t* out, int n, int n_c, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (n_c <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kXWarps * kXRows - 1) / (kXWarps * kXRows));
-  cross6_kernel<true><<<grid, kXWarps * 32, 0, (cudaStream_t)stream>>>(
-      a, c, nullptr, q, nullptr, out, n, n_c);
+  const cudaError_t e = cross6_argmin_attrs();
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((n + kAWarps * kARows - 1) / (kAWarps * kARows));
+  const int smem = (a_q_offset(n_c) + min(n_c, kATile)) * 4;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int m64 = n_c % 64;
+  if (m64 >= 1 && m64 <= 32)
+    cross6_argmin_kernel<true><<<grid, kAWarps * 32, smem, s>>>(a, c, q, out, n, n_c);
+  else
+    cross6_argmin_kernel<false><<<grid, kAWarps * 32, smem, s>>>(a, c, q, out, n, n_c);
   return (int)cudaGetLastError();
 }
 
@@ -1687,16 +2219,43 @@ int etc1s_cross6_distances(const float* a, const float* c, const float* r,
                            void* stream) {
   if (n <= 0 || n_c <= 0) return (int)cudaSuccess;
   const dim3 grid((n + kXWarps * kXRows - 1) / (kXWarps * kXRows));
-  cross6_kernel<false><<<grid, kXWarps * 32, 0, (cudaStream_t)stream>>>(
-      a, c, r, q, out, nullptr, n, n_c);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int m64 = n_c % 64;
+  if (m64 >= 1 && m64 <= 32)
+    cross6_kernel<true><<<grid, kXWarps * 32, 0, s>>>(a, c, r, q, out, n, n_c);
+  else
+    cross6_kernel<false><<<grid, kXWarps * 32, 0, s>>>(a, c, r, q, out, n, n_c);
   return (int)cudaGetLastError();
 }
 
-int etc1s_bisect_axis(const float* cov, float* axis, int n_c, void* stream) {
-  if (n_c <= 0) return (int)cudaSuccess;
-  bisect_axis_kernel<<<(n_c + kAxisThreads - 1) / kAxisThreads, kAxisThreads,
-                       0, (cudaStream_t)stream>>>(cov, axis, n_c);
+// members: (n, kBisectM) float32 out (v, w, 0); starts: 2 int32 out (0, n).
+int etc1s_bisect_rows(const float* vecs, const float* w, float* members,
+                      int* starts, int n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)n * kBisectM;
+  const int threads = 256;
+  bisect_rows_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
+                       (cudaStream_t)stream>>>(vecs, w, members, starts, n);
   return (int)cudaGetLastError();
+}
+
+// One bisecting round over n_c clusters: in / out (n, kBisectM) member
+// rows, starts (n_c + 1) and starts_out (2 n_c + 1) int32 offsets, leaves
+// null or (2 n_c, 7) float32 (count, mean) of the children.
+int etc1s_bisect_round(const float* in, float* out, const int* starts,
+                       int* starts_out, float* leaves, int n_c, void* stream) {
+  if (n_c <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  // the few large clusters of the first rounds: a cluster of 8 CTAs each,
+  // which spreads the partition's traffic over 8 SMs
+  if (n_c <= 8)
+    return (int)launch_bisect_round<16, 6, 8>(in, out, starts, starts_out,
+                                              leaves, n_c, s);
+  if (n_c < 128)
+    return (int)launch_bisect_round<16, 6, 1>(in, out, starts, starts_out,
+                                              leaves, n_c, s);
+  return (int)launch_bisect_round<4, 3, 1>(in, out, starts, starts_out, leaves,
+                                           n_c, s);
 }
 
 // out: (rows, k) int64. scratch: for rows longer than kMinKSmemN,

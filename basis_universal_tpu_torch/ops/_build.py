@@ -120,7 +120,8 @@ def _declare(lib):
                                                       vp]
     lib.etc1s_cross6_argmin.argtypes = [vp, vp, vp, vp, ci, ci, vp]
     lib.etc1s_cross6_distances.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
-    lib.etc1s_bisect_axis.argtypes = [vp, vp, ci, vp]
+    lib.etc1s_bisect_rows.argtypes = [vp, vp, vp, vp, ci, vp]
+    lib.etc1s_bisect_round.argtypes = [vp, vp, vp, vp, vp, ci, vp]
     lib.etc1s_xla_cpu_min_k.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
     lib.etc1s_min_k_scratch_bytes.argtypes = [ci]
     lib.etc1s_min_k_scratch_bytes.restype = ctypes.c_longlong
@@ -128,7 +129,8 @@ def _declare(lib):
                lib.etc1s_palette_errs_packed,
                lib.etc1s_palette_errs, lib.etc1s_find_best_selector_patterns,
                lib.etc1s_cross6_argmin, lib.etc1s_cross6_distances,
-               lib.etc1s_bisect_axis, lib.etc1s_xla_cpu_min_k):
+               lib.etc1s_bisect_rows, lib.etc1s_bisect_round,
+               lib.etc1s_xla_cpu_min_k):
         fn.restype = ci
     return lib
 

@@ -7,8 +7,8 @@ and the packed rescore too), and `palette_errs`, which no path of either
 package calls; and the kernels for operators that are XLA's in the
 reference and whose CPU rounding decides the codebooks: the 6-D codebook
 distances (`cross6_argmin` for the k-means assignment, `cross6_distances`
-for the refine's shortlist) and the bisecting init's power iteration
-(`bisect_axis`), and the refine shortlist in the tie order of the
+for the refine's shortlist), the bisecting init's rounds (`bisect_rows`,
+`bisect_round`), and the refine shortlist in the tie order of the
 reference's `approx_min_k` on the CPU (`xla_cpu_min_k`, whose plain version
 is the same sort on the host, `csrc/host_sort.cpp`: no PyTorch operator
 orders ties that way). The scan has two variants: `factorized_scan`, the full
@@ -39,7 +39,8 @@ LAUNCHES = {
     "find_best_selector_patterns": 0,
     "cross6_argmin": 0,
     "cross6_distances": 0,
-    "bisect_axis": 0,
+    "bisect_rows": 0,
+    "bisect_round": 0,
     "xla_cpu_min_k": 0,
     # XLA-CPU's float32 orders (`ops/xla_order.py`)
     "xla_fma": 0,
@@ -422,14 +423,22 @@ def cross6_argmin(a, c, q):
     of XLA's CPU matrix product for C columns (`xla_order._cross6`), the
     reference's `kmeans` cross term (`basis_universal_tpu/ops/
     etc1s_encode.py:357`), which has no Pallas kernel; the kernel
-    (`cross6_kernel<true>`) spells every rounding out and keeps a running
-    argmin, so no (N, C) matrix reaches device memory. At the main path's
-    shape (24,576 x 2,416) it is bound by its 0.59 GFLOP.
+    (`cross6_argmin_kernel`) spells every rounding out, folds q - 2x into
+    one fused multiply-add (-2x is exact, so the bits are the same) and
+    keeps a running argmin of 16 rows per warp in registers, so no (N, C)
+    matrix reaches device memory. At the main path's shape (24,576 x
+    2,416) it is bound by its instructions, 9 per (row, centroid) pair.
     """
     dev = _cross6_inputs(a, c, q)
     if dev.type == "cpu":
         return cross6_argmin_reference(a, c, q)
     from ._build import get_lib
+
+    # the kernel stages the codebook in 16-byte pieces
+    if c.data_ptr() % 16:
+        c = c.clone()
+    if q.data_ptr() % 16:
+        q = q.clone()
 
     out = torch.empty(a.shape[0], dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
@@ -482,40 +491,152 @@ def cross6_distances_reference(a, c, r, q):
 
 
 # ---------------------------------------------------------------------------
-# bisect_axis
+# bisect_rows / bisect_round
 # ---------------------------------------------------------------------------
 
-def bisect_axis(cov):
-    """Each cluster's principal axis, (C, 6) float32, from its (6, 6)
-    covariance: four power iterations from (1, ..., 1), v <- cov v, then
-    v / (|v| + 1e-9), rounded as the reference's compiled bisecting init
-    rounds them (`bisect_axis_reference`).
+# a member row of the bisecting init: v, w, 0
+BISECT_M = 8
 
-    Replaces XLA's power iteration in the reference's `bisecting_init`
-    (`basis_universal_tpu/ops/etc1s_encode.py:411`), which has no Pallas
-    kernel. The kernel keeps a cluster's covariance and axis in registers
-    and runs the four iterations in one launch (24 operators of the plain
-    version per round of the init).
-    """
-    _check(cov, "cov", torch.float32, (None, 6, 6))
-    dev = _same_device(cov)
+
+def bisect_rows(vecs, weights):
+    """The first round of the bisecting init: the member rows (N, 8)
+    float32, row i holding v_i, w_i, 0 (the one cluster of all, in row
+    order), and its offsets (0, N), (2,) int32. The kernel
+    (`bisect_rows_kernel`) writes a float per thread."""
+    _check(vecs, "vecs", torch.float32, (None, 6))
+    _check(weights, "weights", torch.float32, (vecs.shape[0],))
+    if vecs.shape[0] < 1:
+        raise ValueError("bisect_rows: at least one vector")
+    dev = _same_device(vecs, weights)
     if dev.type == "cpu":
-        return bisect_axis_reference(cov)
+        return bisect_rows_reference(vecs, weights)
     from ._build import get_lib
 
-    out = torch.empty((cov.shape[0], 6), dtype=torch.float32, device=dev)
+    n = vecs.shape[0]
+    members = torch.empty((n, BISECT_M), dtype=torch.float32, device=dev)
+    starts = torch.empty(2, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        status = get_lib().etc1s_bisect_axis(cov.data_ptr(), out.data_ptr(),
-                                             cov.shape[0], _stream(dev))
-    LAUNCHES["bisect_axis"] += 1
-    _raise_on(status, "bisect_axis")
-    return out
+        status = get_lib().etc1s_bisect_rows(
+            vecs.data_ptr(), weights.data_ptr(), members.data_ptr(),
+            starts.data_ptr(), n, _stream(dev))
+    LAUNCHES["bisect_rows"] += 1
+    _raise_on(status, "bisect_rows")
+    return members, starts
 
 
-def bisect_axis_reference(cov):
-    """Plain PyTorch version of `bisect_axis`: the products of w = cov v as
-    a fused multiply-add chain (`xla_order._dot`), the squares rounded and
-    summed in index order (`_sum`), a correctly rounded square root."""
+def bisect_rows_reference(vecs, weights):
+    """Plain PyTorch version of `bisect_rows`."""
+    n, dev = vecs.shape[0], vecs.device
+    members = torch.cat([vecs, weights[:, None], torch.zeros(
+        (n, 1), dtype=torch.float32, device=dev)], 1)
+    return members, torch.tensor([0, n], dtype=torch.int32, device=dev)
+
+
+def bisect_round(members, starts, last: bool = False):
+    """One round of the bisecting init: every cluster split in two along
+    its principal axis. members (N, 8) float32 and starts (C + 1,) int32
+    are the member rows and cluster offsets of `bisect_rows` or of the
+    round before (cluster s holds members starts[s] .. starts[s + 1] - 1,
+    in ascending row order). Returns the next round's (members, starts),
+    2C clusters: cluster s's members with a projection <= 0 on its axis as
+    cluster 2s, the others as 2s + 1, each in the order they had; and with
+    `last` the children's (2C, 7) counts and means (count, then the 6
+    means), else None.
+
+    Replaces the reference's `round_body` (basis_universal_tpu/ops/
+    etc1s_encode.py:403-420; with `last` also its leaf sums, :425-427),
+    XLA code with no Pallas kernel, whose CPU rounding decides every split;
+    the plain version (`bisect_round_reference`) is the port's composition
+    of it, and the kernel (`bisect_round_kernel`) computes the same moment
+    columns, sums, power iterations and projections in the same order per
+    value, and the partition that the plain version's stable sort makes:
+    one launch where the composition runs ~25 operators, and no segment
+    reduction (each cluster's members are contiguous, so its first warp
+    sums each moment column in row order as one chain of adds, fed by
+    producer warps through shared memory)."""
+    _check(members, "members", torch.float32, (None, BISECT_M))
+    _check(starts, "starts", torch.int32, (None,))
+    n_c = starts.shape[0] - 1
+    if n_c < 1:
+        raise ValueError("bisect_round: starts holds at least one cluster")
+    dev = _same_device(members, starts)
+    if dev.type == "cpu":
+        return bisect_round_reference(members, starts, last)
+    from ._build import get_lib
+
+    # the kernel reads the member rows as 16-byte pieces
+    if members.data_ptr() % 16:
+        members = members.clone()
+    out = torch.empty_like(members)
+    starts_out = torch.empty(2 * n_c + 1, dtype=torch.int32, device=dev)
+    leaves = (torch.empty((2 * n_c, 7), dtype=torch.float32, device=dev)
+              if last else None)
+    with torch.cuda.device(dev):
+        status = get_lib().etc1s_bisect_round(
+            members.data_ptr(), out.data_ptr(), starts.data_ptr(),
+            starts_out.data_ptr(),
+            None if leaves is None else leaves.data_ptr(), n_c, _stream(dev))
+    LAUNCHES["bisect_round"] += 1
+    _raise_on(status, "bisect_round")
+    return out, starts_out, leaves
+
+
+def bisect_moments(members):
+    """The reference's 43 moment columns of each member row, (N, 43): w,
+    v w and the 36 (v_f v_g) w in row-major order (`bisecting_init`'s
+    `feats`, basis_universal_tpu/ops/etc1s_encode.py:394-395: the product
+    of two coordinates, then by the weight)."""
+    v, w = members[:, :6], members[:, 6:7]
+    outer = (v[:, :, None] * v[:, None, :]).reshape(-1, 36)
+    return torch.cat([w, v * w, outer * w], 1)
+
+
+def bisect_round_reference(members, starts, last: bool = False):
+    """Plain PyTorch version of `bisect_round`: the port's composition of
+    the reference's round, on the member rows: one segment sum of the 43
+    moment columns (`bisect_moments`; each cluster's members in ascending
+    row order, so every column sums in row order), the mean, the
+    covariance fma(-(cnt mean_f), mean_g, M2) (`xla_order._fma`), the power
+    iteration (`bisect_power_axis`), the threshold `_sum(mean * axis)` and
+    the projections `_dot(v, axis) - thr`; then a stable sort by child. The
+    leaves: a segment sum of w and v w, the means divided by max(count,
+    1e-9)."""
+    from .etc1s_encode import segment_sum
+    from .xla_order import _dot, _fma, _sum
+
+    dev, n, n_c = members.device, members.shape[0], starts.shape[0] - 1
+    ids = torch.repeat_interleave(
+        torch.arange(n_c, device=dev), (starts[1:] - starts[:-1]).long(),
+        output_size=n)
+    m = segment_sum(bisect_moments(members), ids, n_c)
+    cnt = m[:, 0]
+    mean = m[:, 1:7] / torch.clamp(cnt, min=1e-9)[:, None]
+    cov = _fma(-(cnt[:, None, None] * mean[:, :, None]), mean[:, None, :],
+               m[:, 7:].reshape(n_c, 6, 6))
+    axis = bisect_power_axis(cov)
+    thr = _sum(mean * axis, -1)
+    proj = _dot(members[:, :6], axis[ids]) - thr[ids]
+    child = ids * 2 + (proj > 0).to(torch.int64)
+    order = torch.sort(child, stable=True).indices
+    child = child[order]
+    starts_out = torch.searchsorted(child, torch.arange(
+        2 * n_c + 1, device=dev)).to(torch.int32)
+    out = members[order]
+    leaves = None
+    if last:
+        lm = segment_sum(bisect_moments(out)[:, :7], child, 2 * n_c)
+        leaves = torch.cat([lm[:, :1], lm[:, 1:] / torch.clamp(
+            lm[:, :1], min=1e-9)], 1)
+    return out, starts_out, leaves
+
+
+def bisect_power_axis(cov):
+    """Each cluster's principal axis, (C, 6), from its (C, 6, 6) covariance:
+    four power iterations from (1, ..., 1), v <- cov v, then v / (|v| +
+    1e-9), rounded as the reference's compiled bisecting init rounds them:
+    the products of w = cov v as a fused multiply-add chain
+    (`xla_order._dot`), the squares rounded and summed in index order
+    (`_sum`), a correctly rounded square root."""
     from .xla_order import _dot, _sqrt, _sum
 
     axis = torch.ones(cov.shape[:2], dtype=cov.dtype, device=cov.device)

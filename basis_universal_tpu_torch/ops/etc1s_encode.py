@@ -8,8 +8,8 @@ segment-summed to clusters and assembled with the clusters' moments
 before their shortlist; exact rescoring goes through `palette_errs_packed`
 on packed candidate descriptors, the selector search through
 `find_best_selector_patterns`, the k-means and refine distances through
-`cross6_argmin` / `cross6_distances`, the bisecting init's power
-iteration through `bisect_axis` and the refine's shortlist through
+`cross6_argmin` / `cross6_distances`, the bisecting init's rounds through
+`bisect_rows` / `bisect_round` and the refine's shortlist through
 `xla_cpu_min_k`. Those run as CUDA kernels on CUDA tensors
 and as their plain PyTorch versions on CPU tensors (`ops/cuda_etc1s.py`);
 everything else here is plain PyTorch on the device of its inputs.
@@ -394,39 +394,32 @@ def bisecting_init(vecs, weights, num_clusters: int, generator=None,
     draws, `jax.random.choice(PRNGKey(seed), vecs, (C,))` with `seed` the
     generator's (`threefry.choice_indices`, drawn on the host).
     """
-    n, f = vecs.shape
-    dev = vecs.device
-    rounds = max(1, int(np.ceil(np.log2(num_clusters))))
-    c_max = 1 << rounds
-    assign = torch.zeros(n, dtype=torch.int64, device=dev)
-    w = weights
-    outer = (vecs[:, :, None] * vecs[:, None, :]).reshape(n, f * f)
-    feats = torch.cat([w[:, None], vecs * w[:, None], outer * w[:, None]], -1)
-
-    for _ in range(rounds):
-        m = segment_sum(feats, assign, c_max)
-        cnt = m[:, 0]
-        mean = m[:, 1:1 + f] / torch.clamp(cnt, min=1e-9)[:, None]
-        m2 = m[:, 1 + f:].reshape(c_max, f, f)
-        cov = _fma(-(cnt[:, None, None] * mean[:, :, None]),
-                   mean[:, None, :], m2)
-        axis = cuda_etc1s.bisect_axis(cov)
-        thr = _sum(mean * axis, -1)
-        ga = torch.cat([axis, thr[:, None]], -1)[assign]        # (N,F+1)
-        proj = _dot(vecs, ga[:, :f]) - ga[:, f]
-        assign = assign * 2 + (proj > 0).to(torch.int64)
-
-    m = segment_sum(feats[:, :1 + f], assign, c_max)
-    cnt = m[:, 0]
-    mean = m[:, 1:] / torch.clamp(cnt, min=1e-9)[:, None]
+    n = vecs.shape[0]
+    leaves = bisect_leaves(vecs, weights, num_clusters)
+    cnt = leaves[:, 0]
     top = torch.argsort(-cnt, stable=True)[:num_clusters]
-    seeds = mean[top]
+    seeds = leaves[top, 1:]
     need = cnt[top] <= 0
     if fill is None:
         seed = 0 if generator is None else generator.initial_seed()
         idx = threefry.choice_indices(seed, n, num_clusters)
-        fill = vecs[torch.as_tensor(idx, device=dev)]
+        fill = vecs[torch.as_tensor(idx, device=vecs.device)]
     return torch.where(need[:, None], fill, seeds)
+
+
+def bisect_leaves(vecs, weights, num_clusters: int):
+    """The bisecting rounds of `bisecting_init`: (2^R, 7) count and mean of
+    every leaf after R = max(1, ceil(log2(C))) rounds (the reference's
+    `round_body` R times, then its leaf sums). The members of each cluster
+    stay contiguous and in row order (`cuda_etc1s.bisect_rows`), and each
+    round is one `cuda_etc1s.bisect_round`."""
+    rounds = max(1, int(np.ceil(np.log2(num_clusters))))
+    members, starts = cuda_etc1s.bisect_rows(vecs.contiguous(),
+                                             weights.contiguous())
+    for r in range(rounds):
+        members, starts, leaves = cuda_etc1s.bisect_round(
+            members, starts, last=r == rounds - 1)
+    return leaves
 
 
 def refine_endpoint_assignment(pixels, blk_vec6, cb_vec6, cb_color5, cb_inten,

@@ -21,7 +21,12 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    search at S 2,731 and at 16,128, the most selector clusters; the
    k-means argmin, the refine's distances and their shortlist in XLA-CPU's
    tie order (`xla_cpu_min_k`, held to `std::sort` on the host on every
-   row; its time split by its steps, `min_k_split`) at 24,576 x 2,416; the XLA-order
+   row; its time split by its steps, `min_k_split`) at 24,576 x 2,416; the
+   bisecting init on image 0's endpoint vectors (`bisect_rows` and each of
+   the 12 `bisect_round`s against the plain version on the same rows, the
+   rounds' time in all and by round beside the bound of their chain of
+   adds, and `bisecting_init` alone: 13 launches, no sort or segment
+   reduction in its rounds, `bisect_phase`); the XLA-order
    kernels at a UASTC line fit's shapes: `xla_fma`, `xla_reduce`
    and the fused `xla_principal_axis` and `xla_ls_step`) and time both
    with CUDA events, beside the least time the card could take (bound)
@@ -66,9 +71,13 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    other), each in a process of its own;
 14. with `--ab OTHER_TREE` only: build the kernels of another checkout of
    the repo (e.g. the parent commit unpacked under `_compare/`), check that
-   its scan, rescore, `xla_fma`, `xla_reduce` and refine shortlist give the
-   same bits as this tree's at the shapes of phase 3, and time both in
-   turns (other, this, this, other);
+   its scan, rescore, `xla_fma`, `xla_reduce`, k-means argmin, bisecting
+   init and refine shortlist give the same bits as this tree's at the
+   shapes of phase 3, and time both in turns (other, this, this, other);
+   then profile the ETC1S path of each on the images of phase 4 in the
+   same turns: device ms and kernels per image, and `segment_reduce`'s
+   device time by the function that called `segment_sum`
+   (`segment_split`);
 15. front doors, at 768x512: `api.Encoder(device="cuda")` (ETC1S q 50 =
    native 128, effort 1: its bytes equal `compressor.compress`'s; UASTC
    LDR 4x4 and ASTC LDR 4x4: the JAX-CPU reference's bytes) and
@@ -193,14 +202,15 @@ RGBA_SEED = 4
 # encode_blocks, the refine's cluster rescore and its reassignment, the
 # selector search in the two selector iterations and the final assignment,
 # the k-means assignment in its two iterations, the refine's distances and
-# their shortlist, and the bisecting init's power iterations
+# their shortlist, and the bisecting init's rows and rounds
 EXPECTED_PER_IMAGE = {"factorized_scan": 1, "factorized_scan_shortlist": 1,
                       "palette_errs_packed": 3,
                       "find_best_selector_patterns": 3,
                       "cross6_argmin": 2, "cross6_distances": 1,
                       "xla_cpu_min_k": 1,
-                      # one per round of the bisecting init: ceil(log2 2416)
-                      "bisect_axis": 12}
+                      # the bisecting init: its rows, then one launch per
+                      # round, ceil(log2 2416)
+                      "bisect_rows": 1, "bisect_round": 12}
 # UASTC: per image, one fused scan (radius 0) and one rescore (K 8) for the
 # ETC1 hint; the transcoder's ETC1 target one fused scan (radius 1) and one
 # rescore (K 16), its ASTC re-encode one UASTC search
@@ -222,7 +232,9 @@ REPLACES = {"factorized_scan": f"{PALLAS}:343",
             # no Pallas kernel: the reference's XLA matrix products
             "cross6_argmin": "basis_universal_tpu/ops/etc1s_encode.py:357",
             "cross6_distances": "basis_universal_tpu/ops/etc1s_encode.py:452",
-            "bisect_axis": "basis_universal_tpu/ops/etc1s_encode.py:411",
+            # the bisecting init's moment features and its rounds
+            "bisect_rows": "basis_universal_tpu/ops/etc1s_encode.py:394",
+            "bisect_round": "basis_universal_tpu/ops/etc1s_encode.py:403",
             # no Pallas kernel: XLA's ApproxTopK (a std::sort on the CPU)
             "xla_cpu_min_k": "basis_universal_tpu/ops/etc1s_encode.py:457",
             # no Pallas kernel: XLA's fused multiply-adds and ordered sums in
@@ -264,6 +276,7 @@ SEL_S = (2731, 16128)   # selector patterns: the main path's, and the most
 HBM_BYTES_S = 3.35e12
 BF16_TC_FLOP_S = 989e12
 INSTR_S = None
+SM_MHZ = None
 
 
 def _bound(n_bytes, ops, rate=None):
@@ -306,12 +319,13 @@ def _selector_bound(b_n, s):
                   2.0 * b_n * s * 64, BF16_TC_FLOP_S)
 
 
-def _cross6_ops(c, argmin=False):
+def _cross6_ops(c):
     """Instructions per (row, centroid) pair of the 6-D distances: 6
     products and fused multiply-adds, the two chains' add where C mod 64
-    is 1..32, the scale, the subtract and the add; the argmin's compare and
-    select."""
-    return 9 + (1 <= c % 64 <= 32) + (2 if argmin else 0)
+    is 1..32, and 3 more: the distances' scale, subtract and add, or the
+    argmin's fold of q - 2x into one fused multiply-add (-2x is exact), its
+    compare and its select."""
+    return 9 + (1 <= c % 64 <= 32)
 
 
 def _cross6_bound(n, c, matrix):
@@ -319,7 +333,7 @@ def _cross6_bound(n, c, matrix):
     (and r (N,)) in, the (N, C) float32 distances or the (N,) int64
     indices out."""
     n_bytes = n * 24 + c * 28 + (n * 4 + n * c * 4 if matrix else n * 8)
-    return _bound(n_bytes, float(n * c * _cross6_ops(c, not matrix)))
+    return _bound(n_bytes, float(n * c * _cross6_ops(c)))
 
 
 def _time_ms(fn, torch, reps=20, warmup=3):
@@ -386,9 +400,9 @@ def phase_env(torch):
         timeout=60)
     if clock.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {clock.stderr}")
-    global INSTR_S
+    global INSTR_S, SM_MHZ
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mhz = float(clock.stdout.strip().splitlines()[0])
+    mhz = SM_MHZ = float(clock.stdout.strip().splitlines()[0])
     INSTR_S = sms * 128 * mhz * 1e6
     print(f"issue rate: {sms} SMs x 128 lanes x {mhz:.0f} MHz = "
           f"{INSTR_S:.4g} instructions/s")
@@ -465,6 +479,112 @@ def min_k_split(torch, ck, d, k=16):
     return split
 
 
+def _bisect_chain_ms(lengths):
+    """The dependent chain of the bisecting rounds: each round waits at
+    least 4 cycles (a float32 add's latency) per member of its largest
+    cluster, the leaf sums per member of the largest leaf; ms at the SM's
+    top clock (`phase_env`)."""
+    return 4.0 * sum(lengths) / (SM_MHZ * 1e3)
+
+
+def bisect_phase(torch, ck, ops, vec6, measure):
+    """Phase 3's bisecting init: each round's kernel against its plain
+    version at the main path's shapes, the rounds' bound (bytes,
+    operations, and the chain of adds of each round's largest cluster),
+    their times, and `bisecting_init` alone: at most 13 launches, none of
+    them a sort or a segment reduction."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n, c = vec6.shape[0], 2416
+    rounds = int(np.ceil(np.log2(c)))
+    w = torch.ones(n, dtype=torch.float32, device=vec6.device)
+    first = ck.bisect_rows(vec6, w)
+    want = ck.bisect_rows_reference(vec6, w)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, p_) for g, p_ in zip(first, want)):
+        raise AssertionError("bisect_rows: differs from the plain version")
+    # bound: vecs and weights in, the member rows out
+    measure("bisect_rows", f"N{n}", lambda: ck.bisect_rows(vec6, w),
+            lambda: ck.bisect_rows_reference(vec6, w), 0.0,
+            _bound(n * (28 + 4 * ck.BISECT_M), 0.0))
+    members, starts = first
+    inputs, longest = [], []
+    for r in range(rounds):
+        last = r == rounds - 1
+        got = ck.bisect_round(members, starts, last=last)
+        plain = ck.bisect_round_reference(members, starts, last=last)
+        torch.cuda.synchronize()
+        for g, p_ in zip(got, plain):
+            if g is not None and not torch.equal(g, p_):
+                raise AssertionError(f"bisect_round {r}: "
+                                     f"{int((g != p_).sum())} values differ "
+                                     "from the plain version")
+        inputs.append((members, starts, last))
+        longest.append(int((starts[1:] - starts[:-1]).max()))
+        members, starts, leaves = got
+    longest.append(int((starts[1:] - starts[:-1]).max()))      # the leaves
+
+    def run_rounds(fn):
+        for members_, starts_, last_ in inputs:
+            fn(members_, starts_, last=last_)
+
+    # bound: per round each member row read and written once (32 B each
+    # way) and the offsets; per member its 28 moment columns (22 products
+    # a member, 2 for each of the 21 (v_f v_g) w less the 6 v_f w's one
+    # each: 48) and their 28 adds, the projection (6 products and fused
+    # multiply-adds, the subtract, the compare); per cluster the power
+    # iterations (~400 operations); the leaves' 7 columns and sums
+    n_bytes = sum(n * 4 * 2 * ck.BISECT_M + 12 * s_.shape[0]
+                  for _, s_, _ in inputs)
+    n_ops = sum(n * 84.0 + 400.0 * (s_.shape[0] - 1) for _, s_, _ in inputs)
+    bound = _bound(n_bytes, n_ops + 7.0 * n)
+    chain = _bisect_chain_ms(longest)
+    print(f"bisect_round: largest cluster by round {longest[:-1]}, largest "
+          f"leaf {longest[-1]}: the chain of adds bounds the rounds at "
+          f"{chain:.4f} ms (bytes / operations: {bound[0]:.4f} ms, "
+          f"{bound[1]})")
+    measure("bisect_round", f"{rounds} rounds, N{n} C{c}",
+            lambda: run_rounds(ck.bisect_round),
+            lambda: run_rounds(ck.bisect_round_reference), 0.0, bound,
+            chain_ms=chain)
+    by_round = [_device_ms(torch, lambda a=a_: ck.bisect_round(
+        a[0], a[1], last=a[2])) for a_ in inputs]
+    print("bisect_round device ms by round: "
+          + ", ".join(f"{t:.4f}" for t in by_round))
+
+    # bisecting_init alone, as the frontend calls it: its launches, its
+    # operators (no sort or segment reduction in the rounds) and its time
+    gen = torch.Generator(device=vec6.device)
+    init = lambda: ops.bisecting_init(vec6, w, c, generator=gen)  # noqa: E731
+    init()
+    ck.reset_launch_counts()
+    init()
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in ck.LAUNCHES.items() if v}
+    if launched != {"bisect_rows": 1, "bisect_round": rounds}:
+        raise AssertionError(f"bisecting_init launched {launched}")
+    leaves_only = lambda: ops.bisect_leaves(vec6, w, c)  # noqa: E731
+    leaves_only()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        leaves_only()
+        torch.cuda.synchronize()
+    cuda_type = torch.autograd.DeviceType.CUDA
+    avgs = prof.key_averages()
+    kernels = sum(e.count for e in avgs if e.device_type == cuda_type)
+    banned = [e.key for e in avgs if e.device_type != cuda_type and any(
+        b in e.key for b in ("sort", "segment_reduce"))]
+    if kernels > 1 + rounds or banned:
+        raise AssertionError(f"the bisecting rounds ran {kernels} device "
+                             f"kernels and {banned}")
+    print(f"bisecting_init: {sum(launched.values())} launches "
+          f"({launched}); the rounds alone {kernels} device kernels, no sort "
+          f"or segment reduction; call {_time_ms(init, torch):.4f} ms, "
+          f"device {_device_ms(torch, init):.4f} ms (rounds alone "
+          f"{_device_ms(torch, leaves_only):.4f} ms)")
+
+
 def phase_kernels(torch, blocks):
     """Each kernel against its plain version at the paths' shapes. Returns
     per kernel the max abs error, the times of its first shape (the ETC1S
@@ -479,7 +599,8 @@ def phase_kernels(torch, blocks):
     b_n = px.shape[0]
     results = {}
 
-    def measure(name, label, run, plain, err, bound, library=None):
+    def measure(name, label, run, plain, err, bound, library=None,
+                chain_ms=None):
         ms = _time_ms(run, torch)
         dms = _device_ms(torch, run)
         pms = _time_ms(plain, torch, reps=5)
@@ -489,11 +610,16 @@ def phase_kernels(torch, blocks):
         row = dict(shape=label, max_abs_err=err, ms=ms, device_ms=dms,
                    plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=lms, library_device_ms=ldms)
+        chain_txt = ""
+        if chain_ms is not None:
+            row["chain_bound_ms"] = chain_ms
+            chain_txt = f"; chain of adds {chain_ms:.4f} ms"
         lib_txt = "none" if lms is None else \
             f"{lms:.4f} ms (device {ldms:.4f} ms)"
         print(f"{name} {label}: B={b_n} max_abs_err={err:.4g} "
               f"kernel {ms:.4f} ms (device {dms:.4f} ms), plain {pms:.4f} ms"
-              f", library {lib_txt}, bound {bound_ms:.4f} ms ({bound_by})")
+              f", library {lib_txt}, bound {bound_ms:.4f} ms ({bound_by})"
+              f"{chain_txt}")
         res = results.setdefault(name, dict(row, by_shape=[]))
         res["max_abs_err"] = max(res["max_abs_err"], err)
         res["by_shape"].append(row)
@@ -729,26 +855,12 @@ def phase_kernels(torch, blocks):
             _bound(d6.numel() * 4 + b_n * 16 * 8, float(visits.sum())))
     del d6, d6_host, got, want
 
-    # -- bisect_axis at the main path's 4,096 bisecting clusters, from the
-    #    covariances of a random split of the 24,576 endpoint vectors (every
-    #    tenth cluster empty): the plain version's bits
-    ids = rng.integers(0, 4096, b_n)
-    ids = torch.as_tensor(ids + (ids % 10 == 0), device=dev)
-    outer = (vec6[:, :, None] * vec6[:, None, :]).reshape(b_n, 36)
-    mom = ops.segment_sum(torch.cat([torch.ones_like(vec6[:, :1]), vec6,
-                                     outer], 1), ids, 4096)
-    mean = mom[:, 1:7] / torch.clamp(mom[:, :1], min=1e-9)
-    cov = (mom[:, 7:].reshape(-1, 6, 6)
-           - mom[:, 0, None, None] * mean[:, :, None] * mean[:, None, :])
-    got = ck.bisect_axis(cov)
-    want = ck.bisect_axis_reference(cov)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"bisect_axis: {int((got != want).sum())} "
-                             "values differ from the plain version")
-    measure("bisect_axis", "C4096", lambda: ck.bisect_axis(cov),
-            lambda: ck.bisect_axis_reference(cov), 0.0,
-            _bound(4096 * (36 + 6) * 4, 4096 * 4 * 55.0))
+    # -- the bisecting init on image 0's endpoint vectors (the main path's
+    #    input: 24,576 rows, C 2,416, 12 rounds): `bisect_rows` and each
+    #    `bisect_round` against the plain version on the same rows, bit for
+    #    bit (rows, offsets, leaves); the rounds' time in all and by round;
+    #    `bisecting_init` alone (launches and the profiler's operators)
+    bisect_phase(torch, ck, ops, vec6, measure)
 
     # -- the XLA-order kernels at a UASTC line fit's shapes (24,576 blocks x
     #    16 pixels x 3 channels): a fused multiply-add with a broadcast and a
@@ -1421,20 +1533,93 @@ def _other_port(tree):
     spec.loader.exec_module(mod)
     return (importlib.import_module("_other_port.ops.cuda_etc1s"),
             importlib.import_module("_other_port.ops._build"),
-            importlib.import_module("_other_port.ops.xla_order"))
+            importlib.import_module("_other_port.ops.xla_order"),
+            importlib.import_module("_other_port.ops.etc1s_encode"))
 
 
-def phase_ab(torch, blocks, tree):
-    """`--ab TREE`: this tree's scan, rescore, generic XLA-order kernels
-    and refine shortlist against another checkout's at the shapes of phase
-    3: whether they give the same bits (the fused scan's shortlists, the
-    rescore's errors, the refine's columns), and their call times (CUDA
-    events) and device times (torch.profiler) in turns: other, this, this,
-    other."""
+# the callers of `segment_sum` on the ETC1S path, by the names of their
+# functions (the bisecting init's rounds and leaf sums apart)
+SEGMENT_SITES = {"bisecting_init rounds": "bisecting rounds",
+                 "bisecting_init leaves": "bisecting leaves",
+                 "kmeans": "k-means update",
+                 "_cluster_scan": "_cluster_scan",
+                 "optimize_cluster_endpoints": "refine cluster errors",
+                 "_frontend_impl": "refine cluster means",
+                 "update_selector_patterns": "update_selector_patterns"}
+
+
+def segment_split(torch, pkg, images):
+    """ETC1S `compress_batch` of images through the port package `pkg`
+    (this tree's, or `_other_port`) under torch.profiler, after a warm-up
+    run, with its `segment_sum` wrapped in a profiler range named by its
+    caller: the device ms per image of `segment_reduce` by call site
+    (`SEGMENT_SITES`), the device ms per image of every kernel, and the
+    device kernels per image."""
+    import importlib
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    ops = importlib.import_module(f"{pkg}.ops.etc1s_encode")
+    compressor = importlib.import_module(f"{pkg}.compressor")
+    params = compressor.CompressorParams(quality_level=QUALITY, effort=EFFORT,
+                                         device="cuda")
+    plain = ops.segment_sum
+
+    def labelled(data, ids, num):
+        site = sys._getframe(1).f_code.co_name
+        if site == "bisecting_init":
+            site += " leaves" if data.shape[-1] == 7 else " rounds"
+        with record_function(f"segment_sum@{site}"):
+            return plain(data, ids, num)
+
+    compressor.compress_batch(images, params)
+    torch.cuda.synchronize()
+    ops.segment_sum = labelled
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            compressor.compress_batch(images, params)
+            torch.cuda.synchronize()
+    finally:
+        ops.segment_sum = plain
+
+    def reduce_us(ev):
+        if "segment_reduce" in ev.name:
+            return ev.device_time_total
+        return sum(reduce_us(ch) for ch in ev.cpu_children)
+
+    split = dict.fromkeys(SEGMENT_SITES.values(), 0.0)
+    split["other"] = 0.0
+    for ev in prof.events():
+        if ev.name.startswith("segment_sum@"):
+            site = SEGMENT_SITES.get(ev.name.split("@", 1)[1], "other")
+            split[site] += reduce_us(ev) / 1e3 / len(images)
+    cuda_type = torch.autograd.DeviceType.CUDA
+    # the device rows, less the ranges' own spans on the device timeline
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda_type
+               and not e.key.startswith("segment_sum@")]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    reduce_all = sum(e.self_device_time_total for e in kernels
+                     if "segment_reduce" in e.key) / 1e3
+    return dict(split=split, segment_reduce_ms=reduce_all / len(images),
+                device_ms=device_ms / len(images),
+                kernels=sum(e.count for e in kernels) / len(images))
+
+
+def phase_ab(torch, blocks, tree, images):
+    """`--ab TREE`: this tree's scan, rescore, generic XLA-order kernels,
+    k-means argmin, bisecting init and refine shortlist against another
+    checkout's at the shapes of phase 3: whether they give the same bits
+    (the fused scan's shortlists, the rescore's errors, the argmin's
+    indices, the init's seeds, the refine's columns), and their call times
+    (CUDA events) and device times (torch.profiler) in turns: other, this,
+    this, other; then the ETC1S path of each (`segment_split`, the images
+    of phase 4) in the same turns."""
     from basis_universal_tpu_torch.ops import cuda_etc1s as ck
+    from basis_universal_tpu_torch.ops import etc1s_encode as ops
     from basis_universal_tpu_torch.ops import xla_order as xo
 
-    other, other_build, other_xo = _other_port(tree)
+    other, other_build, other_xo, other_ops = _other_port(tree)
     t0 = time.time()
     other_build.get_lib()
     print(f"ab: {tree}'s kernels built in {time.time() - t0:.1f} s")
@@ -1484,14 +1669,40 @@ def phase_ab(torch, blocks, tree):
         if n_diff:
             raise AssertionError(f"ab {name}: the two trees' bits differ")
     # the refine shortlist of the main path, `cross6_distances` then
-    # `xla_cpu_min_k`, of both trees at phase 3's shape
-    from basis_universal_tpu_torch.ops import etc1s_encode as ops
-
+    # `xla_cpu_min_k`, of both trees at phase 3's shape; the k-means
+    # argmin (bf16-rounded operands) and the bisecting init of image 0's
+    # endpoint vectors
     enc = ops.encode_blocks(px, radius=1)
     vec6 = torch.cat([enc["low"], enc["high"]], -1) * (1.0 / 255.0)
     cents = vec6[torch.as_tensor(rng.choice(b_n, 2416, replace=False),
                                  device=dev)].contiguous()
     rq = (xo._dot(vec6, vec6), xo._dot(cents, cents))
+    v_h = vec6.to(torch.bfloat16).float().contiguous()
+    c_h = cents.to(torch.bfloat16).float().contiguous()
+    q_h = xo._sum(cents * cents, -1)
+    ones = torch.ones(b_n, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    for label, fn in (
+            ("cross6_argmin N24576 C2416 bf16",
+             lambda m, m_ops: m.cross6_argmin(v_h, c_h, q_h)),
+            ("bisecting_init N24576 C2416",
+             lambda m, m_ops: m_ops.bisecting_init(vec6, ones, 2416,
+                                                   generator=gen))):
+        mine, theirs = fn(ck, ops), fn(other, other_ops)
+        torch.cuda.synchronize()
+        n_diff = int((mine != theirs).sum())
+        runs = [lambda m=m, o=o: fn(m, o)
+                for m, o in ((other, other_ops), (ck, ops), (ck, ops),
+                             (other, other_ops))]
+        t = [_time_ms(r, torch) for r in runs]
+        dt = [_device_ms(torch, r) for r in runs]
+        print(f"ab {label}: same bits {n_diff == 0} ({n_diff} of "
+              f"{mine.numel()} differ); call ms other {t[0]:.4f}, this "
+              f"{t[1]:.4f}, this {t[2]:.4f}, other {t[3]:.4f}; device ms "
+              f"other {dt[0]:.4f}, this {dt[1]:.4f}, this {dt[2]:.4f}, other "
+              f"{dt[3]:.4f}")
+        if n_diff:
+            raise AssertionError(f"ab {label}: the two trees differ")
 
     def refine(mod):
         return mod.xla_cpu_min_k(mod.cross6_distances(vec6, cents, *rq), 16)
@@ -1524,6 +1735,16 @@ def phase_ab(torch, blocks, tree):
               f"{t[0]:.4f}, this {t[1]:.4f}, this {t[2]:.4f}, other "
               f"{t[3]:.4f}; device ms other {dt[0]:.4f}, this {dt[1]:.4f}, "
               f"this {dt[2]:.4f}, other {dt[3]:.4f}")
+    for label, pkg in (("other", "_other_port"),
+                       ("this", "basis_universal_tpu_torch"),
+                       ("this", "basis_universal_tpu_torch"),
+                       ("other", "_other_port")):
+        got = segment_split(torch, pkg, images)
+        split = ", ".join(f"{k} {v:.4f}" for k, v in got["split"].items())
+        print(f"ab ETC1S {label}: device {got['device_ms']:.4f} ms/image, "
+              f"{got['kernels']:.1f} device kernels/image; segment_reduce "
+              f"{got['segment_reduce_ms']:.4f} ms/image, by call site: "
+              f"{split}")
 
 
 def phase_profile(torch, out_dir, n_images=16):
@@ -2072,7 +2293,7 @@ def main():
     tree = sys.argv[sys.argv.index("--ab") + 1] if "--ab" in sys.argv \
         else None
     if tree:
-        phase_ab(torch, blocks, tree)
+        phase_ab(torch, blocks, tree, images)
     if "--profile" in sys.argv:
         out_dir = sys.argv[sys.argv.index("--profile") + 1]
         if tree:

@@ -326,7 +326,8 @@ def test_compress_on_card_launches_each_kernel(cuda):
         "palette_errs_packed": 1 + 2 * refine, "palette_errs": 0,
         "find_best_selector_patterns": sel + 1,
         "cross6_argmin": knobs["kmeans_iters"], "cross6_distances": refine,
-        "bisect_axis": int(np.ceil(np.log2(knobs["num_e"]))),
+        "bisect_rows": 1,
+        "bisect_round": int(np.ceil(np.log2(knobs["num_e"]))),
         "xla_cpu_min_k": refine,
         "xla_principal_axis": 0, "xla_ls_step": 0}
     cpu = compressor.compress(img, compressor.CompressorParams(device="cpu"))
@@ -688,18 +689,99 @@ def test_xla_order_kernels_on_card(cuda):
     assert torch.equal(xo._sqrt(x.abs().to(cuda)).cpu(), xo._sqrt(x.abs()))
 
 
+def _bisect_inputs(kind, cuda):
+    """(vecs, weights, C) of a bisecting-init case: "texture", image 0's
+    endpoint vectors (the port's encode_blocks on the card); "uniform",
+    24,576 whole-numbered vectors / 255; "weighted", weights other than 1;
+    "duplicates", vectors drawn from 12, so splits leave clusters empty;
+    "n<c", fewer vectors than clusters."""
+    rng = np.random.default_rng(len(kind))
+    ones = np.ones
+    if kind == "texture":
+        from basis_universal_tpu_torch import compressor
+        from basis_universal_tpu_torch.ops import etc1s_encode as ops
+        from basis_universal_tpu_torch.testing.synthetic import \
+            synthetic_texture
+
+        img, _ = synthetic_texture(512, 768, seed=0)
+        blocks = compressor._prepare_slices(
+            [img], compressor.CompressorParams())[0]["blocks"]
+        enc = ops.encode_blocks(torch.as_tensor(
+            blocks, dtype=torch.float32, device=cuda), radius=1)
+        v = (torch.cat([enc["low"], enc["high"]], -1) * (1.0 / 255.0)).cpu()
+        return v, torch.ones(v.shape[0]), 2416
+    if kind == "uniform":
+        v = rng.integers(0, 256, (24576, 6)) / np.float32(255.0)
+        w, c = ones(24576), 2416
+    elif kind == "weighted":
+        v, w, c = rng.uniform(0, 1, (5000, 6)), rng.uniform(0.25, 4, 5000), 300
+    elif kind == "duplicates":
+        pool = rng.integers(0, 32, (12, 6)) / 31.0
+        v, w, c = pool[rng.integers(0, 12, 3000)], ones(3000), 1024
+    else:
+        v, w, c = rng.uniform(0, 1, (100, 6)), ones(100), 256
+    return (torch.as_tensor(v, dtype=torch.float32),
+            torch.as_tensor(w, dtype=torch.float32), c)
+
+
 @pytest.mark.cuda
-def test_bisect_axis_on_card(cuda):
-    """The bisecting init's four power iterations in one launch: the plain
-    version's bits, empty clusters (zero covariance) included."""
-    rng = np.random.default_rng(5)
-    a = rng.normal(0, 0.3, (4099, 6, 3)).astype(np.float32)
-    cov = torch.from_numpy(a @ a.transpose(0, 2, 1))
-    cov[::7] = 0.0
-    got = ck.bisect_axis(cov.to(cuda))
-    assert torch.equal(got.cpu(), ck.bisect_axis_reference(cov))
-    assert torch.equal(got, ck.bisect_axis_reference(cov.to(cuda)))
-    assert ck.LAUNCHES["bisect_axis"] == 1
+@pytest.mark.parametrize("kind", ["texture", "uniform", "weighted",
+                                  "duplicates", "n<c"])
+def test_bisect_round_on_card(cuda, kind):
+    """The bisecting init's rounds, one launch each, against their plain
+    version on the same rows, round by round: the same member rows in the
+    same order, the same offsets, the same leaf counts and means (bits),
+    on the card and on the CPU; a CTA of 16 warps per cluster in the
+    early rounds, of 4 in the late ones; empty clusters included."""
+    from basis_universal_tpu_torch.ops import etc1s_encode as ops
+
+    v, w, c = _bisect_inputs(kind, cuda)
+    rounds = max(1, int(np.ceil(np.log2(c))))
+    members, starts = ck.bisect_rows(v.to(cuda), w.to(cuda))
+    for got, want in zip((members, starts), ck.bisect_rows_reference(v, w)):
+        assert torch.equal(got.cpu(), want)
+    for r in range(rounds):
+        last = r == rounds - 1
+        got = ck.bisect_round(members, starts, last=last)
+        on_card = ck.bisect_round_reference(members, starts, last=last)
+        on_cpu = ck.bisect_round_reference(members.cpu(), starts.cpu(),
+                                           last=last)
+        for g, a, b in zip(got, on_card, on_cpu):
+            if g is not None:
+                assert torch.equal(g, a), f"round {r}"
+                assert torch.equal(g.cpu(), b), f"round {r}"
+        members, starts, leaves = got
+    assert ck.LAUNCHES["bisect_rows"] == 1
+    assert ck.LAUNCHES["bisect_round"] == rounds
+    if kind in ("texture", "duplicates", "n<c"):
+        assert int((leaves[:, 0] == 0).sum()) > 0
+    # the whole init on the card against the CPU
+    gen = torch.Generator().manual_seed(5)
+    want = ops.bisecting_init(v, w, c, generator=gen)
+    got = ops.bisecting_init(v.to(cuda), w.to(cuda), c, generator=gen)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, c", [(24576, 2416), (24575, 2400), (777, 64),
+                                  (4000, 1025)])
+def test_cross6_argmin_ties_on_card(cuda, n, c):
+    """The k-means argmin with ties everywhere (coordinates on a coarse
+    grid, every centroid present twice or more) in both summation orders
+    (C mod 64 of 48, 32, 0 and 1): every index the plain version's, the
+    first of the tied centroids."""
+    rng = np.random.default_rng(n + c)
+    a = torch.as_tensor(rng.integers(0, 5, (n, 6)) / 4.0, dtype=torch.float32)
+    cb = torch.as_tensor(rng.integers(0, 5, (c, 6)) / 4.0,
+                         dtype=torch.float32)
+    cb[c // 2:] = cb[:c - c // 2].clone()
+    q = (cb * cb).sum(-1)
+    got = ck.cross6_argmin(a.to(cuda), cb.to(cuda), q.to(cuda))
+    want = ck.cross6_argmin_reference(a, cb, q)
+    assert torch.equal(got.cpu(), want)
+    d = q[None, :] - 2.0 * (a @ cb.T)
+    assert int((d == d.min(1, keepdim=True).values).sum(1).max()) > 1
+    assert ck.LAUNCHES["cross6_argmin"] == 1
 
 
 def _same_bits_or_ulp(got, want):

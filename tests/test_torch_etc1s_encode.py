@@ -210,7 +210,7 @@ def test_bisecting_init(n, c):
     fill = np.asarray(jax.random.choice(key, jnp.asarray(vecs), (c,)))
     got = tops.bisecting_init(_t(vecs), _t(w), c,
                               fill=state.vectors(fill)).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(got, want)
     # the port's own draw: seeds that needed a fill are training vectors
     own = tops.bisecting_init(_t(vecs), _t(w), c,
                               generator=torch.Generator().manual_seed(1))
@@ -218,6 +218,108 @@ def test_bisecting_init(n, c):
     assert all(np.isclose(vecs, r, rtol=1e-4, atol=1e-6).all(-1).any()
                or np.isclose(want, r, rtol=1e-4, atol=1e-6).all(-1).any()
                for r in own.numpy())
+
+
+def _bisect_case(kind):
+    """(vecs, weights, C) of a bisecting-init case: "texture", image 0's
+    endpoint vectors (the reference's encode_blocks of
+    synthetic_texture(512, 768, seed=0): one 24,576-row cluster, C 2,416);
+    "weighted", weights other than 1; "duplicates", 600 vectors drawn from
+    12, so splits leave clusters empty; "n<c", fewer vectors than
+    clusters."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "texture":
+        from basis_universal_tpu_torch.testing.synthetic import \
+            synthetic_texture
+        from basis_universal_tpu_torch.ops.etc1 import image_to_blocks
+
+        img, _ = synthetic_texture(512, 768, seed=0)
+        px = image_to_blocks(img).reshape(-1, 16, 3).astype(np.float32)
+        enc = jops.encode_blocks(jnp.asarray(px), radius=1)
+        vecs = np.concatenate([np.asarray(enc["low"]),
+                               np.asarray(enc["high"])], -1) / 255.0
+        vecs = vecs.astype(np.float32)
+        return vecs, np.ones(len(vecs), np.float32), 2416
+    if kind == "weighted":
+        return (rng.uniform(0, 1, (500, 6)).astype(np.float32),
+                rng.uniform(0.25, 4.0, 500).astype(np.float32), 40)
+    if kind == "duplicates":
+        pool = rng.integers(0, 32, (12, 6)) / 31.0
+        return (pool[rng.integers(0, 12, 600)].astype(np.float32),
+                np.ones(600, np.float32), 128)
+    return rng.uniform(0, 1, (100, 6)).astype(np.float32), np.ones(
+        100, np.float32), 256
+
+
+@pytest.mark.parametrize("kind", ["texture", "weighted", "duplicates", "n<c"])
+def test_bisecting_init_cases(kind):
+    """The seeds of the JAX `bisecting_init`, bit for bit: the main path's
+    one 24,576-row cluster, weights other than 1, splits that leave
+    clusters empty and fewer vectors than clusters (random fill)."""
+    vecs, w, c = _bisect_case(kind)
+    key = jax.random.PRNGKey(3)
+    want = np.asarray(jops.bisecting_init(jnp.asarray(vecs), jnp.asarray(w),
+                                          c, key))
+    fill = np.asarray(jax.random.choice(key, jnp.asarray(vecs), (c,)))
+    got = tops.bisecting_init(_t(vecs), _t(w), c, fill=state.vectors(fill))
+    np.testing.assert_array_equal(got.numpy(), want)
+    leaves = tops.bisect_leaves(_t(vecs), _t(w), c)
+    if kind in ("duplicates", "n<c", "texture"):
+        assert int((leaves[:, 0] == 0).sum()) > 0       # empty clusters
+
+
+def _todays_round(vecs, w, assign, c_max):
+    """One round of the bisecting init as the port composed it before its
+    round kernel: segment sums by cluster id over the rows in row order."""
+    from basis_universal_tpu_torch.ops.xla_order import _dot, _fma, _sum
+
+    n, f = vecs.shape
+    outer = (vecs[:, :, None] * vecs[:, None, :]).reshape(n, f * f)
+    feats = torch.cat([w[:, None], vecs * w[:, None], outer * w[:, None]], -1)
+    m = tops.segment_sum(feats, assign, c_max)
+    cnt = m[:, 0]
+    mean = m[:, 1:1 + f] / torch.clamp(cnt, min=1e-9)[:, None]
+    m2 = m[:, 1 + f:].reshape(c_max, f, f)
+    cov = _fma(-(cnt[:, None, None] * mean[:, :, None]), mean[:, None, :], m2)
+    axis = ck.bisect_power_axis(cov)
+    thr = _sum(mean * axis, -1)
+    ga = torch.cat([axis, thr[:, None]], -1)[assign]
+    proj = _dot(vecs, ga[:, :f]) - ga[:, f]
+    return assign * 2 + (proj > 0).to(torch.int64), feats
+
+
+@pytest.mark.parametrize("kind", ["weighted", "duplicates", "n<c"])
+def test_bisect_round_plain_is_todays_composition(kind):
+    """Each round's plain version (`bisect_round_reference`, on member rows
+    kept in cluster and row order) against the composition by cluster ids:
+    the same members in each child, in row order, the same offsets, and
+    the same leaf counts and means, bit for bit; the moment columns equal
+    the composition's features."""
+    vecs, w, c = _bisect_case(kind)
+    tv, tw = _t(vecs), _t(w)
+    rounds = max(1, int(np.ceil(np.log2(c))))
+    c_max = 1 << rounds
+    assign = torch.zeros(len(vecs), dtype=torch.int64)
+    members, starts = ck.bisect_rows(tv, tw)
+    first = members
+    for r in range(rounds):
+        assign, feats = _todays_round(tv, tw, assign, c_max)
+        members, starts, leaves = ck.bisect_round(members, starts,
+                                                  last=r == rounds - 1)
+        order = torch.sort(assign, stable=True).indices
+        np.testing.assert_array_equal(members[:, :6].numpy(),
+                                      tv[order].numpy())
+        np.testing.assert_array_equal(members[:, 6].numpy(),
+                                      tw[order].numpy())
+        counts = torch.bincount(assign, minlength=2 << r)
+        np.testing.assert_array_equal((starts[1:] - starts[:-1]).numpy(),
+                                      counts[:2 << r].numpy())
+    np.testing.assert_array_equal(ck.bisect_moments(first).numpy(),
+                                  feats.numpy())
+    m = tops.segment_sum(feats[:, :7], assign, c_max)
+    want = torch.cat([m[:, :1], m[:, 1:] / torch.clamp(m[:, :1], min=1e-9)],
+                     1)
+    np.testing.assert_array_equal(leaves.numpy(), want.numpy())
 
 
 @pytest.mark.parametrize("perceptual", [False, True])

@@ -492,6 +492,38 @@ def test_cuda_source_constants_match_python():
     assert np.float32(defs["C31_255"]) == np.float32(31.0 / 255.0)
 
 
+def test_bisect_row_layout_matches_the_cuda_source():
+    """The member rows of the bisecting init: the CUDA source's row width
+    is the wrappers', and its index of each moment sum (v_f v_g) w takes the
+    21 pairs in order; the plain member rows hold v and w, and their moment
+    columns w, v w and the products, rounded as the reference rounds them
+    (the coordinates' product, then by the weight)."""
+    src = (pathlib.Path(ck.__file__).resolve().parent.parent / "csrc"
+           / "etc1s_kernels.cu").read_text()
+    assert f"constexpr int kBisectM = {ck.BISECT_M};" in src
+    # the kernel's index of the sum of (v_f v_g) w, f <= g: the 21 pairs in
+    # row-major order after w and the 6 v_f w
+    assert "7 + f * 6 - f * (f - 1) / 2 + (g - f);   // f <= g" in src
+    cols = [7 + f * 6 - f * (f - 1) // 2 + (g - f)
+            for f in range(6) for g in range(f, 6)]
+    assert cols == list(range(7, 28))
+    rng = np.random.default_rng(4)
+    v = rng.uniform(0, 1, (9, 6)).astype(np.float32)
+    w = rng.uniform(0.5, 2, 9).astype(np.float32)
+    members, starts = ck.bisect_rows(torch.from_numpy(v), torch.from_numpy(w))
+    assert starts.tolist() == [0, 9] and members.shape == (9, ck.BISECT_M)
+    np.testing.assert_array_equal(members[:, :6].numpy(), v)
+    np.testing.assert_array_equal(members[:, 6].numpy(), w)
+    assert not members[:, 7].any()
+    mom = ck.bisect_moments(members).numpy()
+    np.testing.assert_array_equal(mom[:, 0], w)
+    np.testing.assert_array_equal(mom[:, 1:7], v * w[:, None])
+    for f in range(6):
+        for g in range(6):
+            np.testing.assert_array_equal(mom[:, 7 + 6 * f + g],
+                                          (v[:, f] * v[:, g]) * w)
+
+
 def test_wrappers_reject_bad_inputs():
     px = torch.zeros((8, 16, 3))
     with pytest.raises(TypeError):
@@ -519,10 +551,20 @@ def test_wrappers_reject_bad_inputs():
                                        torch.zeros((5, 16), dtype=torch.int32),
                                        6)
     with pytest.raises(ValueError):
-        ck.bisect_axis(torch.zeros((8, 5, 6)))
+        ck.bisect_rows(torch.zeros((8, 5)), torch.ones(8))
     with pytest.raises(TypeError):
-        ck.bisect_axis(torch.zeros((8, 6, 6), dtype=torch.float64))
-
+        ck.bisect_rows(torch.zeros((8, 6), dtype=torch.float64), torch.ones(8))
+    with pytest.raises(ValueError):
+        ck.bisect_rows(torch.zeros((8, 6)), torch.ones(7))
+    one = torch.tensor([0, 8], dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ck.bisect_round(torch.zeros((8, 7)), one)
+    with pytest.raises(TypeError):
+        ck.bisect_round(torch.zeros((8, 8), dtype=torch.float64), one)
+    with pytest.raises(TypeError):
+        ck.bisect_round(torch.zeros((8, 8)), torch.tensor([0, 8]))
+    with pytest.raises(ValueError):
+        ck.bisect_round(torch.zeros((8, 8)), one[1:])
 
 def test_cpu_tensors_run_the_plain_version_without_launching():
     ck.reset_launch_counts()
@@ -542,10 +584,14 @@ def test_cpu_tensors_run_the_plain_version_without_launching():
     np.testing.assert_array_equal(
         ck.palette_errs(px, pal).numpy(),
         ck.palette_errs_reference(px, pal).numpy())
-    cov = torch.from_numpy(np.random.default_rng(3).normal(
-        0, 1, (40, 6, 6)).astype(np.float32))
-    np.testing.assert_array_equal(ck.bisect_axis(cov).numpy(),
-                                  ck.bisect_axis_reference(cov).numpy())
+    vecs = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 1, (40, 6)).astype(np.float32))
+    rows = ck.bisect_rows(vecs, torch.ones(40))
+    for got, want in zip(rows, ck.bisect_rows_reference(vecs, torch.ones(40))):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for got, want in zip(ck.bisect_round(*rows, last=True),
+                         ck.bisect_round_reference(*rows, last=True)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
     assert all(v == 0 for v in ck.LAUNCHES.values())
 
 
