@@ -32,10 +32,11 @@ Equivalences with the reference kept on purpose:
   unquantized endpoints, the least-squares solve), so the CPU gives the
   blocks of the reference as `compressor.compress` runs it, jitted (its
   eager, op-by-op run rounds otherwise);
-- each line fit's power iteration and each least-squares step is one
-  launch on the card (`principal_axis`, `ls_step`, kernels of
-  `csrc/xla_order_kernels.cu`), the same roundings as their plain
-  versions' chains;
+- each masked line fit (all subsets of a partition at once) and each
+  single-subset mode trial is one launch on the card (`line_fit`,
+  `_mode_trial`: the kernels `uastc_line_fit` and `uastc_mode_trial` of
+  `csrc/xla_order_kernels.cu`, a lane per pixel), the same roundings as
+  their plain versions' chains;
 - the ETC1 transcode hint is the port's ETC1S `encode_blocks` at radius 0
   (the hand-written `factorized_scan` and `palette_errs_packed` kernels);
 - the search runs inside `exact_matmuls()` (no TF32).
@@ -59,39 +60,72 @@ _INV64 = 1.0 / 64.0
 
 
 # ---------------------------------------------------------------------------
-# the line fits' chains, one launch each on the card
+# the line fits, one launch each on the card
 # ---------------------------------------------------------------------------
 
-def principal_axis(c, iters: int):
-    """Power iteration on the covariance of the centred pixels c (B, 16, C),
-    C 1..4: the (B, C) unit axis and the (B, 16) projections of c on it,
-    rounded as the reference's compiled line fits round them
-    (`principal_axis_reference`). A CUDA tensor launches `xla_principal_axis`
-    (`csrc/xla_order_kernels.cu`), one thread per block with its covariance
-    and axis in registers: one launch for the ~25 of the plain version."""
-    if not c.is_cuda:
-        return principal_axis_reference(c, iters)
-    b_n, p_n, n_ch = c.shape
-    if p_n != 16 or not 1 <= n_ch <= 4 or c.dtype != torch.float32:
-        raise ValueError(f"principal_axis: (B, 16, 1..4) float32, got "
-                         f"{tuple(c.shape)} {c.dtype}")
-    c = c.contiguous()
-    axis = torch.empty((b_n, n_ch), dtype=torch.float32, device=c.device)
-    proj = torch.empty((b_n, 16), dtype=torch.float32, device=c.device)
-    status = xla_order.launch("principal_axis", c.device.index, c.data_ptr(),
-                              axis.data_ptr(), proj.data_ptr(), b_n, n_ch,
-                              iters)
-    LAUNCHES["xla_principal_axis"] += 1
-    _raise_on(status, "xla_principal_axis")
-    return axis, proj
+def line_fit(v, label, n_sub: int, levels, ls_iters: int):
+    """The endpoints (lo, hi), (B, S, C) each, of `_fit_line_masked` on each
+    subset s < n_sub (1..3) of the pixels v (B, 16, C), C 1..4, any strides:
+    the pixels whose label (B, 16) int64 is s (None: every pixel is 0), the
+    weight levels `levels` (L,), L <= 32, and ls_iters least-squares steps.
+    A CUDA tensor launches `uastc_line_fit` (`csrc/xla_order_kernels.cu`), one
+    launch for all subsets, a lane per pixel: one launch for the ~50
+    operators of each subset's plain version (`line_fit_reference`)."""
+    if not v.is_cuda:
+        return line_fit_reference(v, label, n_sub, levels, ls_iters)
+    b_n, p_n, n_ch = v.shape
+    if p_n != 16 or not 1 <= n_ch <= 4 or v.dtype != torch.float32 \
+            or not 1 <= n_sub <= 3:
+        raise ValueError(f"line_fit: v (B, 16, 1..4) float32 and 1..3 "
+                         f"subsets, got {tuple(v.shape)} {v.dtype}, {n_sub}")
+    _check_levels(levels, v.device)
+    if label is not None and (label.dtype != torch.int64
+                              or tuple(label.shape) != (b_n, 16)
+                              or label.device != v.device
+                              or not label.is_contiguous()):
+        raise ValueError(f"line_fit: label (B, 16) int64 contiguous on "
+                         f"{v.device}, got {tuple(label.shape)} {label.dtype}")
+    lo = torch.empty((b_n, n_sub, n_ch), dtype=torch.float32, device=v.device)
+    hi = torch.empty_like(lo)
+    status = xla_order.launch(
+        "line_fit", v.device.index, v.data_ptr(), *v.stride(),
+        None if label is None else label.data_ptr(), n_sub,
+        levels.data_ptr(), levels.numel(), ls_iters, lo.data_ptr(),
+        hi.data_ptr(), b_n, n_ch)
+    LAUNCHES["uastc_line_fit"] += 1
+    _raise_on(status, "uastc_line_fit")
+    return lo, hi
+
+
+def line_fit_reference(v, label, n_sub: int, levels, ls_iters: int):
+    """Plain version of `line_fit`, on any device: `_fit_line_masked` of
+    each subset (its mask label == s), the endpoints stacked."""
+    if label is None:
+        label = torch.zeros(v.shape[:2], dtype=torch.int64, device=v.device)
+    fits = [_fit_line_masked(v, (label == s).float(), levels, ls_iters)
+            for s in range(n_sub)]
+    return (torch.stack([f[0] for f in fits], 1),
+            torch.stack([f[1] for f in fits], 1))
+
+
+def _check_levels(levels, dev):
+    if levels.dtype != torch.float32 or levels.dim() != 1 \
+            or not 1 <= levels.numel() <= 32 or levels.device != dev \
+            or not levels.is_contiguous():
+        raise ValueError(f"weight levels: (1..32,) float32 contiguous on "
+                         f"{dev}, got {tuple(levels.shape)} {levels.dtype} "
+                         f"on {levels.device}")
 
 
 def principal_axis_reference(c, iters: int):
-    """Plain version of `principal_axis`, on any device: the covariance as
-    fused multiply-add chains over the pixels (`_dot`), then `iters` times
-    axis = cov axis (`_dot`) divided by its norm (the squares rounded and
-    added in index order, `_sum`; a correctly rounded square root, `_sqrt`)
-    plus 1e-6, from the all-ones axis; the projections as `_dot` chains."""
+    """The power iteration of the line fits, on any device: the covariance
+    of the centred pixels c (B, 16, C) as fused multiply-add chains over
+    the pixels (`_dot`), then `iters` times axis = cov axis (`_dot`)
+    divided by its norm (the squares rounded and added in index order,
+    `_sum`; a correctly rounded square root, `_sqrt`) plus 1e-6, from the
+    all-ones axis; the (B, C) axis and the (B, 16) projections of c on it
+    as `_dot` chains, rounded as the reference's compiled line fits round
+    them."""
     cov = _dot(c[:, :, :, None], c[:, :, None, :], 1)           # (B,C,C)
     axis = torch.ones((c.shape[0], c.shape[2]), dtype=torch.float32,
                       device=c.device)
@@ -101,50 +135,16 @@ def principal_axis_reference(c, iters: int):
     return axis, _dot(c, axis[:, None, :])
 
 
-def ls_step(wl, mask, v, lo, hi):
-    """One least-squares step of the UASTC line fits: the endpoints (lo_n,
-    hi_n), (B, C) each, clamped to 0..255, that fit v (B, 16, C) best under
-    the weights wl (B, 16), whole numbers 0..64 (the weight levels), with
-    each pixel's share `mask` (B, 16) of 0 / 1 or None (all), and lo / hi
-    where the 2x2 system is singular; rounded as the reference's compiled
-    fits round them (`ls_step_reference`). A CUDA tensor launches
-    `xla_ls_step` (`csrc/xla_order_kernels.cu`), one thread per block: one
-    launch for the ~12 of the plain version."""
-    if not v.is_cuda:
-        return ls_step_reference(wl, mask, v, lo, hi)
-    b_n, p_n, n_ch = v.shape
-    if p_n != 16 or not 1 <= n_ch <= 4 or v.dtype != torch.float32:
-        raise ValueError(f"ls_step: v (B, 16, 1..4) float32, got "
-                         f"{tuple(v.shape)} {v.dtype}")
-    wl = wl.to(torch.float32).contiguous()
-    lo, hi = lo.contiguous(), hi.contiguous()
-    if mask is not None:
-        mask = mask.to(torch.float32).contiguous()
-    for t, shape in ((wl, (b_n, 16)), (lo, (b_n, n_ch)), (hi, (b_n, n_ch)),
-                     (mask, (b_n, 16))):
-        if t is not None and (tuple(t.shape) != shape
-                              or t.device != v.device):
-            raise ValueError(f"ls_step: {tuple(t.shape)} on {t.device}, "
-                             f"expected {shape} on {v.device}")
-    lo_n = torch.empty((b_n, n_ch), dtype=torch.float32, device=v.device)
-    hi_n = torch.empty_like(lo_n)
-    sb, sp, sc = v.stride()
-    status = xla_order.launch(
-        "ls_step", v.device.index, wl.data_ptr(),
-        None if mask is None else mask.data_ptr(), v.data_ptr(), sb, sp, sc,
-        lo.data_ptr(), hi.data_ptr(), lo_n.data_ptr(), hi_n.data_ptr(), b_n,
-        n_ch)
-    LAUNCHES["xla_ls_step"] += 1
-    _raise_on(status, "xla_ls_step")
-    return lo_n, hi_n
-
-
 def ls_step_reference(wl, mask, v, lo, hi):
-    """Plain version of `ls_step`, on any device: the weights a = (64 - wl)
-    / 64 and b = wl / 64 (times the mask), their moments A, B, C (sums of
-    multiples of 1/4096: exact in any order), P = sum a v and Q = sum b v
-    as `_dot` chains over the pixels, then the solve as XLA's CPU code
-    rounds it, each difference of products a fused multiply-add."""
+    """One least-squares step of the line fits, on any device: the
+    endpoints (lo_n, hi_n), (B, C) each, clamped to 0..255, that fit v (B,
+    16, C) best under the weights wl (B, 16), whole numbers 0..64 (the
+    weight levels), with each pixel's share `mask` (B, 16) of 0 / 1 or None
+    (all), and lo / hi where the 2x2 system is singular: the weights a =
+    (64 - wl) / 64 and b = wl / 64 (times the mask), their moments A, B, C
+    (sums of multiples of 1/4096: exact in any order), P = sum a v and Q =
+    sum b v as `_dot` chains over the pixels, then the solve as XLA's CPU
+    code rounds it, each difference of products a fused multiply-add."""
     a_k = (64.0 - wl) * _INV64
     b_k = wl * _INV64
     if mask is not None:
@@ -244,10 +244,37 @@ def _la(px):
 def _mode_trial(px, wb: int, ep_range: int, comps: int, ls_iters: int):
     """Evaluate one single-subset single-plane mode for all blocks.
 
-    px: (B,16,4) f32. Returns (err (B,), ep_codes (B, comps*2) int32,
-    weights (B,16) int32). comps 3 -> RGB (alpha forced 255), 4 -> RGBA,
-    2 -> LA.
+    px: (B,16,4) f32, whole numbers 0..255. Returns (err (B,), ep_codes (B,
+    comps*2) int32, weights (B,16) int32). comps 3 -> RGB (alpha forced
+    255), 4 -> RGBA, 2 -> LA. A CUDA tensor launches `uastc_mode_trial`
+    (`csrc/xla_order_kernels.cu`), the whole trial in one launch, a lane per
+    pixel; a CPU tensor runs `mode_trial_reference`.
     """
+    if not px.is_cuda:
+        return mode_trial_reference(px, wb, ep_range, comps, ls_iters)
+    b_n = px.shape[0]
+    if tuple(px.shape[1:]) != (16, 4) or px.dtype != torch.float32 \
+            or comps not in (2, 3, 4):
+        raise ValueError(f"_mode_trial: px (B, 16, 4) float32 and comps "
+                         f"2..4, got {tuple(px.shape)} {px.dtype}, {comps}")
+    inv, unq, wlev = _mode_consts(wb, ep_range, str(px.device))
+    _check_levels(wlev, px.device)
+    err = torch.empty(b_n, dtype=torch.float32, device=px.device)
+    ep = torch.empty((b_n, 2 * comps), dtype=torch.int32, device=px.device)
+    w = torch.empty((b_n, 16), dtype=torch.int32, device=px.device)
+    status = xla_order.launch(
+        "mode_trial", px.device.index, px.data_ptr(), *px.stride(),
+        inv.data_ptr(), unq.data_ptr(), unq.numel(), wlev.data_ptr(),
+        wlev.numel(), comps, ls_iters, err.data_ptr(), ep.data_ptr(),
+        w.data_ptr(), b_n)
+    LAUNCHES["uastc_mode_trial"] += 1
+    _raise_on(status, "uastc_mode_trial")
+    return err, ep, w
+
+
+def mode_trial_reference(px, wb: int, ep_range: int, comps: int,
+                         ls_iters: int):
+    """Plain version of `_mode_trial`, on any device."""
     b = px.shape[0]
     inv, unq, wlev = _mode_consts(wb, ep_range, str(px.device))
     v = _la(px) if comps == 2 else px[..., :comps]
@@ -255,7 +282,7 @@ def _mode_trial(px, wb: int, ep_range: int, comps: int, ls_iters: int):
     # principal axis by power iteration on the covariance
     mean = _sum(v, 1)[:, None] / 16.0
     c = v - mean
-    axis, proj = principal_axis(c, 6)                          # (B,C), (B,16)
+    axis, proj = principal_axis_reference(c, 6)                # (B,C), (B,16)
     lo_f = _fma(axis, proj.amin(1, keepdim=True), mean[:, 0])
     hi_f = _fma(axis, proj.amax(1, keepdim=True), mean[:, 0])
 
@@ -277,7 +304,7 @@ def _mode_trial(px, wb: int, ep_range: int, comps: int, ls_iters: int):
     for _ in range(ls_iters):
         # least-squares endpoints given the weights
         lo_c2, hi_c2, lo_u2, hi_u2 = quant_pair(
-            *ls_step(wlev[w], None, v, lo_f, hi_f))
+            *ls_step_reference(wlev[w], None, v, lo_f, hi_f))
         w2, err2 = best_weights(lo_u2, hi_u2)
         better = err2 < err
         bc = better[:, None]
@@ -308,7 +335,8 @@ def _mode_trial(px, wb: int, ep_range: int, comps: int, ls_iters: int):
 
 
 def _fit_line_masked(v, mask, levels, ls_iters: int):
-    """Line fit + weight quantization over a masked pixel subset.
+    """Line fit + weight quantization over a masked pixel subset (the body
+    of `line_fit_reference`).
 
     v: (B,16,C); mask: (B,16) float 0/1; levels: (L,) factors.
     Returns (lo (B,C), hi (B,C), w (B,16) level idx, err (B,) masked SSE).
@@ -316,7 +344,7 @@ def _fit_line_masked(v, mask, levels, ls_iters: int):
     cnt = torch.clamp(mask.sum(1, keepdim=True), min=1.0)
     mean = _sum(v * mask[..., None], 1)[:, None] / cnt[..., None]
     c = (v - mean) * mask[..., None]
-    d, proj = principal_axis(c, 4)
+    d, proj = principal_axis_reference(c, 4)
     inside = mask > 0
     pmin = torch.where(inside, proj, 1e9).amin(1, keepdim=True)
     pmax = torch.where(inside, proj, -1e9).amax(1, keepdim=True)
@@ -331,7 +359,7 @@ def _fit_line_masked(v, mask, levels, ls_iters: int):
 
     w, err = weights_for(lo, hi)
     for _ in range(ls_iters):
-        lo2, hi2 = ls_step(levels[w], mask, v, lo, hi)
+        lo2, hi2 = ls_step_reference(levels[w], mask, v, lo, hi)
         w2, err2 = weights_for(lo2, hi2)
         better = err2 < err
         lo = torch.where(better[:, None], lo2, lo)
@@ -388,11 +416,11 @@ def _mode_trial_2subset(px, wb: int, ep_range: int, comps: int,
     best_p = torch.zeros(b, dtype=torch.int64, device=dev)
     for k in range(topk):
         pidx = cand[:, k]
-        pat = pats[pidx].float()                                 # (B,16)
-        lo0, hi0, _, _ = _fit_line_masked(v, 1.0 - pat, wlev, ls_iters)
-        lo1, hi1, _, _ = _fit_line_masked(v, pat, wlev, ls_iters)
-        eps = torch.stack([_quant(inv, lo0), _quant(inv, hi0),
-                           _quant(inv, lo1), _quant(inv, hi1)], 1)  # (B,4,C)
+        pat = pats[pidx]                                         # (B,16)
+        lo, hi = line_fit(v, pat, 2, wlev, ls_iters)             # (B,2,C)
+        q_lo, q_hi = _quant(inv, lo), _quant(inv, hi)
+        eps = torch.stack([q_lo[:, 0], q_hi[:, 0], q_lo[:, 1], q_hi[:, 1]],
+                          1)                                     # (B,4,C)
         # exact error + re-chosen weights through the QUANTIZED endpoints
         in1 = pat[..., None] == 1
         lo_px = torch.where(in1, unq[eps[:, 2]][:, None, :],
@@ -468,11 +496,9 @@ def _mode_trial_3subset(px, ls_iters: int):
     for k in range(topk):
         pidx = cand[:, k]
         pat = pats[pidx]                                         # (B,16)
-        eps_s = []
-        for s in range(3):
-            lo, hi, _, _ = _fit_line_masked(v, (pat == s).float(), wlev,
-                                            ls_iters)
-            eps_s.append((_quant(inv, lo), _quant(inv, hi)))
+        lo, hi = line_fit(v, pat, 3, wlev, ls_iters)             # (B,3,C)
+        q_lo, q_hi = _quant(inv, lo), _quant(inv, hi)
+        eps_s = [(q_lo[:, s], q_hi[:, s]) for s in range(3)]
         lo_px = torch.zeros((b, 16, comps), dtype=torch.float32, device=dev)
         hi_px = torch.zeros((b, 16, comps), dtype=torch.float32, device=dev)
         for s in range(3):
@@ -504,7 +530,6 @@ def _dualplane_trials(px, wb: int, ep_range: int, ls_iters: int, n_ch: int):
     b = px.shape[0]
     dev = px.device
     inv, unq, wlev = _mode_consts(wb, ep_range, str(dev))
-    ones = torch.ones((b, 16), dtype=torch.float32, device=dev)
 
     best_err = torch.full((b,), float("inf"), device=dev)
     best_eps = torch.zeros((b, n_ch * 2), dtype=torch.int64, device=dev)
@@ -512,15 +537,14 @@ def _dualplane_trials(px, wb: int, ep_range: int, ls_iters: int, n_ch: int):
     best_ccs = torch.zeros(b, dtype=torch.int64, device=dev)
     for ccs in range(n_ch):
         others = [c for c in range(n_ch) if c != ccs]
-        lo0, hi0, _, _ = _fit_line_masked(px[..., others], ones, wlev, ls_iters)
-        lo1, hi1, _, _ = _fit_line_masked(px[..., ccs:ccs + 1], ones, wlev,
-                                          ls_iters)
+        lo0, hi0 = line_fit(px[..., others], None, 1, wlev, ls_iters)
+        lo1, hi1 = line_fit(px[..., ccs:ccs + 1], None, 1, wlev, ls_iters)
         lo = torch.zeros((b, n_ch), dtype=torch.float32, device=dev)
         hi = torch.zeros((b, n_ch), dtype=torch.float32, device=dev)
-        lo[:, others] = lo0
-        hi[:, others] = hi0
-        lo[:, ccs] = lo1[:, 0]
-        hi[:, ccs] = hi1[:, 0]
+        lo[:, others] = lo0[:, 0]
+        hi[:, others] = hi0[:, 0]
+        lo[:, ccs] = lo1[:, 0, 0]
+        hi[:, ccs] = hi1[:, 0, 0]
         codes_lo, codes_hi = _quant(inv, lo), _quant(inv, hi)
         eps = torch.stack([codes_lo, codes_hi], -1).reshape(b, n_ch * 2)
         # exact error + weights through the QUANTIZED endpoints
@@ -563,14 +587,13 @@ def _mode_trial_dualplane_la(px, wb: int, ep_range: int, ls_iters: int):
     b = px.shape[0]
     dev = px.device
     inv, unq, wlev = _mode_consts(wb, ep_range, str(dev))
-    ones = torch.ones((b, 16), dtype=torch.float32, device=dev)
 
     luma = _mean3(px[..., :3])[..., None]                        # (B,16,1)
     alpha = px[..., 3:]
-    lo_l, hi_l, _, _ = _fit_line_masked(luma, ones, wlev, ls_iters)
-    lo_a, hi_a, _, _ = _fit_line_masked(alpha, ones, wlev, ls_iters)
-    cl, ch_ = _quant(inv, lo_l[:, 0]), _quant(inv, hi_l[:, 0])
-    al, ah = _quant(inv, lo_a[:, 0]), _quant(inv, hi_a[:, 0])
+    lo_l, hi_l = line_fit(luma, None, 1, wlev, ls_iters)
+    lo_a, hi_a = line_fit(alpha, None, 1, wlev, ls_iters)
+    cl, ch_ = _quant(inv, lo_l[:, 0, 0]), _quant(inv, hi_l[:, 0, 0])
+    al, ah = _quant(inv, lo_a[:, 0, 0]), _quant(inv, hi_a[:, 0, 0])
     rec_l = _rec16(unq[cl][:, None, None] * (64.0 - wlev)[None, None, :]
                    + unq[ch_][:, None, None] * wlev[None, None, :])  # (B,1,L)
     e_l = ((px[..., :3][:, :, None, :] - rec_l[..., None]) ** 2).sum(-1)

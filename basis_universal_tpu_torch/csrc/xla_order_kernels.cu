@@ -17,15 +17,14 @@
 //   added pairwise at the end; a chain below four terms) and `_dot_vec16`
 //   (16 terms: eight rounded products added in turn, then eight fused
 //   multiply-adds);
-// - xla_principal_axis<C>: the whole power iteration of a UASTC line fit
-//   (`xla_order.principal_axis_reference`) for one block per thread: the
-//   C x C covariance chain, `iters` rounds of (the product chain, the
-//   rounded sum of squares, the correctly rounded square root, + 1e-6, the
-//   divide) and the projection chain, in registers;
-// - xla_ls_step<C, mask>: one least-squares step of the line fits
-//   (`xla_order.ls_step_reference`): the weights' moments, the P and Q
-//   chains, the 2x2 solve with its three fused multiply-adds, the divides,
-//   the selects and the clamp, one block per thread.
+// - uastc_line_fit<C>: a whole masked line fit of the UASTC search
+//   (`codecs/uastc/encode.py`, `line_fit_reference`) for every subset of a
+//   partition: the masked mean, the power iteration, the endpoints on the
+//   axis, the search over the weight levels and the least-squares steps,
+//   one launch for the ~50 operators of each subset's plain version;
+// - uastc_mode_trial<C>: a whole single-subset single-plane mode trial
+//   (`mode_trial_reference`): the same fit with the endpoints quantised
+//   through the mode's tables, and the full-pixel error.
 //
 // Every rounding is spelled out (__fmaf_rn, __fmul_rn, __fadd_rn,
 // __fdiv_rn, __fsqrt_rn), so the card gives XLA's bits, the fused kernels
@@ -43,9 +42,12 @@
 // 2^31 elements), a float4 path for rows whose operands are contiguous or
 // broadcast along the row, and in xla_reduce a block that stages the union
 // of its outputs' K-long slices in shared memory with coalesced loads before
-// each thread runs its chain from there. The fused kernels stage a tile of
-// blocks in shared memory (padded rows: no bank conflicts) and replace the
-// ~25 launches of a principal axis and the ~10 of a least-squares step.
+// each thread runs its chain from there. The line-fit kernels run a lane per
+// pixel (below), so at the search's 24,576 blocks they hold 393k threads;
+// a warp issues the ordered chains and the power iteration once for its two
+// blocks, and that serial part, not the per-pixel search, sets their time
+// (fitting a partition's subsets side by side, each pixel searching once,
+// measured slower at every register budget tried).
 //
 // Every launcher takes raw device pointers, the shape and strides by value,
 // and a cudaStream_t; it launches asynchronously and returns
@@ -318,148 +320,480 @@ xla_reduce_kernel64(const float* __restrict__ a, const float* __restrict__ b,
 }
 
 // ---------------------------------------------------------------------------
-// xla_principal_axis
+// uastc_line_fit, uastc_mode_trial: the UASTC search's line fits
 // ---------------------------------------------------------------------------
+//
+// A lane per pixel: each 4x4 block takes 16 lanes (two blocks a warp), and
+// its scratch lives in the warp's slice of shared memory, which only its own
+// 16 lanes read and write (ordered by __syncwarp, no CTA barrier). Work that
+// is per pixel (centring, projections, the search over the weight levels)
+// runs across the lanes; every sum whose result can round stays one chain
+// in pixel order, each on a lane of its own (the C means, the C x C
+// covariance chains, the 2C least-squares chains) or, where every lane needs
+// the result at once, on every lane (the masked error); the weights'
+// moments, whole multiples of 1/4096, and the whole-numbered errors of the
+// mode trials are exact in any order and are summed by shuffles.
 
-constexpr int kTile = 128;  // blocks (one thread each) per CTA
-
-// c: (n, 16, C) contiguous centred pixels; axis: (n, C); proj: (n, 16).
-template <int C>
-__global__ void __launch_bounds__(kTile)
-principal_axis_kernel(const float* __restrict__ c, float* __restrict__ axis,
-                      float* __restrict__ proj, int n, int iters) {
-  constexpr int kIn = 16 * C, kRow = kIn + 1, kOut = 17;
-  __shared__ float tile[kTile * kRow];
-  __shared__ float ptile[kTile * kOut];
-  const int b0 = blockIdx.x * kTile;
-  const int nb = min(kTile, n - b0);
-  const float* src = c + (size_t)b0 * kIn;
-  for (int j = threadIdx.x; j < nb * kIn; j += kTile)
-    tile[(j / kIn) * kRow + j % kIn] = src[j];
-  __syncthreads();
-  const int t = threadIdx.x;
-  if (t < nb) {
-    const float* x = tile + t * kRow;  // x[p * C + ch]
-    float cov[C][C];
-#pragma unroll
-    for (int i = 0; i < C; ++i)
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        float s = __fmul_rn(x[i], x[j]);
-#pragma unroll
-        for (int p = 1; p < 16; ++p)
-          s = __fmaf_rn(x[p * C + i], x[p * C + j], s);
-        cov[i][j] = s;
-      }
-    float ax[C];
-#pragma unroll
-    for (int i = 0; i < C; ++i) ax[i] = 1.0f;
-    for (int it = 0; it < iters; ++it) {
-      float w[C];
-#pragma unroll
-      for (int i = 0; i < C; ++i) {
-        float s = __fmul_rn(cov[i][0], ax[0]);
-#pragma unroll
-        for (int j = 1; j < C; ++j) s = __fmaf_rn(cov[i][j], ax[j], s);
-        w[i] = s;
-      }
-      float sq = __fmul_rn(w[0], w[0]);
-#pragma unroll
-      for (int i = 1; i < C; ++i) sq = __fadd_rn(sq, __fmul_rn(w[i], w[i]));
-      const float den = __fadd_rn(__fsqrt_rn(sq), 1e-6f);
-#pragma unroll
-      for (int i = 0; i < C; ++i) ax[i] = __fdiv_rn(w[i], den);
-    }
-#pragma unroll
-    for (int i = 0; i < C; ++i) axis[(size_t)(b0 + t) * C + i] = ax[i];
-#pragma unroll
-    for (int p = 0; p < 16; ++p) {
-      float s = __fmul_rn(x[p * C], ax[0]);
-#pragma unroll
-      for (int j = 1; j < C; ++j) s = __fmaf_rn(x[p * C + j], ax[j], s);
-      ptile[t * kOut + p] = s;
-    }
-  }
-  __syncthreads();
-  float* dst = proj + (size_t)b0 * 16;
-  for (int j = threadIdx.x; j < nb * 16; j += kTile)
-    dst[j] = ptile[(j / 16) * kOut + j % 16];
-}
-
-// ---------------------------------------------------------------------------
-// xla_ls_step
-// ---------------------------------------------------------------------------
-
-constexpr int kLsTile = 64;
+constexpr int kFitSlots = 8;                 // 4x4 blocks per CTA
+constexpr int kFitThreads = 16 * kFitSlots;  // a lane per pixel
+constexpr int kMaxLevels = 32;
+constexpr float kInv64 = 1.0f / 64.0f;
+constexpr float kInv16384 = 1.0f / 16384.0f;
+constexpr float kThird = 1.0f / 3.0f;        // float32(1/3), as `THIRD`
 
 __device__ __forceinline__ float clamp255(float v) {
   return v != v ? v : fminf(fmaxf(v, 0.0f), 255.0f);
 }
 
-// wl, mask: (n, 16) contiguous (mask may be null: all ones); v: (n, 16, C)
-// at strides (sb, sp, sc); lo, hi: (n, C) contiguous; out: (n, C) each.
-template <int C, bool kMask>
-__global__ void __launch_bounds__(kLsTile)
-ls_step_kernel(const float* __restrict__ wl, const float* __restrict__ mask,
-               const float* __restrict__ v, int sb, int sp, int sc,
-               const float* __restrict__ lo, const float* __restrict__ hi,
-               float* __restrict__ lo_out, float* __restrict__ hi_out,
-               int n) {
-  constexpr int kIn = 16 * C, kRow = kIn + 1;
-  __shared__ float vt[kLsTile * kRow];
-  __shared__ float wt[kLsTile * 17];
-  __shared__ float mt[kMask ? kLsTile * 17 : 1];
-  const int b0 = blockIdx.x * kLsTile;
-  const int nb = min(kLsTile, n - b0);
-  for (int j = threadIdx.x; j < nb * kIn; j += kLsTile) {
-    const int r = j / kIn, e = j % kIn, p = e / C, ch = e % C;
-    vt[r * kRow + e] = v[(size_t)(b0 + r) * sb + p * sp + ch * sc];
-  }
-  for (int j = threadIdx.x; j < nb * 16; j += kLsTile) {
-    wt[(j / 16) * 17 + j % 16] = wl[(size_t)b0 * 16 + j];
-    if (kMask) mt[(j / 16) * 17 + j % 16] = mask[(size_t)b0 * 16 + j];
-  }
-  __syncthreads();
-  const int t = threadIdx.x;
-  if (t >= nb) return;
-  const float inv64 = 1.0f / 64.0f;
-  const float* x = vt + t * kRow;
-  float av[16], bv[16];
-  float sa = 0.0f, sab = 0.0f, sb2 = 0.0f;
+// One 4x4 block's scratch.
+struct alignas(16) FitScratch {
+  float4 v[16];            // the pixels' channels (the fitted ones)
+  float4 c[16];            // centred (and masked) pixels
+  float4 rec[kMaxLevels];  // the reconstruction at each weight level
+  float2 ab[16];           // least-squares weights (a, b) of each pixel
+  float e[16];             // the terms of an ordered sum over the pixels
+  float cov[16];           // covariance, C x C row-major
+  float red[8];            // chain results: the mean (C); P (C), Q (C)
+};
+
+__device__ __forceinline__ float chan(const float4& f, int c) {
+  return reinterpret_cast<const float*>(&f)[c];
+}
+
+template <int C>
+__device__ __forceinline__ float4 pack4(const float (&x)[C]) {
+  float r[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int p = 0; p < 16; ++p) {
-    const float w = wt[t * 17 + p];
-    float a = __fmul_rn(__fsub_rn(64.0f, w), inv64);
-    float b = __fmul_rn(w, inv64);
-    if (kMask) {
-      const float mk = mt[t * 17 + p];
-      a = __fmul_rn(a, mk);
-      b = __fmul_rn(b, mk);
-    }
-    av[p] = a;
-    bv[p] = b;
-    // multiples of 1/4096 up to 16: exact in any order
-    sa = __fadd_rn(sa, __fmul_rn(a, a));
-    sab = __fadd_rn(sab, __fmul_rn(a, b));
-    sb2 = __fadd_rn(sb2, __fmul_rn(b, b));
+  for (int c = 0; c < C; ++c) r[c] = x[c];
+  return make_float4(r[0], r[1], r[2], r[3]);
+}
+
+// The sum over the block's 16 lanes of a value whose partial sums are all
+// exact (whole numbers below 2^24, or multiples of 1/4096 up to 16).
+__device__ __forceinline__ float exact_sum16(float x) {
+#pragma unroll
+  for (int o = 8; o; o >>= 1)
+    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// sh.e added in pixel order, on every lane.
+__device__ __forceinline__ float pixel_sum(const FitScratch& sh) {
+  const float4* e4 = reinterpret_cast<const float4*>(sh.e);
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 q = e4[i];
+    acc = i ? __fadd_rn(acc, q.x) : q.x;
+    acc = __fadd_rn(acc, q.y);
+    acc = __fadd_rn(acc, q.z);
+    acc = __fadd_rn(acc, q.w);
   }
+  return acc;
+}
+
+// The power iteration of `principal_axis_reference` on the centred pixels
+// sh.c (published by the caller, this lane's own in cx): the C x C
+// covariance chains (lane k runs entry k), then `iters` rounds of the
+// product chain, the rounded sum of squares, the correctly rounded root,
+// + 1e-6 and the divide, on every lane; returns this lane's projection.
+template <int C>
+__device__ __forceinline__ float principal(FitScratch& sh, int p,
+                                           const float (&cx)[C], int iters,
+                                           float (&ax)[C]) {
+  if (p < C * C) {
+    const int i = p / C, j = p % C;
+    float s = __fmul_rn(chan(sh.c[0], i), chan(sh.c[0], j));
+#pragma unroll
+    for (int q = 1; q < 16; ++q)
+      s = __fmaf_rn(chan(sh.c[q], i), chan(sh.c[q], j), s);
+    sh.cov[p] = s;
+  }
+  __syncwarp();
+  float cov[C][C];
+#pragma unroll
+  for (int i = 0; i < C; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) cov[i][j] = sh.cov[i * C + j];
+#pragma unroll
+  for (int i = 0; i < C; ++i) ax[i] = 1.0f;
+  for (int it = 0; it < iters; ++it) {
+    float w[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      float s = __fmul_rn(cov[i][0], ax[0]);
+#pragma unroll
+      for (int j = 1; j < C; ++j) s = __fmaf_rn(cov[i][j], ax[j], s);
+      w[i] = s;
+    }
+    float sq = __fmul_rn(w[0], w[0]);
+#pragma unroll
+    for (int i = 1; i < C; ++i) sq = __fadd_rn(sq, __fmul_rn(w[i], w[i]));
+    const float den = __fadd_rn(__fsqrt_rn(sq), 1e-6f);
+#pragma unroll
+    for (int i = 0; i < C; ++i) ax[i] = __fdiv_rn(w[i], den);
+  }
+  float pr = __fmul_rn(cx[0], ax[0]);
+#pragma unroll
+  for (int j = 1; j < C; ++j) pr = __fmaf_rn(cx[j], ax[j], pr);
+  return pr;
+}
+
+// sh.rec[l] for float endpoints (`_rec16_fused`): fma(64 - w, lo, hi * w),
+// then fma(acc, 257, 32), scaled and floored.
+template <int C>
+__device__ __forceinline__ void rec_fused(FitScratch& sh, const float* lev,
+                                          int n_lev, int p,
+                                          const float (&lo)[C],
+                                          const float (&hi)[C]) {
+  __syncwarp();
+  for (int l = p; l < n_lev; l += 16) {
+    const float w = lev[l], w0 = __fsub_rn(64.0f, w);
+    float r[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float acc = __fmaf_rn(w0, lo[c], __fmul_rn(hi[c], w));
+      r[c] = floorf(__fmul_rn(__fmaf_rn(acc, 257.0f, 32.0f), kInv16384));
+    }
+    sh.rec[l] = pack4<C>(r);
+  }
+  __syncwarp();
+}
+
+// The decoder's reconstruction of quantised endpoints (`_rec16`), exact.
+__device__ __forceinline__ float rec16(float lo_u, float hi_u, float w) {
+  const float acc = __fadd_rn(__fmul_rn(lo_u, __fsub_rn(64.0f, w)),
+                              __fmul_rn(hi_u, w));
+  return floorf(__fmul_rn(__fadd_rn(__fmul_rn(acc, 257.0f), 32.0f),
+                          kInv16384));
+}
+
+template <int C>
+__device__ __forceinline__ void rec_exact(FitScratch& sh, const float* lev,
+                                          int n_lev, int p,
+                                          const float (&lo_u)[C],
+                                          const float (&hi_u)[C]) {
+  __syncwarp();
+  for (int l = p; l < n_lev; l += 16) {
+    float r[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) r[c] = rec16(lo_u[c], hi_u[c], lev[l]);
+    sh.rec[l] = pack4<C>(r);
+  }
+  __syncwarp();
+}
+
+// This lane's pixel against every level of sh.rec: the squared differences
+// rounded and added over the channels in order, the first minimum (w);
+// returns the block's error, the minima times m added in pixel order.
+template <int C>
+__device__ __forceinline__ float level_search(FitScratch& sh, int p,
+                                              const float (&x)[C], int n_lev,
+                                              float m, int& w) {
+  float best = INFINITY;
+  int arg = 0;
+  for (int l = 0; l < n_lev; ++l) {
+    const float4 r = sh.rec[l];
+    float d = __fsub_rn(x[0], r.x);
+    float e = __fmul_rn(d, d);
+    if constexpr (C > 1) {
+      d = __fsub_rn(x[1], r.y);
+      e = __fadd_rn(e, __fmul_rn(d, d));
+    }
+    if constexpr (C > 2) {
+      d = __fsub_rn(x[2], r.z);
+      e = __fadd_rn(e, __fmul_rn(d, d));
+    }
+    if constexpr (C > 3) {
+      d = __fsub_rn(x[3], r.w);
+      e = __fadd_rn(e, __fmul_rn(d, d));
+    }
+    if (e < best) {
+      best = e;
+      arg = l;
+    }
+  }
+  w = arg;
+  sh.e[p] = __fmul_rn(best, m);
+  __syncwarp();
+  const float err = pixel_sum(sh);
+  __syncwarp();
+  return err;
+}
+
+// One least-squares step (`ls_step_reference`): the weights a = (64 - w) /
+// 64, b = w / 64 (times m with a mask), their moments, the P and Q chains
+// over the pixels of sh.v (lane k < C runs P_k, lane C + k Q_k), the 2x2
+// solve; where it is singular lo / hi; clamped.
+template <int C, bool kMask>
+__device__ __forceinline__ void ls_solve(FitScratch& sh, const float* lev,
+                                         int p, int w, float m,
+                                         const float (&lo)[C],
+                                         const float (&hi)[C],
+                                         float (&lo2)[C], float (&hi2)[C]) {
+  const float wl = lev[w];
+  float a = __fmul_rn(__fsub_rn(64.0f, wl), kInv64);
+  float b = __fmul_rn(wl, kInv64);
+  if (kMask) {
+    a = __fmul_rn(a, m);
+    b = __fmul_rn(b, m);
+  }
+  const float sa = exact_sum16(__fmul_rn(a, a));
+  const float sab = exact_sum16(__fmul_rn(a, b));
+  const float sb2 = exact_sum16(__fmul_rn(b, b));
+  sh.ab[p] = make_float2(a, b);
+  __syncwarp();
+  if (p < 2 * C) {
+    const bool q_chain = p >= C;
+    const int ch = q_chain ? p - C : p;
+    float2 t = sh.ab[0];
+    float acc = __fmul_rn(q_chain ? t.y : t.x, chan(sh.v[0], ch));
+#pragma unroll
+    for (int q = 1; q < 16; ++q) {
+      t = sh.ab[q];
+      acc = __fmaf_rn(q_chain ? t.y : t.x, chan(sh.v[q], ch), acc);
+    }
+    sh.red[p] = acc;
+  }
+  __syncwarp();
   const float det = __fmaf_rn(sa, sb2, -__fmul_rn(sab, sab));
   const bool ok = fabsf(det) > 1e-6f;
   const float dd = ok ? det : 1.0f;
-  const size_t o = (size_t)(b0 + t) * C;
 #pragma unroll
-  for (int ch = 0; ch < C; ++ch) {
-    float P = __fmul_rn(av[0], x[ch]);
-    float Q = __fmul_rn(bv[0], x[ch]);
-#pragma unroll
-    for (int p = 1; p < 16; ++p) {
-      P = __fmaf_rn(av[p], x[p * C + ch], P);
-      Q = __fmaf_rn(bv[p], x[p * C + ch], Q);
-    }
+  for (int c = 0; c < C; ++c) {
+    const float P = sh.red[c], Q = sh.red[C + c];
     const float ln = __fdiv_rn(__fmaf_rn(sb2, P, -__fmul_rn(sab, Q)), dd);
     const float hn = __fdiv_rn(__fmaf_rn(sa, Q, -__fmul_rn(sab, P)), dd);
-    lo_out[o + ch] = clamp255(ok ? ln : lo[o + ch]);
-    hi_out[o + ch] = clamp255(ok ? hn : hi[o + ch]);
+    lo2[c] = clamp255(ok ? ln : lo[c]);
+    hi2[c] = clamp255(ok ? hn : hi[c]);
+  }
+  __syncwarp();
+}
+
+// The block's mean of sh.v over the pixels of `bits` (all 16 without a
+// mask): lane c < C adds channel c in pixel order (each term times its
+// mask), then divides by the count; on every lane.
+template <int C, bool kMask>
+__device__ __forceinline__ void block_mean(FitScratch& sh, int p,
+                                           unsigned bits, float cnt,
+                                           float (&mean)[C]) {
+  if (p < C) {
+    float acc = chan(sh.v[0], p);
+    if (kMask) acc = __fmul_rn(acc, (bits & 1u) ? 1.0f : 0.0f);
+#pragma unroll
+    for (int q = 1; q < 16; ++q) {
+      float t = chan(sh.v[q], p);
+      if (kMask) t = __fmul_rn(t, (bits >> q) & 1u ? 1.0f : 0.0f);
+      acc = __fadd_rn(acc, t);
+    }
+    sh.red[p] = __fdiv_rn(acc, cnt);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < C; ++c) mean[c] = sh.red[c];
+  __syncwarp();
+}
+
+// v: (n, 16, C) at strides (sb, sp, sc); label: (n, 16) int64 subset of
+// each pixel (null: all 0); lev: the n_lev weight levels; lo, hi: (n, S, C).
+// `_fit_line_masked` of each subset s < n_sub (mask label == s), its
+// endpoints only.
+template <int C>
+__global__ void __launch_bounds__(kFitThreads)
+line_fit_kernel(const float* __restrict__ v, long long sb, long long sp,
+                long long sc, const long long* __restrict__ label, int n_sub,
+                const float* __restrict__ levels, int n_lev, int ls_iters,
+                float* __restrict__ lo_out, float* __restrict__ hi_out,
+                int n) {
+  __shared__ float lev[kMaxLevels];
+  __shared__ FitScratch scratch[kFitSlots];
+  if ((int)threadIdx.x < n_lev) lev[threadIdx.x] = levels[threadIdx.x];
+  __syncthreads();
+  const int p = threadIdx.x & 15, slot = threadIdx.x >> 4;
+  const int blk_id = blockIdx.x * kFitSlots + slot;
+  const bool live = blk_id < n;
+  const long long blk = live ? blk_id : n - 1;  // a ragged tail repeats
+  const unsigned half = threadIdx.x & 16u;     // this block's ballot bits
+  FitScratch& sh = scratch[slot];
+  float x[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) x[c] = v[blk * sb + p * sp + c * sc];
+  sh.v[p] = pack4<C>(x);
+  const long long lab = label ? label[blk * 16 + p] : 0;
+  __syncwarp();
+  for (int s = 0; s < n_sub; ++s) {
+    const bool in = lab == s;
+    const float m = in ? 1.0f : 0.0f;
+    const unsigned bits = (__ballot_sync(0xffffffffu, in) >> half) & 0xffffu;
+    float mean[C], cx[C], ax[C], lo[C], hi[C];
+    block_mean<C, true>(sh, p, bits, fmaxf((float)__popc(bits), 1.0f), mean);
+#pragma unroll
+    for (int c = 0; c < C; ++c) cx[c] = __fmul_rn(__fsub_rn(x[c], mean[c]), m);
+    sh.c[p] = pack4<C>(cx);
+    __syncwarp();
+    const float pr = principal<C>(sh, p, cx, 4, ax);
+    float mn = in ? pr : 1e9f, mx = in ? pr : -1e9f;
+#pragma unroll
+    for (int o = 8; o; o >>= 1) {
+      mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      lo[c] = clamp255(__fmaf_rn(ax[c], mn, mean[c]));
+      hi[c] = clamp255(__fmaf_rn(ax[c], mx, mean[c]));
+    }
+    rec_fused<C>(sh, lev, n_lev, p, lo, hi);
+    int w;
+    float err = level_search<C>(sh, p, x, n_lev, m, w);
+    for (int it = 0; it < ls_iters; ++it) {
+      float lo2[C], hi2[C];
+      ls_solve<C, true>(sh, lev, p, w, m, lo, hi, lo2, hi2);
+      rec_fused<C>(sh, lev, n_lev, p, lo2, hi2);
+      int w2;
+      const float err2 = level_search<C>(sh, p, x, n_lev, m, w2);
+      if (err2 < err) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          lo[c] = lo2[c];
+          hi[c] = hi2[c];
+        }
+        w = w2;
+        err = err2;
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (p == c) {
+          lo_out[(blk * n_sub + s) * C + c] = lo[c];
+          hi_out[(blk * n_sub + s) * C + c] = hi[c];
+        }
+    }
+  }
+}
+
+// px: (n, 16, 4) at strides (sb, sp, sc), whole numbers 0..255; inv: the
+// 256 codes (int64) of the endpoint values, unq: the n_unq unquantised
+// values of the codes; lev: the n_lev weight levels. `_mode_trial` of comps
+// C (2: the luma (r + g + b) * float32(1/3) and alpha; 3: RGB; 4: RGBA):
+// err (n,), ep (n, 2C) codes [c0 lo, c0 hi, c1 lo, ...], w (n, 16) level
+// indices.
+template <int C>
+__global__ void __launch_bounds__(kFitThreads)
+mode_trial_kernel(const float* __restrict__ px, long long sb, long long sp,
+                  long long sc, const long long* __restrict__ inv,
+                  const float* __restrict__ unq, int n_unq,
+                  const float* __restrict__ levels, int n_lev, int ls_iters,
+                  float* __restrict__ err_out, int* __restrict__ ep_out,
+                  int* __restrict__ w_out, int n) {
+  __shared__ float lev[kMaxLevels];
+  __shared__ int inv_s[256];
+  __shared__ float unq_s[256];
+  __shared__ FitScratch scratch[kFitSlots];
+  for (int i = threadIdx.x; i < 256; i += kFitThreads) {
+    inv_s[i] = (int)inv[i];
+    if (i < n_unq) unq_s[i] = unq[i];
+  }
+  if ((int)threadIdx.x < n_lev) lev[threadIdx.x] = levels[threadIdx.x];
+  __syncthreads();
+  const int p = threadIdx.x & 15, slot = threadIdx.x >> 4;
+  const int blk_id = blockIdx.x * kFitSlots + slot;
+  const bool live = blk_id < n;
+  const long long blk = live ? blk_id : n - 1;
+  FitScratch& sh = scratch[slot];
+  float rgba[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) rgba[c] = px[blk * sb + p * sp + c * sc];
+  float x[C];
+  if constexpr (C == 2) {
+    x[0] = __fmul_rn(__fadd_rn(__fadd_rn(rgba[0], rgba[1]), rgba[2]), kThird);
+    x[1] = rgba[3];
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) x[c] = rgba[c];
+  }
+  sh.v[p] = pack4<C>(x);
+  __syncwarp();
+  float mean[C], cx[C], ax[C];
+  block_mean<C, false>(sh, p, 0xffffu, 16.0f, mean);
+#pragma unroll
+  for (int c = 0; c < C; ++c) cx[c] = __fsub_rn(x[c], mean[c]);
+  sh.c[p] = pack4<C>(cx);
+  __syncwarp();
+  const float pr = principal<C>(sh, p, cx, 6, ax);
+  float mn = pr, mx = pr;
+#pragma unroll
+  for (int o = 8; o; o >>= 1) {
+    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  }
+  float lo_f[C], hi_f[C], lo_u[C], hi_u[C];
+  int lo_c[C], hi_c[C];
+  // the codes of float endpoints: rounded half to even, clipped, the LUT
+  auto quant = [&](float f, int& code, float& u) {
+    code = inv_s[(int)fminf(fmaxf(rintf(f), 0.0f), 255.0f)];
+    u = unq_s[code];
+  };
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    lo_f[c] = __fmaf_rn(ax[c], mn, mean[c]);
+    hi_f[c] = __fmaf_rn(ax[c], mx, mean[c]);
+    quant(lo_f[c], lo_c[c], lo_u[c]);
+    quant(hi_f[c], hi_c[c], hi_u[c]);
+  }
+  rec_exact<C>(sh, lev, n_lev, p, lo_u, hi_u);
+  int w;
+  float err = level_search<C>(sh, p, x, n_lev, 1.0f, w);
+  for (int it = 0; it < ls_iters; ++it) {
+    float lo2[C], hi2[C], lo_u2[C], hi_u2[C];
+    int lo_c2[C], hi_c2[C];
+    ls_solve<C, false>(sh, lev, p, w, 1.0f, lo_f, hi_f, lo2, hi2);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      quant(lo2[c], lo_c2[c], lo_u2[c]);
+      quant(hi2[c], hi_c2[c], hi_u2[c]);
+    }
+    rec_exact<C>(sh, lev, n_lev, p, lo_u2, hi_u2);
+    int w2;
+    const float err2 = level_search<C>(sh, p, x, n_lev, 1.0f, w2);
+    if (err2 < err) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        lo_c[c] = lo_c2[c];
+        hi_c[c] = hi_c2[c];
+        lo_u[c] = lo_u2[c];
+        hi_u[c] = hi_u2[c];
+      }
+      w = w2;
+      err = err2;
+    }
+  }
+  // the full-pixel error: whole numbers, exact in any order
+  if constexpr (C == 3) {
+    const float d = __fsub_rn(rgba[3], 255.0f);
+    err = __fadd_rn(err, exact_sum16(__fmul_rn(d, d)));
+  } else if constexpr (C == 2) {
+    const float wl = lev[w];
+    const float l_rec = rec16(lo_u[0], hi_u[0], wl);
+    const float a_rec = rec16(lo_u[1], hi_u[1], wl);
+    float e_rgb = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float d = __fsub_rn(rgba[c], l_rec);
+      e_rgb = c ? __fadd_rn(e_rgb, __fmul_rn(d, d)) : __fmul_rn(d, d);
+    }
+    const float da = __fsub_rn(rgba[3], a_rec);
+    err = __fadd_rn(exact_sum16(e_rgb), exact_sum16(__fmul_rn(da, da)));
+  }
+  if (live) {
+    if (p == 0) err_out[blk] = err;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (p == 2 * c) ep_out[blk * 2 * C + p] = lo_c[c];
+      if (p == 2 * c + 1) ep_out[blk * 2 * C + p] = hi_c[c];
+    }
+    w_out[blk * 16 + p] = w;
   }
 }
 
@@ -506,25 +840,25 @@ bool layout32_of(int nd, const long long* meta, long long n, int k_len,
 }
 
 template <int C>
-cudaError_t launch_principal_axis(const float* c, float* axis, float* proj,
-                                  int n, int iters, cudaStream_t s) {
-  principal_axis_kernel<C><<<(n + kTile - 1) / kTile, kTile, 0, s>>>(
-      c, axis, proj, n, iters);
+cudaError_t launch_line_fit(const float* v, long long sb, long long sp,
+                            long long sc, const long long* label, int n_sub,
+                            const float* levels, int n_lev, int ls_iters,
+                            float* lo, float* hi, int n, cudaStream_t s) {
+  line_fit_kernel<C><<<(n + kFitSlots - 1) / kFitSlots, kFitThreads, 0, s>>>(
+      v, sb, sp, sc, label, n_sub, levels, n_lev, ls_iters, lo, hi, n);
   return cudaGetLastError();
 }
 
 template <int C>
-cudaError_t launch_ls_step(const float* wl, const float* mask, const float* v,
-                           int sb, int sp, int sc, const float* lo,
-                           const float* hi, float* lo_out, float* hi_out,
-                           int n, cudaStream_t s) {
-  const unsigned g = (n + kLsTile - 1) / kLsTile;
-  if (mask)
-    ls_step_kernel<C, true><<<g, kLsTile, 0, s>>>(
-        wl, mask, v, sb, sp, sc, lo, hi, lo_out, hi_out, n);
-  else
-    ls_step_kernel<C, false><<<g, kLsTile, 0, s>>>(
-        wl, mask, v, sb, sp, sc, lo, hi, lo_out, hi_out, n);
+cudaError_t launch_mode_trial(const float* px, long long sb, long long sp,
+                              long long sc, const long long* inv,
+                              const float* unq, int n_unq,
+                              const float* levels, int n_lev,
+                              int ls_iters, float* err, int* ep, int* w, int n,
+                              cudaStream_t s) {
+  mode_trial_kernel<C><<<(n + kFitSlots - 1) / kFitSlots, kFitThreads, 0,
+                         s>>>(px, sb, sp, sc, inv, unq, n_unq, levels, n_lev,
+                              ls_iters, err, ep, w, n);
   return cudaGetLastError();
 }
 
@@ -631,37 +965,54 @@ int xla_reduce(const float* a, const float* b, float* out, long long n,
   return (int)cudaGetLastError();
 }
 
-// c: (n, 16, C) contiguous, C in 1..4; axis (n, C) and proj (n, 16) out.
-int xla_principal_axis(const float* c, float* axis, float* proj, int n,
-                       int n_ch, int iters, void* stream) {
+// v: (n, 16, C) at strides (sb, sp, sc), C in 1..4; label: (n, 16) int64
+// contiguous, values 0..n_sub - 1 (null: all 0), n_sub in 1..3; levels: the
+// n_lev (1..32) weight levels; lo, hi: (n, n_sub, C) out.
+int uastc_line_fit(const float* v, long long sb, long long sp, long long sc,
+                   const long long* label, int n_sub, const float* levels,
+                   int n_lev, int ls_iters, float* lo, float* hi, int n,
+                   int n_ch, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (iters < 0) return (int)cudaErrorInvalidValue;
+  if (n_sub < 1 || n_sub > 3 || n_lev < 1 || n_lev > kMaxLevels ||
+      ls_iters < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (n_ch) {
-    case 1: return (int)launch_principal_axis<1>(c, axis, proj, n, iters, s);
-    case 2: return (int)launch_principal_axis<2>(c, axis, proj, n, iters, s);
-    case 3: return (int)launch_principal_axis<3>(c, axis, proj, n, iters, s);
-    case 4: return (int)launch_principal_axis<4>(c, axis, proj, n, iters, s);
+    case 1: return (int)launch_line_fit<1>(v, sb, sp, sc, label, n_sub, levels,
+                                           n_lev, ls_iters, lo, hi, n, s);
+    case 2: return (int)launch_line_fit<2>(v, sb, sp, sc, label, n_sub, levels,
+                                           n_lev, ls_iters, lo, hi, n, s);
+    case 3: return (int)launch_line_fit<3>(v, sb, sp, sc, label, n_sub, levels,
+                                           n_lev, ls_iters, lo, hi, n, s);
+    case 4: return (int)launch_line_fit<4>(v, sb, sp, sc, label, n_sub, levels,
+                                           n_lev, ls_iters, lo, hi, n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// wl, mask (null: none): (n, 16) contiguous; v: (n, 16, C) at strides (sb,
-// sp, sc), C in 1..4; lo, hi: (n, C) contiguous; lo_out, hi_out (n, C).
-int xla_ls_step(const float* wl, const float* mask, const float* v, int sb,
-                int sp, int sc, const float* lo, const float* hi,
-                float* lo_out, float* hi_out, int n, int n_ch, void* stream) {
+// px: (n, 16, 4) at strides (sb, sp, sc); inv: 256 int64 codes; unq: the
+// n_unq (1..256) float32 values of the codes; levels: n_lev (1..32) weight
+// levels; comps 2..4; err (n,), ep (n, 2 comps) int32, w (n, 16) int32 out.
+int uastc_mode_trial(const float* px, long long sb, long long sp,
+                     long long sc, const long long* inv, const float* unq,
+                     int n_unq, const float* levels, int n_lev, int comps,
+                     int ls_iters, float* err, int* ep, int* w, int n,
+                     void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  if (n_unq < 1 || n_unq > 256 || n_lev < 1 || n_lev > kMaxLevels ||
+      ls_iters < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (n_ch) {
-    case 1: return (int)launch_ls_step<1>(wl, mask, v, sb, sp, sc, lo, hi,
-                                          lo_out, hi_out, n, s);
-    case 2: return (int)launch_ls_step<2>(wl, mask, v, sb, sp, sc, lo, hi,
-                                          lo_out, hi_out, n, s);
-    case 3: return (int)launch_ls_step<3>(wl, mask, v, sb, sp, sc, lo, hi,
-                                          lo_out, hi_out, n, s);
-    case 4: return (int)launch_ls_step<4>(wl, mask, v, sb, sp, sc, lo, hi,
-                                          lo_out, hi_out, n, s);
+  switch (comps) {
+    case 2: return (int)launch_mode_trial<2>(px, sb, sp, sc, inv, unq, n_unq,
+                                             levels, n_lev, ls_iters, err, ep,
+                                             w, n, s);
+    case 3: return (int)launch_mode_trial<3>(px, sb, sp, sc, inv, unq, n_unq,
+                                             levels, n_lev, ls_iters, err, ep,
+                                             w, n, s);
+    case 4: return (int)launch_mode_trial<4>(px, sb, sp, sc, inv, unq, n_unq,
+                                             levels, n_lev, ls_iters, err, ep,
+                                             w, n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -100,11 +100,12 @@ def _declare_xla_order(lib):
     f32 = ctypes.c_float
     lib.xla_fma.argtypes = [vp, vp, vp, f32, f32, f32, vp, ll, ci, vp, vp]
     lib.xla_reduce.argtypes = [vp, vp, vp, ll, ci, ll, ll, ci, ci, vp, vp]
-    lib.xla_principal_axis.argtypes = [vp, vp, vp, ci, ci, ci, vp]
-    lib.xla_ls_step.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, ci,
-                                ci, vp]
-    for fn in (lib.xla_fma, lib.xla_reduce, lib.xla_principal_axis,
-               lib.xla_ls_step):
+    lib.uastc_line_fit.argtypes = [vp, ll, ll, ll, vp, ci, vp, ci, ci, vp, vp,
+                                   ci, ci, vp]
+    lib.uastc_mode_trial.argtypes = [vp, ll, ll, ll, vp, vp, ci, vp, ci, ci,
+                                     ci, vp, vp, vp, ci, vp]
+    for fn in (lib.xla_fma, lib.xla_reduce, lib.uastc_line_fit,
+               lib.uastc_mode_trial):
         fn.restype = ci
     return lib
 

@@ -22,7 +22,8 @@ device of the tensors it was given:
 - a CPU tensor runs the plain PyTorch version kept beside it (`*_reference`).
 
 The plain version never runs for a CUDA tensor. `LAUNCHES` counts the kernel
-launches of each wrapper (here and in `ops/xla_order.py`);
+launches of each wrapper (here, in `ops/xla_order.py` and in
+`codecs/uastc/encode.py`);
 `reset_launch_counts()` zeroes it.
 """
 
@@ -45,8 +46,9 @@ LAUNCHES = {
     # XLA-CPU's float32 orders (`ops/xla_order.py`)
     "xla_fma": 0,
     "xla_reduce": 0,
-    "xla_principal_axis": 0,
-    "xla_ls_step": 0,
+    # the UASTC search's line fits (`codecs/uastc/encode.py`)
+    "uastc_line_fit": 0,
+    "uastc_mode_trial": 0,
 }
 
 # float32 constants of the kernels, as Python floats holding the exact f32

@@ -18,9 +18,9 @@ sum is rounded twice, which can differ from one rounding in the last bit
 where the float64 sum lands on a float32 midpoint). Integer sums are
 exact in any order and stay a library sum.
 
-The same library holds two kernels of whole chains of these helpers, the
-UASTC line fits' power iteration and least-squares step
-(`xla_principal_axis`, `xla_ls_step`), whose wrappers live with the
+The same library holds two kernels of whole compositions of these
+helpers, the UASTC search's masked line fit and single-subset mode trial
+(`uastc_line_fit`, `uastc_mode_trial`), whose wrappers live with the
 search in `codecs/uastc/encode.py` and launch through `launch()`.
 """
 
@@ -84,7 +84,8 @@ def _layout(shape, strides):
     """(nd, meta) of an output `shape` read at each operand's `strides`
     (None: a scalar), size-1 dims dropped and dims that every operand steps
     through contiguously merged: meta is an int64 array of the _MAX_DIMS
-    sizes, then each operand's _MAX_DIMS strides (the kernels' layout)."""
+    sizes, then three operands' _MAX_DIMS strides (the kernels' layout; 0
+    past the operands given)."""
     sizes, merged = [], [[] for _ in strides]
     cols = [st if st is not None else [0] * len(shape) for st in strides]
     for d, n in enumerate(shape):
@@ -108,6 +109,8 @@ def _layout(shape, strides):
     flat = array.array("q", sizes + pad)
     for m in merged:
         flat += array.array("q", m + pad)
+    # the kernels read three operands' strides: zeros for those not given
+    flat += array.array("q", [0] * (_MAX_DIMS * (3 - len(merged))))
     return nd, flat
 
 
@@ -128,8 +131,8 @@ class _Card:
 
         lib = get_lib("xla_order_kernels")
         self.fma, self.reduce = lib.xla_fma, lib.xla_reduce
-        self.principal_axis = lib.xla_principal_axis
-        self.ls_step = lib.xla_ls_step
+        self.line_fit = lib.uastc_line_fit
+        self.mode_trial = lib.uastc_mode_trial
         self.stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
             or (lambda idx: torch.cuda.current_stream(idx).cuda_stream)
         self.current = getattr(torch._C, "_cuda_getDevice", None) \

@@ -4,6 +4,7 @@ BC7 search and XUBC7, ASTC LDR, XUASTC LDR, the HDR modes), its transcoder
 re-encodes and its image metrics once on one GPU.
 
     python3 chip_smoke.py [--profile OUT_DIR] [--ab OTHER_TREE]
+    python3 chip_smoke.py --fit-ab TREE [TREE ...]
 
 Phases (any failure raises, so the process exits nonzero with no final line):
 1. require CUDA; print versions and the card's name and power limit; load
@@ -26,10 +27,12 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    the 12 `bisect_round`s against the plain version on the same rows, the
    rounds' time in all and by round beside the bound of their chain of
    adds, and `bisecting_init` alone: 13 launches, no sort or segment
-   reduction in its rounds, `bisect_phase`); the XLA-order
-   kernels at a UASTC line fit's shapes: `xla_fma`, `xla_reduce`
-   and the fused `xla_principal_axis` and `xla_ls_step`) and time both
-   with CUDA events, beside the least time the card could take (bound)
+   reduction in its rounds, `bisect_phase`); the generic XLA-order
+   kernels `xla_fma` and `xla_reduce` at a UASTC line fit's shapes; the
+   UASTC search's line fits, `uastc_line_fit` and `uastc_mode_trial`, at
+   every shape the effort-2 and effort-3 searches give them, bit for bit)
+   and time both with CUDA events, beside the least time the card could
+   take (bound)
    and, where one PyTorch call computes the same function, that call
    (library); the segment sum's row gather from the scan's row-major
    output and from a transposed one;
@@ -41,7 +44,8 @@ Phases (any failure raises, so the process exits nonzero with no final line):
 5. UASTC LDR 4x4: the same four textures through `compress_batch` at
    effort 2, then one 768x512 RGBA texture through `compress`: one scan and
    one rescore launch per image (the ETC1 hint) and the XLA-order kernels'
-   launches per RGB and RGBA image (`EXPECTED_UASTC_XLA`), every file
+   launches and the line fits' per RGB and RGBA image
+   (`EXPECTED_UASTC_XLA`), every file
    decoded (CRCs, PSNR), image 0 and the RGBA texture held to the recorded
    JAX-CPU bytes;
 6. transcoder: the port's `BasisTranscoder` turns image 0's UASTC file into
@@ -98,6 +102,10 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    with the codebook entries and bytes that differ.
 
 The last two lines are the kernels' JSON record and the result line.
+`--fit-ab TREE [TREE ...]` runs only phase 1, then times the UASTC line
+fits of phase 3 (each shape held to its plain version) with this
+checkout's package and with each other tree's, in turns, and prints no
+result line.
 """
 
 import hashlib
@@ -241,21 +249,22 @@ REPLACES = {"factorized_scan": f"{PALLAS}:343",
             # the reference's compiled searches (e.g. the UASTC line fit)
             "xla_fma": "basis_universal_tpu/codecs/uastc/encode.py:90",
             "xla_reduce": "basis_universal_tpu/codecs/uastc/encode.py:119",
-            # the line fits' power iteration and least-squares step
-            "xla_principal_axis":
-                "basis_universal_tpu/codecs/uastc/encode.py:77",
-            "xla_ls_step": "basis_universal_tpu/codecs/uastc/encode.py:185"}
-XLA_ORDER_KERNELS = ("xla_fma", "xla_reduce", "xla_principal_axis",
-                     "xla_ls_step")
-# XLA-order launches per UASTC effort-2 image (RGB; RGBA): every line fit's
-# power iteration is one `xla_principal_axis`, every least-squares step one
-# `xla_ls_step`, and the rest of the search's spelled-out orders the generic
-# kernels (`tests/test_torch_uastc_encode.py` counts the same on the CPU)
+            # no Pallas kernel: the reference's jitted line fits, a masked
+            # fit (`_fit_line_masked`) and a single-subset mode trial
+            "uastc_line_fit": "basis_universal_tpu/codecs/uastc/encode.py:155",
+            "uastc_mode_trial": "basis_universal_tpu/codecs/uastc/encode.py:56"}
+XLA_ORDER_KERNELS = ("xla_fma", "xla_reduce", "uastc_line_fit",
+                     "uastc_mode_trial")
+# XLA-order launches per UASTC effort-2 image (RGB; RGBA): one
+# `uastc_mode_trial` per single-subset mode, one `uastc_line_fit` per
+# 2-subset candidate and per dual-plane plane, and the two ordered sums of
+# each 2-subset candidate's error (`tests/test_torch_uastc_encode.py` counts
+# the same on the CPU)
 EXPECTED_UASTC_XLA = {
-    False: {"xla_reduce": 146, "xla_fma": 140, "xla_principal_axis": 26,
-            "xla_ls_step": 26},
-    True: {"xla_reduce": 304, "xla_fma": 304, "xla_principal_axis": 56,
-           "xla_ls_step": 56}}
+    False: {"xla_reduce": 16, "xla_fma": 0, "uastc_mode_trial": 4,
+            "uastc_line_fit": 14},
+    True: {"xla_reduce": 24, "xla_fma": 0, "uastc_mode_trial": 8,
+           "uastc_line_fit": 36}}
 SOURCES = {name: "basis_universal_tpu_torch/csrc/"
            + ("xla_order_kernels.cu" if name in XLA_ORDER_KERNELS
               else "etc1s_kernels.cu") for name in REPLACES}
@@ -365,20 +374,28 @@ def _host_us(torch, fn, n=100):
     return 1e6 * t / n
 
 
-def _device_ms(torch, fn, n=20):
+def _device_ms(torch, fn, n=20, tries=3):
     """Device milliseconds per call of fn: the time of every kernel that n
-    calls launch (after a warm-up call), by torch.profiler, over n."""
+    calls launch (after a warm-up call), by torch.profiler, over n. Every
+    caller's fn launches kernels, so a profile with no device time (the
+    profiler dropped its records) is taken again, up to `tries` times,
+    then raises."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == cuda) / 1e3 / n
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == cuda) / 1e3 / n
+        if ms > 0:
+            return ms
+    raise RuntimeError(f"torch.profiler recorded no device time in {tries} "
+                       "profiles of a function that launches kernels")
 
 
 def phase_env(torch):
@@ -618,8 +635,8 @@ def phase_kernels(torch, blocks):
             f"{lms:.4f} ms (device {ldms:.4f} ms)"
         print(f"{name} {label}: B={b_n} max_abs_err={err:.4g} "
               f"kernel {ms:.4f} ms (device {dms:.4f} ms), plain {pms:.4f} ms"
-              f", library {lib_txt}, bound {bound_ms:.4f} ms ({bound_by})"
-              f"{chain_txt}")
+              f", library {lib_txt}, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{100 * bound_ms / dms:.0f}% of device){chain_txt}")
         res = results.setdefault(name, dict(row, by_shape=[]))
         res["max_abs_err"] = max(res["max_abs_err"], err)
         res["by_shape"].append(row)
@@ -908,66 +925,112 @@ def phase_kernels(torch, blocks):
         measure(name, label, run, plain, float((got - want).abs().max()),
                 bound, library=lib)
 
-    # -- the fused chains of the UASTC line fits at the search's shapes
-    #    (24,576 blocks): the power iteration of a mode trial (RGB, 6
-    #    iterations) and of a fit (RGBA, 4), and the least-squares step of
-    #    a mode trial (RGB pixels read through a strided view, no mask) and
-    #    of a masked fit. Their plain versions are the Python compositions
-    #    of `_dot`, `_sum`, `_sqrt` and `_fma`, which on the card launch the
-    #    generic kernels, whose bits they must give, every value (the same
-    #    roundings, spelled out alike). No one PyTorch call computes either.
-    from basis_universal_tpu_torch.codecs.uastc import encode as uenc
+    # -- the UASTC search's line fits at every shape of the effort-2 and
+    #    effort-3 searches (24,576 blocks: image 0's pixels, random alpha):
+    #    `uastc_line_fit` on a strided view of the pixels with labels of
+    #    the modes' own partitions, and `uastc_mode_trial`; their plain
+    #    versions are the Python compositions of `_dot`, `_sum`, `_sqrt` and
+    #    `_fma`, which on the card launch the generic kernels, whose bits
+    #    they must give, every value. No one PyTorch call computes either.
+    uastc_line_fits(torch, px, rng, measure)
+    return results
 
+
+def _line_fit_ops(n_ch, n_sub, n_lev, ls_iters, iters=4):
+    """Instructions per 4x4 block of one line fit of n_sub subsets (an add,
+    multiply, fused multiply-add, compare, select, divide, root or floor
+    each one). A pixel adds nothing to another subset's result (its mask
+    there is 0), so what is per pixel counts once per block, for the
+    pixel's own subset: the mean's terms (16 C), the centring (16 C), the
+    covariance (16 C^2 fused multiply-adds), the projections (16 C) and the
+    extremes (2 x 16); per weight search (1 + ls_iters) each pixel's search
+    (3 C + 1 per level) and the error (16); per least-squares step the
+    weights (16 x 2), their moments (16 x 6) and the P and Q chains (2 C x
+    16). Per subset: the mean's C divides, the power iteration (per round
+    C^2 + C products, C - 1 adds, a root, an add, C divides), the endpoints
+    (3 C), per weight search the reconstruction (5 per level and channel),
+    per least-squares step the solve (3 + 10 C) and the select (2 C + 2)."""
+    searches = 1 + ls_iters
+    per_block = (16 * n_ch * 3 + 16 * n_ch * n_ch + 32
+                 + searches * (16 * n_lev * (3 * n_ch + 1) + 16)
+                 + ls_iters * (16 * 2 + 16 * 6 + 32 * n_ch))
+    per_subset = (n_ch + iters * (n_ch * n_ch + 3 * n_ch + 1) + 3 * n_ch
+                  + searches * 5 * n_lev * n_ch
+                  + ls_iters * (3 + 10 * n_ch + 2 * n_ch + 2))
+    return per_block + n_sub * per_subset
+
+
+def _mode_trial_ops(comps, n_lev, ls_iters):
+    """Instructions per 4x4 block of one mode trial: the line fit of
+    `_line_fit_ops` of one subset with 6 power iterations, and per quantised
+    endpoint pair 12 C (round, clip, convert, two table reads), the
+    reconstruction at 7 per level and channel instead of 5, the luma (16 x
+    3) of LA and the full-pixel error (16 x 3; LA 16 x 25)."""
+    ops = _line_fit_ops(comps, 1, n_lev, ls_iters, iters=6)
+    ops += (1 + ls_iters) * (12 * comps + 2 * n_lev * comps)
+    return ops + {2: 16 * 3 + 16 * 25, 3: 16 * 3, 4: 0}[comps]
+
+
+def uastc_line_fits(torch, px, rng, measure):
+    """`uastc_line_fit` at the (C, S, weight bits, least-squares steps) and
+    `uastc_mode_trial` at the (comps, weight bits, steps) of the effort-2
+    and effort-3 searches (the first of each is the effort-2 RGB search's
+    most frequent), each against its plain version bit for bit."""
+    from basis_universal_tpu_torch.codecs.uastc import encode as uenc
+    from basis_universal_tpu_torch.codecs.uastc import pack
+
+    dev = px.device
+    b_n = px.shape[0]
     rgba = torch.cat([px, torch.as_tensor(rng.integers(0, 256, (b_n, 16, 1)),
                                           dtype=torch.float32, device=dev)],
                      -1).contiguous()
-    for label, n_ch, iters in (("C3 iters 6", 3, 6), ("C4 iters 4", 4, 4)):
-        c = rgba[..., :n_ch] - rgba[..., :n_ch].mean(1, keepdim=True)
-        c = c.contiguous()
-        got = uenc.principal_axis(c, iters)
-        want = uenc.principal_axis_reference(c, iters)
+    # (C, S, weight bits): modes 2, 4 (and 7); the dual planes of mode 6;
+    # mode 9; the planes of modes 11 and 13, and mode 17's; mode 3
+    fits = [(3, 2, 3), (3, 2, 2), (2, 1, 2), (1, 1, 2), (4, 2, 2), (3, 1, 2),
+            (3, 1, 1), (1, 1, 1)]
+    shapes = [f + (ls,) for ls in (1, 2) for f in fits] + [(3, 3, 2, 2)]
+    for n_ch, n_sub, wb, ls in shapes:
+        # RGB views of the RGBA pixels as the 2- and 3-subset modes take
+        # them; the dual planes' channel subsets are copies
+        v = rgba[..., :n_ch] if n_ch != 2 else rgba[..., 1:3].contiguous()
+        label = None
+        if n_sub > 1:
+            pats = uenc._patterns(n_sub, False, str(dev))
+            label = pats[torch.as_tensor(rng.integers(0, len(pats), b_n),
+                                         device=dev)]
+        levels = uenc._mode_consts(wb, 20, str(dev))[2]
+        args = (v, label, n_sub, levels, ls)
+        got = uenc.line_fit(*args)
+        want = uenc.line_fit_reference(*args)
         torch.cuda.synchronize()
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"xla_principal_axis {label}: differs from "
-                                 "the plain version")
-        # the covariance's 16 n^2 fused multiply-adds; per iteration n^2 for
-        # the product, n for the norm, its root and add, n divisions; the
-        # 16 n projections
-        ops = b_n * (n_ch * n_ch * 16 + iters * (n_ch * n_ch + 2 * n_ch + 2)
-                     + 16 * n_ch)
-        measure("xla_principal_axis", label,
-                lambda: uenc.principal_axis(c, iters),
-                lambda: uenc.principal_axis_reference(c, iters), 0.0,
-                _bound(4 * b_n * (16 * n_ch + n_ch + 16), ops))
-    wlev = torch.tensor([0.0, 21.0, 43.0, 64.0], device=dev)
-    wl = wlev[torch.as_tensor(rng.integers(0, 4, (b_n, 16)), device=dev)]
-    wl[::10] = 21.0                                     # singular systems
-    lo = torch.as_tensor(rng.uniform(-5, 260, (b_n, 4)), dtype=torch.float32,
-                         device=dev)
-    hi = torch.as_tensor(rng.uniform(-5, 260, (b_n, 4)), dtype=torch.float32,
-                         device=dev)
-    half = torch.as_tensor(rng.random((b_n, 16)) < 0.5, dtype=torch.float32,
-                           device=dev)
-    for label, mask, n_ch in (("C3 strided", None, 3),
-                              ("C4 masked", half, 4)):
-        v = rgba[..., :n_ch]
-        args = (wl, mask, v, lo[:, :n_ch].contiguous(),
-                hi[:, :n_ch].contiguous())
-        got = uenc.ls_step(*args)
-        want = uenc.ls_step_reference(*args)
-        torch.cuda.synchronize()
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"xla_ls_step {label}: differs from the "
-                                 "plain version")
-        n_in = 16 + (16 if mask is not None else 0) + 16 * n_ch + 2 * n_ch
-        # per pixel the weights' 4 (+1 with a mask) and 2 n_ch moments'
-        # fused multiply-adds; the 2x2 solve and the endpoints
-        ops = b_n * (16 * (4 + (1 if mask is not None else 0))
-                     + 32 * n_ch + 5 + 4 * n_ch)
-        measure("xla_ls_step", label, lambda: uenc.ls_step(*args),
-                lambda: uenc.ls_step_reference(*args), 0.0,
-                _bound(4 * b_n * (n_in + 2 * n_ch), ops))
-    return results
+            raise AssertionError(f"uastc_line_fit C{n_ch} S{n_sub} wb{wb} "
+                                 f"ls{ls}: differs from the plain version")
+        n_bytes = 4 * b_n * (16 * n_ch + 2 * n_sub * n_ch) \
+            + (8 * b_n * 16 if label is not None else 0)
+        measure("uastc_line_fit", f"C{n_ch} S{n_sub} L{len(levels)} ls{ls}",
+                lambda: uenc.line_fit(*args),
+                lambda: uenc.line_fit_reference(*args), 0.0,
+                _bound(n_bytes, float(b_n * _line_fit_ops(
+                    n_ch, n_sub, len(levels), ls))))
+    modes = sorted(pack.ALL_MODES, key=lambda m: (m[3] != 3, m[0] != 0))
+    for ls in (1, 2):
+        for mode, wb, ep_range, comps in modes:
+            args = (rgba, wb, ep_range, comps, ls)
+            got = uenc._mode_trial(*args)
+            want = uenc.mode_trial_reference(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"uastc_mode_trial mode {mode} ls{ls}: "
+                                     "differs from the plain version")
+            n_lev = 1 << wb
+            n_bytes = 4 * b_n * (64 + 1 + 2 * comps + 16)
+            measure("uastc_mode_trial",
+                    f"mode {mode} comps {comps} L{n_lev} ls{ls}",
+                    lambda: uenc._mode_trial(*args),
+                    lambda: uenc.mode_trial_reference(*args), 0.0,
+                    _bound(n_bytes, float(b_n * _mode_trial_ops(
+                        comps, n_lev, ls))))
 
 
 def phase_main_path(torch, images):
@@ -1817,10 +1880,11 @@ def _trace(torch, run, path, n_images):
                        and e.device_time_total > 0),
                       key=lambda e: e.device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    n_kernels = sum(e.count for e in kernels)
     print(f"profile {path.stem}: traced wall {wall:.3f} s, device busy "
           f"{busy:.4f} s ({100 * busy / wall:.1f}%), idle "
           f"{100 * (1 - busy / wall):.1f}%, device {1e3 * busy / n_images:.2f}"
-          " ms/image")
+          f" ms/image, {n_kernels / n_images:.1f} device kernels/image")
     k_lines = [f"{e.self_device_time_total / 1e3:10.3f} ms {e.count:7d}x  "
                f"{e.key[:110]}" for e in kernels]
     o_lines = [f"{e.device_time_total / 1e3:10.3f} ms {e.count:7d}x  "
@@ -1896,17 +1960,21 @@ def phase_profile_bc7(torch, img, out_dir):
            1)
 
 
-_PROFILE_RUN = ("import sys, torch; sys.path.insert(0, '.'); "
-                "import chip_smoke as c; c.phase_env(torch); "
+# this script's profiles of the port package at the working directory
+_PROFILE_RUN = ("import importlib.util, sys, torch; sys.path.insert(0, '.'); "
+                "spec = importlib.util.spec_from_file_location('chip_smoke', "
+                "{script!r}); c = importlib.util.module_from_spec(spec); "
+                "spec.loader.exec_module(c); c.phase_env(torch); "
                 "c.phase_profile(torch, {out!r}); "
                 "c.phase_profile_uastc(torch, {out!r})")
 
 
 def phase_profile_ab(tree, out_dir, timeout=1500):
     """`--profile OUT_DIR --ab TREE`: the 16-image profiles of both lanes
-    (`phase_profile`, `phase_profile_uastc`) of the other checkout and of
-    this one in turns, other, this, this, other, each in a process of its
-    own started from its tree's root (tables under OUT_DIR/ab_<i>_<tree>)."""
+    (`phase_profile`, `phase_profile_uastc`, this script's) of the other
+    checkout's package and of this one's in turns, other, this, this,
+    other, each in a process of its own started from its tree's root
+    (tables under OUT_DIR/ab_<i>_<tree>)."""
     import pathlib
 
     here = pathlib.Path(__file__).resolve().parent
@@ -1915,8 +1983,9 @@ def phase_profile_ab(tree, out_dir, timeout=1500):
                                        ("other", pathlib.Path(tree)))):
         out = pathlib.Path(out_dir).resolve() / f"ab_{i}_{label}"
         t0 = time.time()
-        proc = subprocess.run([sys.executable, "-c",
-                               _PROFILE_RUN.format(out=str(out))],
+        proc = subprocess.run([sys.executable, "-c", _PROFILE_RUN.format(
+                                   script=str(here / "chip_smoke.py"),
+                                   out=str(out))],
                               cwd=str(root.resolve()), capture_output=True,
                               text=True, timeout=timeout)
         for line in proc.stdout.splitlines():
@@ -1926,6 +1995,60 @@ def phase_profile_ab(tree, out_dir, timeout=1500):
               f"{proc.returncode}")
         if proc.returncode != 0:
             raise RuntimeError(f"profile of {root} failed:\n"
+                               f"{proc.stderr[-4000:]}")
+
+
+def fit_timings(torch, label):
+    """`uastc_line_fits` on image 0's blocks with the port package at the
+    working directory, each shape's call and device ms printed under label
+    (`--fit-ab`); a kernel that does not give its plain version's bits
+    fails."""
+    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+
+    img = synthetic_texture(HEIGHT, WIDTH, seed=0)[0]
+    blocks = compressor._prepare_slices(
+        [img], compressor.CompressorParams())[0]["blocks"]
+    px = torch.as_tensor(blocks, dtype=torch.float32,
+                         device="cuda").contiguous()
+
+    def measure(name, shape, run, plain, err, bound):
+        print(f"fit-ab {label} {name} {shape}: call "
+              f"{_time_ms(run, torch):.4f} ms, device "
+              f"{_device_ms(torch, run):.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})")
+
+    uastc_line_fits(torch, px, np.random.default_rng(1234), measure)
+
+
+# this script's line-fit timings of the port package at the working directory
+_FIT_RUN = ("import importlib.util, sys, torch; sys.path.insert(0, '.'); "
+            "spec = importlib.util.spec_from_file_location('chip_smoke', "
+            "{script!r}); c = importlib.util.module_from_spec(spec); "
+            "spec.loader.exec_module(c); c.phase_env(torch); "
+            "c.fit_timings(torch, {label!r})")
+
+
+def phase_fit_ab(trees, timeout=900):
+    """`--fit-ab TREE [TREE ...]`: the line fits' timings (`fit_timings`)
+    of this checkout's package and of each other tree's, in turns (this,
+    the trees, the trees again in reverse, this), each in a process of its
+    own started from its tree's root."""
+    import pathlib
+
+    here = pathlib.Path(__file__).resolve().parent
+    roots = [("this", here)] + [(t, pathlib.Path(t)) for t in trees]
+    for label, root in roots + roots[::-1]:
+        proc = subprocess.run([sys.executable, "-c", _FIT_RUN.format(
+                                   script=str(here / "chip_smoke.py"),
+                                   label=label)],
+                              cwd=str(root.resolve()), capture_output=True,
+                              text=True, timeout=timeout)
+        for line in proc.stdout.splitlines():
+            if line.startswith("fit-ab"):
+                print(line)
+        if proc.returncode != 0:
+            raise RuntimeError(f"line-fit timings of {root} failed:\n"
                                f"{proc.stderr[-4000:]}")
 
 
@@ -2247,6 +2370,9 @@ def main():
     import torch
 
     card, have_zstd = phase_env(torch)
+    if "--fit-ab" in sys.argv:
+        phase_fit_ab(sys.argv[sys.argv.index("--fit-ab") + 1:])
+        return
     from basis_universal_tpu_torch import compressor
     from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
 

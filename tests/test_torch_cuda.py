@@ -329,7 +329,7 @@ def test_compress_on_card_launches_each_kernel(cuda):
         "bisect_rows": 1,
         "bisect_round": int(np.ceil(np.log2(knobs["num_e"]))),
         "xla_cpu_min_k": refine,
-        "xla_principal_axis": 0, "xla_ls_step": 0}
+        "uastc_line_fit": 0, "uastc_mode_trial": 0}
     cpu = compressor.compress(img, compressor.CompressorParams(device="cpu"))
     assert out.basis_data == cpu.basis_data
     assert etc1s_psnr(out.basis_data, img) > 25.0
@@ -922,70 +922,83 @@ def test_xla_order_64_bit_layouts_on_card(cuda, case):
     del big
 
 
+def _fit_blocks(n, seed):
+    """(n, 16, 4) RGBA blocks, whole numbers: `_blocks` with alpha, every
+    fifth block solid (a singular least-squares system)."""
+    px = torch.cat([_blocks(n, seed), _blocks(n, seed + 9)[..., :1]], -1)
+    px[::5] = px[::5, :1]
+    return px
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("ls_iters", [1, 2])
+@pytest.mark.parametrize("wb", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("n_sub", [1, 2, 3])
 @pytest.mark.parametrize("n_ch", [1, 2, 3, 4])
-def test_principal_axis_on_card(cuda, n_ch):
-    """One `xla_principal_axis` launch gives the bits of its plain version
-    run on the card (the generic kernels' chains), at 6 and 4 iterations,
-    blocks of one colour (a zero covariance) included; and the CPU's but
-    for the plain version's double rounding."""
+def test_line_fit_on_card(cuda, n_ch, n_sub, wb, ls_iters):
+    """One `uastc_line_fit` launch gives the endpoints of its plain version
+    run on the card (the generic kernels' chains) and on the CPU, bit for
+    bit: every subset, empty subsets (every third block's past 0), solid
+    blocks, pixels through a strided view, a ragged last CTA (2,999
+    blocks) and one block."""
     from basis_universal_tpu_torch.codecs.uastc import encode as uenc
 
-    px = _blocks(2000, n_ch)[..., :1].repeat(1, 1, n_ch) \
-        + torch.as_tensor(np.random.default_rng(n_ch).integers(
-            -9, 10, (2000, 16, n_ch)), dtype=torch.float32)
-    px[::9] = px[::9, :1]
-    c = (px - px.mean(1, keepdim=True)).contiguous()
-    for iters in (6, 4):
+    n = 2999
+    rng = np.random.default_rng(100 * n_ch + 10 * n_sub + wb)
+    px = _fit_blocks(n, n_ch + wb)
+    label = torch.as_tensor(rng.integers(0, n_sub, (n, 16)))
+    label[::3] = 0
+    levels = torch.as_tensor(uenc._weight_levels(wb))
+    for b in (n, 1):
+        v = px[:b, :, 4 - n_ch:]
+        lab = label[:b] if n_sub > 1 or ls_iters == 2 else None
+        card = (v.to(cuda), None if lab is None else lab.to(cuda), n_sub,
+                levels.to(cuda), ls_iters)
         ck.reset_launch_counts()
-        got = uenc.principal_axis(c.to(cuda), iters)
-        assert ck.LAUNCHES["xla_principal_axis"] == 1
-        assert ck.LAUNCHES["xla_reduce"] == 0
-        want = uenc.principal_axis_reference(c.to(cuda), iters)
-        for g, w in zip(got, want):
+        got = uenc.line_fit(*card)
+        assert ck.LAUNCHES["uastc_line_fit"] == 1
+        assert ck.LAUNCHES["xla_reduce"] == ck.LAUNCHES["xla_fma"] == 0
+        for g, w in zip(got, uenc.line_fit_reference(*card)):
             assert torch.equal(g, w)
-        cpu = uenc.principal_axis_reference(c, iters)
-        assert int(sum((g.cpu() != w).sum() for g, w in zip(got, cpu))) \
-            <= 1e-4 * c.numel()
+        for g, w in zip(got, uenc.line_fit_reference(v, lab, n_sub, levels,
+                                                     ls_iters)):
+            assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("n_ch", [1, 2, 3, 4])
-def test_ls_step_on_card(cuda, n_ch, masked):
-    """One `xla_ls_step` launch gives the bits of its plain version on the
-    card and on the CPU: pixels through a strided view, singular systems
-    (one weight for all pixels) keeping lo / hi, out-of-range endpoints
-    clamped."""
+@pytest.mark.parametrize("ls_iters", [1, 2])
+@pytest.mark.parametrize("wb", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("comps", [2, 3, 4])
+def test_mode_trial_on_card(cuda, comps, wb, ls_iters):
+    """One `uastc_mode_trial` launch gives the errors, endpoint codes and
+    weights of its plain version on the card and on the CPU, bit for bit:
+    solid blocks, pixels through a strided view, a ragged last CTA and one
+    block."""
     from basis_universal_tpu_torch.codecs.uastc import encode as uenc
 
-    rng = np.random.default_rng(4 * n_ch + masked)
-    n = 3000
-    px = torch.cat([_blocks(n, n_ch), _blocks(n, n_ch + 9)[..., :1]], -1)
-    lev = np.array([0, 9, 18, 27, 37, 46, 55, 64], np.float32)
-    wl = torch.as_tensor(lev[rng.integers(0, 8, (n, 16))])
-    wl[::7] = 27.0
-    mask = torch.as_tensor(rng.random((n, 16)) < 0.5,
-                           dtype=torch.float32) if masked else None
-    lo = torch.as_tensor(rng.uniform(-9, 270, (n, n_ch)), dtype=torch.float32)
-    hi = torch.as_tensor(rng.uniform(-9, 270, (n, n_ch)), dtype=torch.float32)
-    args = (wl, mask, px[..., :n_ch], lo, hi)
-    card = [a.to(cuda) if a is not None else None for a in args]
-    got = uenc.ls_step(*card)
-    assert ck.LAUNCHES["xla_ls_step"] == 1
-    for g, w in zip(got, uenc.ls_step_reference(*card)):
-        assert torch.equal(g, w)
-    for g, w in zip(got, uenc.ls_step_reference(*args)):
-        _same_bits_or_ulp(g, w)
+    ep_range = {1: 20, 2: 20, 3: 19, 4: 13, 5: 11}[wb]
+    wide = _fit_blocks(2999, comps + 10 * wb).repeat(1, 1, 2)
+    for b in (2999, 1):
+        px = wide[:b, :, ::2]                       # a strided view
+        args = (wb, ep_range, comps, ls_iters)
+        ck.reset_launch_counts()
+        got = uenc._mode_trial(px.to(cuda), *args)
+        assert ck.LAUNCHES["uastc_mode_trial"] == 1
+        assert sum(ck.LAUNCHES.values()) == 1
+        for g, w in zip(got, uenc.mode_trial_reference(px.to(cuda), *args)):
+            assert torch.equal(g, w)
+        for g, w in zip(got, uenc.mode_trial_reference(px, *args)):
+            assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("alpha", [False, True])
 def test_uastc_search_launches_on_card(cuda, alpha):
-    """The effort-2 search launches, per image, one `xla_principal_axis`
-    per line fit and one `xla_ls_step` per least-squares step, and the
-    generic kernels for the rest (RGB 146 sums, 140 fused multiply-adds;
-    RGBA 304, 304); its blocks are the CPU's."""
+    """The effort-2 search launches, per image, one `uastc_mode_trial` per
+    single-subset mode (RGB 4, RGBA 8), one `uastc_line_fit` per 2-subset
+    candidate and dual-plane plane (14, 36), and the generic kernels for
+    the rest (RGB 16 ordered sums, RGBA 24; no fused multiply-add); its
+    blocks are the CPU's."""
     from basis_universal_tpu_torch.codecs.uastc import encode, pack
     from basis_universal_tpu_torch.ops.etc1 import image_to_blocks
     from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
@@ -997,9 +1010,9 @@ def test_uastc_search_launches_on_card(cuda, alpha):
                          dtype=torch.float32)
     modes, ls_iters, extra, topk = pack._effort_mode_set(2, alpha)
     got = encode._search(px.to(cuda), modes, ls_iters, extra, topk)
-    want = dict(xla_reduce=304, xla_fma=304, xla_principal_axis=56,
-                xla_ls_step=56) if alpha else dict(
-        xla_reduce=146, xla_fma=140, xla_principal_axis=26, xla_ls_step=26)
+    want = dict(xla_reduce=24, xla_fma=0, uastc_mode_trial=8,
+                uastc_line_fit=36) if alpha else dict(
+        xla_reduce=16, xla_fma=0, uastc_mode_trial=4, uastc_line_fit=14)
     assert {k: ck.LAUNCHES[k] for k in want} == want
     np.testing.assert_array_equal(
         got, encode._search(px, modes, ls_iters, extra, topk))

@@ -618,3 +618,18 @@ def test_xla_order_layout_merges_contiguous_dims():
     odd = torch.zeros((2,) * 9).permute(8, 7, 6, 5, 4, 3, 2, 1, 0)
     with pytest.raises(ValueError):
         xo._layout(*xo._broadcast([odd, torch.zeros((2,) * 9)]))
+
+
+@pytest.mark.parametrize("n_ops", [1, 2, 3])
+def test_xla_order_layout_holds_three_operands(n_ops):
+    """The kernels read three operands' strides from the layout buffer
+    (`layout32_of` in `csrc/xla_order_kernels.cu`): an ordered sum of one
+    operand or a product sum of two gets zeros for the rest, not bytes past
+    the buffer, which chose between the 32- and the 64-bit kernel."""
+    from basis_universal_tpu_torch.ops import xla_order as xo
+
+    ops = [torch.zeros((24, 16, 3)), torch.zeros((24, 16, 1)), 2.0][:n_ops]
+    nd, meta = xo._layout(*xo._broadcast(ops))
+    assert nd == (1 if n_ops == 1 else 2)
+    assert len(meta) == 4 * 8
+    assert list(meta[8 * (1 + min(n_ops, 2)):]) == [0] * 8 * (3 - min(n_ops, 2))

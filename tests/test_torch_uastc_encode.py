@@ -235,8 +235,9 @@ def _reference_ls_step(wl, mask, v, lo, hi):
 @pytest.mark.parametrize("n_ch", [1, 2, 3, 4])
 def test_ls_step_plain_version_is_the_references_step(n_ch, masked,
                                                       rgba_blocks):
-    """`ls_step` (its plain version on the CPU) gives the bits of
-    the reference's least-squares step, jitted, on every block: seeded
+    """`ls_step_reference` (the least-squares step of the plain line fits)
+    gives the bits of the reference's least-squares step, jitted, on every
+    block: seeded
     weight levels (a tenth of the blocks with one weight for all pixels, a
     singular system that keeps lo / hi), fallback endpoints out of range
     (clamped), the pixels a strided view of the RGBA blocks."""
@@ -255,47 +256,51 @@ def test_ls_step_plain_version_is_the_references_step(n_ch, masked,
         jnp.asarray(wl), jnp.asarray(mask), jnp.asarray(v.numpy()),
         jnp.asarray(lo), jnp.asarray(hi))
     ck.reset_launch_counts()
-    got = port_encode.ls_step(torch.from_numpy(wl),
-                              torch.from_numpy(mask) if masked else None, v,
-                              torch.from_numpy(lo), torch.from_numpy(hi))
+    got = port_encode.ls_step_reference(
+        torch.from_numpy(wl), torch.from_numpy(mask) if masked else None, v,
+        torch.from_numpy(lo), torch.from_numpy(hi))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    assert ck.LAUNCHES["xla_ls_step"] == 0          # the CPU launches nothing
+    assert not any(ck.LAUNCHES.values())            # the CPU launches nothing
 
 
 @pytest.mark.parametrize("alpha", [False, True])
 def test_search_runs_each_line_fit_as_one_chain_of_each(alpha, rgba_blocks):
-    """The effort-2 search calls `principal_axis` once per line fit (26 in
-    an RGB search, 56 with alpha) and `ls_step` once per least-squares
-    step (as many), and of the generic XLA-order operators leaves the
-    counts `chip_smoke.py` asserts per image on the card: 146 ordered sums
-    and 140 fused multiply-adds (RGB), 304 and 304 (RGBA); the ETC1 hint's
-    scan, a kernel on the card, is not counted. The principal axes are held
-    to the reference's bits inside its jitted mode trials
-    (`test_mode_trial_matches_reference`, `test_search_matches_reference`):
-    jitted alone, the reference's power iteration rounds otherwise."""
+    """The effort-2 search calls `_mode_trial` once per single-subset mode
+    (4 in an RGB search, 8 with alpha) and `line_fit` once per 2-subset
+    candidate and per dual-plane plane (14; 36), each one launch on the
+    card (`uastc_mode_trial`, `uastc_line_fit`), and of the generic
+    XLA-order operators leaves the counts `chip_smoke.py` asserts per image
+    on the card: the two ordered sums of each 2-subset candidate's error
+    (16 RGB, 24 RGBA) and no fused multiply-add; the ETC1 hint's scan, a
+    kernel on the card, is not counted. The line fits are held to the
+    reference's bits inside its jitted mode trials
+    (`test_mode_trial_matches_reference`, `test_search_matches_reference`,
+    `tests/test_torch_line_fit.py`): jitted alone, the reference's power
+    iteration rounds otherwise."""
     from basis_universal_tpu_torch.ops import xla_order as xo
 
-    calls = dict(principal_axis=0, ls_step=0, fma=0, reduce=0, hint=0)
+    calls = dict(mode_trial=0, line_fit=0, fma=0, reduce=0, hint=0)
     depth = [0]
+    nested = ("mode_trial", "line_fit", "hint")
 
     def counted(name, fn):
         def run(*args, **kw):
             if not depth[0]:
                 calls[name] += 1
-            depth[0] += name in ("principal_axis", "ls_step", "hint")
+            depth[0] += name in nested
             try:
                 return fn(*args, **kw)
             finally:
-                depth[0] -= name in ("principal_axis", "ls_step", "hint")
+                depth[0] -= name in nested
         return run
 
     mp = pytest.MonkeyPatch()
     try:
-        mp.setattr(port_encode, "principal_axis",
-                   counted("principal_axis", port_encode.principal_axis))
-        mp.setattr(port_encode, "ls_step",
-                   counted("ls_step", port_encode.ls_step))
+        mp.setattr(port_encode, "_mode_trial",
+                   counted("mode_trial", port_encode._mode_trial))
+        mp.setattr(port_encode, "line_fit",
+                   counted("line_fit", port_encode.line_fit))
         mp.setattr(xo, "fma_reference", counted("fma", xo.fma_reference))
         mp.setattr(xo, "reduce_reference",
                    counted("reduce", xo.reduce_reference))
@@ -307,7 +312,7 @@ def test_search_runs_each_line_fit_as_one_chain_of_each(alpha, rgba_blocks):
                             topk)
     finally:
         mp.undo()
-    want = (dict(principal_axis=56, ls_step=56, fma=304, reduce=304, hint=1)
+    want = (dict(mode_trial=8, line_fit=36, fma=0, reduce=24, hint=1)
             if alpha else
-            dict(principal_axis=26, ls_step=26, fma=140, reduce=146, hint=1))
+            dict(mode_trial=4, line_fit=14, fma=0, reduce=16, hint=1))
     assert calls == want
