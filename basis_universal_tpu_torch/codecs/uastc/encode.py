@@ -4,8 +4,9 @@ Counterpart of `basis_universal_tpu/codecs/uastc/encode.py`. Every candidate
 mode is evaluated for every block as dense tensor math on the device of the
 pixels (principal-axis endpoints, least-squares refinement, the argmin over
 all weight levels), one argmin per block picks the winner on the device,
-and one (B, 59) uint8 buffer per image comes back to the host, where
-`pack.py` (copies of the reference's numpy packers) writes the blocks.
+and `pack.uastc_pack` writes the blocks from its (B, 59) uint8 winner
+buffer on the same device (a kernel on the card); only the (B, 16) blocks
+come back to the host.
 
 Equivalences with the reference kept on purpose:
 - the float32 operations that decide a rounding are the reference's as XLA
@@ -42,7 +43,6 @@ Equivalences with the reference kept on purpose:
 - the search runs inside `exact_matmuls()` (no TF32).
 """
 
-import concurrent.futures as cf
 import functools
 
 import numpy as np
@@ -674,38 +674,45 @@ def _search_impl(px, modes: tuple, ls_iters: int, extra: tuple = (),
     return out.to(torch.uint8)                                  # (B, 59)
 
 
-def _search(px, modes, ls_iters, extra, topk) -> np.ndarray:
+def _search_device(px, modes, ls_iters, extra, topk):
+    """The search's (B, 59) uint8 winner buffer, on the device of px."""
     with etc1s_ops.exact_matmuls():
-        out = _search_impl(px.float(), modes, ls_iters, extra, topk)
-    return out.cpu().numpy()
+        return _search_impl(px.float(), modes, ls_iters, extra, topk)
+
+
+def _search(px, modes, ls_iters, extra, topk) -> np.ndarray:
+    """`_search_device`'s buffer, fetched to the host."""
+    return _search_device(px, modes, ls_iters, extra, topk).cpu().numpy()
+
+
+def _search_and_pack(px, modes, ls_iters, extra, topk) -> np.ndarray:
+    """Search and pack the (B, 16, 4) pixels px on their device; fetch the
+    (B, 16) blocks. The solid colour's alpha is pixel 0's, truncated to an
+    integer, as `pack._pack_from_compact` reads it."""
+    compact = _search_device(px, modes, ls_iters, extra, topk)
+    alpha0 = px[:, 0, 3].to(torch.int32)
+    tables = pack.pack_tables(modes, extra, px.device)
+    return pack.uastc_pack(compact, alpha0, tables).cpu().numpy()
 
 
 def encode_blocks(px_rgba: np.ndarray, effort: int = 2,
                   has_alpha: bool = True, device="cuda") -> np.ndarray:
     """Encode (B,16,4) float32 RGBA pixels -> (B,16) uint8 UASTC blocks; the
-    search runs on `device`."""
+    search and the packing run on `device`."""
     modes, ls_iters, extra, topk = pack._effort_mode_set(effort, has_alpha)
     dev = resolve_device(device)
     px = torch.as_tensor(np.ascontiguousarray(px_rgba, dtype=np.float32))
-    compact = _search(px.to(dev), modes, ls_iters, extra, topk)
-    return pack._pack_from_compact(compact, px_rgba, modes, extra)
+    return _search_and_pack(px.to(dev), modes, ls_iters, extra, topk)
 
 
 def encode_blocks_batch(px_list, effort: int = 2, has_alpha: bool = True,
                         device="cuda"):
     """Encode N same-shaped (B,16,4) images; yields (B,16) uint8 per image.
 
-    One image at a time runs on the device (uploaded as uint8, cast there);
-    the host packing of image i runs in a thread pool while the device
-    searches the images after it."""
+    One image at a time runs on the device (uploaded as uint8, cast there):
+    the search, then the packing, then one fetch of its blocks."""
     modes, ls_iters, extra, topk = pack._effort_mode_set(effort, has_alpha)
     dev = resolve_device(device)
-    with cf.ThreadPoolExecutor(min(len(px_list), 8) or 1) as ex:
-        futs = []
-        for px in px_list:
-            up = torch.as_tensor(np.ascontiguousarray(px).astype(np.uint8))
-            compact = _search(up.to(dev), modes, ls_iters, extra, topk)
-            futs.append(ex.submit(pack._pack_from_compact, compact, px, modes,
-                                  extra))
-        for f in futs:
-            yield f.result()
+    for px in px_list:
+        up = torch.as_tensor(np.ascontiguousarray(px).astype(np.uint8))
+        yield _search_and_pack(up.to(dev), modes, ls_iters, extra, topk)

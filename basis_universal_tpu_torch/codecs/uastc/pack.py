@@ -1,17 +1,27 @@
-"""UASTC LDR 4x4 host side: mode sets, endpoint LUTs, block packing and the
-LZ-aware selector RDO.
+"""UASTC LDR 4x4 block packing: mode sets, endpoint LUTs, the packers and
+the LZ-aware selector RDO, and the packing on the device.
 
-Copies of the host (numpy) half of `basis_universal_tpu/codecs/uastc/
-encode.py`; that module imports jax at the top, and the port must run where
-jax is not installed. The tables and the decoder are this package's copies
-(`tables.py`, `decode.py`). `codecs/uastc/encode.py` of this package is the
-device half (the mode search, in PyTorch).
+The numpy half is a copy of the host half of `basis_universal_tpu/codecs/
+uastc/encode.py` (that module imports jax at the top, and the port must run
+where jax is not installed): `_pack_from_compact` and its packers, which the
+tests hold to the reference's bytes. The tables and the decoder are this
+package's copies (`tables.py`, `decode.py`). `codecs/uastc/encode.py` of
+this package is the mode search, in PyTorch.
+
+The encoder packs on the search's device: `uastc_pack` writes the (B, 16)
+blocks from the search's (B, 59) winner buffer, from one int32 table buffer
+per slot list (`pack_tables`). A CUDA tensor launches the kernel of
+`csrc/uastc_pack_kernels.cu`, a CPU tensor runs `pack_reference`, the same
+field sequence in PyTorch; both give `_pack_from_compact`'s bytes.
 """
 
 import functools
 
 import numpy as np
+import torch
 
+from ...ops.cuda_etc1s import LAUNCHES, _check, _raise_on, _same_device, \
+    _stream
 from ...ops.etc1 import ETC1_INTEN_TABLES
 from . import tables as T
 
@@ -429,6 +439,305 @@ def _pack_mode_dualplane(mode, wb, ep_range, eps, ws, ccs, etc1_inten,
         ofs = _wr(lanes, ofs, ws[:, i], nb)
     assert ofs <= 128, ofs
     return _lanes_to_bytes(lanes)
+
+
+# --- the packing on the device: tables, plain version, kernel wrapper ------
+
+# The table buffer of one slot list (`pack_tables`), int32 words:
+# - a header: the slot count, the offset of the slot records, the offset of
+#   the solid-colour LUT, the buffer's length;
+# - SLOT_WORDS per slot, in the order of the winner buffer's slot column
+#   (`_effort_mode_set`'s modes, the solid colour, then its extra modes);
+# - PATTERN_WORDS per partition pattern: the 16 texels' subsets, 2 bits
+#   each; which weights are anchors (wb - 1 bits), one bit per weight; the
+#   anchor texel of each subset, 4 bits each. The single-subset record, the
+#   dual-plane one (weights 0 and 1 anchors), then the lists of the 2-subset
+#   modes, of mode 7 and of mode 3;
+# - the solid-colour LUT of `_solid_etc1_luts`: [inten*4+sel, target] the
+#   error | the 5-bit base << 16, 32 x 256 words, last.
+KIND_SUBSETS, KIND_SOLID, KIND_DUAL = 0, 1, 2
+SLOT_WORDS = 16
+(S_KIND, S_MODE, S_WB, S_RANGE, S_EP_BITS, S_TRITS, S_QUINTS, S_COMPS,
+ S_CODE, S_CODE_SIZE, S_FLAGS, S_PAT_OFS, S_PAT_COUNT, S_AUX_BITS, S_CCS,
+ S_SUBSETS) = range(SLOT_WORDS)
+# S_FLAGS: the hint fields a mode has
+F_HINT0, F_HINT1, F_BIAS, F_ALPHA = 1, 2, 4, 8
+# S_AUX_BITS: the bits of the aux column written after the hints (a 2-subset
+# mode's pattern 5, mode 3's 4, a dual-plane ccs 2); S_CCS: a dual-plane
+# mode's fixed ccs (mode 17: 1, not written), -1 where the aux column is it
+HEADER_WORDS = 4
+PATTERN_WORDS = 3
+LUT_WORDS = 32 * 256
+# the words before the LUT, which the kernel stages in shared memory
+MAX_PREFIX_WORDS = 1024
+# (mode, weight bits, endpoint range, comps) of each extra slot's name, as
+# `_pack_from_compact` packs it
+EXTRA_MODES = {name: (m, int(T.MODE_WEIGHT_BITS[m]),
+                      int(T.MODE_ENDPOINT_RANGES[m]), int(T.MODE_COMPS[m]))
+               for name, m in (("mode2", 2), ("mode4", 4), ("mode6", 6),
+                               ("mode9", 9), ("mode7", 7), ("mode16", 16),
+                               ("mode3", 3), ("mode11", 11), ("mode13", 13),
+                               ("mode17", 17))}
+
+
+def _pattern_record(labels, anchors, anchor_mask):
+    word = 0
+    for i, s in enumerate(labels):
+        word |= int(s) << (2 * i)
+    packed = 0
+    for s, a in enumerate(anchors):
+        packed |= int(a) << (4 * s)
+    return [int(np.uint32(word).view(np.int32)), anchor_mask, packed]
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_tables(modes: tuple, extra: tuple, device: str) -> torch.Tensor:
+    slots = [(KIND_SUBSETS,) + m for m in modes] + [(KIND_SOLID,)] + [
+        (KIND_DUAL if T.MODE_PLANES[EXTRA_MODES[n][0]] == 2 else KIND_SUBSETS,)
+        + EXTRA_MODES[n] for n in extra]
+    lists = {1: [[0] * 16]}                 # the single-subset "pattern"
+    anchors = {1: [(0,)]}
+    for key, seeds, n_sub in (
+            (2, [sd for (_b, sd, _i) in T.ASTC_BC7_COMMON_PARTITIONS2], 2),
+            (7, _mode7_seeds(), 2),
+            (3, [sd for (_b, sd, _i) in T.ASTC_BC7_COMMON_PARTITIONS3], 3)):
+        lists[key] = [T.partition_pattern(sd, n_sub) for sd in seeds]
+        anchors[key] = [T.pattern_anchors(sd, n_sub) for sd in seeds]
+    pat_ofs = HEADER_WORDS + SLOT_WORDS * len(slots)
+    patterns, where = [], {}
+    for key in (1, "dual", 2, 7, 3):
+        where[key] = pat_ofs + len(patterns)
+        if key == "dual":
+            patterns += _pattern_record([0] * 16, (0,), 0b11)
+            continue
+        for lab, anc in zip(lists[key], anchors[key]):
+            mask = 0
+            for a in anc:
+                mask |= 1 << a
+            patterns += _pattern_record(lab, anc, mask)
+    recs = []
+    for slot in slots:
+        rec = [0] * SLOT_WORDS
+        rec[S_KIND] = slot[0]
+        if slot[0] == KIND_SOLID:
+            rec[S_MODE] = T.MODE_SOLID
+            rec[S_CODE], rec[S_CODE_SIZE] = T.MODE_HUFF_CODES[T.MODE_SOLID]
+            rec[S_PAT_OFS], rec[S_PAT_COUNT] = where[1], 1
+            recs += rec
+            continue
+        _kind, mode, wb, ep_range, comps = slot
+        n_sub = int(T.MODE_SUBSETS[mode]) if slot[0] == KIND_SUBSETS else 1
+        key = {1: 1, 2: 7 if mode == 7 else 2, 3: 3}[n_sub] \
+            if slot[0] == KIND_SUBSETS else "dual"
+        rec[S_MODE], rec[S_WB], rec[S_RANGE], rec[S_COMPS] = (
+            mode, wb, ep_range, comps)
+        rec[S_EP_BITS], rec[S_TRITS], rec[S_QUINTS] = \
+            T.BISE_RANGE_TABLE[ep_range]
+        rec[S_CODE], rec[S_CODE_SIZE] = T.MODE_HUFF_CODES[mode]
+        rec[S_FLAGS] = (F_HINT0 * int(T.MODE_HAS_BC1_HINT0[mode])
+                        | F_HINT1 * int(T.MODE_HAS_BC1_HINT1[mode])
+                        | F_BIAS * int(T.MODE_HAS_ETC1_BIAS[mode])
+                        | F_ALPHA * int(T.MODE_HAS_ALPHA[mode]))
+        rec[S_PAT_OFS] = where[key]
+        rec[S_PAT_COUNT] = 1 if key in (1, "dual") else len(lists[key])
+        rec[S_AUX_BITS] = {1: 0, 2: 5, 7: 5, 3: 4, "dual": 2}[key]
+        rec[S_CCS] = -1
+        if mode == 17:                       # fixed ccs 1, not written
+            rec[S_AUX_BITS], rec[S_CCS] = 0, 1
+        rec[S_SUBSETS] = n_sub
+        recs += rec
+    lut_ofs = pat_ofs + len(patterns)
+    if lut_ofs > MAX_PREFIX_WORDS:
+        raise ValueError(f"{len(slots)} slots: {lut_ofs} table words before "
+                         f"the LUT, at most {MAX_PREFIX_WORDS}")
+    errs, bests = _solid_etc1_luts()
+    lut = (errs | (bests << 16)).reshape(-1)
+    n_words = lut_ofs + LUT_WORDS
+    head = [len(slots), HEADER_WORDS, lut_ofs, n_words]
+    buf = np.array(head + recs + patterns, dtype=np.int64)
+    return torch.as_tensor(np.concatenate([buf, lut]).astype(np.int32),
+                           device=device)
+
+
+def pack_tables(modes: tuple, extra: tuple, device="cpu") -> torch.Tensor:
+    """The int32 table buffer (layout above) of the slot list that
+    `_effort_mode_set` gives as (modes, extra), on `device`; built from
+    `tables.py` once per slot list and device."""
+    return _pack_tables(tuple(modes), tuple(extra), str(torch.device(device)))
+
+
+# bits of a truncated trit / quint bundle of 0..5 / 0..3 values
+_TRIT_BUNDLE_BITS = (0, 2, 4, 5, 7, 8)
+_QUINT_BUNDLE_BITS = (0, 3, 5, 7)
+
+
+def pack_reference(compact, alpha0, tables):
+    """Plain version of `uastc_pack`, on any device: `_pack_from_compact`'s
+    bytes from the same tables as the kernel. Each block's fields, in the
+    kernel's order, are (value, width) columns, 0 wide where the block's slot
+    has no such field; their offsets are the widths' running sum, and the
+    fields are written into a (B, 128) bit matrix (bit i of the block is
+    bit i % 8 of byte i // 8), folded into 16 bytes."""
+    dev = compact.device
+    b_n = compact.shape[0]
+    if b_n == 0:
+        return torch.empty((0, 16), dtype=torch.uint8, device=dev)
+    tab = tables.to(torch.int64)
+    n_slots, slots_ofs, lut_ofs = (int(v) for v in tables[:3].tolist())
+    slots = tab[slots_ofs:slots_ofs + n_slots * SLOT_WORDS].reshape(
+        n_slots, SLOT_WORDS)
+    lut = tab[lut_ofs:lut_ofs + LUT_WORDS].reshape(32, 256)
+    c = compact.to(torch.int64)
+    slot = c[:, 0]
+    known = slot < n_slots
+    rec = slots[torch.where(known, slot, 0)]
+    kind = torch.where(known, rec[:, S_KIND], -1)
+    solid = (kind == KIND_SOLID).long()
+    other = (known & (kind != KIND_SOLID)).long()
+    dual = kind == KIND_DUAL
+    aux, inten = c[:, 57], c[:, 58]
+    vals, widths = [], []
+
+    def field(v, w):
+        vals.append(torch.as_tensor(v, device=dev).expand(b_n))
+        widths.append(w)
+
+    field(rec[:, S_CODE], known.long() * rec[:, S_CODE_SIZE])
+    # the solid colour: RGBA, then the ETC1 hint of `_solid_hints`
+    rgb = c[:, 1:4]
+    err, base = lut & 0xFFFF, lut >> 16
+    e = sum(err[:, rgb[:, ch]] ** 2 for ch in range(3))     # (32, B)
+    combo = torch.argmin(e, 0)
+    for ch in range(3):
+        field(rgb[:, ch], 8 * solid)
+    field(alpha0.to(torch.int64), 8 * solid)
+    field(1, solid)
+    field(combo >> 2, 3 * solid)
+    field(combo & 3, 2 * solid)
+    for ch in range(3):
+        field(base[combo, rgb[:, ch]], 5 * solid)
+    # every other slot: the hints, then the pattern index or the ccs
+    flags = rec[:, S_FLAGS]
+    field(0, other * (flags & F_HINT0 != 0))
+    field(0, other * (flags & F_HINT1 != 0))
+    field(0, other)                                          # flip
+    field(1, other)                                          # diff
+    field(inten, 3 * other)
+    field(inten, 3 * other)
+    field(0, 5 * other * (flags & F_BIAS != 0))
+    field(0x10, 8 * other * (flags & F_ALPHA != 0))          # EAC
+    field(aux, other * rec[:, S_AUX_BITS])
+
+    # the anchor flips: a subset (a plane) whose anchor weight has its MSB
+    # set has its weights inverted and its endpoint pairs swapped, in turn
+    pat = rec[:, S_PAT_OFS] + PATTERN_WORDS * torch.minimum(
+        aux, rec[:, S_PAT_COUNT] - 1)
+    labels, anchor_mask, anchors = tab[pat], tab[pat + 1], tab[pat + 2]
+    wb, comps = rec[:, S_WB], rec[:, S_COMPS]
+    wmax = (1 << wb) - 1
+    top = torch.clamp(wb - 1, min=0)
+    w = c[:, 25:57].clone()
+    ep = c[:, 1:25].clone()
+    texel = torch.arange(32, device=dev)
+    lab = (labels[:, None] >> (2 * texel[:16])) & 3
+    lab = torch.cat([lab, torch.full_like(lab, -1)], 1)
+
+    def swap(do, col):
+        col = torch.clamp(torch.as_tensor(col, device=dev).expand(b_n), 0,
+                          22)[:, None]
+        lo, hi = ep.gather(1, col), ep.gather(1, col + 1)
+        ep.scatter_(1, col, torch.where(do[:, None], hi, lo))
+        ep.scatter_(1, col + 1, torch.where(do[:, None], lo, hi))
+
+    for s in range(3):
+        a = (anchors >> (4 * s)) & 15
+        flip = ((kind == KIND_SUBSETS) & (s < rec[:, S_SUBSETS])
+                & ((w.gather(1, a[:, None])[:, 0] >> top) & 1 == 1))
+        w = torch.where(flip[:, None] & (lab == s), wmax[:, None] - w, w)
+        for ch in range(4):
+            swap(flip & (ch < comps), s * comps * 2 + 2 * ch)
+    ccs = torch.where(rec[:, S_CCS] >= 0, rec[:, S_CCS], aux)
+    for plane in range(2):
+        flip = dual & ((w[:, plane] >> top) & 1 == 1)
+        w = torch.where(flip[:, None] & (texel % 2 == plane), wmax[:, None] - w,
+                        w)
+        for ch in range(4):
+            swap(flip & (ch < comps) & ((ccs == ch) == (plane == 1)), 2 * ch)
+
+    # the endpoints: trit / quint bundles (the last truncated), then every
+    # value's raw bits
+    n_values = rec[:, S_SUBSETS] * comps * 2
+    ep_bits, trits, quints = rec[:, S_EP_BITS], rec[:, S_TRITS], rec[:, S_QUINTS]
+    tq = ep >> ep_bits[:, None]
+    bundle = torch.where(trits > 0, 5, torch.where(quints > 0, 3, 0))
+    mul = torch.where(trits > 0, 3, 5)
+    bits_of = torch.where(
+        trits[:, None] > 0, torch.as_tensor(_TRIT_BUNDLE_BITS, device=dev),
+        torch.as_tensor(_QUINT_BUNDLE_BITS + (0, 0), device=dev))
+    for k in range(8):
+        start = k * bundle
+        cnt = torch.clamp(torch.minimum(n_values - start, bundle), min=0)
+        accum = torch.zeros_like(cnt)
+        m = torch.ones_like(cnt)
+        for i in range(5):
+            v = tq.gather(1, torch.clamp(start + i, max=23)[:, None])[:, 0]
+            accum = accum + torch.where(i < cnt, v * m, 0)
+            m = m * mul
+        field(accum, other * bits_of.gather(1, cnt[:, None])[:, 0])
+    for i in range(24):
+        field(ep[:, i], other * (i < n_values) * ep_bits)
+    # the weights: 16 (32 interleaved in a dual-plane mode), an anchor's
+    # wb - 1 bits wide
+    n_weights = torch.where(dual, 32, 16)
+    for i in range(32):
+        field(w[:, i], other * (i < n_weights)
+              * (wb - ((anchor_mask >> i) & 1)))
+
+    v = torch.stack(vals, 1)
+    n = torch.stack([torch.as_tensor(x, device=dev).expand(b_n).long()
+                     for x in widths], 1)
+    ofs = torch.cumsum(n, 1) - n
+    j = torch.arange(8, device=dev)
+    pos = ofs[..., None] + j
+    ok = (j < n[..., None]) & (pos < 128)
+    bit = (v[..., None] >> j) & 1
+    bits = torch.zeros((b_n, 129), dtype=torch.int64, device=dev)
+    bits.scatter_(1, torch.where(ok, pos, 128).reshape(b_n, -1),
+                  torch.where(ok, bit, 0).reshape(b_n, -1))
+    return (bits[:, :128].reshape(b_n, 16, 8) << j).sum(-1).to(torch.uint8)
+
+
+def uastc_pack(compact, alpha0, tables):
+    """The (B, 16) uint8 UASTC blocks of the search's (B, 59) uint8 winner
+    buffer [slot | endpoint codes (24) | weights (32) | aux | ETC1 intensity],
+    with alpha0 (B,) int32 the alpha of each block's pixel 0 (the solid
+    colour's; its low 8 bits are written) and tables `pack_tables`' buffer
+    of the search's slot list: `_pack_from_compact`'s bytes.
+
+    A CUDA tensor launches `uastc_pack` (`csrc/uastc_pack_kernels.cu`), a
+    thread per block, and counts the launch; a CPU tensor runs
+    `pack_reference`. It replaces the numpy packing
+    (`_pack_from_compact`), which no TPU kernel stood behind; it is bound
+    by its bytes, 59 + 4 in and 16 out per block."""
+    _check(compact, "compact", torch.uint8, (None, 59))
+    _check(alpha0, "alpha0", torch.int32, (compact.shape[0],))
+    _check(tables, "tables", torch.int32, (None,))
+    dev = _same_device(compact, alpha0, tables)
+    if dev.type == "cpu":
+        return pack_reference(compact, alpha0, tables)
+    b_n = compact.shape[0]
+    out = torch.empty((b_n, 16), dtype=torch.uint8, device=dev)
+    if b_n == 0:
+        return out
+    from ...ops._build import get_lib
+
+    with torch.cuda.device(dev):
+        status = get_lib("uastc_pack_kernels").uastc_pack(
+            compact.data_ptr(), alpha0.data_ptr(), tables.data_ptr(),
+            tables.numel(), out.data_ptr(), b_n, _stream(dev))
+    LAUNCHES["uastc_pack"] += 1
+    _raise_on(status, "uastc_pack")
+    return out
 
 
 # --- UASTC RDO: LZ-aware selector-bit-range matching ------------------------

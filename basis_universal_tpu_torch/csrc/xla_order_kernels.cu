@@ -5,7 +5,7 @@
 // contraction is summed in a fixed order. The port spells these orders out
 // (basis_universal_tpu_torch/ops/xla_order.py) wherever a rounding decides
 // a code. Its plain PyTorch versions emulate each fused multiply-add through
-// float64, six operators and a float64 copy per operand; on the card these
+// float64, a dozen operators and a float64 copy per operand; on the card these
 // kernels compute the same values with one launch:
 //
 // - xla_fma: out = fma(a, b, c) elementwise, each operand a broadcast view
@@ -28,10 +28,8 @@
 //
 // Every rounding is spelled out (__fmaf_rn, __fmul_rn, __fadd_rn,
 // __fdiv_rn, __fsqrt_rn), so the card gives XLA's bits, the fused kernels
-// the bits of the generic ones; the float64 emulation on the CPU rounds
-// twice and may differ from a true fused multiply-add in the last bit when
-// the float64 sum lands on a float32 midpoint (rare; the CPU tests hold the
-// plain version to the reference).
+// the bits of the generic ones, and the plain versions' (whose float64
+// emulation rounds each fused multiply-add once, through round-to-odd).
 //
 // What bounds them on the H100: xla_fma and xla_reduce move a few bytes per
 // operation, so their bytes; at the UASTC searches' shapes (a few MB) the

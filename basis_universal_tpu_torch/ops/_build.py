@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-Each source (`etc1s_kernels.cu`, the ETC1S encoder's kernels, and
-`xla_order_kernels.cu`, XLA-CPU's float32 orders) is compiled at first use
+Each source (`etc1s_kernels.cu`, the ETC1S encoder's kernels,
+`xla_order_kernels.cu`, XLA-CPU's float32 orders, and
+`uastc_pack_kernels.cu`, the UASTC block packing) is compiled at first use
 with nvcc into a shared library with a plain C interface, for sm_90a
 (Hopper), and loaded with ctypes. The libraries are cached under
 `build/torch_kernels/` at the repository root, keyed by the hash of their
@@ -21,7 +22,7 @@ import subprocess
 import threading
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-SOURCES = ("etc1s_kernels", "xla_order_kernels")
+SOURCES = ("etc1s_kernels", "xla_order_kernels", "uastc_pack_kernels")
 _BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 _CUDA_ROOTS = ("/usr/local/cuda",)
 
@@ -110,6 +111,13 @@ def _declare_xla_order(lib):
     return lib
 
 
+def _declare_uastc_pack(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.uastc_pack.argtypes = [vp, vp, vp, ci, vp, ctypes.c_longlong, vp]
+    lib.uastc_pack.restype = ci
+    return lib
+
+
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.etc1s_factorized_scan.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
@@ -140,7 +148,8 @@ def get_lib(name: str = "etc1s_kernels"):
     """The loaded library of csrc/<name>.cu (built on first call)."""
     with _lock:
         if name not in _libs:
-            declare = (_declare_xla_order if name == "xla_order_kernels"
-                       else _declare)
+            declare = {"xla_order_kernels": _declare_xla_order,
+                       "uastc_pack_kernels": _declare_uastc_pack}.get(
+                           name, _declare)
             _libs[name] = declare(ctypes.CDLL(str(library_path(name))))
         return _libs[name]

@@ -22,8 +22,8 @@ device of the tensors it was given:
 - a CPU tensor runs the plain PyTorch version kept beside it (`*_reference`).
 
 The plain version never runs for a CUDA tensor. `LAUNCHES` counts the kernel
-launches of each wrapper (here, in `ops/xla_order.py` and in
-`codecs/uastc/encode.py`);
+launches of each wrapper (here, in `ops/xla_order.py`, in
+`codecs/uastc/encode.py` and in `codecs/uastc/pack.py`);
 `reset_launch_counts()` zeroes it.
 """
 
@@ -49,6 +49,8 @@ LAUNCHES = {
     # the UASTC search's line fits (`codecs/uastc/encode.py`)
     "uastc_line_fit": 0,
     "uastc_mode_trial": 0,
+    # the UASTC block packing (`codecs/uastc/pack.py`)
+    "uastc_pack": 0,
 }
 
 # float32 constants of the kernels, as Python floats holding the exact f32

@@ -13,10 +13,11 @@ wrappers of the kernels of `csrc/xla_order_kernels.cu` (`xla_fma`,
 each rounding out (`__fmaf_rn`, `__fadd_rn`), and counts the launch in
 `cuda_etc1s.LAUNCHES`; a CPU tensor runs the plain version beside it
 (`fma_reference`, `reduce_reference`), a chain of elementwise float32
-operators with each fused multiply-add emulated through float64 (the product of two float32 is exact there; the
-sum is rounded twice, which can differ from one rounding in the last bit
-where the float64 sum lands on a float32 midpoint). Integer sums are
-exact in any order and stay a library sum.
+operators with each fused multiply-add emulated through float64 and
+rounded once, as the kernels' `__fmaf_rn` and XLA-CPU's `vfmadd` round:
+the product of two float32 is exact in float64, the sum is rounded there
+to odd, and that rounds correctly to float32. Integer sums are exact in
+any order and stay a library sum.
 
 The same library holds two kernels of whole compositions of these
 helpers, the UASTC search's masked line fit and single-subset mode trial
@@ -248,11 +249,24 @@ def _reduce_card(a, b, dim: int, order: str):
 
 
 def fma_reference(a, b, c):
-    """Plain version of `_fma`, on any device: through float64, where the
-    product of two float32 is exact."""
+    """Plain version of `_fma`, on any device: a * b + c rounded once to
+    float32. The product of two float32 values (or of a Python float that
+    is a float32 value) is exact in float64. The sum with c is rounded
+    there to odd: TwoSum gives the rounded sum s and its exact residual e,
+    and where e is not 0 and s's last significand bit is even, s steps one
+    ulp toward e. A result rounded to odd at 53 bits rounds to nearest at
+    float32's 24 as the exact value would (53 >= 2 * 24 + 2), so the one
+    rounding is float32's own."""
     a, b, c = (x.double() if isinstance(x, torch.Tensor) else x
                for x in (a, b, c))          # a Python float is a double
-    return (a * b + c).float()
+    p = a * b
+    s = p + c
+    v = s - p
+    e = (p - (s - v)) + (c - v)
+    odd = (e != 0) & torch.isfinite(e) & ((s.view(torch.int64) & 1) == 0)
+    step = torch.nextafter(s, torch.where(e > 0, torch.inf, -torch.inf)
+                           .to(torch.float64))
+    return torch.where(odd, step, s).float()
 
 
 def reduce_reference(a, b, dim: int, order: str):
@@ -363,13 +377,11 @@ def _cross6(a, b):
     `jax.jit(jnp.dot)` on the host that runs it). The plain version of the
     `cross6_*` kernels, which spell the same rule out on the card."""
     lanes = 2 if 1 <= b.shape[0] % 64 <= 32 else 1
-    # the fused multiply-adds of `_dot` / `_dot_mm`, with the operands
-    # widened before they are broadcast: one (N, C) float64 pass each
-    a64, b64 = a.double(), b.double()
-    acc = [(a64[:, None, k] * b64[None, :, k]).float() for k in range(lanes)]
+    # the fused multiply-adds of `_dot` / `_dot_mm`, each rounded once
+    acc = [a[:, None, k] * b[None, :, k] for k in range(lanes)]
     for k in range(lanes, a.shape[1]):
-        acc[k % lanes] = torch.addcmul(acc[k % lanes].double(),
-                                       a64[:, None, k], b64[None, :, k]).float()
+        acc[k % lanes] = fma_reference(a[:, None, k], b[None, :, k],
+                                       acc[k % lanes])
     return acc[0] if lanes == 1 else acc[0] + acc[1]
 
 

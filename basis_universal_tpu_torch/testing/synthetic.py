@@ -6,7 +6,9 @@ degenerate vector-quantiser input). Only `Generator.integers` and
 `Generator.uniform` draw random numbers, and the waves use a polynomial
 (no transcendental functions), so the same seed gives the same bytes on
 every platform and numpy version; `synthetic_texture` returns the sha256 of
-what it built so a caller can check that.
+what it built so a caller can check that. `uastc_winner_buffer` draws a
+UASTC search's winner buffer in which every slot of a slot list wins
+blocks, the input the block packing is tested on.
 """
 
 import hashlib
@@ -75,3 +77,40 @@ def synthetic_texture(height: int, width: int, seed: int = 0,
 
     rgb = np.ascontiguousarray(rgb)
     return rgb, hashlib.sha256(rgb.tobytes()).hexdigest()
+
+
+def uastc_winner_buffer(modes: tuple, extra: tuple, n: int, seed: int = 0):
+    """A (n, 59) uint8 UASTC search winner buffer [slot | endpoint codes
+    (24) | weights (32) | aux | ETC1 intensity] for the slot list (modes,
+    extra) of `_effort_mode_set`, in which every slot, and a slot number
+    past the list (a row packed as zeros), wins about n / (slots + 1)
+    blocks, in random order: endpoint codes each 0, the range's maximum or
+    random within the slot's range, weights within its weight bits, the aux
+    column a pattern index of its list or a ccs of its channels (random
+    where the slot reads none), random ETC1 intensities."""
+    from ..codecs.uastc import pack
+    from ..codecs.uastc import tables as T
+
+    rng = np.random.default_rng(seed)
+    slots = list(modes) + [None] + [pack.EXTRA_MODES[x] for x in extra]
+    c = rng.integers(0, 256, (n, 59))
+    c[:, 0] = rng.permutation(np.arange(n) % (len(slots) + 1))
+    for s, m in enumerate(slots):
+        if m is None:
+            continue
+        mode, wb, ep_range, comps = m
+        idx = c[:, 0] == s
+        k = int(idx.sum())
+        top = len(T.color_unquant_table(ep_range))
+        c[idx, 1:25] = np.choose(rng.integers(0, 3, (k, 24)), [
+            np.zeros((k, 24), np.int64), np.full((k, 24), top - 1),
+            rng.integers(0, top, (k, 24))])
+        c[idx, 25:57] = rng.integers(0, 1 << wb, (k, 32))
+        n_aux = (len(T.BC7_3_ASTC2_COMMON_PARTITIONS) if mode == 7 else
+                 len(T.ASTC_BC7_COMMON_PARTITIONS3)
+                 if T.MODE_SUBSETS[mode] == 3 else
+                 len(T.ASTC_BC7_COMMON_PARTITIONS2)
+                 if T.MODE_SUBSETS[mode] == 2 else
+                 comps if T.MODE_PLANES[mode] == 2 else 256)
+        c[idx, 57] = np.arange(k) % n_aux
+    return c.astype(np.uint8)

@@ -5,6 +5,7 @@ re-encodes and its image metrics once on one GPU.
 
     python3 chip_smoke.py [--profile OUT_DIR] [--ab OTHER_TREE]
     python3 chip_smoke.py --fit-ab TREE [TREE ...]
+    python3 chip_smoke.py --wall-ab TREE PAIRS
 
 Phases (any failure raises, so the process exits nonzero with no final line):
 1. require CUDA; print versions and the card's name and power limit; load
@@ -30,7 +31,10 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    reduction in its rounds, `bisect_phase`); the generic XLA-order
    kernels `xla_fma` and `xla_reduce` at a UASTC line fit's shapes; the
    UASTC search's line fits, `uastc_line_fit` and `uastc_mode_trial`, at
-   every shape the effort-2 and effort-3 searches give them, bit for bit)
+   every shape the effort-2 and effort-3 searches give them, bit for bit;
+   the UASTC block packing `uastc_pack` on image 0's winner buffer and on
+   buffers in which every slot of efforts 1-4, RGB and RGBA, wins blocks,
+   byte for byte, `uastc_pack_phase`)
    and time both with CUDA events, beside the least time the card could
    take (bound)
    and, where one PyTorch call computes the same function, that call
@@ -43,8 +47,9 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    image 0 to the JAX-CPU reference's recorded bytes (sha256);
 5. UASTC LDR 4x4: the same four textures through `compress_batch` at
    effort 2, then one 768x512 RGBA texture through `compress`: one scan and
-   one rescore launch per image (the ETC1 hint) and the XLA-order kernels'
-   launches and the line fits' per RGB and RGBA image
+   one rescore launch per image (the ETC1 hint), one `uastc_pack` (the
+   blocks, packed on the card; the numpy packer is not called) and the
+   XLA-order kernels' launches and the line fits' per RGB and RGBA image
    (`EXPECTED_UASTC_XLA`), every file
    decoded (CRCs, PSNR), image 0 and the RGBA texture held to the recorded
    JAX-CPU bytes;
@@ -105,7 +110,10 @@ The last two lines are the kernels' JSON record and the result line.
 `--fit-ab TREE [TREE ...]` runs only phase 1, then times the UASTC line
 fits of phase 3 (each shape held to its plain version) with this
 checkout's package and with each other tree's, in turns, and prints no
-result line.
+result line. `--wall-ab TREE PAIRS` runs only phase 1, then times
+`compress_batch` of 16 images, ETC1S and UASTC, with this checkout's
+package and the other tree's, PAIRS pairs in alternating order, each run
+in a process of its own (`phase_wall_ab`), and prints no result line.
 """
 
 import hashlib
@@ -219,11 +227,15 @@ EXPECTED_PER_IMAGE = {"factorized_scan": 1, "factorized_scan_shortlist": 1,
                       # the bisecting init: its rows, then one launch per
                       # round, ceil(log2 2416)
                       "bisect_rows": 1, "bisect_round": 12}
+# the transcoder's ETC1 target: one fused scan (radius 1) and one rescore
+# (K 16)
+EXPECTED_ETC1_TRANSCODE = {"factorized_scan_shortlist": 1,
+                           "palette_errs_packed": 1}
 # UASTC: per image, one fused scan (radius 0) and one rescore (K 8) for the
-# ETC1 hint; the transcoder's ETC1 target one fused scan (radius 1) and one
-# rescore (K 16), its ASTC re-encode one UASTC search
+# ETC1 hint, and one packing of the blocks (the transcoder's ASTC re-encode
+# runs one UASTC search)
 EXPECTED_UASTC_PER_IMAGE = {"factorized_scan_shortlist": 1,
-                            "palette_errs_packed": 1}
+                            "palette_errs_packed": 1, "uastc_pack": 1}
 # images each path encodes or transcodes in its counted run
 PATH_IMAGES = {"etc1s": N_IMAGES, "uastc": N_IMAGES + 1, "transcoder": 1,
                "astc_ldr_4x4": 1, "xuastc_ldr_4x4": 1,
@@ -252,7 +264,10 @@ REPLACES = {"factorized_scan": f"{PALLAS}:343",
             # no Pallas kernel: the reference's jitted line fits, a masked
             # fit (`_fit_line_masked`) and a single-subset mode trial
             "uastc_line_fit": "basis_universal_tpu/codecs/uastc/encode.py:155",
-            "uastc_mode_trial": "basis_universal_tpu/codecs/uastc/encode.py:56"}
+            "uastc_mode_trial": "basis_universal_tpu/codecs/uastc/encode.py:56",
+            # no Pallas kernel: the reference's numpy packing of the search's
+            # winner buffer into UASTC blocks
+            "uastc_pack": "basis_universal_tpu/codecs/uastc/encode.py:700"}
 XLA_ORDER_KERNELS = ("xla_fma", "xla_reduce", "uastc_line_fit",
                      "uastc_mode_trial")
 # XLA-order launches per UASTC effort-2 image (RGB; RGBA): one
@@ -267,6 +282,7 @@ EXPECTED_UASTC_XLA = {
            "uastc_line_fit": 36}}
 SOURCES = {name: "basis_universal_tpu_torch/csrc/"
            + ("xla_order_kernels.cu" if name in XLA_ORDER_KERNELS
+              else "uastc_pack_kernels.cu" if name == "uastc_pack"
               else "etc1s_kernels.cu") for name in REPLACES}
 RTOL = 1e-5
 SCAN_MAG_TOL = 1e-6     # ~8 float32 ulps of the scan's cancelled terms
@@ -882,11 +898,10 @@ def phase_kernels(torch, blocks):
     # -- the XLA-order kernels at a UASTC line fit's shapes (24,576 blocks x
     #    16 pixels x 3 channels): a fused multiply-add with a broadcast and a
     #    scalar operand, and the 16-term fma chain of P = sum_i a_i v_i
-    #    (`_dot` over the pixels); the plain versions (float64 emulation) on
-    #    the same card tensors; the library calls are one addcmul and one
-    #    einsum. Their bits must agree, but for the double rounding of the
-    #    plain version (see `ops/xla_order.py`): at most 1e-6 of the values
-    #    may differ, by one ulp.
+    #    (`_dot` over the pixels); the plain versions (each fused
+    #    multiply-add emulated through float64 and rounded once) on the same
+    #    card tensors; the library calls are one addcmul and one einsum.
+    #    Every value must be the plain version's.
     from basis_universal_tpu_torch.ops import xla_order as xo
 
     v = px
@@ -914,14 +929,11 @@ def phase_kernels(torch, blocks):
         got, want = run(), plain()
         torch.cuda.synchronize()
         n_diff = int((got != want).sum())
-        ulp = (torch.nextafter(want, torch.full_like(want, float("inf")))
-               - want).abs()
-        if n_diff > 1e-6 * got.numel() + 1 or bool(
-                ((got - want).abs() > ulp).any()):
+        if n_diff:
             raise AssertionError(f"{name}: {n_diff} of {got.numel()} values "
                                  "differ from the plain version")
-        print(f"{name} {label}: {n_diff} of {got.numel()} values one ulp "
-              "off the plain version (its double rounding)")
+        print(f"{name} {label}: every one of {got.numel()} values the plain "
+              "version's")
         measure(name, label, run, plain, float((got - want).abs().max()),
                 bound, library=lib)
 
@@ -933,7 +945,106 @@ def phase_kernels(torch, blocks):
     #    `_fma`, which on the card launch the generic kernels, whose bits
     #    they must give, every value. No one PyTorch call computes either.
     uastc_line_fits(torch, px, rng, measure)
+
+    # -- the UASTC block packing at 24,576 blocks: image 0's own winner
+    #    buffer and buffers drawn so that every slot of each slot list wins
+    #    blocks, each the plain version's bytes (`uastc_pack_phase`)
+    uastc_pack_phase(torch, px, rng, measure)
     return results
+
+
+def _pack_ops(compact, tables):
+    """Instructions `uastc_pack` spends on the buffer: per field written 5
+    (mask, shift, or, the offset's add and the 64-bit crossing's compare),
+    per weight 2 more (its flip), and the solid colour's LUT search, 32
+    combinations x 9 (three loads, three multiply-adds, a compare, a select
+    and the loop)."""
+    from basis_universal_tpu_torch.codecs.uastc import pack
+
+    tab = tables.cpu().numpy().astype(np.int64)
+    n_slots, slots_ofs = int(tab[0]), int(tab[1])
+    counts = np.bincount(compact[:, 0].cpu().numpy(), minlength=256)
+    ops = 0
+    for slot in range(n_slots):
+        r = tab[slots_ofs + slot * pack.SLOT_WORDS:][:pack.SLOT_WORDS]
+        if r[pack.S_KIND] == pack.KIND_SOLID:
+            fields, extra = 11, 32 * 9
+        else:
+            n_values = r[pack.S_SUBSETS] * r[pack.S_COMPS] * 2
+            n_weights = 32 if r[pack.S_KIND] == pack.KIND_DUAL else 16
+            bundle = 5 if r[pack.S_TRITS] else 3 if r[pack.S_QUINTS] else 0
+            # the code, 9 hint and aux fields, the bundles, the raw bits
+            fields = (1 + 9 + (-(-n_values // bundle) if bundle else 0)
+                      + n_values + n_weights)
+            extra = 2 * n_weights
+        ops += int(counts[slot]) * (5 * fields + extra)
+    return float(ops)
+
+
+def uastc_pack_phase(torch, px, rng, measure):
+    """`uastc_pack` at 24,576 blocks, each call held to `pack_reference`
+    byte for byte: image 0's own winner buffer (the effort-2 RGB search of
+    its pixels, the main path's input), also held to the numpy packer; for
+    each slot list of efforts 1-4, RGB and RGBA, a buffer drawn so that
+    every slot wins blocks (`testing.synthetic.uastc_winner_buffer`); the
+    effort-4 RGBA one also with its rows sorted by slot (no warp spans two
+    slots but at the boundaries: the divergence's cost). Timed: image 0's,
+    the drawn effort-4 RGBA and its sorted rows.
+    Bound: the bytes the function moves (the buffer, pixel 0's alpha as
+    int32, the tables once, the blocks) against `_pack_ops`."""
+    from basis_universal_tpu_torch.codecs.uastc import encode as uenc
+    from basis_universal_tpu_torch.codecs.uastc import pack
+    from basis_universal_tpu_torch.testing.synthetic import \
+        uastc_winner_buffer
+
+    dev = px.device
+    b_n = px.shape[0]
+    rgba = torch.cat([px, torch.full_like(px[..., :1], 255.0)], -1)
+    modes, ls, extra, topk = pack._effort_mode_set(UASTC_EFFORT, False)
+    cases = [("image 0 effort 2 RGB",
+              uenc._search_device(rgba, modes, ls, extra, topk), modes, extra,
+              rgba[:, 0, 3].to(torch.int32), True)]
+    for effort in (1, 2, 3, 4):
+        for alpha in (False, True):
+            m, _, x, _ = pack._effort_mode_set(effort, alpha)
+            compact = torch.as_tensor(uastc_winner_buffer(
+                m, x, b_n, seed=int(rng.integers(1 << 30))), device=dev)
+            last = (effort, alpha) == (4, True)
+            cases.append((f"drawn effort {effort} {'RGBA' if alpha else 'RGB'}",
+                          compact, m, x, torch.as_tensor(
+                              rng.integers(0, 256, b_n), dtype=torch.int32,
+                              device=dev), last))
+            if last:
+                order = torch.sort(compact[:, 0].long(), stable=True).indices
+                cases.append((f"drawn effort {effort} RGBA, rows by slot",
+                              compact[order].contiguous(), m, x,
+                              cases[-1][4][order].contiguous(), True))
+    for label, compact, m, x, alpha0, timed in cases:
+        tabs = pack.pack_tables(m, x, dev)
+        got = pack.uastc_pack(compact, alpha0, tabs)
+        want = pack.pack_reference(compact, alpha0, tabs)
+        torch.cuda.synchronize()
+        n_slots = len(m) + 1 + len(x)
+        won = int((torch.unique(compact[:, 0]) < n_slots).sum())
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"uastc_pack {label}: {int((got != want).any(1).sum())} of "
+                f"{b_n} blocks differ from the plain version")
+        if label.startswith("image 0"):
+            px_np = np.zeros((b_n, 16, 4), np.float32)
+            px_np[:, 0, 3] = alpha0.cpu().numpy()
+            if not np.array_equal(got.cpu().numpy(), pack._pack_from_compact(
+                    compact.cpu().numpy(), px_np, m, x)):
+                raise AssertionError(f"uastc_pack {label}: not the numpy "
+                                     "packer's bytes")
+        print(f"uastc_pack {label}: {won} of {n_slots} slots win blocks; "
+              f"every block the plain version's")
+        if timed:
+            n_bytes = b_n * (59 + 4 + 16) + 4 * tabs.numel()
+            measure("uastc_pack", label,
+                    lambda: pack.uastc_pack(compact, alpha0, tabs),
+                    lambda: pack.pack_reference(compact, alpha0, tabs), 0.0,
+                    _bound(n_bytes, _pack_ops(compact, tabs)))
 
 
 def _line_fit_ops(n_ch, n_sub, n_lev, ls_iters, iters=4):
@@ -1139,9 +1250,11 @@ def _uastc_params(compressor, device="cuda"):
 
 def phase_uastc(torch, images, rgba):
     """UASTC LDR 4x4: compress_batch of the four textures (after a warm-up
-    run), then compress of the RGBA texture. Returns (launches of the two
-    counted runs, image 0's output)."""
+    run), then compress of the RGBA texture, the numpy packer made to raise
+    (the card packs the blocks). Returns (launches of the two counted runs,
+    image 0's output)."""
     from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.codecs.uastc import pack
     from basis_universal_tpu_torch.ops import cuda_etc1s as ck
     from basis_universal_tpu_torch.testing.checks import uastc_psnr
 
@@ -1152,12 +1265,25 @@ def phase_uastc(torch, images, rgba):
     torch.cuda.synchronize()
     t_first = time.time() - t0
 
-    ck.reset_launch_counts()
-    t0 = time.time()
-    outs = compressor.compress_batch(images, params)
-    torch.cuda.synchronize()
-    dt = time.time() - t0
-    batch = dict(ck.LAUNCHES)
+    numpy_packer = pack._pack_from_compact
+
+    def refuse(*args, **kw):
+        raise AssertionError("the numpy packer ran on the card's path")
+
+    pack._pack_from_compact = refuse
+    try:
+        ck.reset_launch_counts()
+        t0 = time.time()
+        outs = compressor.compress_batch(images, params)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        batch = dict(ck.LAUNCHES)
+        ck.reset_launch_counts()
+        out_rgba = compressor.compress(rgba, params)
+        torch.cuda.synchronize()
+        single = dict(ck.LAUNCHES)
+    finally:
+        pack._pack_from_compact = numpy_packer
     print(f"UASTC: {len(images)} x {WIDTH}x{HEIGHT} effort {UASTC_EFFORT}: "
           f"{dt:.3f} s = {mpix / dt:.3f} Mpix/s (first run {t_first:.3f} s)")
     _expect_uastc_xla(batch, len(images), 0, "UASTC compress_batch")
@@ -1175,15 +1301,11 @@ def phase_uastc(torch, images, rgba):
             _same_as_reference("UASTC image 0", out.basis_data,
                                REFERENCE_BASIS_SHA256["uastc_image0"])
 
-    ck.reset_launch_counts()
-    out = compressor.compress(rgba, params)
-    torch.cuda.synchronize()
-    single = dict(ck.LAUNCHES)
     _expect(single, EXPECTED_UASTC_PER_IMAGE, 1, "UASTC compress RGBA")
     _expect_uastc_xla(single, 0, 1, "UASTC compress RGBA")
-    _hold("UASTC RGBA", uastc_psnr(out.basis_data, rgba),
-          len(out.basis_data), REFERENCE_UASTC_RGBA)
-    _same_as_reference("UASTC RGBA", out.basis_data,
+    _hold("UASTC RGBA", uastc_psnr(out_rgba.basis_data, rgba),
+          len(out_rgba.basis_data), REFERENCE_UASTC_RGBA)
+    _same_as_reference("UASTC RGBA", out_rgba.basis_data,
                        REFERENCE_BASIS_SHA256["uastc_rgba"])
     return {k: batch[k] + single[k] for k in batch}, outs[0]
 
@@ -1216,7 +1338,7 @@ def phase_transcoder(torch, uastc_out):
     etc1 = tc.transcode_image_level(0, 0, TF.ETC1_RGB)
     torch.cuda.synchronize()
     etc1_launches = dict(ck.LAUNCHES)
-    _expect(etc1_launches, EXPECTED_UASTC_PER_IMAGE, 1, "transcode ETC1_RGB")
+    _expect(etc1_launches, EXPECTED_ETC1_TRANSCODE, 1, "transcode ETC1_RGB")
     etc1_cpu = cpu.convert_rgba(TF.ETC1_RGB, rgba, nbx, nby, WIDTH, HEIGHT)
 
     def etc1_psnr(e):
@@ -1901,8 +2023,11 @@ def _trace(torch, run, path, n_images):
 
 def phase_profile_uastc(torch, out_dir, n_images=16):
     """The UASTC lane (`--profile OUT_DIR`): steady-state throughput over
-    n_images at effort 2, the search alone (device work and one fetch per
-    image), the host packing alone (serial), and one traced run."""
+    n_images at effort 2, the search alone (device work and one fetch of
+    its (B, 59) buffer per image), the search and the packing on the card
+    (one fetch of the (B, 16) blocks per image; a package without
+    `uastc_pack` packs on the host), the numpy packer alone (serial: what
+    `uastc_pack` replaced), and one traced run."""
     import pathlib
 
     from basis_universal_tpu_torch import compressor
@@ -1932,13 +2057,24 @@ def phase_profile_uastc(torch, out_dir, n_images=16):
     compacts = [encode._search(torch.as_tensor(px.astype(np.uint8)).to(dev),
                                modes, ls_iters, extra, topk) for px in pxs]
     t_search = time.time() - t0
+    both = "n/a (this package packs on the host)"
+    if hasattr(encode, "_search_and_pack"):
+        t0 = time.time()
+        for px in pxs:
+            encode._search_and_pack(
+                torch.as_tensor(px.astype(np.uint8)).to(dev), modes, ls_iters,
+                extra, topk)
+        t_both = time.time() - t0
+        both = f"{t_both:.3f} s ({1e3 * t_both / n_images:.2f} ms/image)"
     t0 = time.time()
     for c, px in zip(compacts, pxs):
         pack._pack_from_compact(c, px, modes, extra)
     t_pack = time.time() - t0
     print(f"profile UASTC: search alone {t_search:.3f} s "
-          f"({1e3 * t_search / n_images:.2f} ms/image), host packing alone "
-          f"(serial) {t_pack:.3f} s ({1e3 * t_pack / n_images:.2f} ms/image)")
+          f"({1e3 * t_search / n_images:.2f} ms/image), search + pack on the "
+          f"card {both}, numpy packing alone (serial; what uastc_pack "
+          f"replaced) {t_pack:.3f} s ({1e3 * t_pack / n_images:.2f} "
+          "ms/image)")
     _trace(torch, lambda: compressor.compress_batch(images, params),
            pathlib.Path(out_dir) / "profile_uastc_device_time.txt", n_images)
 
@@ -2052,6 +2188,77 @@ def phase_fit_ab(trees, timeout=900):
                                f"{proc.stderr[-4000:]}")
 
 
+def wall_times(torch, n_images=16, reps=3):
+    """`compress_batch` of n_images 768x512 images with the port package at
+    the working directory, ETC1S (q128, effort 1) and UASTC (effort 2), each
+    after a warm-up run: one line per lane, the Mpix/s of the median of
+    reps walls."""
+    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+
+    images = [synthetic_texture(HEIGHT, WIDTH, seed=s)[0]
+              for s in range(n_images)]
+    mpix = n_images * HEIGHT * WIDTH / 1e6
+    for lane, params in (("ETC1S", compressor.CompressorParams(
+            quality_level=QUALITY, effort=EFFORT, device="cuda")),
+                         ("UASTC", _uastc_params(compressor))):
+        compressor.compress_batch(images, params)
+        walls = []
+        for _ in range(reps):
+            t0 = time.time()
+            compressor.compress_batch(images, params)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+        print(f"wall {lane} {mpix / statistics.median(walls):.4f} Mpix/s "
+              f"(walls {walls} s)")
+
+
+# this script's wall times of the port package at the working directory
+_WALL_RUN = ("import importlib.util, sys, torch; sys.path.insert(0, '.'); "
+             "spec = importlib.util.spec_from_file_location('chip_smoke', "
+             "{script!r}); c = importlib.util.module_from_spec(spec); "
+             "spec.loader.exec_module(c); c.phase_env(torch); "
+             "c.wall_times(torch)")
+
+
+def phase_wall_ab(tree, pairs, timeout=900):
+    """`--wall-ab TREE PAIRS`: `wall_times` of the other checkout's package
+    and of this one's, PAIRS pairs, each run in a process of its own started
+    from its tree's root, the order within a pair alternating (the other
+    tree first in even pairs); per lane each run's Mpix/s, then both trees'
+    medians and quartiles and the pairs this tree won."""
+    import pathlib
+
+    here = pathlib.Path(__file__).resolve().parent
+    roots = {"this": here, "other": pathlib.Path(tree)}
+    runs = {"this": {}, "other": {}}
+    for i in range(pairs):
+        for label in (("other", "this") if i % 2 == 0 else ("this", "other")):
+            proc = subprocess.run(
+                [sys.executable, "-c", _WALL_RUN.format(
+                    script=str(here / "chip_smoke.py"))],
+                cwd=str(roots[label].resolve()), capture_output=True,
+                text=True, timeout=timeout)
+            if proc.returncode != 0:
+                raise RuntimeError(f"wall times of {roots[label]} failed:\n"
+                                   f"{proc.stderr[-4000:]}")
+            for line in proc.stdout.splitlines():
+                if line.startswith("wall "):
+                    _, lane, mpix = line.split()[:3]
+                    runs[label].setdefault(lane, []).append(float(mpix))
+                    print(f"wall-ab pair {i} {label}: {line}")
+    for lane in ("ETC1S", "UASTC"):
+        this, other = runs["this"][lane], runs["other"][lane]
+        won = sum(a > b for a, b in zip(this, other))
+        quart = [statistics.quantiles(x, n=4) if len(x) > 1 else x * 3
+                 for x in (this, other)]
+        print(f"wall-ab {lane}: this median {statistics.median(this):.4f} "
+              f"Mpix/s (quartiles {quart[0][0]:.4f}-{quart[0][2]:.4f}), "
+              f"other median {statistics.median(other):.4f} (quartiles "
+              f"{quart[1][0]:.4f}-{quart[1][2]:.4f}); this tree faster in "
+              f"{won} of {pairs} pairs")
+
+
 def _sha(data):
     return hashlib.sha256(data).hexdigest()
 
@@ -2116,7 +2323,7 @@ def phase_front_doors(torch, img0, work_dir):
     _expect(got, {}, 1, "api decode_rgba")
     etc1, got = _launches_of(torch, ck,
                              lambda: tr.transcode_tfmt(uastc, TF.ETC1_RGB))
-    _expect(got, EXPECTED_UASTC_PER_IMAGE, 1, "api transcode ETC1_RGB")
+    _expect(got, EXPECTED_ETC1_TRANSCODE, 1, "api transcode ETC1_RGB")
     _add(api_total, got)
     astc, got = _launches_of(
         torch, ck, lambda: tr.transcode_tfmt(uastc, TF.ASTC_4x4_RGBA))
@@ -2372,6 +2579,10 @@ def main():
     card, have_zstd = phase_env(torch)
     if "--fit-ab" in sys.argv:
         phase_fit_ab(sys.argv[sys.argv.index("--fit-ab") + 1:])
+        return
+    if "--wall-ab" in sys.argv:
+        at = sys.argv.index("--wall-ab")
+        phase_wall_ab(sys.argv[at + 1], int(sys.argv[at + 2]))
         return
     from basis_universal_tpu_torch import compressor
     from basis_universal_tpu_torch.testing.synthetic import synthetic_texture

@@ -5,13 +5,10 @@ its three entropy syntaxes, ASTC HDR 6x6, UASTC HDR 4x4 and the UASTC HDR
 6x6 intermediate format, on a 64x64 RGB texture and a 50x38 RGBA one, with
 and without mipmaps.
 
-Bounds: the `.basis` and `.KTX2` bytes are equal wherever the device search
-behind the mode agrees block for block (every host-only mode, and XUBC7,
-whose BC7 search agrees on these inputs); the modes that go through the
-UASTC search (ASTC LDR 4x4, XUASTC LDR 4x4) may differ where that search
-resolves an ETC1-hint tie the other way, and are then held to a PSNR within
-0.05 dB and a size within 1.5% of the reference's. The reference transcoder
-decodes every file of the port to the pixels the port's transcoder gives.
+Bounds: the `.basis` and `.KTX2` bytes are the reference's in every mode,
+those whose blocks come from the UASTC search (ASTC LDR 4x4, XUASTC LDR
+4x4) included. The reference transcoder decodes every file of the port to
+the pixels the port's transcoder gives.
 """
 
 import numpy as np
@@ -27,10 +24,6 @@ from basis_universal_tpu_torch import compressor
 from basis_universal_tpu_torch import transcoder
 from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
 
-PSNR_TOL_DB = 0.05
-SIZE_TOL = 0.015
-# the modes whose blocks come from the UASTC search
-VIA_UASTC = {F.ASTC_LDR_4x4, F.XUASTC_LDR_4x4}
 HDR = {F.ASTC_HDR_6x6, F.UASTC_HDR_4x4, F.UASTC_HDR_6x6_INTERMEDIATE}
 
 
@@ -63,11 +56,6 @@ def _levels(mod, data: bytes, fmt, **kw):
             for lv in range(tc.get_total_image_levels(0))]
 
 
-def _psnr(a, b):
-    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
-    return 99.0 if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
-
-
 def _run(fmt, kind, **kw):
     img = _image(kind)
     mine = compressor.compress(img, compressor.CompressorParams(
@@ -90,20 +78,8 @@ def _run(fmt, kind, **kw):
         np.asarray(rkt.transcode_image_level(0, 0, 0, target)), kt_px)
     assert mine_px[0].shape[:2] == kt_px.shape[:2] == img.shape[:2]
 
-    if mine.basis_data == theirs.basis_data:
-        assert mine.ktx2_data == theirs.ktx2_data
-        return
-    assert fmt in VIA_UASTC, "bytes differ in a mode with no UASTC search"
-    rgba = img if img.shape[-1] == 4 else np.concatenate(
-        [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], -1)
-    p_mine = _psnr(mine_px[0], rgba)
-    p_ref = _psnr(_levels(ref_transcoder, theirs.basis_data, target)[0], rgba)
-    print(f"{fmt.name} {kind}: PSNR port {p_mine:.4f} ref {p_ref:.4f} dB; "
-          f"{len(mine.basis_data)} vs {len(theirs.basis_data)} B")
-    assert abs(p_mine - p_ref) <= PSNR_TOL_DB
-    for a, b in ((mine.basis_data, theirs.basis_data),
-                 (mine.ktx2_data, theirs.ktx2_data)):
-        assert abs(len(a) - len(b)) <= SIZE_TOL * len(b)
+    assert mine.basis_data == theirs.basis_data
+    assert mine.ktx2_data == theirs.ktx2_data
 
 
 @pytest.mark.parametrize("kind,kw", [
