@@ -33,11 +33,13 @@ Equivalences with the reference kept on purpose:
   unquantized endpoints, the least-squares solve), so the CPU gives the
   blocks of the reference as `compressor.compress` runs it, jitted (its
   eager, op-by-op run rounds otherwise);
-- each masked line fit (all subsets of a partition at once) and each
-  single-subset mode trial is one launch on the card (`line_fit`,
-  `_mode_trial`: the kernels `uastc_line_fit` and `uastc_mode_trial` of
-  `csrc/xla_order_kernels.cu`, a lane per pixel), the same roundings as
-  their plain versions' chains;
+- each mode trial is one launch on the card, a lane per pixel, the same
+  roundings as its plain version's chains: a single-subset trial
+  (`_mode_trial`: `uastc_mode_trial`), a 2- or 3-subset trial
+  (`subset_trial`: `uastc_subset_trial`) and a dual-plane trial
+  (`dualplane_trial`: `uastc_dualplane_trial`), all of
+  `csrc/xla_order_kernels.cu`, whose fits are the masked line fit of
+  `line_fit` (`uastc_line_fit`, no longer on the search's path);
 - the ETC1 transcode hint is the port's ETC1S `encode_blocks` at radius 0
   (the hand-written `factorized_scan` and `palette_errs_packed` kernels);
 - the search runs inside `exact_matmuls()` (no TF32).
@@ -378,8 +380,76 @@ def _subset_rec_err(v, lo_px, hi_px, wlev):
     return torch.argmin(e_all, -1), _sum(e_all.amin(-1), -1)
 
 
+_SUBSET_INSTANCES = ((2, 2), (3, 2), (4, 2), (3, 3))   # (comps, subsets)
+
+
+def subset_trial(px, wb: int, ep_range: int, comps: int, ls_iters: int,
+                 n_sub: int = 2, pattern_list: int = 2, topk: int = 4):
+    """A multi-subset mode trial for all blocks: shortlist the mode's
+    common partitions of n_sub subsets (2: 30, or mode 7's 19 with
+    pattern_list 7; 3: 11) by agreement with an ideal luma split, then fit
+    each subset of the topk best, in shortlist order.
+
+    px: (B,16,4) f32, whole numbers 0..255; (comps, n_sub) (2, 2) LA, (3, 2)
+    RGB, (4, 2) RGBA or (3, 3) RGB. Returns (err (B,), eps (B, 2 n_sub
+    comps) int32 codes, weights (B,16) int32, pattern (B,) int32). A CUDA
+    tensor launches `uastc_subset_trial` (`csrc/xla_order_kernels.cu`), the
+    whole trial in one launch, a lane per pixel; a CPU tensor runs
+    `subset_trial_reference`."""
+    if not px.is_cuda:
+        return subset_trial_reference(px, wb, ep_range, comps, ls_iters,
+                                      n_sub, pattern_list, topk)
+    b_n = px.shape[0]
+    if tuple(px.shape[1:]) != (16, 4) or px.dtype != torch.float32 \
+            or (comps, n_sub) not in _SUBSET_INSTANCES:
+        raise ValueError(f"subset_trial: px (B, 16, 4) float32 and (comps, "
+                         f"subsets) one of {_SUBSET_INSTANCES}, got "
+                         f"{tuple(px.shape)} {px.dtype}, ({comps}, {n_sub})")
+    pats = _patterns(n_sub, pattern_list == 7, str(px.device))
+    if not 1 <= topk <= min(8, len(pats)):
+        raise ValueError(f"subset_trial: top-k 1..{min(8, len(pats))}, got "
+                         f"{topk}")
+    inv, unq, wlev = _mode_consts(wb, ep_range, str(px.device))
+    _check_levels(wlev, px.device)
+    err = torch.empty(b_n, dtype=torch.float32, device=px.device)
+    ep = torch.empty((b_n, 2 * n_sub * comps), dtype=torch.int32,
+                     device=px.device)
+    w = torch.empty((b_n, 16), dtype=torch.int32, device=px.device)
+    pat = torch.empty(b_n, dtype=torch.int32, device=px.device)
+    status = xla_order.launch(
+        "subset_trial", px.device.index, px.data_ptr(), *px.stride(),
+        pats.data_ptr(), len(pats), inv.data_ptr(), unq.data_ptr(),
+        unq.numel(), wlev.data_ptr(), wlev.numel(), comps, n_sub, ls_iters,
+        topk, err.data_ptr(), ep.data_ptr(), w.data_ptr(), pat.data_ptr(),
+        b_n)
+    LAUNCHES["uastc_subset_trial"] += 1
+    _raise_on(status, "uastc_subset_trial")
+    return err, ep, w, pat
+
+
+def subset_trial_reference(px, wb: int, ep_range: int, comps: int,
+                           ls_iters: int, n_sub: int = 2,
+                           pattern_list: int = 2, topk: int = 4):
+    """Plain version of `subset_trial`, on any device."""
+    if n_sub == 3:
+        return _trial_3subset_reference(px, wb, ep_range, comps, ls_iters,
+                                        topk)
+    return _trial_2subset_reference(px, wb, ep_range, comps, ls_iters,
+                                    pattern_list, topk)
+
+
 def _mode_trial_2subset(px, wb: int, ep_range: int, comps: int,
                         ls_iters: int, pattern_list: int = 2, topk: int = 4):
+    """2-subset mode trial (modes 2, 4, 7, 9, 16): `subset_trial`.
+
+    Returns (err (B,), eps (B, comps*4) codes, weights (B,16), pattern (B,)).
+    """
+    return subset_trial(px, wb, ep_range, comps, ls_iters, 2, pattern_list,
+                        topk)
+
+
+def _trial_2subset_reference(px, wb: int, ep_range: int, comps: int,
+                             ls_iters: int, pattern_list: int, topk: int):
     """2-subset mode trial: shortlist the mode's common partitions (30 for
     modes 2/4/9/16, 19 for mode 7) by agreement with an ideal 2-cluster luma
     split, then fit the top candidates.
@@ -464,10 +534,16 @@ _PERMS3 = ((0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0))
 
 
 def _mode_trial_3subset(px, ls_iters: int):
-    """Mode 3 (RGB, 3 subsets, 2-bit weights, endpoint range 7): shortlist
-    the 11 common 3-subset partitions by confusion-matrix agreement with a
-    3-means luma split, then fit the top two."""
-    wb, ep_range, comps = 2, 7, 3
+    """Mode 3 (RGB, 3 subsets, 2-bit weights, endpoint range 7), the top two
+    of its 11 partitions: `subset_trial`."""
+    return subset_trial(px, 2, 7, 3, ls_iters, 3, 3, 2)
+
+
+def _trial_3subset_reference(px, wb: int, ep_range: int, comps: int,
+                             ls_iters: int, topk: int):
+    """3-subset mode trial (mode 3: RGB, 2-bit weights, endpoint range 7):
+    shortlist the 11 common 3-subset partitions by confusion-matrix
+    agreement with a 3-means luma split, then fit the top topk (two)."""
     b = px.shape[0]
     dev = px.device
     inv, unq, wlev = _mode_consts(wb, ep_range, str(dev))
@@ -486,7 +562,6 @@ def _mode_trial_3subset(px, ls_iters: int):
     conf = torch.einsum("bik,pij->bpkj", ideal, pat_oh)           # (B,11,3,3)
     score = torch.stack([conf[..., 0, p[0]] + conf[..., 1, p[1]]
                          + conf[..., 2, p[2]] for p in _PERMS3], -1).amax(-1)
-    topk = 2
     cand = _shortlist_desc(score, topk)
 
     best_err = torch.full((b,), float("inf"), device=dev)
@@ -567,23 +642,71 @@ def _dualplane_trials(px, wb: int, ep_range: int, ls_iters: int, n_ch: int):
             best_ccs.to(torch.int32))
 
 
+def dualplane_trial(px, wb: int, ep_range: int, ls_iters: int, n_ch: int):
+    """A dual-plane mode trial for all blocks: n_ch 3 (mode 6, RGB) or 4
+    (modes 11 and 13, RGBA), each channel in turn (ccs) on plane 1 and the
+    others on plane 0, the best ccs kept; n_ch 2 (mode 17, LA): the luma on
+    plane 0, scored against R, G and B, the alpha on plane 1.
+
+    px: (B,16,4) f32, whole numbers 0..255. Returns (err (B,), eps (B, 2
+    n_ch) int32 codes, weights (B,32) int32 interleaved, ccs (B,) int32;
+    LA: no ccs). A CUDA tensor launches `uastc_dualplane_trial`
+    (`csrc/xla_order_kernels.cu`), the whole trial in one launch, a lane
+    per pixel; a CPU tensor runs `dualplane_trial_reference`."""
+    if not px.is_cuda:
+        return dualplane_trial_reference(px, wb, ep_range, ls_iters, n_ch)
+    b_n = px.shape[0]
+    if tuple(px.shape[1:]) != (16, 4) or px.dtype != torch.float32 \
+            or n_ch not in (2, 3, 4):
+        raise ValueError(f"dualplane_trial: px (B, 16, 4) float32 and n_ch "
+                         f"2..4, got {tuple(px.shape)} {px.dtype}, {n_ch}")
+    inv, unq, wlev = _mode_consts(wb, ep_range, str(px.device))
+    _check_levels(wlev, px.device)
+    err = torch.empty(b_n, dtype=torch.float32, device=px.device)
+    ep = torch.empty((b_n, 2 * n_ch), dtype=torch.int32, device=px.device)
+    w = torch.empty((b_n, 32), dtype=torch.int32, device=px.device)
+    ccs = torch.empty(b_n, dtype=torch.int32, device=px.device)
+    status = xla_order.launch(
+        "dualplane_trial", px.device.index, px.data_ptr(), *px.stride(),
+        inv.data_ptr(), unq.data_ptr(), unq.numel(), wlev.data_ptr(),
+        wlev.numel(), n_ch, ls_iters, err.data_ptr(), ep.data_ptr(),
+        w.data_ptr(), ccs.data_ptr(), b_n)
+    LAUNCHES["uastc_dualplane_trial"] += 1
+    _raise_on(status, "uastc_dualplane_trial")
+    return (err, ep, w) if n_ch == 2 else (err, ep, w, ccs)
+
+
+def dualplane_trial_reference(px, wb: int, ep_range: int, ls_iters: int,
+                              n_ch: int):
+    """Plain version of `dualplane_trial`, on any device."""
+    if n_ch == 2:
+        return _dualplane_la_reference(px, wb, ep_range, ls_iters)
+    err, eps, w, ccs = _dualplane_trials(px, wb, ep_range, ls_iters, n_ch)
+    return (err + _alpha_err(px) if n_ch == 3 else err), eps, w, ccs
+
+
 def _mode_trial_dualplane(px, wb: int, ep_range: int, ls_iters: int):
     """Dual-plane RGB mode (6): per-ccs trial over R, G, B. Returns (err,
     eps codes (B,6), weights interleaved (B,32), ccs (B,))."""
-    err, eps, w, ccs = _dualplane_trials(px, wb, ep_range, ls_iters, 3)
-    return err + _alpha_err(px), eps, w, ccs
+    return dualplane_trial(px, wb, ep_range, ls_iters, 3)
 
 
 def _mode_trial_dualplane4(px, wb: int, ep_range: int, ls_iters: int):
     """Dual-plane RGBA modes 11/13: ccs selects one of 4 channels for plane
     1. Returns (err, eps codes (B,8), weights interleaved (B,32), ccs)."""
-    return _dualplane_trials(px, wb, ep_range, ls_iters, 4)
+    return dualplane_trial(px, wb, ep_range, ls_iters, 4)
 
 
 def _mode_trial_dualplane_la(px, wb: int, ep_range: int, ls_iters: int):
     """Dual-plane LA mode 17: plane 0 carries luma (applied to RGB), plane 1
     alpha; CCS is fixed. Returns (err, eps codes (B,4) = [Llo, Lhi, Alo,
     Ahi], weights interleaved (B,32))."""
+    return dualplane_trial(px, wb, ep_range, ls_iters, 2)
+
+
+def _dualplane_la_reference(px, wb: int, ep_range: int, ls_iters: int):
+    """Dual-plane LA mode 17 (the body of `dualplane_trial_reference` for
+    n_ch 2)."""
     b = px.shape[0]
     dev = px.device
     inv, unq, wlev = _mode_consts(wb, ep_range, str(dev))

@@ -24,7 +24,22 @@
 //   one launch for the ~50 operators of each subset's plain version;
 // - uastc_mode_trial<C>: a whole single-subset single-plane mode trial
 //   (`mode_trial_reference`): the same fit with the endpoints quantised
-//   through the mode's tables, and the full-pixel error.
+//   through the mode's tables, and the full-pixel error;
+// - uastc_subset_trial<C, S>: a whole 2- or 3-subset mode trial
+//   (`subset_trial_reference`): the ideal luma split, the shortlist of the
+//   mode's partition patterns, each candidate's masked fits (uastc_line_fit's
+//   code), codes, weights and error, the winner and its full-pixel error;
+// - uastc_dualplane_trial<N, kLA>: a whole dual-plane mode trial
+//   (`dualplane_trial_reference`): every plane-1 channel in turn, its two
+//   plane fits, codes, weights and error, the winner (or mode 17's luma
+//   and alpha planes).
+//
+// No Pallas kernel stands behind the UASTC kernels: they replace the
+// reference's jitted search (`basis_universal_tpu/codecs/uastc/encode.py`
+// `_mode_trial` :56, `_fit_line_masked` :155, `_mode_trial_2subset` :215,
+// `_mode_trial_3subset` :328, the dual-plane trials :408, :462, :515),
+// which XLA compiles into one program; the port's plain versions are
+// chains of hundreds of operators.
 //
 // Every rounding is spelled out (__fmaf_rn, __fmul_rn, __fadd_rn,
 // __fdiv_rn, __fsqrt_rn), so the card gives XLA's bits, the fused kernels
@@ -45,7 +60,10 @@
 // a warp issues the ordered chains and the power iteration once for its two
 // blocks, and that serial part, not the per-pixel search, sets their time
 // (fitting a partition's subsets side by side, each pixel searching once,
-// measured slower at every register budget tried).
+// measured slower at every register budget tried). Their bound is
+// operations (`chip_smoke.py`'s `_line_fit_ops` and the trials' counts);
+// they are latency-bound below it: the trials run their candidates' fits
+// one after another per block, as the plain versions do.
 //
 // Every launcher takes raw device pointers, the shape and strides by value,
 // and a cudaStream_t; it launches asynchronously and returns
@@ -592,6 +610,59 @@ __device__ __forceinline__ void block_mean(FitScratch& sh, int p,
   __syncwarp();
 }
 
+// `_fit_line_masked` of one subset, the shared fit code of uastc_line_fit
+// and the trial kernels: the pixels sh.v (this lane's own in x), the mask
+// `in` (this lane's pixel belongs to the subset); the endpoints (lo, hi),
+// the same on every lane of the block. Every lane of the warp calls it
+// (ballots and shuffles), and it ends past a __syncwarp, after its last
+// read of sh.v.
+template <int C>
+__device__ __forceinline__ void fit_subset(FitScratch& sh, const float* lev,
+                                           int n_lev, int ls_iters, int p,
+                                           const float (&x)[C], bool in,
+                                           float (&lo)[C], float (&hi)[C]) {
+  const unsigned half = threadIdx.x & 16u;  // this block's ballot bits
+  const float m = in ? 1.0f : 0.0f;
+  const unsigned bits = (__ballot_sync(0xffffffffu, in) >> half) & 0xffffu;
+  float mean[C], cx[C], ax[C];
+  block_mean<C, true>(sh, p, bits, fmaxf((float)__popc(bits), 1.0f), mean);
+#pragma unroll
+  for (int c = 0; c < C; ++c) cx[c] = __fmul_rn(__fsub_rn(x[c], mean[c]), m);
+  sh.c[p] = pack4<C>(cx);
+  __syncwarp();
+  const float pr = principal<C>(sh, p, cx, 4, ax);
+  float mn = in ? pr : 1e9f, mx = in ? pr : -1e9f;
+#pragma unroll
+  for (int o = 8; o; o >>= 1) {
+    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    lo[c] = clamp255(__fmaf_rn(ax[c], mn, mean[c]));
+    hi[c] = clamp255(__fmaf_rn(ax[c], mx, mean[c]));
+  }
+  rec_fused<C>(sh, lev, n_lev, p, lo, hi);
+  int w;
+  float err = level_search<C>(sh, p, x, n_lev, m, w);
+  for (int it = 0; it < ls_iters; ++it) {
+    float lo2[C], hi2[C];
+    ls_solve<C, true>(sh, lev, p, w, m, lo, hi, lo2, hi2);
+    rec_fused<C>(sh, lev, n_lev, p, lo2, hi2);
+    int w2;
+    const float err2 = level_search<C>(sh, p, x, n_lev, m, w2);
+    if (err2 < err) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        lo[c] = lo2[c];
+        hi[c] = hi2[c];
+      }
+      w = w2;
+      err = err2;
+    }
+  }
+}
+
 // v: (n, 16, C) at strides (sb, sp, sc); label: (n, 16) int64 subset of
 // each pixel (null: all 0); lev: the n_lev weight levels; lo, hi: (n, S, C).
 // `_fit_line_masked` of each subset s < n_sub (mask label == s), its
@@ -611,7 +682,6 @@ line_fit_kernel(const float* __restrict__ v, long long sb, long long sp,
   const int blk_id = blockIdx.x * kFitSlots + slot;
   const bool live = blk_id < n;
   const long long blk = live ? blk_id : n - 1;  // a ragged tail repeats
-  const unsigned half = threadIdx.x & 16u;     // this block's ballot bits
   FitScratch& sh = scratch[slot];
   float x[C];
 #pragma unroll
@@ -620,46 +690,8 @@ line_fit_kernel(const float* __restrict__ v, long long sb, long long sp,
   const long long lab = label ? label[blk * 16 + p] : 0;
   __syncwarp();
   for (int s = 0; s < n_sub; ++s) {
-    const bool in = lab == s;
-    const float m = in ? 1.0f : 0.0f;
-    const unsigned bits = (__ballot_sync(0xffffffffu, in) >> half) & 0xffffu;
-    float mean[C], cx[C], ax[C], lo[C], hi[C];
-    block_mean<C, true>(sh, p, bits, fmaxf((float)__popc(bits), 1.0f), mean);
-#pragma unroll
-    for (int c = 0; c < C; ++c) cx[c] = __fmul_rn(__fsub_rn(x[c], mean[c]), m);
-    sh.c[p] = pack4<C>(cx);
-    __syncwarp();
-    const float pr = principal<C>(sh, p, cx, 4, ax);
-    float mn = in ? pr : 1e9f, mx = in ? pr : -1e9f;
-#pragma unroll
-    for (int o = 8; o; o >>= 1) {
-      mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      lo[c] = clamp255(__fmaf_rn(ax[c], mn, mean[c]));
-      hi[c] = clamp255(__fmaf_rn(ax[c], mx, mean[c]));
-    }
-    rec_fused<C>(sh, lev, n_lev, p, lo, hi);
-    int w;
-    float err = level_search<C>(sh, p, x, n_lev, m, w);
-    for (int it = 0; it < ls_iters; ++it) {
-      float lo2[C], hi2[C];
-      ls_solve<C, true>(sh, lev, p, w, m, lo, hi, lo2, hi2);
-      rec_fused<C>(sh, lev, n_lev, p, lo2, hi2);
-      int w2;
-      const float err2 = level_search<C>(sh, p, x, n_lev, m, w2);
-      if (err2 < err) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          lo[c] = lo2[c];
-          hi[c] = hi2[c];
-        }
-        w = w2;
-        err = err2;
-      }
-    }
+    float lo[C], hi[C];
+    fit_subset<C>(sh, lev, n_lev, ls_iters, p, x, lab == s, lo, hi);
     if (live) {
 #pragma unroll
       for (int c = 0; c < C; ++c)
@@ -669,6 +701,29 @@ line_fit_kernel(const float* __restrict__ v, long long sb, long long sp,
         }
     }
   }
+}
+
+// The mode's tables into shared memory: the codes of the 256 endpoint
+// values (int64 to int32), the unquantised values, the weight levels.
+__device__ __forceinline__ void load_mode_tables(
+    const long long* inv, const float* unq, int n_unq, const float* levels,
+    int n_lev, int* inv_s, float* unq_s, float* lev) {
+  for (int i = threadIdx.x; i < 256; i += kFitThreads) {
+    inv_s[i] = (int)inv[i];
+    if (i < n_unq) unq_s[i] = unq[i];
+  }
+  if ((int)threadIdx.x < n_lev) lev[threadIdx.x] = levels[threadIdx.x];
+}
+
+// The code of a float endpoint (`_quant`): rounded half to even, clipped.
+__device__ __forceinline__ int quant_code(const int* inv_s, float f) {
+  return inv_s[(int)fminf(fmaxf(rintf(f), 0.0f), 255.0f)];
+}
+
+// The sum of (px_alpha - 255)^2 over the block (`_alpha_err`), exact.
+__device__ __forceinline__ float alpha_err(float a) {
+  const float d = __fsub_rn(a, 255.0f);
+  return exact_sum16(__fmul_rn(d, d));
 }
 
 // px: (n, 16, 4) at strides (sb, sp, sc), whole numbers 0..255; inv: the
@@ -689,11 +744,7 @@ mode_trial_kernel(const float* __restrict__ px, long long sb, long long sp,
   __shared__ int inv_s[256];
   __shared__ float unq_s[256];
   __shared__ FitScratch scratch[kFitSlots];
-  for (int i = threadIdx.x; i < 256; i += kFitThreads) {
-    inv_s[i] = (int)inv[i];
-    if (i < n_unq) unq_s[i] = unq[i];
-  }
-  if ((int)threadIdx.x < n_lev) lev[threadIdx.x] = levels[threadIdx.x];
+  load_mode_tables(inv, unq, n_unq, levels, n_lev, inv_s, unq_s, lev);
   __syncthreads();
   const int p = threadIdx.x & 15, slot = threadIdx.x >> 4;
   const int blk_id = blockIdx.x * kFitSlots + slot;
@@ -728,9 +779,8 @@ mode_trial_kernel(const float* __restrict__ px, long long sb, long long sp,
   }
   float lo_f[C], hi_f[C], lo_u[C], hi_u[C];
   int lo_c[C], hi_c[C];
-  // the codes of float endpoints: rounded half to even, clipped, the LUT
   auto quant = [&](float f, int& code, float& u) {
-    code = inv_s[(int)fminf(fmaxf(rintf(f), 0.0f), 255.0f)];
+    code = quant_code(inv_s, f);
     u = unq_s[code];
   };
 #pragma unroll
@@ -769,8 +819,7 @@ mode_trial_kernel(const float* __restrict__ px, long long sb, long long sp,
   }
   // the full-pixel error: whole numbers, exact in any order
   if constexpr (C == 3) {
-    const float d = __fsub_rn(rgba[3], 255.0f);
-    err = __fadd_rn(err, exact_sum16(__fmul_rn(d, d)));
+    err = __fadd_rn(err, alpha_err(rgba[3]));
   } else if constexpr (C == 2) {
     const float wl = lev[w];
     const float l_rec = rec16(lo_u[0], hi_u[0], wl);
@@ -792,6 +841,492 @@ mode_trial_kernel(const float* __restrict__ px, long long sb, long long sp,
       if (p == 2 * c + 1) ep_out[blk * 2 * C + p] = hi_c[c];
     }
     w_out[blk * 16 + p] = w;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// uastc_subset_trial, uastc_dualplane_trial: the multi-subset and dual-plane
+// mode trials, each whole trial in one launch
+// ---------------------------------------------------------------------------
+//
+// The same layout as the line fits (a lane per pixel, 8 blocks a CTA), the
+// fits through `fit_subset`, so the trials' endpoints are uastc_line_fit's
+// bits. The candidates (S fits each) and the dual-plane channel choices run
+// in series per block, as in the plain versions: that serial chain of fits
+// sets these kernels' time.
+//
+// Error sums: a squared difference of whole-numbered pixels and
+// reconstructions is a whole number, and a block's error over at most 4
+// channels is at most 16 x 4 x 255^2 = 4,161,600 < 2^24, so every partial
+// sum is exact and any order gives the same bits (shuffles). Only the LA
+// subset trial's luma (mode 16) is fractional, and its sums stay chains in
+// pixel order; the dual-plane LA trial (mode 17) scores its luma plane
+// against the whole-numbered R, G and B.
+
+constexpr int kMaxPatterns = 32;
+constexpr int kMaxTopk = 8;
+constexpr int kMaxCodes = 18;  // 2 x subsets x channels: 3 x 3 for mode 3
+
+// A trial block's scratch, beside its FitScratch.
+struct TrialScratch {
+  float luma[16];
+  int key[kMaxPatterns];           // score * 64 + 63 - pattern, ranked
+  int cand[kMaxTopk];              // the shortlist, best first
+  int codes[kMaxTopk][kMaxCodes];  // each candidate's endpoint codes
+};
+
+// The block's pixels' luma whose bit is set in `bits`, added in pixel order
+// from pixel 0 (`_sum16` of luma times a 0 / 1 mask), on every lane.
+__device__ __forceinline__ float luma_chain(const TrialScratch& tr,
+                                            unsigned bits) {
+  float acc = (bits & 1u) ? tr.luma[0] : 0.0f;
+#pragma unroll
+  for (int i = 1; i < 16; ++i)
+    acc = __fadd_rn(acc, (bits >> i) & 1u ? tr.luma[i] : 0.0f);
+  return acc;
+}
+
+// This lane's pixel against each weight level through its own quantised
+// endpoints (`_subset_rec_err`): the squared differences added over the
+// channels in order; the first minimum, its level in w.
+template <int C>
+__device__ __forceinline__ float own_levels(const float (&x)[C],
+                                            const float (&lo_u)[C],
+                                            const float (&hi_u)[C],
+                                            const float* lev, int n_lev,
+                                            int& w) {
+  float best = INFINITY;
+  int arg = 0;
+  for (int l = 0; l < n_lev; ++l) {
+    const float wl = lev[l];
+    float e = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float d = __fsub_rn(x[c], rec16(lo_u[c], hi_u[c], wl));
+      e = c ? __fadd_rn(e, __fmul_rn(d, d)) : __fmul_rn(d, d);
+    }
+    if (e < best) {
+      best = e;
+      arg = l;
+    }
+  }
+  w = arg;
+  return best;
+}
+
+// One plane's fit of the dual-plane trials (every pixel in, as
+// `line_fit` without a label): the pixels x (this lane's) published in sh.v
+// once the previous fit's reads of it are done.
+template <int C>
+__device__ __forceinline__ void plane_fit(FitScratch& sh, const float* lev,
+                                          int n_lev, int ls_iters, int p,
+                                          const float (&x)[C], float (&lo)[C],
+                                          float (&hi)[C]) {
+  __syncwarp();
+  sh.v[p] = pack4<C>(x);
+  __syncwarp();
+  fit_subset<C>(sh, lev, n_lev, ls_iters, p, x, true, lo, hi);
+}
+
+// px: (n, 16, 4) at strides (sb, sp, sc), whole numbers 0..255; pats: the
+// n_pat (<= 32) partition patterns of the mode, (n_pat, 16) int64 subsets;
+// inv, unq, levels as mode_trial_kernel's. `subset_trial_reference` of C
+// comps (2: LA, 3: RGB, 4: RGBA) and S subsets (2 or 3) with a shortlist of
+// topk (<= 8, <= n_pat) patterns: err (n,), ep (n, 2 S C) codes [subset 0:
+// c0 lo, c0 hi, c1 lo, ..., subset 1: ...], w (n, 16) level indices, pat
+// (n,) the winning pattern.
+template <int C, int S>
+__global__ void __launch_bounds__(kFitThreads)
+subset_trial_kernel(const float* __restrict__ px, long long sb, long long sp,
+                    long long sc, const long long* __restrict__ pats,
+                    int n_pat, const long long* __restrict__ inv,
+                    const float* __restrict__ unq, int n_unq,
+                    const float* __restrict__ levels, int n_lev, int ls_iters,
+                    int topk, float* __restrict__ err_out,
+                    int* __restrict__ ep_out, int* __restrict__ w_out,
+                    int* __restrict__ pat_out, int n) {
+  constexpr int kCodes = 2 * S * C;
+  static_assert(kCodes <= kMaxCodes, "endpoint codes");
+  __shared__ float lev[kMaxLevels];
+  __shared__ int inv_s[256];
+  __shared__ float unq_s[256];
+  __shared__ unsigned pmask[kMaxPatterns][2];  // the pixels of subsets 1, 2
+  __shared__ FitScratch scratch[kFitSlots];
+  __shared__ TrialScratch trial[kFitSlots];
+  load_mode_tables(inv, unq, n_unq, levels, n_lev, inv_s, unq_s, lev);
+  if ((int)threadIdx.x < n_pat) {
+    unsigned m1 = 0, m2 = 0;
+    for (int i = 0; i < 16; ++i) {
+      const long long s = pats[threadIdx.x * 16 + i];
+      m1 |= (s == 1 ? 1u : 0u) << i;
+      m2 |= (s == 2 ? 1u : 0u) << i;
+    }
+    pmask[threadIdx.x][0] = m1;
+    pmask[threadIdx.x][1] = m2;
+  }
+  __syncthreads();
+  const int p = threadIdx.x & 15, slot = threadIdx.x >> 4;
+  const int blk_id = blockIdx.x * kFitSlots + slot;
+  const bool live = blk_id < n;
+  const long long blk = live ? blk_id : n - 1;  // a ragged tail repeats
+  const unsigned half = threadIdx.x & 16u;
+  FitScratch& sh = scratch[slot];
+  TrialScratch& tr = trial[slot];
+  float rgba[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) rgba[c] = px[blk * sb + p * sp + c * sc];
+  // the luma: `_la`'s (r + g + b) * float32(1/3), or `_mean3`'s (the same
+  // bits: a sum of three whole numbers is exact)
+  const float luma =
+      __fmul_rn(__fadd_rn(__fadd_rn(rgba[0], rgba[1]), rgba[2]), kThird);
+  float x[C];
+  if constexpr (C == 2) {
+    x[0] = luma;
+    x[1] = rgba[3];
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) x[c] = rgba[c];
+  }
+  sh.v[p] = pack4<C>(x);
+  tr.luma[p] = luma;
+  __syncwarp();
+
+  // 1. the ideal split of the luma: 2-means (3 rounds from the extremes)
+  //    or 3-means (from the extremes and the mean); ideal[k]: the pixels of
+  //    cluster k (S 2: ideal[0], the pixels nearer c1)
+  float lmin = luma, lmax = luma;
+#pragma unroll
+  for (int o = 8; o; o >>= 1) {
+    lmin = fminf(lmin, __shfl_xor_sync(0xffffffffu, lmin, o));
+    lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
+  }
+  unsigned ideal[3] = {0u, 0u, 0u};
+  if constexpr (S == 2) {
+    float c0 = lmin, c1 = lmax;
+    for (int r = 0; r <= 3; ++r) {
+      const bool side =
+          fabsf(__fsub_rn(luma, c1)) < fabsf(__fsub_rn(luma, c0));
+      const unsigned b1 = (__ballot_sync(0xffffffffu, side) >> half) & 0xffffu;
+      if (r == 3) {
+        ideal[0] = b1;
+        break;
+      }
+      const int n1 = __popc(b1);
+      c1 = __fdiv_rn(luma_chain(tr, b1), fmaxf((float)n1, 1.0f));
+      c0 = __fdiv_rn(luma_chain(tr, ~b1 & 0xffffu),
+                     fmaxf((float)(16 - n1), 1.0f));
+    }
+  } else {
+    float c[3] = {lmin, __fdiv_rn(luma_chain(tr, 0xffffu), 16.0f), lmax};
+    for (int r = 0; r < 3; ++r) {
+      const float d0 = fabsf(__fsub_rn(luma, c[0]));
+      const float d1 = fabsf(__fsub_rn(luma, c[1]));
+      const float d2 = fabsf(__fsub_rn(luma, c[2]));
+      int lab = 0;
+      float best = d0;
+      if (d1 < best) {
+        lab = 1;
+        best = d1;
+      }
+      if (d2 < best) lab = 2;
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        ideal[k] = (__ballot_sync(0xffffffffu, lab == k) >> half) & 0xffffu;
+      // the labels of the last round are the split; its centres unused
+      if (r < 2) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          c[k] = __fdiv_rn(luma_chain(tr, ideal[k]),
+                           fmaxf((float)__popc(ideal[k]), 1.0f));
+      }
+    }
+  }
+
+  // 2. each pattern's agreement with the split (whole numbers), and the
+  //    shortlist: the topk highest, equal scores by ascending index (the
+  //    stable descending sort of `_shortlist_desc`)
+  for (int q = p; q < n_pat; q += 16) {
+    const unsigned m1 = pmask[q][0], m2 = pmask[q][1];
+    int score;
+    if constexpr (S == 2) {
+      const int agree = 16 - __popc(ideal[0] ^ m1);
+      score = max(agree, 16 - agree);
+    } else {
+      const unsigned pm[3] = {~(m1 | m2) & 0xffffu, m1, m2};
+      int conf[3][3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) conf[k][j] = __popc(ideal[k] & pm[j]);
+      score = max(max(conf[0][0] + conf[1][1] + conf[2][2],
+                      conf[0][0] + conf[1][2] + conf[2][1]),
+                  max(max(conf[0][1] + conf[1][0] + conf[2][2],
+                          conf[0][1] + conf[1][2] + conf[2][0]),
+                      max(conf[0][2] + conf[1][0] + conf[2][1],
+                          conf[0][2] + conf[1][1] + conf[2][0])));
+    }
+    tr.key[q] = score * 64 + 63 - q;
+  }
+  __syncwarp();
+  for (int q = p; q < n_pat; q += 16) {
+    const int key = tr.key[q];
+    int rank = 0;
+    for (int j = 0; j < n_pat; ++j) rank += tr.key[j] > key;
+    if (rank < topk) tr.cand[rank] = q;
+  }
+  __syncwarp();
+
+  // 3. each candidate in shortlist order: the fit of each subset, its
+  //    codes, the weights re-chosen through the quantised endpoints of this
+  //    pixel's subset, the error; the winner by strict <
+  float best_err = INFINITY;
+  int best_k = 0, best_w = 0;
+  float best_lu[C], best_hu[C];  // the LA tail's
+#pragma unroll
+  for (int c = 0; c < C; ++c) best_lu[c] = best_hu[c] = 0.0f;
+  for (int k = 0; k < topk; ++k) {
+    const int q = tr.cand[k];
+    const int lab = (int)((pmask[q][0] >> p) & 1u) +
+                    2 * (int)((pmask[q][1] >> p) & 1u);
+    float lo_u[C], hi_u[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) lo_u[c] = hi_u[c] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      float lo[C], hi[C];
+      fit_subset<C>(sh, lev, n_lev, ls_iters, p, x, lab == s, lo, hi);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int lc = quant_code(inv_s, lo[c]), hc = quant_code(inv_s, hi[c]);
+        if (lab == s) {
+          lo_u[c] = unq_s[lc];
+          hi_u[c] = unq_s[hc];
+        }
+        if (p == 2 * c) tr.codes[k][2 * C * s + p] = lc;
+        if (p == 2 * c + 1) tr.codes[k][2 * C * s + p] = hc;
+      }
+    }
+    int w;
+    const float e = own_levels<C>(x, lo_u, hi_u, lev, n_lev, w);
+    float err;
+    if constexpr (C == 2) {
+      sh.e[p] = e;
+      __syncwarp();
+      err = pixel_sum(sh);
+      __syncwarp();
+    } else {
+      err = exact_sum16(e);
+    }
+    if (err < best_err) {
+      best_err = err;
+      best_k = k;
+      best_w = w;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        best_lu[c] = lo_u[c];
+        best_hu[c] = hi_u[c];
+      }
+    }
+  }
+
+  // 4. the full-pixel error: RGB adds the alpha's; LA re-expresses the
+  //    winner in full-pixel units, each operation rounded, the 48 RGB terms
+  //    and the 16 alpha terms two chains in (pixel, channel) order
+  if constexpr (C == 3) {
+    best_err = __fadd_rn(best_err, alpha_err(rgba[3]));
+  } else if constexpr (C == 2) {
+    const float wl = lev[best_w], wl0 = __fsub_rn(64.0f, wl);
+    float ch[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      ch[c] = __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(best_lu[c], wl0),
+                                            __fmul_rn(best_hu[c], wl)),
+                                  32.0f),
+                        kInv64);
+    float t[4];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float d = __fsub_rn(rgba[c], ch[0]);
+      t[c] = __fmul_rn(d, d);
+    }
+    const float da = __fsub_rn(rgba[3], ch[1]);
+    t[3] = __fmul_rn(da, da);
+    sh.c[p] = make_float4(t[0], t[1], t[2], t[3]);
+    __syncwarp();
+    float acc_rgb = 0.0f, acc_a = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float4 q = sh.c[i];
+      acc_rgb = i ? __fadd_rn(acc_rgb, q.x) : q.x;
+      acc_rgb = __fadd_rn(acc_rgb, q.y);
+      acc_rgb = __fadd_rn(acc_rgb, q.z);
+      acc_a = i ? __fadd_rn(acc_a, q.w) : q.w;
+    }
+    best_err = __fadd_rn(acc_rgb, acc_a);
+  }
+  __syncwarp();
+  if (live) {
+    if (p == 0) {
+      err_out[blk] = best_err;
+      pat_out[blk] = tr.cand[best_k];
+    }
+    for (int j = p; j < kCodes; j += 16)
+      ep_out[blk * kCodes + j] = tr.codes[best_k][j];
+    w_out[blk * 16 + p] = best_w;
+  }
+}
+
+// px, inv, unq, levels as mode_trial_kernel's. `dualplane_trial_reference`:
+// N 3 (mode 6, RGB, plus the alpha's error) or 4 (modes 11 and 13, RGBA),
+// each channel in turn (ccs) on plane 1 and the others on plane 0; or kLA
+// (N 2, mode 17): the luma on plane 0, scored against R, G and B, the
+// alpha on plane 1. err (n,), ep (n, 2N) codes [c0 lo, c0 hi, c1 lo, ...]
+// (LA: [luma lo, luma hi, alpha lo, alpha hi]), w (n, 32) the two planes'
+// level indices interleaved, ccs (n,) (not written for LA).
+template <int N, bool kLA>
+__global__ void __launch_bounds__(kFitThreads)
+dualplane_trial_kernel(const float* __restrict__ px, long long sb,
+                       long long sp, long long sc,
+                       const long long* __restrict__ inv,
+                       const float* __restrict__ unq, int n_unq,
+                       const float* __restrict__ levels, int n_lev,
+                       int ls_iters, float* __restrict__ err_out,
+                       int* __restrict__ ep_out, int* __restrict__ w_out,
+                       int* __restrict__ ccs_out, int n) {
+  __shared__ float lev[kMaxLevels];
+  __shared__ int inv_s[256];
+  __shared__ float unq_s[256];
+  __shared__ FitScratch scratch[kFitSlots];
+  load_mode_tables(inv, unq, n_unq, levels, n_lev, inv_s, unq_s, lev);
+  __syncthreads();
+  const int p = threadIdx.x & 15, slot = threadIdx.x >> 4;
+  const int blk_id = blockIdx.x * kFitSlots + slot;
+  const bool live = blk_id < n;
+  const long long blk = live ? blk_id : n - 1;  // a ragged tail repeats
+  FitScratch& sh = scratch[slot];
+  float rgba[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) rgba[c] = px[blk * sb + p * sp + c * sc];
+
+  float best_err = INFINITY;
+  int best_ccs = 0, best_w0 = 0, best_w1 = 0;
+  int best_lo[N], best_hi[N];
+#pragma unroll
+  for (int c = 0; c < N; ++c) best_lo[c] = best_hi[c] = 0;
+  if constexpr (kLA) {
+    const float xl[1] = {__fmul_rn(
+        __fadd_rn(__fadd_rn(rgba[0], rgba[1]), rgba[2]), kThird)};
+    const float xa[1] = {rgba[3]};
+    float lo_l[1], hi_l[1], lo_a[1], hi_a[1];
+    plane_fit(sh, lev, n_lev, ls_iters, p, xl, lo_l, hi_l);
+    plane_fit(sh, lev, n_lev, ls_iters, p, xa, lo_a, hi_a);
+    best_lo[0] = quant_code(inv_s, lo_l[0]);
+    best_hi[0] = quant_code(inv_s, hi_l[0]);
+    best_lo[1] = quant_code(inv_s, lo_a[0]);
+    best_hi[1] = quant_code(inv_s, hi_a[0]);
+    const float lo_u[2] = {unq_s[best_lo[0]], unq_s[best_lo[1]]};
+    const float hi_u[2] = {unq_s[best_hi[0]], unq_s[best_hi[1]]};
+    rec_exact<2>(sh, lev, n_lev, p, lo_u, hi_u);
+    float e0_min = INFINITY, e1_min = INFINITY;
+    for (int l = 0; l < n_lev; ++l) {
+      const float4 r = sh.rec[l];
+      float e0 = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float d = __fsub_rn(rgba[c], r.x);
+        e0 = c ? __fadd_rn(e0, __fmul_rn(d, d)) : __fmul_rn(d, d);
+      }
+      const float d = __fsub_rn(rgba[3], r.y);
+      const float e1 = __fmul_rn(d, d);
+      if (e0 < e0_min) {
+        e0_min = e0;
+        best_w0 = l;
+      }
+      if (e1 < e1_min) {
+        e1_min = e1;
+        best_w1 = l;
+      }
+    }
+    best_err = __fadd_rn(exact_sum16(e0_min), exact_sum16(e1_min));
+  } else {
+    for (int ccs = 0; ccs < N; ++ccs) {
+      float xo[N - 1], x1[1] = {rgba[0]};
+#pragma unroll
+      for (int j = 0; j < N - 1; ++j) xo[j] = j < ccs ? rgba[j] : rgba[j + 1];
+#pragma unroll
+      for (int c = 1; c < N; ++c)
+        if (c == ccs) x1[0] = rgba[c];
+      float lo0[N - 1], hi0[N - 1], lo1[1], hi1[1];
+      plane_fit(sh, lev, n_lev, ls_iters, p, xo, lo0, hi0);
+      plane_fit(sh, lev, n_lev, ls_iters, p, x1, lo1, hi1);
+      int lc[N], hc[N];
+      float lo_u[N], hi_u[N];
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        // channel c: plane 1's endpoint, or the others' c-th (c-1-th past
+        // ccs)
+        const float l = c == ccs ? lo1[0]
+                        : c < ccs ? lo0[c < N - 1 ? c : N - 2]
+                                  : lo0[c > 0 ? c - 1 : 0];
+        const float h = c == ccs ? hi1[0]
+                        : c < ccs ? hi0[c < N - 1 ? c : N - 2]
+                                  : hi0[c > 0 ? c - 1 : 0];
+        lc[c] = quant_code(inv_s, l);
+        hc[c] = quant_code(inv_s, h);
+        lo_u[c] = unq_s[lc[c]];
+        hi_u[c] = unq_s[hc[c]];
+      }
+      rec_exact<N>(sh, lev, n_lev, p, lo_u, hi_u);
+      float e0_min = INFINITY, e1_min = INFINITY;
+      int w0 = 0, w1 = 0;
+      for (int l = 0; l < n_lev; ++l) {
+        const float4 r = sh.rec[l];
+        float e0 = 0.0f, e1 = 0.0f;
+#pragma unroll
+        for (int c = 0; c < N; ++c) {
+          const float d = __fsub_rn(rgba[c], chan(r, c));
+          const float dd = __fmul_rn(d, d);
+          if (c == ccs)
+            e1 = dd;
+          else
+            e0 = __fadd_rn(e0, dd);
+        }
+        if (e0 < e0_min) {
+          e0_min = e0;
+          w0 = l;
+        }
+        if (e1 < e1_min) {
+          e1_min = e1;
+          w1 = l;
+        }
+      }
+      const float err = __fadd_rn(exact_sum16(e0_min), exact_sum16(e1_min));
+      if (err < best_err) {
+        best_err = err;
+        best_ccs = ccs;
+        best_w0 = w0;
+        best_w1 = w1;
+#pragma unroll
+        for (int c = 0; c < N; ++c) {
+          best_lo[c] = lc[c];
+          best_hi[c] = hc[c];
+        }
+      }
+    }
+    if constexpr (N == 3) best_err = __fadd_rn(best_err, alpha_err(rgba[3]));
+  }
+  if (live) {
+    if (p == 0) {
+      err_out[blk] = best_err;
+      if (!kLA) ccs_out[blk] = best_ccs;
+    }
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      if (p == 2 * c) ep_out[blk * 2 * N + p] = best_lo[c];
+      if (p == 2 * c + 1) ep_out[blk * 2 * N + p] = best_hi[c];
+    }
+    w_out[blk * 32 + 2 * p] = best_w0;
+    w_out[blk * 32 + 2 * p + 1] = best_w1;
   }
 }
 
@@ -857,6 +1392,35 @@ cudaError_t launch_mode_trial(const float* px, long long sb, long long sp,
   mode_trial_kernel<C><<<(n + kFitSlots - 1) / kFitSlots, kFitThreads, 0,
                          s>>>(px, sb, sp, sc, inv, unq, n_unq, levels, n_lev,
                               ls_iters, err, ep, w, n);
+  return cudaGetLastError();
+}
+
+template <int C, int S>
+cudaError_t launch_subset_trial(const float* px, long long sb, long long sp,
+                                long long sc, const long long* pats,
+                                int n_pat, const long long* inv,
+                                const float* unq, int n_unq,
+                                const float* levels, int n_lev, int ls_iters,
+                                int topk, float* err, int* ep, int* w,
+                                int* pat, int n, cudaStream_t s) {
+  subset_trial_kernel<C, S><<<(n + kFitSlots - 1) / kFitSlots, kFitThreads,
+                              0, s>>>(px, sb, sp, sc, pats, n_pat, inv, unq,
+                                      n_unq, levels, n_lev, ls_iters, topk,
+                                      err, ep, w, pat, n);
+  return cudaGetLastError();
+}
+
+template <int N, bool kLA>
+cudaError_t launch_dualplane_trial(const float* px, long long sb,
+                                   long long sp, long long sc,
+                                   const long long* inv, const float* unq,
+                                   int n_unq, const float* levels, int n_lev,
+                                   int ls_iters, float* err, int* ep, int* w,
+                                   int* ccs, int n, cudaStream_t s) {
+  dualplane_trial_kernel<N, kLA><<<(n + kFitSlots - 1) / kFitSlots,
+                                   kFitThreads, 0, s>>>(
+      px, sb, sp, sc, inv, unq, n_unq, levels, n_lev, ls_iters, err, ep, w,
+      ccs, n);
   return cudaGetLastError();
 }
 
@@ -1011,6 +1575,68 @@ int uastc_mode_trial(const float* px, long long sb, long long sp,
     case 4: return (int)launch_mode_trial<4>(px, sb, sp, sc, inv, unq, n_unq,
                                              levels, n_lev, ls_iters, err, ep,
                                              w, n, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// px: (n, 16, 4) at strides (sb, sp, sc); pats: (n_pat, 16) int64
+// contiguous partition patterns, subsets 0..n_sub - 1, n_pat 1..32; inv,
+// unq, levels as uastc_mode_trial's; (comps, n_sub) (2, 2), (3, 2), (4, 2)
+// or (3, 3); topk 1..min(8, n_pat); err (n,), ep (n, 2 n_sub comps) int32,
+// w (n, 16) int32, pat (n,) int32 out.
+int uastc_subset_trial(const float* px, long long sb, long long sp,
+                       long long sc, const long long* pats, int n_pat,
+                       const long long* inv, const float* unq, int n_unq,
+                       const float* levels, int n_lev, int comps, int n_sub,
+                       int ls_iters, int topk, float* err, int* ep, int* w,
+                       int* pat, int n, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (n_pat < 1 || n_pat > kMaxPatterns || topk < 1 || topk > kMaxTopk ||
+      topk > n_pat || n_unq < 1 || n_unq > 256 || n_lev < 1 ||
+      n_lev > kMaxLevels || ls_iters < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int kind = 10 * comps + n_sub;
+  switch (kind) {
+    case 22: return (int)launch_subset_trial<2, 2>(
+        px, sb, sp, sc, pats, n_pat, inv, unq, n_unq, levels, n_lev,
+        ls_iters, topk, err, ep, w, pat, n, s);
+    case 32: return (int)launch_subset_trial<3, 2>(
+        px, sb, sp, sc, pats, n_pat, inv, unq, n_unq, levels, n_lev,
+        ls_iters, topk, err, ep, w, pat, n, s);
+    case 42: return (int)launch_subset_trial<4, 2>(
+        px, sb, sp, sc, pats, n_pat, inv, unq, n_unq, levels, n_lev,
+        ls_iters, topk, err, ep, w, pat, n, s);
+    case 33: return (int)launch_subset_trial<3, 3>(
+        px, sb, sp, sc, pats, n_pat, inv, unq, n_unq, levels, n_lev,
+        ls_iters, topk, err, ep, w, pat, n, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// px, inv, unq, levels as uastc_mode_trial's; n_ch 3 (mode 6), 4 (modes 11
+// and 13) or 2 (the LA mode 17); err (n,), ep (n, 2 n_ch) int32, w (n, 32)
+// int32, ccs (n,) int32 out (ccs unused for LA, may be null).
+int uastc_dualplane_trial(const float* px, long long sb, long long sp,
+                          long long sc, const long long* inv,
+                          const float* unq, int n_unq, const float* levels,
+                          int n_lev, int n_ch, int ls_iters, float* err,
+                          int* ep, int* w, int* ccs, int n, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (n_unq < 1 || n_unq > 256 || n_lev < 1 || n_lev > kMaxLevels ||
+      ls_iters < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (n_ch) {
+    case 2: return (int)launch_dualplane_trial<2, true>(
+        px, sb, sp, sc, inv, unq, n_unq, levels, n_lev, ls_iters, err, ep, w,
+        ccs, n, s);
+    case 3: return (int)launch_dualplane_trial<3, false>(
+        px, sb, sp, sc, inv, unq, n_unq, levels, n_lev, ls_iters, err, ep, w,
+        ccs, n, s);
+    case 4: return (int)launch_dualplane_trial<4, false>(
+        px, sb, sp, sc, inv, unq, n_unq, levels, n_lev, ls_iters, err, ep, w,
+        ccs, n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

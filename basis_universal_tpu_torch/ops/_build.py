@@ -105,8 +105,14 @@ def _declare_xla_order(lib):
                                    ci, ci, vp]
     lib.uastc_mode_trial.argtypes = [vp, ll, ll, ll, vp, vp, ci, vp, ci, ci,
                                      ci, vp, vp, vp, ci, vp]
+    lib.uastc_subset_trial.argtypes = [vp, ll, ll, ll, vp, ci, vp, vp, ci, vp,
+                                       ci, ci, ci, ci, ci, vp, vp, vp, vp, ci,
+                                       vp]
+    lib.uastc_dualplane_trial.argtypes = [vp, ll, ll, ll, vp, vp, ci, vp, ci,
+                                          ci, ci, vp, vp, vp, vp, ci, vp]
     for fn in (lib.xla_fma, lib.xla_reduce, lib.uastc_line_fit,
-               lib.uastc_mode_trial):
+               lib.uastc_mode_trial, lib.uastc_subset_trial,
+               lib.uastc_dualplane_trial):
         fn.restype = ci
     return lib
 

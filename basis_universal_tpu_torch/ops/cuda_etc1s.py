@@ -46,9 +46,11 @@ LAUNCHES = {
     # XLA-CPU's float32 orders (`ops/xla_order.py`)
     "xla_fma": 0,
     "xla_reduce": 0,
-    # the UASTC search's line fits (`codecs/uastc/encode.py`)
+    # the UASTC search's line fits and mode trials (`codecs/uastc/encode.py`)
     "uastc_line_fit": 0,
     "uastc_mode_trial": 0,
+    "uastc_subset_trial": 0,
+    "uastc_dualplane_trial": 0,
     # the UASTC block packing (`codecs/uastc/pack.py`)
     "uastc_pack": 0,
 }

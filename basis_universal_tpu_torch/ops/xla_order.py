@@ -19,9 +19,10 @@ the product of two float32 is exact in float64, the sum is rounded there
 to odd, and that rounds correctly to float32. Integer sums are exact in
 any order and stay a library sum.
 
-The same library holds two kernels of whole compositions of these
-helpers, the UASTC search's masked line fit and single-subset mode trial
-(`uastc_line_fit`, `uastc_mode_trial`), whose wrappers live with the
+The same library holds four kernels of whole compositions of these
+helpers, the UASTC search's masked line fit and its mode trials
+(`uastc_line_fit`; `uastc_mode_trial`, single-subset; `uastc_subset_trial`,
+2 and 3 subsets; `uastc_dualplane_trial`), whose wrappers live with the
 search in `codecs/uastc/encode.py` and launch through `launch()`.
 """
 
@@ -134,6 +135,8 @@ class _Card:
         self.fma, self.reduce = lib.xla_fma, lib.xla_reduce
         self.line_fit = lib.uastc_line_fit
         self.mode_trial = lib.uastc_mode_trial
+        self.subset_trial = lib.uastc_subset_trial
+        self.dualplane_trial = lib.uastc_dualplane_trial
         self.stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
             or (lambda idx: torch.cuda.current_stream(idx).cuda_stream)
         self.current = getattr(torch._C, "_cuda_getDevice", None) \

@@ -32,6 +32,10 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    kernels `xla_fma` and `xla_reduce` at a UASTC line fit's shapes; the
    UASTC search's line fits, `uastc_line_fit` and `uastc_mode_trial`, at
    every shape the effort-2 and effort-3 searches give them, bit for bit;
+   its multi-subset and dual-plane trials, `uastc_subset_trial` and
+   `uastc_dualplane_trial`, at each mode of the effort-2 RGB and RGBA
+   searches and effort 3's modes 7 and 3, at 24,576 blocks and at 1,001,
+   every output equal (`uastc_trials`);
    the UASTC block packing `uastc_pack` on image 0's winner buffer and on
    buffers in which every slot of efforts 1-4, RGB and RGBA, wins blocks,
    byte for byte, `uastc_pack_phase`)
@@ -48,9 +52,11 @@ Phases (any failure raises, so the process exits nonzero with no final line):
 5. UASTC LDR 4x4: the same four textures through `compress_batch` at
    effort 2, then one 768x512 RGBA texture through `compress`: one scan and
    one rescore launch per image (the ETC1 hint), one `uastc_pack` (the
-   blocks, packed on the card; the numpy packer is not called) and the
-   XLA-order kernels' launches and the line fits' per RGB and RGBA image
-   (`EXPECTED_UASTC_XLA`), every file
+   blocks, packed on the card; the numpy packer and the plain versions of
+   the trials and fits are made to raise) and the XLA-order kernels'
+   launches and the trials' per RGB and RGBA image (`EXPECTED_UASTC_XLA`;
+   every other path's XLA-order launches are pinned too, ETC1S's by
+   `EXPECTED_ETC1S_XLA`), every file
    decoded (CRCs, PSNR), image 0 and the RGBA texture held to the recorded
    JAX-CPU bytes;
 6. transcoder: the port's `BasisTranscoder` turns image 0's UASTC file into
@@ -265,21 +271,38 @@ REPLACES = {"factorized_scan": f"{PALLAS}:343",
             # fit (`_fit_line_masked`) and a single-subset mode trial
             "uastc_line_fit": "basis_universal_tpu/codecs/uastc/encode.py:155",
             "uastc_mode_trial": "basis_universal_tpu/codecs/uastc/encode.py:56",
+            # no Pallas kernel: the reference's jitted multi-subset trials
+            # (`_mode_trial_2subset`, `_mode_trial_3subset`) and dual-plane
+            # trials (`_mode_trial_dualplane`, `_mode_trial_dualplane4`,
+            # `_mode_trial_dualplane_la`)
+            "uastc_subset_trial":
+                "basis_universal_tpu/codecs/uastc/encode.py:215, :328",
+            "uastc_dualplane_trial":
+                "basis_universal_tpu/codecs/uastc/encode.py:408, :462, :515",
             # no Pallas kernel: the reference's numpy packing of the search's
             # winner buffer into UASTC blocks
             "uastc_pack": "basis_universal_tpu/codecs/uastc/encode.py:700"}
 XLA_ORDER_KERNELS = ("xla_fma", "xla_reduce", "uastc_line_fit",
-                     "uastc_mode_trial")
+                     "uastc_mode_trial", "uastc_subset_trial",
+                     "uastc_dualplane_trial")
 # XLA-order launches per UASTC effort-2 image (RGB; RGBA): one
-# `uastc_mode_trial` per single-subset mode, one `uastc_line_fit` per
-# 2-subset candidate and per dual-plane plane, and the two ordered sums of
-# each 2-subset candidate's error (`tests/test_torch_uastc_encode.py` counts
-# the same on the CPU)
+# `uastc_mode_trial` per single-subset mode, one `uastc_subset_trial` per
+# 2-subset mode and one `uastc_dualplane_trial` per dual-plane mode; no line
+# fit and no generic ordered sum or fused multiply-add outside them
+# (`tests/test_torch_uastc_encode.py` counts the same on the CPU)
 EXPECTED_UASTC_XLA = {
-    False: {"xla_reduce": 16, "xla_fma": 0, "uastc_mode_trial": 4,
-            "uastc_line_fit": 14},
-    True: {"xla_reduce": 24, "xla_fma": 0, "uastc_mode_trial": 8,
-           "uastc_line_fit": 36}}
+    False: {"xla_reduce": 0, "xla_fma": 0, "uastc_mode_trial": 4,
+            "uastc_subset_trial": 2, "uastc_dualplane_trial": 1,
+            "uastc_line_fit": 0},
+    True: {"xla_reduce": 0, "xla_fma": 0, "uastc_mode_trial": 8,
+           "uastc_subset_trial": 3, "uastc_dualplane_trial": 4,
+           "uastc_line_fit": 0}}
+# XLA-order launches per 768x512 ETC1S image at q128 / effort 1, counted on
+# the CPU as the UASTC test counts (the top-level calls of
+# `ops/xla_order.py`'s plain versions outside every hand-written kernel's;
+# a 128x192 or 64x64 image makes a ninth `xla_reduce`); the transcoder's
+# ETC1 re-encode makes none
+EXPECTED_ETC1S_XLA = {"xla_fma": 5, "xla_reduce": 8}
 SOURCES = {name: "basis_universal_tpu_torch/csrc/"
            + ("xla_order_kernels.cu" if name in XLA_ORDER_KERNELS
               else "uastc_pack_kernels.cu" if name == "uastc_pack"
@@ -946,6 +969,12 @@ def phase_kernels(torch, blocks):
     #    they must give, every value. No one PyTorch call computes either.
     uastc_line_fits(torch, px, rng, measure)
 
+    # -- the UASTC search's multi-subset and dual-plane mode trials, one
+    #    launch each, at each mode of the effort-2 RGB and RGBA searches and
+    #    effort 3's modes 7 and 3, at 24,576 blocks and at a ragged count;
+    #    every output the plain version's (`uastc_trials`)
+    uastc_trials(torch, px, rng, measure)
+
     # -- the UASTC block packing at 24,576 blocks: image 0's own winner
     #    buffer and buffers drawn so that every slot of each slot list wins
     #    blocks, each the plain version's bytes (`uastc_pack_phase`)
@@ -1082,6 +1111,116 @@ def _mode_trial_ops(comps, n_lev, ls_iters):
     return ops + {2: 16 * 3 + 16 * 25, 3: 16 * 3, 4: 0}[comps]
 
 
+def _subset_trial_ops(comps, n_sub, n_lev, ls_iters, topk, n_pat):
+    """Instructions per 4x4 block of one multi-subset trial, counted as
+    `_line_fit_ops` counts: the luma (16 x 3) and its extremes (2 x 16);
+    the ideal split, per 2-means round each pixel's side (5: two
+    subtracts, two absolutes, a compare; 4 rounds with the final split)
+    and per centre a chain of 16 adds and a divide (3 rounds x 2), or the
+    3-means' first centre (17), 3 rounds of each pixel's label (8) and 2
+    of 3 centres (17 each); per pattern its score (S 2: 3; S 3: 9 masked
+    counts and 6 sums, 30) and its rank (n_pat compares); per candidate
+    the fits of its subsets (`_line_fit_ops`), the codes (12 C a subset),
+    the reconstruction at each level of each subset (7 C), each pixel's
+    search (3 C + 1 a level) and the error (16); RGB adds the alpha's error
+    (16 x 3), LA the winner's full-pixel error (16 x 19 and 64 adds)."""
+    split = 16 * 3 + 32
+    if n_sub == 2:
+        split += 4 * 16 * 5 + 3 * 2 * 17
+    else:
+        split += 17 + 3 * 16 * 8 + 2 * 3 * 17
+    scores = n_pat * ((3 if n_sub == 2 else 30) + n_pat)
+    per_cand = (_line_fit_ops(comps, n_sub, n_lev, ls_iters)
+                + n_sub * (12 * comps + 7 * n_lev * comps)
+                + 16 * n_lev * (3 * comps + 1) + 16)
+    tail = {2: 16 * 19 + 64, 3: 16 * 3, 4: 0}[comps]
+    return split + scores + topk * per_cand + tail
+
+
+def _dualplane_trial_ops(n_ch, n_lev, ls_iters):
+    """Instructions per 4x4 block of one dual-plane trial, counted as
+    `_line_fit_ops` counts: per ccs (n_ch of them) the plane-0 fit over the
+    other channels and the plane-1 fit (one subset each), the codes (12 a
+    channel), the reconstruction (7 a level and channel), each pixel's two
+    searches (3 a channel and 2 compares a level) and the two errors (32);
+    mode 6 adds the alpha's error (16 x 3). LA (n_ch 2): the luma (16 x 3),
+    the luma and alpha fits, their codes, the reconstruction, and the
+    searches against R, G, B and alpha (14 a level)."""
+    fit1 = _line_fit_ops(1, 1, n_lev, ls_iters)
+    if n_ch == 2:
+        return (48 + 2 * fit1 + 24 + 14 * n_lev + 16 * n_lev * 14 + 32)
+    per_ccs = (_line_fit_ops(n_ch - 1, 1, n_lev, ls_iters) + fit1
+               + 12 * n_ch + 7 * n_lev * n_ch + 16 * n_lev * (3 * n_ch + 2)
+               + 32)
+    return n_ch * per_ccs + (48 if n_ch == 3 else 0)
+
+
+# The trials phase 3 holds: (label, weight bits, endpoint range, comps,
+# subsets, pattern list, top-k, least-squares steps) of the 2- and 3-subset
+# modes, the effort-2 RGB search's first (modes 2, 4), then the RGBA
+# search's (9; 16 at effort 4), effort 3's mode 7 (top-k 8) and mode 3
+# (its own top-k 2, 2 steps); (label, weight bits, endpoint range,
+# channels, steps) of the dual-plane modes 6, then 11, 13 and 17
+SUBSET_TRIALS = (("mode 2", 3, 8, 3, 2, 2, 4, 1),
+                 ("mode 4", 2, 12, 3, 2, 2, 4, 1),
+                 ("mode 9", 2, 8, 4, 2, 2, 4, 1),
+                 ("mode 16", 2, 20, 2, 2, 2, 4, 1),
+                 ("mode 7 effort 3", 2, 12, 3, 2, 7, 8, 2),
+                 ("mode 3 effort 3", 2, 7, 3, 3, 3, 2, 2))
+DUALPLANE_TRIALS = (("mode 6", 2, 18, 3, 1), ("mode 11", 2, 13, 4, 1),
+                    ("mode 13", 1, 20, 4, 1), ("mode 17", 2, 20, 2, 1))
+RAGGED_BLOCKS = 1001
+
+
+def uastc_trials(torch, px, rng, measure):
+    """`uastc_subset_trial` and `uastc_dualplane_trial` at each trial of
+    `SUBSET_TRIALS` and `DUALPLANE_TRIALS` on image 0's 24,576 blocks with a
+    random alpha and on the first RAGGED_BLOCKS of them (a ragged last
+    CTA), every output held to the plain version with torch.equal; timed
+    at 24,576. Bound: the pixels in and the outputs out against
+    `_subset_trial_ops` / `_dualplane_trial_ops`. No one PyTorch call
+    computes either."""
+    from basis_universal_tpu_torch.codecs.uastc import encode as uenc
+
+    dev = px.device
+    b_n = px.shape[0]
+    rgba = torch.cat([px, torch.as_tensor(rng.integers(0, 256, (b_n, 16, 1)),
+                                          dtype=torch.float32, device=dev)],
+                     -1).contiguous()
+    cases = []
+    for label, wb, ep_range, comps, n_sub, plist, topk, ls in SUBSET_TRIALS:
+        n_pat = len(uenc._patterns(n_sub, plist == 7, str(dev)))
+        cases.append((
+            "uastc_subset_trial", f"{label} C{comps} S{n_sub} L{1 << wb} "
+            f"top{topk} ls{ls}", uenc.subset_trial,
+            uenc.subset_trial_reference,
+            (wb, ep_range, comps, ls, n_sub, plist, topk),
+            4 * (64 + 1 + 2 * n_sub * comps + 16 + 1),
+            _subset_trial_ops(comps, n_sub, 1 << wb, ls, topk, n_pat)))
+    for label, wb, ep_range, n_ch, ls in DUALPLANE_TRIALS:
+        cases.append((
+            "uastc_dualplane_trial", f"{label} N{n_ch} L{1 << wb} ls{ls}",
+            uenc.dualplane_trial, uenc.dualplane_trial_reference,
+            (wb, ep_range, ls, n_ch),
+            4 * (64 + 1 + 2 * n_ch + 32 + (n_ch != 2)),
+            _dualplane_trial_ops(n_ch, 1 << wb, ls)))
+    for name, label, run, plain, args, block_bytes, ops in cases:
+        for n in (b_n, RAGGED_BLOCKS):
+            x = rgba[:n]
+            got = run(x, *args)
+            want = plain(x, *args)
+            torch.cuda.synchronize()
+            if len(got) != len(want) or not all(
+                    torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{name} {label} at {n} blocks: "
+                                     "differs from the plain version")
+        print(f"{name} {label}: every output the plain version's at {b_n} "
+              f"and {RAGGED_BLOCKS} blocks")
+        measure(name, label, lambda: run(rgba, *args),
+                lambda: plain(rgba, *args), 0.0,
+                _bound(b_n * block_bytes, float(b_n * ops)))
+
+
 def uastc_line_fits(torch, px, rng, measure):
     """`uastc_line_fit` at the (C, S, weight bits, least-squares steps) and
     `uastc_mode_trial` at the (comps, weight bits, steps) of the effort-2
@@ -1166,7 +1305,7 @@ def phase_main_path(torch, images):
     print(f"main path: {len(images)} x {WIDTH}x{HEIGHT} q{QUALITY} e{EFFORT}: "
           f"{dt:.3f} s = {mpix / dt:.3f} Mpix/s (first run {t_first:.3f} s)")
     _expect(launches, EXPECTED_PER_IMAGE, len(images), "ETC1S compress_batch")
-    _expect_xla_order(launches, "ETC1S compress_batch")
+    _expect_xla(launches, "ETC1S compress_batch", n_etc1s=len(images))
 
     for i, (img, out) in enumerate(zip(images, outs)):
         p = etc1s_psnr(out.basis_data, img)     # decodes, checks all CRCs
@@ -1203,18 +1342,13 @@ def _expect(launches, per_image, n, what):
                                  f"expected {want}")
 
 
-def _expect_xla_order(launches, what):
-    """The path ran both generic XLA-order kernels."""
-    for name in ("xla_fma", "xla_reduce"):
-        if launches[name] <= 0:
-            raise AssertionError(f"{what}: {name} was never launched")
-
-
-def _expect_uastc_xla(launches, n_rgb, n_rgba, what):
-    """The XLA-order kernels' launches of n_rgb RGB and n_rgba RGBA UASTC
-    effort-2 images, exactly."""
+def _expect_xla(launches, what, n_etc1s=0, n_rgb=0, n_rgba=0):
+    """The XLA-order kernels' launches of n_etc1s ETC1S images (q128,
+    effort 1) and n_rgb RGB and n_rgba RGBA UASTC effort-2 images,
+    exactly."""
     for name in XLA_ORDER_KERNELS:
-        want = (EXPECTED_UASTC_XLA[False][name] * n_rgb
+        want = (EXPECTED_ETC1S_XLA.get(name, 0) * n_etc1s
+                + EXPECTED_UASTC_XLA[False][name] * n_rgb
                 + EXPECTED_UASTC_XLA[True][name] * n_rgba)
         if launches[name] != want:
             raise AssertionError(f"{what}: {name} launched "
@@ -1250,11 +1384,12 @@ def _uastc_params(compressor, device="cuda"):
 
 def phase_uastc(torch, images, rgba):
     """UASTC LDR 4x4: compress_batch of the four textures (after a warm-up
-    run), then compress of the RGBA texture, the numpy packer made to raise
-    (the card packs the blocks). Returns (launches of the two counted runs,
-    image 0's output)."""
+    run), then compress of the RGBA texture, the numpy packer and the plain
+    versions of the search's kernels made to raise (the card packs the
+    blocks and runs every trial). Returns (launches of the two counted
+    runs, image 0's output)."""
     from basis_universal_tpu_torch import compressor
-    from basis_universal_tpu_torch.codecs.uastc import pack
+    from basis_universal_tpu_torch.codecs.uastc import encode, pack
     from basis_universal_tpu_torch.ops import cuda_etc1s as ck
     from basis_universal_tpu_torch.testing.checks import uastc_psnr
 
@@ -1265,12 +1400,21 @@ def phase_uastc(torch, images, rgba):
     torch.cuda.synchronize()
     t_first = time.time() - t0
 
-    numpy_packer = pack._pack_from_compact
+    # the numpy packer and the plain versions of the search's kernels are
+    # made to raise: the card packs the blocks and runs every trial
+    refused = [(pack, "_pack_from_compact")] + [
+        (encode, name) for name in (
+            "subset_trial_reference", "dualplane_trial_reference",
+            "mode_trial_reference", "line_fit_reference")]
+    saved = [getattr(mod, name) for mod, name in refused]
 
-    def refuse(*args, **kw):
-        raise AssertionError("the numpy packer ran on the card's path")
+    def refusing(name):
+        def refuse(*args, **kw):
+            raise AssertionError(f"{name} ran on the card's path")
+        return refuse
 
-    pack._pack_from_compact = refuse
+    for mod, name in refused:
+        setattr(mod, name, refusing(name))
     try:
         ck.reset_launch_counts()
         t0 = time.time()
@@ -1283,10 +1427,11 @@ def phase_uastc(torch, images, rgba):
         torch.cuda.synchronize()
         single = dict(ck.LAUNCHES)
     finally:
-        pack._pack_from_compact = numpy_packer
+        for (mod, name), fn in zip(refused, saved):
+            setattr(mod, name, fn)
     print(f"UASTC: {len(images)} x {WIDTH}x{HEIGHT} effort {UASTC_EFFORT}: "
           f"{dt:.3f} s = {mpix / dt:.3f} Mpix/s (first run {t_first:.3f} s)")
-    _expect_uastc_xla(batch, len(images), 0, "UASTC compress_batch")
+    _expect_xla(batch, "UASTC compress_batch", n_rgb=len(images))
     _expect(batch, EXPECTED_UASTC_PER_IMAGE, len(images),
             "UASTC compress_batch")
     for i, (img, out) in enumerate(zip(images, outs)):
@@ -1302,7 +1447,7 @@ def phase_uastc(torch, images, rgba):
                                REFERENCE_BASIS_SHA256["uastc_image0"])
 
     _expect(single, EXPECTED_UASTC_PER_IMAGE, 1, "UASTC compress RGBA")
-    _expect_uastc_xla(single, 0, 1, "UASTC compress RGBA")
+    _expect_xla(single, "UASTC compress RGBA", n_rgba=1)
     _hold("UASTC RGBA", uastc_psnr(out_rgba.basis_data, rgba),
           len(out_rgba.basis_data), REFERENCE_UASTC_RGBA)
     _same_as_reference("UASTC RGBA", out_rgba.basis_data,
@@ -1339,6 +1484,7 @@ def phase_transcoder(torch, uastc_out):
     torch.cuda.synchronize()
     etc1_launches = dict(ck.LAUNCHES)
     _expect(etc1_launches, EXPECTED_ETC1_TRANSCODE, 1, "transcode ETC1_RGB")
+    _expect_xla(etc1_launches, "transcode ETC1_RGB")
     etc1_cpu = cpu.convert_rgba(TF.ETC1_RGB, rgba, nbx, nby, WIDTH, HEIGHT)
 
     def etc1_psnr(e):
@@ -1371,6 +1517,8 @@ def phase_transcoder(torch, uastc_out):
     dt = time.time() - t0
     re_launches = dict(ck.LAUNCHES)
     _expect(re_launches, EXPECTED_UASTC_PER_IMAGE, 1, "ASTC 4x4 re-encode")
+    # the decoded pixels carry an alpha channel: the RGBA search
+    _expect_xla(re_launches, "ASTC 4x4 re-encode", n_rgba=1)
     re_cpu = cpu.convert_rgba(TF.ASTC_4x4_RGBA, rgba, nbx, nby, WIDTH, HEIGHT)
     same = float((re == re_cpu).all(-1).mean())
     print(f"ASTC 4x4 re-encode on the card: {dt:.3f} s, {same:.6f} of the "
@@ -1578,6 +1726,7 @@ def phase_astc_ldr(torch, rgb):
     out, launches = _counted_compress(
         torch, rgb, "ASTC LDR 4x4", EXPECTED_UASTC_PER_IMAGE,
         tex_format=BasisTexFormat.ASTC_LDR_4x4, effort=2)
+    _expect_xla(launches, "ASTC LDR 4x4", n_rgb=1)
     ref = REFERENCE_MODES["astc_4x4"]
     _same_as_reference("ASTC LDR 4x4", out.basis_data, ref["sha256"])
     _hold_mode("ASTC LDR 4x4", psnr(_decode_level0(out.basis_data, TF.RGBA32),
@@ -1612,6 +1761,7 @@ def phase_xuastc(torch, rgb, small, have_zstd):
         torch, rgb, f"XUASTC LDR 4x4 {main_syntax}", EXPECTED_UASTC_PER_IMAGE,
         tex_format=BasisTexFormat.XUASTC_LDR_4x4, quality_level=75,
         effort=2, xuastc_syntax=main_syntax)
+    _expect_xla(launches, f"XUASTC LDR 4x4 {main_syntax}", n_rgb=1)
     ref = REFERENCE_MODES["xuastc_4x4" + ("" if have_zstd else "_arith")]
     _hold_mode(f"XUASTC LDR 4x4 {main_syntax}",
                psnr(_decode_level0(out.basis_data, TF.RGBA32), _rgba_of(rgb)),
@@ -2293,6 +2443,7 @@ def phase_front_doors(torch, img0, work_dir):
     etc1s, got = _launches_of(torch, ck, lambda: enc.compress(
         img0, F.ETC1S, quality=50, effort=1, flags=api.BasisFlags.SRGB))
     _expect(got, EXPECTED_PER_IMAGE, 1, "api ETC1S")
+    _expect_xla(got, "api ETC1S", n_etc1s=1)
     _add(api_total, got)
     direct = compressor.compress(img0, compressor.CompressorParams(
         quality_level=128, effort=1, device="cuda")).basis_data
@@ -2311,6 +2462,7 @@ def phase_front_doors(torch, img0, work_dir):
         data, got = _launches_of(torch, ck, lambda fmt=fmt: enc.compress(
             img0, fmt, quality=100, effort=2, flags=api.BasisFlags.SRGB))
         _expect(got, EXPECTED_UASTC_PER_IMAGE, 1, f"api {label}")
+        _expect_xla(got, f"api {label}", n_rgb=1)
         _add(api_total, got)
         print(f"api {label}: {len(data)} B")
         _same_as_reference(f"api {label}", data, want)
@@ -2324,6 +2476,7 @@ def phase_front_doors(torch, img0, work_dir):
     etc1, got = _launches_of(torch, ck,
                              lambda: tr.transcode_tfmt(uastc, TF.ETC1_RGB))
     _expect(got, EXPECTED_ETC1_TRANSCODE, 1, "api transcode ETC1_RGB")
+    _expect_xla(got, "api transcode ETC1_RGB")
     _add(api_total, got)
     astc, got = _launches_of(
         torch, ck, lambda: tr.transcode_tfmt(uastc, TF.ASTC_4x4_RGBA))
@@ -2343,6 +2496,7 @@ def phase_front_doors(torch, img0, work_dir):
         [str(dds), "-q", "128", "-effort", "1", "-basis", "-device", "cuda",
          "-output_path", out_dir]))
     _expect(got, EXPECTED_PER_IMAGE, 1, "cli ETC1S")
+    _expect_xla(got, "cli ETC1S", n_etc1s=1)
     _add(cli_total, got)
     cli_etc1s = (work_dir / "image0.basis").read_bytes()
     want = enc.compress(rgba0, F.ETC1S, quality=50, effort=1,
@@ -2355,6 +2509,7 @@ def phase_front_doors(torch, img0, work_dir):
         [str(dds), "-uastc", "-effort", "2", "-basis", "-device", "cuda",
          "-output_file", "image0_uastc", "-output_path", out_dir]))
     _expect(got, EXPECTED_UASTC_PER_IMAGE, 1, "cli -uastc")
+    _expect_xla(got, "cli -uastc", n_rgb=1)
     _add(cli_total, got)
     if rc != 0 or not (work_dir / "image0_uastc.basis").exists():
         raise AssertionError("cli -uastc failed")
@@ -2366,6 +2521,7 @@ def phase_front_doors(torch, img0, work_dir):
         [str(dds), "-bench", "-bench_reps", "2", "-q", "128", "-effort", "1",
          "-device", "cuda"]))
     _expect(got, EXPECTED_PER_IMAGE, 3, "cli -bench")
+    _expect_xla(got, "cli -bench", n_etc1s=3)
     _add(cli_total, got)
     if rc != 0 or rc2 != 0:
         raise AssertionError("cli -info / -bench failed")

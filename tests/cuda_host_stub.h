@@ -1,16 +1,29 @@
-// The CUDA features of a kernel that uses one CTA-wide barrier and no warp
-// intrinsics, on the host: each CUDA thread a host thread, the CTAs one after
-// another, __syncthreads a barrier of the CTA's threads, __shared__ a static
-// (one CTA at a time), __ldg a plain load. A test compiles a kernel source
-// with g++ against this header, its `#include <cuda_runtime.h>` replaced by
-// this one and its `kernel<<<grid, block, 0, stream>>>(args)` by
+// The CUDA features of the port's kernels whose threads meet only at CTA
+// barriers, warp barriers, warp shuffles and ballots, on the host: each CUDA
+// thread a fiber (its own stack, switched cooperatively on one host thread),
+// the CTAs one after another, __syncthreads a barrier of the CTA's threads,
+// __syncwarp a barrier of the warp's 32 threads, a shuffle or a ballot a
+// write, a warp barrier, a read and a warp barrier, __shared__ a static (one
+// CTA at a time), __ldg a plain load, and the rounded float intrinsics
+// (__fadd_rn, __fmaf_rn, ...) the plain float operations they name (compile
+// with -ffp-contract=off, so that no product is fused into a sum the source
+// did not fuse). A fiber runs until it waits at a barrier; the next one in
+// thread order runs then, so a barrier costs one switch per thread and the
+// run is the same on a loaded host. A barrier that some threads never reach
+// (a divergent __syncwarp) aborts the process. A test compiles a kernel
+// source with g++ (x86-64) against this header, its
+// `#include <cuda_runtime.h>` replaced by this one and its
+// `kernel<<<grid, block, 0, stream>>>(args)` by
 // `emu_launch(kernel, grid, block, args)`, and calls its C entry through
 // ctypes on CPU tensors.
 #pragma once
+#include <math.h>
 #include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
 
-#include <barrier>
-#include <thread>
+#include <functional>
 #include <vector>
 
 #define __global__
@@ -24,7 +37,8 @@
 struct emu_dim3 {
   unsigned x, y, z;
 };
-inline thread_local emu_dim3 threadIdx, blockIdx;
+// the running fiber's: the scheduler sets them before it resumes one
+inline emu_dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 struct uint4 {
   uint32_t x, y, z, w;
@@ -32,30 +46,194 @@ struct uint4 {
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
   return {a, b, c, d};
 }
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
+struct alignas(8) float2 {
+  float x, y;
+};
+inline float2 make_float2(float a, float b) { return {a, b}; }
 template <class T>
 inline T __ldg(const T* p) {
   return *p;
 }
 
-inline std::barrier<>* emu_cta_barrier;
-inline void __syncthreads() { emu_cta_barrier->arrive_and_wait(); }
+// -- fibers: emu_switch(&from_sp, to_sp) saves the callee-saved registers
+//    on the current stack, stores its pointer in from_sp and resumes the
+//    stack to_sp (System V x86-64)
+extern "C" void emu_switch(void** from_sp, void* to_sp);
+asm(R"(
+.text
+.globl emu_switch
+.hidden emu_switch
+.type emu_switch, @function
+emu_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+.size emu_switch, .-emu_switch
+)");
+
+struct EmuFiber {
+  void* sp;
+  bool done;
+};
+
+struct EmuScheduler {
+  std::vector<EmuFiber> fibers;
+  std::vector<char> stacks;
+  void* main_sp = nullptr;
+  unsigned cur = 0;
+  unsigned long progress = 0;  // barriers passed and fibers finished
+  std::function<void()> body;
+};
+inline EmuScheduler emu_sched;
+constexpr size_t kEmuStack = 1 << 16;
+
+inline void emu_yield() {
+  emu_switch(&emu_sched.fibers[emu_sched.cur].sp, emu_sched.main_sp);
+}
+
+struct EmuBarrier {
+  unsigned expected = 0, arrived = 0;
+  unsigned long gen = 0;
+};
+constexpr int kEmuMaxWarps = 32;
+inline EmuBarrier emu_cta_barrier, emu_warp_barrier[kEmuMaxWarps];
+inline uint64_t emu_lane_word[kEmuMaxWarps][32];
+
+inline void emu_wait(EmuBarrier& b) {
+  const unsigned long g = b.gen;
+  if (++b.arrived == b.expected) {
+    b.arrived = 0;
+    ++b.gen;
+    ++emu_sched.progress;
+    return;
+  }
+  while (b.gen == g) emu_yield();
+}
+
+inline void __syncthreads() { emu_wait(emu_cta_barrier); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_wait(emu_warp_barrier[threadIdx.x / 32]);
+}
+
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  static_assert(sizeof(T) <= sizeof(uint64_t), "a shuffled word");
+  const unsigned w = threadIdx.x / 32, l = threadIdx.x % 32;
+  memcpy(&emu_lane_word[w][l], &v, sizeof(T));
+  __syncwarp();
+  T r;
+  memcpy(&r, &emu_lane_word[w][l ^ (unsigned)lane_mask], sizeof(T));
+  __syncwarp();
+  return r;
+}
+
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const unsigned w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_lane_word[w][l] = pred ? 1u : 0u;
+  __syncwarp();
+  unsigned bits = 0;
+  for (unsigned j = 0; j < 32; ++j)
+    bits |= (unsigned)(emu_lane_word[w][j] & 1u) << j;
+  __syncwarp();
+  return bits;
+}
+
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline uint32_t __umulhi(uint32_t a, uint32_t b) {
+  return (uint32_t)(((uint64_t)a * b) >> 32);
+}
+inline int max(int a, int b) { return a > b ? a : b; }
+inline int min(int a, int b) { return a < b ? a : b; }
+
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return sqrtf(a); }
+inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
+
+// one fiber at a time: a read-modify-write is atomic
+inline int atomicMin(int* p, int v) {
+  const int old = *p;
+  if (v < old) *p = v;
+  return old;
+}
+inline int atomicMax(int* p, int v) {
+  const int old = *p;
+  if (v > old) *p = v;
+  return old;
+}
 
 typedef void* cudaStream_t;
+typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return cudaSuccess; }
 
+inline void emu_fiber_main() {
+  emu_sched.body();
+  emu_sched.fibers[emu_sched.cur].done = true;
+  ++emu_sched.progress;
+  emu_yield();  // never resumed
+}
+
 template <class F, class... A>
 void emu_launch(F kernel, unsigned grid, unsigned block, A... args) {
+  EmuScheduler& s = emu_sched;
+  blockDim = {block, 1, 1};
+  gridDim = {grid, 1, 1};
+  s.body = [=] { kernel(args...); };
+  s.fibers.assign(block, EmuFiber{nullptr, false});
+  s.stacks.assign(block * kEmuStack + 16, 0);
+  const unsigned n_warps = (block + 31) / 32;
   for (unsigned b = 0; b < grid; ++b) {
-    std::barrier<> bar(block);
-    emu_cta_barrier = &bar;
-    std::vector<std::thread> threads;
-    for (unsigned t = 0; t < block; ++t)
-      threads.emplace_back([=] {
+    blockIdx = {b, 0, 0};
+    emu_cta_barrier = EmuBarrier{block};
+    for (unsigned w = 0; w < n_warps; ++w)
+      emu_warp_barrier[w] =
+          EmuBarrier{block - 32 * w < 32 ? block - 32 * w : 32u};
+    for (unsigned t = 0; t < block; ++t) {
+      // a fresh stack whose first switch "returns" into emu_fiber_main
+      // with the stack aligned as at a call
+      uintptr_t top = (uintptr_t)(s.stacks.data() + (t + 1) * kEmuStack);
+      void** sp = (void**)(top & ~(uintptr_t)15);
+      *--sp = nullptr;
+      *--sp = (void*)&emu_fiber_main;
+      for (int r = 0; r < 6; ++r) *--sp = nullptr;
+      s.fibers[t] = EmuFiber{sp, false};
+    }
+    for (unsigned live = block; live;) {
+      const unsigned long before = s.progress;
+      live = 0;
+      for (unsigned t = 0; t < block; ++t) {
+        if (s.fibers[t].done) continue;
+        s.cur = t;
         threadIdx = {t, 0, 0};
-        blockIdx = {b, 0, 0};
-        kernel(args...);
-      });
-    for (auto& th : threads) th.join();
+        emu_switch(&s.main_sp, s.fibers[t].sp);
+        live += !s.fibers[t].done;
+      }
+      if (live && s.progress == before) {
+        fprintf(stderr, "emu_launch: CTA %u deadlocked: a barrier that not "
+                        "every thread reaches\n", b);
+        abort();
+      }
+    }
   }
 }

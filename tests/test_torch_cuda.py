@@ -329,7 +329,8 @@ def test_compress_on_card_launches_each_kernel(cuda):
         "bisect_rows": 1,
         "bisect_round": int(np.ceil(np.log2(knobs["num_e"]))),
         "xla_cpu_min_k": refine,
-        "uastc_line_fit": 0, "uastc_mode_trial": 0, "uastc_pack": 0}
+        "uastc_line_fit": 0, "uastc_mode_trial": 0, "uastc_subset_trial": 0,
+        "uastc_dualplane_trial": 0, "uastc_pack": 0}
     cpu = compressor.compress(img, compressor.CompressorParams(device="cpu"))
     assert out.basis_data == cpu.basis_data
     assert etc1s_psnr(out.basis_data, img) > 25.0
@@ -990,14 +991,75 @@ def test_mode_trial_on_card(cuda, comps, wb, ls_iters):
             assert torch.equal(g.cpu(), w)
 
 
+# (weight bits, endpoint range, comps, subsets, pattern list, top-k): the
+# modes of the searches (2, 4, 9, 16; 7 and 2 at effort 3's top-k 8; 3)
+# and each instance at weight bits 1 and 5
+SUBSET_TRIALS = [(3, 8, 3, 2, 2, 4), (2, 12, 3, 2, 2, 4), (2, 8, 4, 2, 2, 4),
+                 (2, 20, 2, 2, 2, 4), (2, 12, 3, 2, 7, 8), (3, 8, 3, 2, 2, 8),
+                 (2, 7, 3, 3, 3, 2), (1, 20, 3, 2, 2, 4), (5, 11, 4, 2, 2, 8),
+                 (1, 20, 2, 2, 2, 8), (5, 11, 2, 2, 7, 4), (2, 7, 3, 3, 3, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ls_iters", [1, 2])
+@pytest.mark.parametrize("case", SUBSET_TRIALS)
+def test_subset_trial_on_card(cuda, case, ls_iters):
+    """One `uastc_subset_trial` launch gives the errors, endpoint codes,
+    weights and patterns of its plain version on the card and on the CPU,
+    bit for bit: solid blocks, pixels through a strided view, a ragged last
+    CTA and one block."""
+    from basis_universal_tpu_torch.codecs.uastc import encode as uenc
+
+    wb, ep_range, comps, n_sub, plist, topk = case
+    wide = _fit_blocks(2999, comps + 10 * wb + topk).repeat(1, 1, 2)
+    args = (wb, ep_range, comps, ls_iters, n_sub, plist, topk)
+    for b in (2999, 1):
+        px = wide[:b, :, ::2]                       # a strided view
+        ck.reset_launch_counts()
+        got = uenc.subset_trial(px.to(cuda), *args)
+        assert ck.LAUNCHES["uastc_subset_trial"] == 1
+        assert sum(ck.LAUNCHES.values()) == 1
+        for g, w in zip(got, uenc.subset_trial_reference(px.to(cuda), *args)):
+            assert torch.equal(g, w)
+        for g, w in zip(got, uenc.subset_trial_reference(px, *args)):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ls_iters", [1, 2])
+@pytest.mark.parametrize("wb,ep_range,n_ch", [
+    (2, 18, 3), (2, 13, 4), (1, 20, 4), (2, 20, 2), (5, 11, 3), (3, 19, 4),
+    (4, 13, 2)])
+def test_dualplane_trial_on_card(cuda, wb, ep_range, n_ch, ls_iters):
+    """One `uastc_dualplane_trial` launch gives the errors, endpoint codes,
+    interleaved weights and ccs (LA: none) of its plain version on the card
+    and on the CPU, bit for bit."""
+    from basis_universal_tpu_torch.codecs.uastc import encode as uenc
+
+    wide = _fit_blocks(2999, n_ch + 10 * wb).repeat(1, 1, 2)
+    args = (wb, ep_range, ls_iters, n_ch)
+    for b in (2999, 1):
+        px = wide[:b, :, ::2]
+        ck.reset_launch_counts()
+        got = uenc.dualplane_trial(px.to(cuda), *args)
+        assert ck.LAUNCHES["uastc_dualplane_trial"] == 1
+        assert sum(ck.LAUNCHES.values()) == 1
+        assert len(got) == (3 if n_ch == 2 else 4)
+        for g, w in zip(got, uenc.dualplane_trial_reference(px.to(cuda),
+                                                            *args)):
+            assert torch.equal(g, w)
+        for g, w in zip(got, uenc.dualplane_trial_reference(px, *args)):
+            assert torch.equal(g.cpu(), w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("alpha", [False, True])
 def test_uastc_search_launches_on_card(cuda, alpha):
     """The effort-2 search launches, per image, one `uastc_mode_trial` per
-    single-subset mode (RGB 4, RGBA 8), one `uastc_line_fit` per 2-subset
-    candidate and dual-plane plane (14, 36), and the generic kernels for
-    the rest (RGB 16 ordered sums, RGBA 24; no fused multiply-add); its
-    blocks are the CPU's."""
+    single-subset mode (RGB 4, RGBA 8), one `uastc_subset_trial` per
+    2-subset mode (2, 3) and one `uastc_dualplane_trial` per dual-plane
+    mode (1, 4), and no line fit or generic XLA-order kernel outside them;
+    its blocks are the CPU's."""
     from basis_universal_tpu_torch.codecs.uastc import encode, pack
     from basis_universal_tpu_torch.ops.etc1 import image_to_blocks
     from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
@@ -1008,10 +1070,13 @@ def test_uastc_search_launches_on_card(cuda, alpha):
     px = torch.as_tensor(image_to_blocks(img).reshape(-1, 16, 4),
                          dtype=torch.float32)
     modes, ls_iters, extra, topk = pack._effort_mode_set(2, alpha)
+    ck.reset_launch_counts()
     got = encode._search(px.to(cuda), modes, ls_iters, extra, topk)
-    want = dict(xla_reduce=24, xla_fma=0, uastc_mode_trial=8,
-                uastc_line_fit=36) if alpha else dict(
-        xla_reduce=16, xla_fma=0, uastc_mode_trial=4, uastc_line_fit=14)
+    want = dict(xla_reduce=0, xla_fma=0, uastc_mode_trial=8,
+                uastc_subset_trial=3, uastc_dualplane_trial=4,
+                uastc_line_fit=0) if alpha else dict(
+        xla_reduce=0, xla_fma=0, uastc_mode_trial=4, uastc_subset_trial=2,
+        uastc_dualplane_trial=1, uastc_line_fit=0)
     assert {k: ck.LAUNCHES[k] for k in want} == want
     np.testing.assert_array_equal(
         got, encode._search(px, modes, ls_iters, extra, topk))

@@ -267,22 +267,23 @@ def test_ls_step_plain_version_is_the_references_step(n_ch, masked,
 @pytest.mark.parametrize("alpha", [False, True])
 def test_search_runs_each_line_fit_as_one_chain_of_each(alpha, rgba_blocks):
     """The effort-2 search calls `_mode_trial` once per single-subset mode
-    (4 in an RGB search, 8 with alpha) and `line_fit` once per 2-subset
-    candidate and per dual-plane plane (14; 36), each one launch on the
-    card (`uastc_mode_trial`, `uastc_line_fit`), and of the generic
-    XLA-order operators leaves the counts `chip_smoke.py` asserts per image
-    on the card: the two ordered sums of each 2-subset candidate's error
-    (16 RGB, 24 RGBA) and no fused multiply-add; the ETC1 hint's scan, a
-    kernel on the card, is not counted. The line fits are held to the
-    reference's bits inside its jitted mode trials
-    (`test_mode_trial_matches_reference`, `test_search_matches_reference`,
-    `tests/test_torch_line_fit.py`): jitted alone, the reference's power
-    iteration rounds otherwise."""
+    (4 in an RGB search, 8 with alpha), `subset_trial` once per 2-subset
+    mode (2; 3) and `dualplane_trial` once per dual-plane mode (1; 4), each
+    one launch on the card (`uastc_mode_trial`, `uastc_subset_trial`,
+    `uastc_dualplane_trial`), and outside them no line fit and no generic
+    XLA-order operator: the counts `chip_smoke.py` asserts per image on the
+    card. The ETC1 hint's scan, a kernel on the card, is not counted. The
+    line fits are held to the reference's bits inside its jitted mode
+    trials (`test_mode_trial_matches_reference`,
+    `test_search_matches_reference`, `tests/test_torch_line_fit.py`):
+    jitted alone, the reference's power iteration rounds otherwise."""
     from basis_universal_tpu_torch.ops import xla_order as xo
 
-    calls = dict(mode_trial=0, line_fit=0, fma=0, reduce=0, hint=0)
+    calls = dict(mode_trial=0, subset_trial=0, dualplane_trial=0, line_fit=0,
+                 fma=0, reduce=0, hint=0)
     depth = [0]
-    nested = ("mode_trial", "line_fit", "hint")
+    nested = ("mode_trial", "subset_trial", "dualplane_trial", "line_fit",
+              "hint")
 
     def counted(name, fn):
         def run(*args, **kw):
@@ -299,6 +300,10 @@ def test_search_runs_each_line_fit_as_one_chain_of_each(alpha, rgba_blocks):
     try:
         mp.setattr(port_encode, "_mode_trial",
                    counted("mode_trial", port_encode._mode_trial))
+        mp.setattr(port_encode, "subset_trial",
+                   counted("subset_trial", port_encode.subset_trial))
+        mp.setattr(port_encode, "dualplane_trial",
+                   counted("dualplane_trial", port_encode.dualplane_trial))
         mp.setattr(port_encode, "line_fit",
                    counted("line_fit", port_encode.line_fit))
         mp.setattr(xo, "fma_reference", counted("fma", xo.fma_reference))
@@ -312,7 +317,9 @@ def test_search_runs_each_line_fit_as_one_chain_of_each(alpha, rgba_blocks):
                             topk)
     finally:
         mp.undo()
-    want = (dict(mode_trial=8, line_fit=36, fma=0, reduce=24, hint=1)
+    want = (dict(mode_trial=8, subset_trial=3, dualplane_trial=4, line_fit=0,
+                 fma=0, reduce=0, hint=1)
             if alpha else
-            dict(mode_trial=4, line_fit=14, fma=0, reduce=16, hint=1))
+            dict(mode_trial=4, subset_trial=2, dualplane_trial=1, line_fit=0,
+                 fma=0, reduce=0, hint=1))
     assert calls == want

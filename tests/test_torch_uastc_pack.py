@@ -13,7 +13,7 @@ blocks, with every pattern index of each list, every ccs, endpoint codes 0
 and the range's maximum, anchor weights with their top bit set and clear,
 and rows of no slot; and solid blocks whose colours tie in the ETC1 hint's
 LUT search. The kernel's source runs here compiled with g++ against
-`tests/cuda_host_stub.h` (a host thread per CUDA thread) and is called
+`tests/cuda_host_stub.h` (a fiber per CUDA thread) and is called
 through ctypes on CPU tensors. Tolerance: none, every byte equal.
 """
 
