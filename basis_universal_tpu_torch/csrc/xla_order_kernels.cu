@@ -60,10 +60,10 @@
 // a warp issues the ordered chains and the power iteration once for its two
 // blocks, and that serial part, not the per-pixel search, sets their time
 // (fitting a partition's subsets side by side, each pixel searching once,
-// measured slower at every register budget tried). Their bound is
+// measured slower at every register budget tried). The trials run a
+// block's fits side by side instead, a lane per fit (below). Their bound is
 // operations (`chip_smoke.py`'s `_line_fit_ops` and the trials' counts);
-// they are latency-bound below it: the trials run their candidates' fits
-// one after another per block, as the plain versions do.
+// they are latency-bound below it.
 //
 // Every launcher takes raw device pointers, the shape and strides by value,
 // and a cudaStream_t; it launches asynchronously and returns
@@ -716,7 +716,8 @@ __device__ __forceinline__ void load_mode_tables(
 }
 
 // The code of a float endpoint (`_quant`): rounded half to even, clipped.
-__device__ __forceinline__ int quant_code(const int* inv_s, float f) {
+template <class T>
+__device__ __forceinline__ int quant_code(const T* inv_s, float f) {
   return inv_s[(int)fminf(fmaxf(rintf(f), 0.0f), 255.0f)];
 }
 
@@ -849,83 +850,565 @@ mode_trial_kernel(const float* __restrict__ px, long long sb, long long sp,
 // mode trials, each whole trial in one launch
 // ---------------------------------------------------------------------------
 //
-// The same layout as the line fits (a lane per pixel, 8 blocks a CTA), the
-// fits through `fit_subset`, so the trials' endpoints are uastc_line_fit's
-// bits. The candidates (S fits each) and the dual-plane channel choices run
-// in series per block, as in the plain versions: that serial chain of fits
-// sets these kernels' time.
+// A trial's fits (top-k candidates x S subsets; the dual-plane trials' N
+// channel choices x 2 planes) are independent until the winner is picked,
+// so a warp runs the fits of nb blocks side by side (nb up to 32 / fits a
+// block, `trial_blocks_per_warp`): a lane per fit for each fit's serial
+// work, a lane per pixel for the per-pixel work (two blocks a pass), the
+// phases handing over through the warp's slice of shared memory (ordered
+// by __syncwarp; the CTA meets once, after the mode's tables are loaded).
+//
+// - The luma split and the shortlist keep the plain version's order, two
+//   blocks a pass; a k-means round's centres are one chain a lane (lanes p
+//   mod 2, or 3, each add one cluster), exchanged by shuffles, and the
+//   top-k are repeated maxima of unique keys (score * 64 + 63 - pattern).
+// - A fit's lane runs everything that is once per fit: the C mean chains
+//   and the C (C + 1) / 2 distinct covariance chains over the block's 16
+//   pixels in pixel order (each term times its 0 / 1 mask, as
+//   `fit_subset`), the divides, the 4 power-iteration rounds, the extremes
+//   of the projections over its pixels, the endpoints and their
+//   reconstruction at each weight level (a table in shared memory); after
+//   each weight search its error chain in pixel order, and per
+//   least-squares step the weights' moments (exact), the 2C P / Q chains,
+//   the 2x2 solve and the select. So a warp issues a fit's scalar work
+//   once for up to 32 fits, where `fit_subset` issues it once for two.
+// - A pixel's lane searches the levels of its own subset's fit only (a
+//   masked-out pixel's term in another subset's fit is 0: it adds nothing
+//   to that fit's error, and its weight is multiplied by 0 in the moments),
+//   once per candidate where `fit_subset` searches once per subset.
+// - Every rounding is `fit_subset`'s, term for term, so the trials give
+//   uastc_line_fit's bits. The dual-plane trials' one-channel plane fits
+//   run in the same lanes as their (N - 1)-channel fits, padded with
+//   channels that are 0: a zero channel adds +0 to every chain and product
+//   that reaches the real channel's result (whose partial sums are never
+//   -0), so the real channel's endpoints keep their bits; their pixels
+//   search on the one channel.
 //
 // Error sums: a squared difference of whole-numbered pixels and
 // reconstructions is a whole number, and a block's error over at most 4
 // channels is at most 16 x 4 x 255^2 = 4,161,600 < 2^24, so every partial
-// sum is exact and any order gives the same bits (shuffles). Only the LA
-// subset trial's luma (mode 16) is fractional, and its sums stay chains in
-// pixel order; the dual-plane LA trial (mode 17) scores its luma plane
-// against the whole-numbered R, G and B.
+// sum is exact and any order gives the same bits: four partial sums
+// (`sum16`). Only the LA subset trial's luma (mode 16) and the LA plane
+// fits are fractional: their sums stay chains in pixel order. A fit's
+// weights' moments are multiples of 1/4096 up to 16, exact in any order
+// too; the extremes of the projections are exact in any order.
 
 constexpr int kMaxPatterns = 32;
 constexpr int kMaxTopk = 8;
 constexpr int kMaxCodes = 18;  // 2 x subsets x channels: 3 x 3 for mode 3
+constexpr int kTrialWarps = 4;     // warps per CTA (fewer where a warp's
+                                   // shared memory is large)
+constexpr int kMaxWarpBlocks = 8;  // 4x4 blocks per warp
+constexpr int kPix = 6;            // a pixel's slots: r, g, b, a, luma, 0
+constexpr int kZeroCh = 5;         // the slot that is 0 (a padded channel)
+constexpr int kBlockWords = 100;   // 16 pixels + 4: 8 blocks on 8 banks
+constexpr int kItemWords = 17;     // a group's 16 pixel terms, + 1 (banks)
+constexpr int kItemBytes = 20;     // a group's 16 weight indices, + 4
 
-// A trial block's scratch, beside its FitScratch.
-struct TrialScratch {
-  float luma[16];
-  int key[kMaxPatterns];           // score * 64 + 63 - pattern, ranked
-  int cand[kMaxTopk];              // the shortlist, best first
-  int codes[kMaxTopk][kMaxCodes];  // each candidate's endpoint codes
+// The trials' per-step split (`chip_smoke.py`, measurement only): an
+// instance with kStop < kStopAll runs its trial up to that step and writes
+// a sum of what it computed to err; the paths' instances run to kStopAll.
+enum TrialStop {
+  kStopSplit = 1,   // the luma split and the shortlist (dual-plane: loads)
+  kStopChains = 2,  // + each fit's mean and covariance chains
+  kStopPower = 3,   // + the power iteration and the endpoints
+  kStopSearch = 4,  // + the first weight-level search
+  kStopSolve = 5,   // + the least-squares steps (solves and searches)
+  kStopAll = 6      // + codes, re-chosen weights, the winner and its error
 };
 
-// The block's pixels' luma whose bit is set in `bits`, added in pixel order
-// from pixel 0 (`_sum16` of luma times a 0 / 1 mask), on every lane.
-__device__ __forceinline__ float luma_chain(const TrialScratch& tr,
-                                            unsigned bits) {
-  float acc = (bits & 1u) ? tr.luma[0] : 0.0f;
-#pragma unroll
-  for (int i = 1; i < 16; ++i)
-    acc = __fadd_rn(acc, (bits >> i) & 1u ? tr.luma[i] : 0.0f);
-  return acc;
+// One fit: its pixels (mask), block (in the warp), group (the set of fits
+// that share the block's pixels: a candidate, or a dual-plane fit), the
+// weight buffer of its current best, its C channels (a slot each, a byte
+// each).
+struct FitRec {
+  uint32_t mask;
+  int blk, grp, cur;
+  uint32_t ch;
+};
+
+// A warp's slice of shared memory, nb blocks of F fits and G groups each,
+// L weight levels (`trial_layout`).
+struct TrialWarp {
+  float4* table;   // [nf][L + 1] each fit's reconstruction per level
+  float* pix;      // [nb][kBlockWords] the pixels' kPix slots
+  FitRec* fit;     // [nf]
+  float* best;     // [nb * G][kItemWords] a pixel's least error per group
+  uint8_t* wl0;    // [nb * G][kItemBytes] its level: two buffers (by
+  uint8_t* wl1;    // name, so that R stays in registers)
+  uint8_t* code;   // [nf][8] endpoint codes
+  float* gerr;     // [nb * G] each group's error
+  int* cand;       // [nb][kMaxTopk] the shortlist
+  int nb, nf, G, L;
+};
+
+// The slice's byte offsets (each 16-byte aligned) and its size; with base,
+// the pointers of R.
+__host__ __device__ inline int trial_layout(int nb, int F, int G, int L,
+                                            char* base, TrialWarp* R) {
+  const int nf = nb * F;
+  const int n_tab = nf * (L + 1) > nb * 16 ? nf * (L + 1) : nb * 16;
+  int off = 0;
+  int o[9];
+  const int bytes[9] = {n_tab * 16,
+                         nb * kBlockWords * 4,
+                         nf * (int)sizeof(FitRec),
+                         nb * G * kItemWords * 4,
+                         nb * G * kItemBytes,
+                         nb * G * kItemBytes,
+                         nf * 8,
+                         nb * G * 4,
+                         nb * kMaxTopk * 4};
+  for (int i = 0; i < 9; ++i) {
+    o[i] = off;
+    off += (bytes[i] + 15) & ~15;
+  }
+  if (R) {
+    R->table = reinterpret_cast<float4*>(base + o[0]);
+    R->pix = reinterpret_cast<float*>(base + o[1]);
+    R->fit = reinterpret_cast<FitRec*>(base + o[2]);
+    R->best = reinterpret_cast<float*>(base + o[3]);
+    R->wl0 = reinterpret_cast<uint8_t*>(base + o[4]);
+    R->wl1 = reinterpret_cast<uint8_t*>(base + o[5]);
+    R->code = reinterpret_cast<uint8_t*>(base + o[6]);
+    R->gerr = reinterpret_cast<float*>(base + o[7]);
+    R->cand = reinterpret_cast<int*>(base + o[8]);
+    R->nb = nb;
+    R->nf = nf;
+    R->G = G;
+    R->L = L;
+  }
+  return off;
 }
 
-// This lane's pixel against each weight level through its own quantised
-// endpoints (`_subset_rec_err`): the squared differences added over the
-// channels in order; the first minimum, its level in w.
+__device__ __forceinline__ uint8_t* weight_buf(const TrialWarp& R, int i) {
+  return i ? R.wl1 : R.wl0;
+}
+
+// This warp's nb blocks (from blk0; past n the last repeats) into R.pix.
+__device__ __forceinline__ void load_pixels(const TrialWarp& R,
+                                            const float* px, long long sb,
+                                            long long sp, long long sc,
+                                            long long blk0, int n, int lane) {
+  for (int i = lane; i < R.nb * 16; i += 32) {
+    const int b = i >> 4, q = i & 15;
+    const long long blk = blk0 + b < n ? blk0 + b : n - 1;
+    float* d = R.pix + b * kBlockWords + q * kPix;
+    float rgba[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      rgba[c] = px[blk * sb + q * sp + c * sc];
+      d[c] = rgba[c];
+    }
+    // the luma: `_la`'s (r + g + b) * float32(1/3), or `_mean3`'s (the same
+    // bits: a sum of three whole numbers is exact)
+    d[4] = __fmul_rn(__fadd_rn(__fadd_rn(rgba[0], rgba[1]), rgba[2]), kThird);
+    d[kZeroCh] = 0.0f;
+  }
+}
+
 template <int C>
-__device__ __forceinline__ float own_levels(const float (&x)[C],
-                                            const float (&lo_u)[C],
-                                            const float (&hi_u)[C],
-                                            const float* lev, int n_lev,
-                                            int& w) {
-  float best = INFINITY;
-  int arg = 0;
-  for (int l = 0; l < n_lev; ++l) {
-    const float wl = lev[l];
-    float e = 0.0f;
+__device__ __forceinline__ void fit_channels(const FitRec& fr, int (&ch)[C]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) ch[c] = (fr.ch >> (8 * c)) & 255u;
+}
+
+// The reconstruction of float endpoints at each level (`rec_fused`'s) into
+// fit f's table.
+template <int C>
+__device__ __forceinline__ void fit_table(const TrialWarp& R, const float* lev,
+                                          int f, const float (&lo)[C],
+                                          const float (&hi)[C]) {
+  float4* t = R.table + f * (R.L + 1);
+#pragma unroll 2
+  for (int l = 0; l < R.L; ++l) {
+    const float w = lev[l], w0 = __fsub_rn(64.0f, w);
+    float r[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const float d = __fsub_rn(x[c], rec16(lo_u[c], hi_u[c], wl));
-      e = c ? __fadd_rn(e, __fmul_rn(d, d)) : __fmul_rn(d, d);
+      const float acc = __fmaf_rn(w0, lo[c], __fmul_rn(hi[c], w));
+      r[c] = floorf(__fmul_rn(__fmaf_rn(acc, 257.0f, 32.0f), kInv16384));
+    }
+    t[l] = pack4<C>(r);
+  }
+}
+
+// A fit's lane, the first part of `fit_subset`: the masked mean, the
+// covariance chains, 4 power-iteration rounds, the extremes of the
+// projections over its pixels, the endpoints (lo, hi) and their table.
+// Below kStopAll it returns a sum of what it computed at its stop.
+template <int C, int kStop>
+__device__ __forceinline__ float fit_begin(const TrialWarp& R,
+                                           const float* lev, int f,
+                                           float (&lo)[C], float (&hi)[C]) {
+  const FitRec& fr = R.fit[f];
+  const float* px = R.pix + fr.blk * kBlockWords;
+  const unsigned bits = fr.mask;
+  int ch[C];
+  fit_channels<C>(fr, ch);
+  float mean[C];
+  {
+    float acc[C];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const float m = (bits >> q) & 1u ? 1.0f : 0.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float t = __fmul_rn(px[q * kPix + ch[c]], m);
+        acc[c] = q ? __fadd_rn(acc[c], t) : t;
+      }
+    }
+    const float cnt = fmaxf((float)__popc(bits), 1.0f);
+#pragma unroll
+    for (int c = 0; c < C; ++c) mean[c] = __fdiv_rn(acc[c], cnt);
+  }
+  // the distinct covariance entries (i <= j; fma is symmetric in i, j)
+  constexpr int kCov = C * (C + 1) / 2;
+  float cv[kCov];
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const float m = (bits >> q) & 1u ? 1.0f : 0.0f;
+    float cx[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      cx[c] = __fmul_rn(__fsub_rn(px[q * kPix + ch[c]], mean[c]), m);
+    int k = 0;
+#pragma unroll
+    for (int i = 0; i < C; ++i)
+#pragma unroll
+      for (int j = i; j < C; ++j, ++k)
+        cv[k] = q ? __fmaf_rn(cx[i], cx[j], cv[k]) : __fmul_rn(cx[i], cx[j]);
+  }
+  if constexpr (kStop == kStopChains) {
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kCov; ++k) s = __fadd_rn(s, cv[k]);
+#pragma unroll
+    for (int c = 0; c < C; ++c) s = __fadd_rn(s, mean[c]);
+    return s;
+  }
+  auto cov = [&](int i, int j) {
+    const int a = i < j ? i : j, b = i < j ? j : i;
+    return cv[a * C - a * (a - 1) / 2 + (b - a)];
+  };
+  float ax[C];
+#pragma unroll
+  for (int i = 0; i < C; ++i) ax[i] = 1.0f;
+#pragma unroll 1
+  for (int it = 0; it < 4; ++it) {
+    float w[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      float s = __fmul_rn(cov(i, 0), ax[0]);
+#pragma unroll
+      for (int j = 1; j < C; ++j) s = __fmaf_rn(cov(i, j), ax[j], s);
+      w[i] = s;
+    }
+    float sq = __fmul_rn(w[0], w[0]);
+#pragma unroll
+    for (int i = 1; i < C; ++i) sq = __fadd_rn(sq, __fmul_rn(w[i], w[i]));
+    const float den = __fadd_rn(__fsqrt_rn(sq), 1e-6f);
+#pragma unroll
+    for (int i = 0; i < C; ++i) ax[i] = __fdiv_rn(w[i], den);
+  }
+  float mn4[4] = {1e9f, 1e9f, 1e9f, 1e9f};
+  float mx4[4] = {-1e9f, -1e9f, -1e9f, -1e9f};
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    if ((bits >> q) & 1u) {
+      float pr = 0.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float cx = __fsub_rn(px[q * kPix + ch[c]], mean[c]);
+        pr = c ? __fmaf_rn(cx, ax[c], pr) : __fmul_rn(cx, ax[c]);
+      }
+      mn4[q & 3] = fminf(mn4[q & 3], pr);
+      mx4[q & 3] = fmaxf(mx4[q & 3], pr);
+    }
+  }
+  const float mn = fminf(fminf(mn4[0], mn4[1]), fminf(mn4[2], mn4[3]));
+  const float mx = fmaxf(fmaxf(mx4[0], mx4[1]), fmaxf(mx4[2], mx4[3]));
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    lo[c] = clamp255(__fmaf_rn(ax[c], mn, mean[c]));
+    hi[c] = clamp255(__fmaf_rn(ax[c], mx, mean[c]));
+  }
+  if constexpr (kStop == kStopPower) {
+    float s = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) s = __fadd_rn(s, __fadd_rn(lo[c], hi[c]));
+    return s;
+  }
+  fit_table<C>(R, lev, f, lo, hi);
+  return 0.0f;
+}
+
+// The sum of 16 terms e[q] (those of `bits`; 0 for the others): kWhole,
+// whole numbers whose every partial sum is exact, in four partial sums (the
+// same bits as any order); otherwise in pixel order, as `pixel_sum`.
+template <bool kWhole>
+__device__ __forceinline__ float sum16(const float* e, unsigned bits) {
+  if constexpr (kWhole) {
+    float s[4];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const float t = (bits >> q) & 1u ? e[q] : 0.0f;
+      s[q & 3] = q < 4 ? t : __fadd_rn(s[q & 3], t);
+    }
+    return __fadd_rn(__fadd_rn(s[0], s[1]), __fadd_rn(s[2], s[3]));
+  } else {
+    float acc = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const float t = (bits >> q) & 1u ? e[q] : 0.0f;
+      acc = q ? __fadd_rn(acc, t) : t;
+    }
+    return acc;
+  }
+}
+
+// A fit's error after a search: its pixels' least errors (0 for the
+// others), as `level_search`'s pixel_sum.
+template <bool kWhole>
+__device__ __forceinline__ float fit_error(const TrialWarp& R,
+                                           const FitRec& fr) {
+  return sum16<kWhole>(R.best + (fr.blk * R.G + fr.grp) * kItemWords,
+                       fr.mask);
+}
+
+// A fit's lane, one least-squares step (`ls_solve`'s): the weights of its
+// current best (0 outside its pixels), their moments, the P and Q chains in
+// pixel order, the 2x2 solve; where it is singular lo / hi; clamped.
+template <int C>
+__device__ __forceinline__ void fit_solve(const TrialWarp& R,
+                                          const float* lev, const FitRec& fr,
+                                          const float (&lo)[C],
+                                          const float (&hi)[C],
+                                          float (&lo2)[C], float (&hi2)[C]) {
+  const float* px = R.pix + fr.blk * kBlockWords;
+  const uint8_t* wv =
+      weight_buf(R, fr.cur) + (fr.blk * R.G + fr.grp) * kItemBytes;
+  int ch[C];
+  fit_channels<C>(fr, ch);
+  // the moments: multiples of 1/4096 up to 16, exact in any order (two
+  // partial sums each)
+  float sa2[2] = {0.0f, 0.0f}, sab2[2] = {0.0f, 0.0f}, sb22[2] = {0.0f, 0.0f};
+  float P[C], Q[C];
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const float m = (fr.mask >> q) & 1u ? 1.0f : 0.0f;
+    const float wl = lev[wv[q]];
+    const float a = __fmul_rn(__fmul_rn(__fsub_rn(64.0f, wl), kInv64), m);
+    const float b = __fmul_rn(__fmul_rn(wl, kInv64), m);
+    sa2[q & 1] = __fadd_rn(sa2[q & 1], __fmul_rn(a, a));
+    sab2[q & 1] = __fadd_rn(sab2[q & 1], __fmul_rn(a, b));
+    sb22[q & 1] = __fadd_rn(sb22[q & 1], __fmul_rn(b, b));
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float v = px[q * kPix + ch[c]];
+      P[c] = q ? __fmaf_rn(a, v, P[c]) : __fmul_rn(a, v);
+      Q[c] = q ? __fmaf_rn(b, v, Q[c]) : __fmul_rn(b, v);
+    }
+  }
+  const float sa = __fadd_rn(sa2[0], sa2[1]);
+  const float sab = __fadd_rn(sab2[0], sab2[1]);
+  const float sb2 = __fadd_rn(sb22[0], sb22[1]);
+  const float det = __fmaf_rn(sa, sb2, -__fmul_rn(sab, sab));
+  const bool ok = fabsf(det) > 1e-6f;
+  const float dd = ok ? det : 1.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float ln = __fdiv_rn(__fmaf_rn(sb2, P[c], -__fmul_rn(sab, Q[c])), dd);
+    const float hn = __fdiv_rn(__fmaf_rn(sa, Q[c], -__fmul_rn(sab, P[c])), dd);
+    lo2[c] = clamp255(ok ? ln : lo[c]);
+    hi2[c] = clamp255(ok ? hn : hi[c]);
+  }
+}
+
+// Pixel q of block b (its channels x) against the levels of fit f's
+// table, the squared differences added over the channels in order, the
+// first minimum; into R.best and weight buffer buf (buf < 0: the one after
+// the fit's current best) at the block's group g.
+template <int C>
+__device__ __forceinline__ void search_table(const TrialWarp& R, int b,
+                                             int g, int q, int f,
+                                             const float (&x)[C], int buf) {
+  const float4* t = R.table + f * (R.L + 1);
+  float best = INFINITY;
+  int arg = 0;
+#pragma unroll 4
+  for (int l = 0; l < R.L; ++l) {
+    const float4 r = t[l];
+    float d = __fsub_rn(x[0], r.x);
+    float e = __fmul_rn(d, d);
+    if constexpr (C > 1) {
+      d = __fsub_rn(x[1], r.y);
+      e = __fadd_rn(e, __fmul_rn(d, d));
+    }
+    if constexpr (C > 2) {
+      d = __fsub_rn(x[2], r.z);
+      e = __fadd_rn(e, __fmul_rn(d, d));
+    }
+    if constexpr (C > 3) {
+      d = __fsub_rn(x[3], r.w);
+      e = __fadd_rn(e, __fmul_rn(d, d));
     }
     if (e < best) {
       best = e;
       arg = l;
     }
   }
-  w = arg;
-  return best;
+  const int item = b * R.G + g;
+  R.best[item * kItemWords + q] = best;
+  weight_buf(R, buf < 0 ? 1 - R.fit[f].cur : buf)[item * kItemBytes + q] =
+      (uint8_t)arg;
 }
 
-// One plane's fit of the dual-plane trials (every pixel in, as
-// `line_fit` without a label): the pixels x (this lane's) published in sh.v
-// once the previous fit's reads of it are done.
+// The subset trials' pixel lanes: each pixel (C channels: RGB(A), or LA's
+// luma and alpha) against its subset's fit in each candidate
+// (fit_of(b, k, q)).
+template <int C, class FitOf>
+__device__ __forceinline__ void search_subsets(const TrialWarp& R, int lane,
+                                               int buf, FitOf fit_of) {
+  for (int base = 0; base < R.nb; base += 2) {
+    const int b = base + (lane >> 4), q = lane & 15;
+    if (b >= R.nb) continue;
+    const float* px = R.pix + b * kBlockWords + q * kPix;
+    float x[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) x[c] = px[C == 2 ? 4 - c : c];
+    for (int k = 0; k < R.G; ++k)
+      search_table<C>(R, b, k, q, fit_of(b, k, q), x, buf);
+  }
+}
+
+// The dual-plane trials' pixel lanes: each pixel against each choice's
+// plane-0 fit (the other channels) and plane-1 fit (its one channel; LA
+// the luma and the alpha), fit b kF + group.
+template <int N, bool kLA>
+__device__ __forceinline__ void search_planes(const TrialWarp& R, int lane,
+                                              int buf) {
+  constexpr int kF = kLA ? 2 : 2 * N;
+  for (int base = 0; base < R.nb; base += 2) {
+    const int b = base + (lane >> 4), q = lane & 15;
+    if (b >= R.nb) continue;
+    const float* px = R.pix + b * kBlockWords + q * kPix;
+    if constexpr (kLA) {
+      const float xl[1] = {px[4]}, xa[1] = {px[3]};
+      search_table<1>(R, b, 0, q, b * kF, xl, buf);
+      search_table<1>(R, b, 1, q, b * kF + 1, xa, buf);
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        float xo[N - 1];
+#pragma unroll
+        for (int c = 0; c < N - 1; ++c) xo[c] = px[c < j ? c : c + 1];
+        const float x1[1] = {px[j]};
+        search_table<N - 1>(R, b, j, q, b * kF + j, xo, buf);
+        search_table<1>(R, b, N + j, q, b * kF + N + j, x1, buf);
+      }
+    }
+  }
+}
+
+// Every fit of the warp (the fits' FitRecs set, lane f < nf fit f), each
+// `fit_subset` of its pixels: ls_iters least-squares steps after the first
+// search (search(buf): the pixel lanes' search into weight buffer buf); its
+// endpoints (lo, hi) on its lane. Every lane of the warp calls it. Below
+// kStopAll it stops at its step and returns a sum of what the
+// lane computed there (0 on the lanes that have no fit).
+template <int C, int kStop, bool kWhole, class Search>
+__device__ __forceinline__ float fit_all(const TrialWarp& R, const float* lev,
+                                         int ls_iters, int lane, Search search,
+                                         float (&lo)[C], float (&hi)[C]) {
+  const bool has_fit = lane < R.nf;
+  float err = 0.0f, sink = 0.0f;
+  if (has_fit) sink = fit_begin<C, kStop>(R, lev, lane, lo, hi);
+  if constexpr (kStop < kStopSearch) return sink;
+  __syncwarp();
+  search(0);
+  __syncwarp();
+  if (has_fit) err = fit_error<kWhole>(R, R.fit[lane]);
+  if constexpr (kStop == kStopSearch) return err;
+  for (int it = 0; it < ls_iters; ++it) {
+    float lo2[C], hi2[C];
+    if (has_fit) {
+      fit_solve<C>(R, lev, R.fit[lane], lo, hi, lo2, hi2);
+      fit_table<C>(R, lev, lane, lo2, hi2);
+    }
+    __syncwarp();
+    search(-1);
+    __syncwarp();
+    if (has_fit) {
+      FitRec& fr = R.fit[lane];
+      const float err2 = fit_error<kWhole>(R, fr);
+      if (err2 < err) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          lo[c] = lo2[c];
+          hi[c] = hi2[c];
+        }
+        err = err2;
+        fr.cur = 1 - fr.cur;
+      }
+    }
+  }
+  if (has_fit) {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      sink = __fadd_rn(sink, __fadd_rn(lo[c], hi[c]));
+  }
+  __syncwarp();
+  return sink;
+}
+
+// The decoder's reconstruction (`rec16`) of quantised endpoints at each
+// level into table t.
 template <int C>
-__device__ __forceinline__ void plane_fit(FitScratch& sh, const float* lev,
-                                          int n_lev, int ls_iters, int p,
-                                          const float (&x)[C], float (&lo)[C],
-                                          float (&hi)[C]) {
-  __syncwarp();
-  sh.v[p] = pack4<C>(x);
-  __syncwarp();
-  fit_subset<C>(sh, lev, n_lev, ls_iters, p, x, true, lo, hi);
+__device__ __forceinline__ void exact_table(float4* t, const float* lev,
+                                            int n_lev, const float (&lo_u)[C],
+                                            const float (&hi_u)[C]) {
+#pragma unroll 2
+  for (int l = 0; l < n_lev; ++l) {
+    float r[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) r[c] = rec16(lo_u[c], hi_u[c], lev[l]);
+    t[l] = pack4<C>(r);
+  }
+}
+
+// The block's pixels' luma whose bit is set in `bits`, added in pixel order
+// from pixel 0 (`_sum16` of luma times a 0 / 1 mask).
+__device__ __forceinline__ float luma_chain(const float* px, unsigned bits) {
+  float acc = (bits & 1u) ? px[4] : 0.0f;
+#pragma unroll
+  for (int i = 1; i < 16; ++i)
+    acc = __fadd_rn(acc, (bits >> i) & 1u ? px[i * kPix + 4] : 0.0f);
+  return acc;
+}
+
+// The first index of the least of n errors (strict <, from INFINITY).
+__device__ __forceinline__ int first_min(const float* e, int n) {
+  float best = INFINITY;
+  int arg = 0;
+  for (int k = 0; k < n; ++k)
+    if (e[k] < best) {
+      best = e[k];
+      arg = k;
+    }
+  return arg;
+}
+
+// The mode's tables into shared memory (load_mode_tables', the codes as
+// bytes: there are at most 256) for a CTA of any size.
+__device__ __forceinline__ void load_trial_tables(
+    const long long* inv, const float* unq, int n_unq, const float* levels,
+    int n_lev, uint8_t* inv_s, float* unq_s, float* lev) {
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
+    inv_s[i] = (uint8_t)inv[i];
+    if (i < n_unq) unq_s[i] = unq[i];
+    if (i < n_lev) lev[i] = levels[i];
+  }
 }
 
 // px: (n, 16, 4) at strides (sb, sp, sc), whole numbers 0..255; pats: the
@@ -934,9 +1417,11 @@ __device__ __forceinline__ void plane_fit(FitScratch& sh, const float* lev,
 // comps (2: LA, 3: RGB, 4: RGBA) and S subsets (2 or 3) with a shortlist of
 // topk (<= 8, <= n_pat) patterns: err (n,), ep (n, 2 S C) codes [subset 0:
 // c0 lo, c0 hi, c1 lo, ..., subset 1: ...], w (n, 16) level indices, pat
-// (n,) the winning pattern.
-template <int C, int S>
-__global__ void __launch_bounds__(kFitThreads)
+// (n,) the winning pattern. A warp takes nb blocks (trial_blocks_per_warp
+// of topk x S fits at most), its slice of the dynamic shared memory
+// trial_layout's.
+template <int C, int S, int kStop>
+__global__ void __launch_bounds__(kTrialWarps * 32)
 subset_trial_kernel(const float* __restrict__ px, long long sb, long long sp,
                     long long sc, const long long* __restrict__ pats,
                     int n_pat, const long long* __restrict__ inv,
@@ -944,16 +1429,15 @@ subset_trial_kernel(const float* __restrict__ px, long long sb, long long sp,
                     const float* __restrict__ levels, int n_lev, int ls_iters,
                     int topk, float* __restrict__ err_out,
                     int* __restrict__ ep_out, int* __restrict__ w_out,
-                    int* __restrict__ pat_out, int n) {
+                    int* __restrict__ pat_out, int n, int nb) {
   constexpr int kCodes = 2 * S * C;
   static_assert(kCodes <= kMaxCodes, "endpoint codes");
   __shared__ float lev[kMaxLevels];
-  __shared__ int inv_s[256];
+  __shared__ uint8_t inv_s[256];
   __shared__ float unq_s[256];
   __shared__ unsigned pmask[kMaxPatterns][2];  // the pixels of subsets 1, 2
-  __shared__ FitScratch scratch[kFitSlots];
-  __shared__ TrialScratch trial[kFitSlots];
-  load_mode_tables(inv, unq, n_unq, levels, n_lev, inv_s, unq_s, lev);
+  extern __shared__ __align__(16) uint8_t trial_smem[];
+  load_trial_tables(inv, unq, n_unq, levels, n_lev, inv_s, unq_s, lev);
   if ((int)threadIdx.x < n_pat) {
     unsigned m1 = 0, m2 = 0;
     for (int i = 0; i < 16; ++i) {
@@ -965,214 +1449,248 @@ subset_trial_kernel(const float* __restrict__ px, long long sb, long long sp,
     pmask[threadIdx.x][1] = m2;
   }
   __syncthreads();
-  const int p = threadIdx.x & 15, slot = threadIdx.x >> 4;
-  const int blk_id = blockIdx.x * kFitSlots + slot;
-  const bool live = blk_id < n;
-  const long long blk = live ? blk_id : n - 1;  // a ragged tail repeats
-  const unsigned half = threadIdx.x & 16u;
-  FitScratch& sh = scratch[slot];
-  TrialScratch& tr = trial[slot];
-  float rgba[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) rgba[c] = px[blk * sb + p * sp + c * sc];
-  // the luma: `_la`'s (r + g + b) * float32(1/3), or `_mean3`'s (the same
-  // bits: a sum of three whole numbers is exact)
-  const float luma =
-      __fmul_rn(__fadd_rn(__fadd_rn(rgba[0], rgba[1]), rgba[2]), kThird);
-  float x[C];
-  if constexpr (C == 2) {
-    x[0] = luma;
-    x[1] = rgba[3];
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; ++c) x[c] = rgba[c];
-  }
-  sh.v[p] = pack4<C>(x);
-  tr.luma[p] = luma;
+  const int F = topk * S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  TrialWarp R;
+  const int bytes = trial_layout(nb, F, topk, n_lev, nullptr, nullptr);
+  trial_layout(nb, F, topk, n_lev, (char*)trial_smem + warp * bytes, &R);
+  const long long blk0 =
+      ((long long)blockIdx.x * (blockDim.x >> 5) + warp) * nb;
+  if (blk0 >= n) return;  // a warp past the last block
+  load_pixels(R, px, sb, sp, sc, blk0, n, lane);
   __syncwarp();
 
-  // 1. the ideal split of the luma: 2-means (3 rounds from the extremes)
-  //    or 3-means (from the extremes and the mean); ideal[k]: the pixels of
-  //    cluster k (S 2: ideal[0], the pixels nearer c1)
-  float lmin = luma, lmax = luma;
+  // 1. each block's ideal split of the luma: 2-means (3 rounds from the
+  //    extremes) or 3-means (from the extremes and the mean); ideal[k]: the
+  //    pixels of cluster k (S 2: ideal[0], the pixels nearer c1); then each
+  //    pattern's agreement with the split (whole numbers), and the
+  //    shortlist: the topk highest, equal scores by ascending index (the
+  //    stable descending sort of `_shortlist_desc`). Two blocks a pass.
+  const unsigned half = lane & 16u;
+  for (int base = 0; base < nb; base += 2) {
+    const int b_raw = base + (lane >> 4), p = lane & 15;
+    const int b = b_raw < nb ? b_raw : nb - 1;
+    const float* bpx = R.pix + b * kBlockWords;
+    const float luma = bpx[p * kPix + 4];
+    float lmin = luma, lmax = luma;
 #pragma unroll
-  for (int o = 8; o; o >>= 1) {
-    lmin = fminf(lmin, __shfl_xor_sync(0xffffffffu, lmin, o));
-    lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
-  }
-  unsigned ideal[3] = {0u, 0u, 0u};
-  if constexpr (S == 2) {
-    float c0 = lmin, c1 = lmax;
-    for (int r = 0; r <= 3; ++r) {
-      const bool side =
-          fabsf(__fsub_rn(luma, c1)) < fabsf(__fsub_rn(luma, c0));
-      const unsigned b1 = (__ballot_sync(0xffffffffu, side) >> half) & 0xffffu;
-      if (r == 3) {
-        ideal[0] = b1;
-        break;
-      }
-      const int n1 = __popc(b1);
-      c1 = __fdiv_rn(luma_chain(tr, b1), fmaxf((float)n1, 1.0f));
-      c0 = __fdiv_rn(luma_chain(tr, ~b1 & 0xffffu),
-                     fmaxf((float)(16 - n1), 1.0f));
+    for (int o = 8; o; o >>= 1) {
+      lmin = fminf(lmin, __shfl_xor_sync(0xffffffffu, lmin, o));
+      lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
     }
-  } else {
-    float c[3] = {lmin, __fdiv_rn(luma_chain(tr, 0xffffu), 16.0f), lmax};
-    for (int r = 0; r < 3; ++r) {
-      const float d0 = fabsf(__fsub_rn(luma, c[0]));
-      const float d1 = fabsf(__fsub_rn(luma, c[1]));
-      const float d2 = fabsf(__fsub_rn(luma, c[2]));
-      int lab = 0;
-      float best = d0;
-      if (d1 < best) {
-        lab = 1;
-        best = d1;
+    unsigned ideal[3] = {0u, 0u, 0u};
+    if constexpr (S == 2) {
+      float c0 = lmin, c1 = lmax;
+      for (int r = 0; r <= 3; ++r) {
+        const bool side =
+            fabsf(__fsub_rn(luma, c1)) < fabsf(__fsub_rn(luma, c0));
+        const unsigned b1 =
+            (__ballot_sync(0xffffffffu, side) >> half) & 0xffffu;
+        if (r == 3) {
+          ideal[0] = b1;
+          break;
+        }
+        // the centres, a chain each: c1 of the pixels nearer c1 on the odd
+        // lanes, c0 of the others on the even ones, then exchanged
+        const unsigned bits = p & 1 ? b1 : ~b1 & 0xffffu;
+        const float cp = __fdiv_rn(luma_chain(bpx, bits),
+                                   fmaxf((float)__popc(bits), 1.0f));
+        c0 = __shfl_sync(0xffffffffu, cp, half);
+        c1 = __shfl_sync(0xffffffffu, cp, half | 1u);
       }
-      if (d2 < best) lab = 2;
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        ideal[k] = (__ballot_sync(0xffffffffu, lab == k) >> half) & 0xffffu;
-      // the labels of the last round are the split; its centres unused
-      if (r < 2) {
+    } else {
+      float c[3] = {lmin, __fdiv_rn(luma_chain(bpx, 0xffffu), 16.0f), lmax};
+      for (int r = 0; r < 3; ++r) {
+        const float d0 = fabsf(__fsub_rn(luma, c[0]));
+        const float d1 = fabsf(__fsub_rn(luma, c[1]));
+        const float d2 = fabsf(__fsub_rn(luma, c[2]));
+        int lab = 0;
+        float best = d0;
+        if (d1 < best) {
+          lab = 1;
+          best = d1;
+        }
+        if (d2 < best) lab = 2;
 #pragma unroll
         for (int k = 0; k < 3; ++k)
-          c[k] = __fdiv_rn(luma_chain(tr, ideal[k]),
-                           fmaxf((float)__popc(ideal[k]), 1.0f));
+          ideal[k] = (__ballot_sync(0xffffffffu, lab == k) >> half) & 0xffffu;
+        // the labels of the last round are the split; its centres unused;
+        // centre k's chain on the lanes p = k mod 3, then exchanged
+        if (r < 2) {
+          const int k = p % 3;
+          const unsigned bits = k == 0 ? ideal[0] : k == 1 ? ideal[1]
+                                                           : ideal[2];
+          const float cp = __fdiv_rn(luma_chain(bpx, bits),
+                                     fmaxf((float)__popc(bits), 1.0f));
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            c[j] = __shfl_sync(0xffffffffu, cp, half | (unsigned)j);
+        }
       }
     }
-  }
-
-  // 2. each pattern's agreement with the split (whole numbers), and the
-  //    shortlist: the topk highest, equal scores by ascending index (the
-  //    stable descending sort of `_shortlist_desc`)
-  for (int q = p; q < n_pat; q += 16) {
-    const unsigned m1 = pmask[q][0], m2 = pmask[q][1];
-    int score;
-    if constexpr (S == 2) {
-      const int agree = 16 - __popc(ideal[0] ^ m1);
-      score = max(agree, 16 - agree);
-    } else {
-      const unsigned pm[3] = {~(m1 | m2) & 0xffffu, m1, m2};
-      int conf[3][3];
+    // each pattern's key, score * 64 + 63 - pattern (unique: the highest
+    // first, equal scores by ascending index), two a lane; the topk highest
+    // by repeated maxima over the block's 16 lanes
+    int kq[2] = {-1, -1};
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
+    for (int i = 0; i < 2; ++i) {
+      const int q = p + 16 * i;
+      if (q < n_pat) {
+        const unsigned m1 = pmask[q][0], m2 = pmask[q][1];
+        int score;
+        if constexpr (S == 2) {
+          const int agree = 16 - __popc(ideal[0] ^ m1);
+          score = max(agree, 16 - agree);
+        } else {
+          const unsigned pm[3] = {~(m1 | m2) & 0xffffu, m1, m2};
+          int conf[3][3];
 #pragma unroll
-        for (int j = 0; j < 3; ++j) conf[k][j] = __popc(ideal[k] & pm[j]);
-      score = max(max(conf[0][0] + conf[1][1] + conf[2][2],
-                      conf[0][0] + conf[1][2] + conf[2][1]),
-                  max(max(conf[0][1] + conf[1][0] + conf[2][2],
-                          conf[0][1] + conf[1][2] + conf[2][0]),
-                      max(conf[0][2] + conf[1][0] + conf[2][1],
-                          conf[0][2] + conf[1][1] + conf[2][0])));
+          for (int k = 0; k < 3; ++k)
+#pragma unroll
+            for (int j = 0; j < 3; ++j) conf[k][j] = __popc(ideal[k] & pm[j]);
+          score = max(max(conf[0][0] + conf[1][1] + conf[2][2],
+                          conf[0][0] + conf[1][2] + conf[2][1]),
+                      max(max(conf[0][1] + conf[1][0] + conf[2][2],
+                              conf[0][1] + conf[1][2] + conf[2][0]),
+                          max(conf[0][2] + conf[1][0] + conf[2][1],
+                              conf[0][2] + conf[1][1] + conf[2][0])));
+        }
+        kq[i] = score * 64 + 63 - q;
+      }
     }
-    tr.key[q] = score * 64 + 63 - q;
-  }
-  __syncwarp();
-  for (int q = p; q < n_pat; q += 16) {
-    const int key = tr.key[q];
-    int rank = 0;
-    for (int j = 0; j < n_pat; ++j) rank += tr.key[j] > key;
-    if (rank < topk) tr.cand[rank] = q;
-  }
-  __syncwarp();
-
-  // 3. each candidate in shortlist order: the fit of each subset, its
-  //    codes, the weights re-chosen through the quantised endpoints of this
-  //    pixel's subset, the error; the winner by strict <
-  float best_err = INFINITY;
-  int best_k = 0, best_w = 0;
-  float best_lu[C], best_hu[C];  // the LA tail's
+    for (int k = 0; k < topk; ++k) {
+      int m = max(kq[0], kq[1]);
 #pragma unroll
-  for (int c = 0; c < C; ++c) best_lu[c] = best_hu[c] = 0.0f;
-  for (int k = 0; k < topk; ++k) {
-    const int q = tr.cand[k];
-    const int lab = (int)((pmask[q][0] >> p) & 1u) +
-                    2 * (int)((pmask[q][1] >> p) & 1u);
+      for (int o = 8; o; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+      if (p == 0 && b_raw < nb) R.cand[b * kMaxTopk + k] = 63 - (m & 63);
+      if (kq[0] == m) kq[0] = -1;
+      if (kq[1] == m) kq[1] = -1;
+    }
+  }
+  __syncwarp();
+  if constexpr (kStop == kStopSplit) {
+    if (lane < nb && blk0 + lane < n)
+      err_out[blk0 + lane] = (float)R.cand[lane * kMaxTopk + topk - 1];
+    return;
+  }
+  // 2. the fits: fit (b, k, s) on lane (b topk + k) S + s, the pixels of
+  //    subset s of candidate k
+  const int nf = R.nf;
+  if (lane < nf) {
+    const int b = lane / F, k = (lane % F) / S, s = lane % S;
+    const int q = R.cand[b * kMaxTopk + k];
+    const unsigned m1 = pmask[q][0], m2 = pmask[q][1];
+    FitRec& fr = R.fit[lane];
+    fr.mask = s == 0 ? ~(m1 | m2) & 0xffffu : s == 1 ? m1 : m2;
+    fr.blk = b;
+    fr.grp = k;
+    fr.cur = 0;
+    fr.ch = C == 2 ? 4u | 3u << 8 : 0u | 1u << 8 | 2u << 16 | 3u << 24;
+  }
+  // each pixel's fit in candidate k: its subset's
+  auto fit_of = [&](int b, int k, int q) {
+    const int pat = R.cand[b * kMaxTopk + k];
+    const int lab = (int)((pmask[pat][0] >> q) & 1u) +
+                    2 * (int)((pmask[pat][1] >> q) & 1u);
+    return (b * topk + k) * S + lab;
+  };
+  float lo[C], hi[C];
+  {
+    const float sink = fit_all<C, kStop, C != 2>(
+        R, lev, ls_iters, lane,
+        [&](int buf) { search_subsets<C>(R, lane, buf, fit_of); }, lo, hi);
+    if constexpr (kStop < kStopAll) {
+      const long long blk = blk0 + lane / F;
+      if (lane < nf && blk < n) err_out[blk] = sink;
+      return;
+    }
+  }
+
+  // 3. each fit's codes and the reconstruction of its quantised endpoints
+  if (lane < nf) {
     float lo_u[C], hi_u[C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) lo_u[c] = hi_u[c] = 0.0f;
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      float lo[C], hi[C];
-      fit_subset<C>(sh, lev, n_lev, ls_iters, p, x, lab == s, lo, hi);
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int lc = quant_code(inv_s, lo[c]), hc = quant_code(inv_s, hi[c]);
-        if (lab == s) {
-          lo_u[c] = unq_s[lc];
-          hi_u[c] = unq_s[hc];
-        }
-        if (p == 2 * c) tr.codes[k][2 * C * s + p] = lc;
-        if (p == 2 * c + 1) tr.codes[k][2 * C * s + p] = hc;
-      }
+    for (int c = 0; c < C; ++c) {
+      const int lc = quant_code(inv_s, lo[c]), hc = quant_code(inv_s, hi[c]);
+      R.code[lane * 8 + 2 * c] = (uint8_t)lc;
+      R.code[lane * 8 + 2 * c + 1] = (uint8_t)hc;
+      lo_u[c] = unq_s[lc];
+      hi_u[c] = unq_s[hc];
     }
-    int w;
-    const float e = own_levels<C>(x, lo_u, hi_u, lev, n_lev, w);
-    float err;
-    if constexpr (C == 2) {
-      sh.e[p] = e;
-      __syncwarp();
-      err = pixel_sum(sh);
-      __syncwarp();
-    } else {
-      err = exact_sum16(e);
-    }
-    if (err < best_err) {
-      best_err = err;
-      best_k = k;
-      best_w = w;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        best_lu[c] = lo_u[c];
-        best_hu[c] = hi_u[c];
-      }
-    }
-  }
-
-  // 4. the full-pixel error: RGB adds the alpha's; LA re-expresses the
-  //    winner in full-pixel units, each operation rounded, the 48 RGB terms
-  //    and the 16 alpha terms two chains in (pixel, channel) order
-  if constexpr (C == 3) {
-    best_err = __fadd_rn(best_err, alpha_err(rgba[3]));
-  } else if constexpr (C == 2) {
-    const float wl = lev[best_w], wl0 = __fsub_rn(64.0f, wl);
-    float ch[2];
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-      ch[c] = __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(best_lu[c], wl0),
-                                            __fmul_rn(best_hu[c], wl)),
-                                  32.0f),
-                        kInv64);
-    float t[4];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float d = __fsub_rn(rgba[c], ch[0]);
-      t[c] = __fmul_rn(d, d);
-    }
-    const float da = __fsub_rn(rgba[3], ch[1]);
-    t[3] = __fmul_rn(da, da);
-    sh.c[p] = make_float4(t[0], t[1], t[2], t[3]);
-    __syncwarp();
-    float acc_rgb = 0.0f, acc_a = 0.0f;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const float4 q = sh.c[i];
-      acc_rgb = i ? __fadd_rn(acc_rgb, q.x) : q.x;
-      acc_rgb = __fadd_rn(acc_rgb, q.y);
-      acc_rgb = __fadd_rn(acc_rgb, q.z);
-      acc_a = i ? __fadd_rn(acc_a, q.w) : q.w;
-    }
-    best_err = __fadd_rn(acc_rgb, acc_a);
+    exact_table<C>(R.table + lane * (n_lev + 1), lev, n_lev, lo_u, hi_u);
   }
   __syncwarp();
-  if (live) {
-    if (p == 0) {
-      err_out[blk] = best_err;
-      pat_out[blk] = tr.cand[best_k];
+  // 4. each pixel's weights re-chosen through the quantised endpoints of
+  //    its subset (`_subset_rec_err`), per candidate; each candidate's
+  //    error in pixel order
+  search_subsets<C>(R, lane, 0, fit_of);
+  __syncwarp();
+  for (int i = lane; i < nb * topk; i += 32)
+    R.gerr[i] = sum16<C != 2>(R.best + i * kItemWords, 0xffffu);
+  __syncwarp();
+
+  // 5. the winner by strict <, in shortlist order, and its full-pixel
+  //    error: RGB adds the alpha's; LA re-expresses the winner in
+  //    full-pixel units, each operation rounded, the 48 RGB terms and the
+  //    16 alpha terms two chains in (pixel, channel) order
+  for (int base = 0; base < nb; base += 2) {
+    const int b_raw = base + (lane >> 4), p = lane & 15;
+    const int b = b_raw < nb ? b_raw : nb - 1;
+    const long long blk = blk0 + b_raw;
+    const bool live = b_raw < nb && blk < n;
+    const float* rgba = R.pix + b * kBlockWords + p * kPix;
+    const int kw = first_min(R.gerr + b * topk, topk);
+    const int item = b * topk + kw;
+    float best_err = R.gerr[item];
+    const int best_w = R.wl0[item * kItemBytes + p];
+    if constexpr (C == 3) {
+      best_err = __fadd_rn(best_err, alpha_err(rgba[3]));
+    } else if constexpr (C == 2) {
+      const int f = fit_of(b, kw, p);
+      const float wl = lev[best_w], wl0 = __fsub_rn(64.0f, wl);
+      float ch[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float lu = unq_s[R.code[f * 8 + 2 * c]];
+        const float hu = unq_s[R.code[f * 8 + 2 * c + 1]];
+        ch[c] = __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(lu, wl0),
+                                              __fmul_rn(hu, wl)),
+                                    32.0f),
+                          kInv64);
+      }
+      float4* t4 = R.table + b * 16;  // past the last use of the tables
+      float t[4];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float d = __fsub_rn(rgba[c], ch[0]);
+        t[c] = __fmul_rn(d, d);
+      }
+      const float da = __fsub_rn(rgba[3], ch[1]);
+      t[3] = __fmul_rn(da, da);
+      __syncwarp();
+      if (b_raw < nb) t4[p] = make_float4(t[0], t[1], t[2], t[3]);
+      __syncwarp();
+      float acc_rgb = 0.0f, acc_a = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float4 q = t4[i];
+        acc_rgb = i ? __fadd_rn(acc_rgb, q.x) : q.x;
+        acc_rgb = __fadd_rn(acc_rgb, q.y);
+        acc_rgb = __fadd_rn(acc_rgb, q.z);
+        acc_a = i ? __fadd_rn(acc_a, q.w) : q.w;
+      }
+      best_err = __fadd_rn(acc_rgb, acc_a);
     }
-    for (int j = p; j < kCodes; j += 16)
-      ep_out[blk * kCodes + j] = tr.codes[best_k][j];
-    w_out[blk * 16 + p] = best_w;
+    if (live) {
+      if (p == 0) {
+        err_out[blk] = best_err;
+        pat_out[blk] = R.cand[b * kMaxTopk + kw];
+      }
+      for (int j = p; j < kCodes; j += 16)
+        ep_out[blk * kCodes + j] =
+            R.code[((b * topk + kw) * S + j / (2 * C)) * 8 + j % (2 * C)];
+      w_out[blk * 16 + p] = best_w;
+    }
   }
 }
 
@@ -1182,9 +1700,13 @@ subset_trial_kernel(const float* __restrict__ px, long long sb, long long sp,
 // (N 2, mode 17): the luma on plane 0, scored against R, G and B, the
 // alpha on plane 1. err (n,), ep (n, 2N) codes [c0 lo, c0 hi, c1 lo, ...]
 // (LA: [luma lo, luma hi, alpha lo, alpha hi]), w (n, 32) the two planes'
-// level indices interleaved, ccs (n,) (not written for LA).
-template <int N, bool kLA>
-__global__ void __launch_bounds__(kFitThreads)
+// level indices interleaved, ccs (n,) (not written for LA). The fits of a
+// block: plane 0 of each ccs (N - 1 channels), then plane 1 of each (one
+// channel, padded to N - 1 with zero channels); LA the luma, then the
+// alpha. A warp takes nb blocks (trial_blocks_per_warp of 2N fits at
+// most).
+template <int N, bool kLA, int kStop>
+__global__ void __launch_bounds__(kTrialWarps * 32)
 dualplane_trial_kernel(const float* __restrict__ px, long long sb,
                        long long sp, long long sc,
                        const long long* __restrict__ inv,
@@ -1192,104 +1714,131 @@ dualplane_trial_kernel(const float* __restrict__ px, long long sb,
                        const float* __restrict__ levels, int n_lev,
                        int ls_iters, float* __restrict__ err_out,
                        int* __restrict__ ep_out, int* __restrict__ w_out,
-                       int* __restrict__ ccs_out, int n) {
+                       int* __restrict__ ccs_out, int n, int nb) {
+  constexpr int kC = kLA ? 1 : N - 1;    // the fits' channels
+  constexpr int kF = kLA ? 2 : 2 * N;    // fits per block
+  constexpr int kChoices = kLA ? 1 : N;  // ccs choices per block
   __shared__ float lev[kMaxLevels];
-  __shared__ int inv_s[256];
+  __shared__ uint8_t inv_s[256];
   __shared__ float unq_s[256];
-  __shared__ FitScratch scratch[kFitSlots];
-  load_mode_tables(inv, unq, n_unq, levels, n_lev, inv_s, unq_s, lev);
+  extern __shared__ __align__(16) uint8_t trial_smem[];
+  load_trial_tables(inv, unq, n_unq, levels, n_lev, inv_s, unq_s, lev);
   __syncthreads();
-  const int p = threadIdx.x & 15, slot = threadIdx.x >> 4;
-  const int blk_id = blockIdx.x * kFitSlots + slot;
-  const bool live = blk_id < n;
-  const long long blk = live ? blk_id : n - 1;  // a ragged tail repeats
-  FitScratch& sh = scratch[slot];
-  float rgba[4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  TrialWarp R;
+  const int bytes = trial_layout(nb, kF, kF, n_lev, nullptr, nullptr);
+  trial_layout(nb, kF, kF, n_lev, (char*)trial_smem + warp * bytes, &R);
+  const long long blk0 =
+      ((long long)blockIdx.x * (blockDim.x >> 5) + warp) * nb;
+  if (blk0 >= n) return;  // a warp past the last block
+  load_pixels(R, px, sb, sp, sc, blk0, n, lane);
+  if (lane < R.nf) {
+    const int b = lane / kF, j = lane % kF;
+    FitRec& fr = R.fit[lane];
+    fr.mask = 0xffffu;
+    fr.blk = b;
+    fr.grp = j;
+    fr.cur = 0;
+    uint32_t ch = 0;
+    if constexpr (kLA) {
+      ch = j == 0 ? 4u : 3u;
+    } else if (j < N) {
+      for (int c = 0; c < N - 1; ++c)
+        ch |= (uint32_t)(c < j ? c : c + 1) << (8 * c);
+    } else {
+      ch = (uint32_t)(j - N);
+      for (int c = 1; c < N - 1; ++c) ch |= (uint32_t)kZeroCh << (8 * c);
+    }
+    fr.ch = ch;
+  }
+  __syncwarp();
+  if constexpr (kStop == kStopSplit) {
+    if (lane < nb && blk0 + lane < n)
+      err_out[blk0 + lane] = R.pix[lane * kBlockWords];
+    return;
+  }
+  // the fits' endpoints, [fit][lo 4, hi 4], in the terms' place once the
+  // fits are done
+  float* lohi = R.best;
+  {
+    float lo[kC], hi[kC];
+    const float sink = fit_all<kC, kStop, !kLA>(
+        R, lev, ls_iters, lane,
+        [&](int buf) { search_planes<N, kLA>(R, lane, buf); }, lo, hi);
+    if constexpr (kStop < kStopAll) {
+      const long long blk = blk0 + lane / kF;
+      if (lane < R.nf && blk < n) err_out[blk] = sink;
+      return;
+    }
+    if (lane < R.nf) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c) rgba[c] = px[blk * sb + p * sp + c * sc];
-
-  float best_err = INFINITY;
-  int best_ccs = 0, best_w0 = 0, best_w1 = 0;
-  int best_lo[N], best_hi[N];
-#pragma unroll
-  for (int c = 0; c < N; ++c) best_lo[c] = best_hi[c] = 0;
-  if constexpr (kLA) {
-    const float xl[1] = {__fmul_rn(
-        __fadd_rn(__fadd_rn(rgba[0], rgba[1]), rgba[2]), kThird)};
-    const float xa[1] = {rgba[3]};
-    float lo_l[1], hi_l[1], lo_a[1], hi_a[1];
-    plane_fit(sh, lev, n_lev, ls_iters, p, xl, lo_l, hi_l);
-    plane_fit(sh, lev, n_lev, ls_iters, p, xa, lo_a, hi_a);
-    best_lo[0] = quant_code(inv_s, lo_l[0]);
-    best_hi[0] = quant_code(inv_s, hi_l[0]);
-    best_lo[1] = quant_code(inv_s, lo_a[0]);
-    best_hi[1] = quant_code(inv_s, hi_a[0]);
-    const float lo_u[2] = {unq_s[best_lo[0]], unq_s[best_lo[1]]};
-    const float hi_u[2] = {unq_s[best_hi[0]], unq_s[best_hi[1]]};
-    rec_exact<2>(sh, lev, n_lev, p, lo_u, hi_u);
-    float e0_min = INFINITY, e1_min = INFINITY;
-    for (int l = 0; l < n_lev; ++l) {
-      const float4 r = sh.rec[l];
-      float e0 = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float d = __fsub_rn(rgba[c], r.x);
-        e0 = c ? __fadd_rn(e0, __fmul_rn(d, d)) : __fmul_rn(d, d);
-      }
-      const float d = __fsub_rn(rgba[3], r.y);
-      const float e1 = __fmul_rn(d, d);
-      if (e0 < e0_min) {
-        e0_min = e0;
-        best_w0 = l;
-      }
-      if (e1 < e1_min) {
-        e1_min = e1;
-        best_w1 = l;
+      for (int c = 0; c < kC; ++c) {
+        lohi[lane * 8 + c] = lo[c];
+        lohi[lane * 8 + 4 + c] = hi[c];
       }
     }
-    best_err = __fadd_rn(exact_sum16(e0_min), exact_sum16(e1_min));
-  } else {
-    for (int ccs = 0; ccs < N; ++ccs) {
-      float xo[N - 1], x1[1] = {rgba[0]};
+    __syncwarp();
+  }
+
+  // each channel choice's codes (channel c: plane 1's endpoint, or the
+  // others' c-th, c-1-th past ccs) and the reconstruction of its quantised
+  // endpoints
+  for (int i = lane; i < nb * kChoices; i += 32) {
+    const int b = i / kChoices, ccs = i % kChoices;
+    constexpr int kN = kLA ? 2 : N;
+    float lo_u[kN], hi_u[kN];
 #pragma unroll
-      for (int j = 0; j < N - 1; ++j) xo[j] = j < ccs ? rgba[j] : rgba[j + 1];
-#pragma unroll
-      for (int c = 1; c < N; ++c)
-        if (c == ccs) x1[0] = rgba[c];
-      float lo0[N - 1], hi0[N - 1], lo1[1], hi1[1];
-      plane_fit(sh, lev, n_lev, ls_iters, p, xo, lo0, hi0);
-      plane_fit(sh, lev, n_lev, ls_iters, p, x1, lo1, hi1);
-      int lc[N], hc[N];
-      float lo_u[N], hi_u[N];
-#pragma unroll
-      for (int c = 0; c < N; ++c) {
-        // channel c: plane 1's endpoint, or the others' c-th (c-1-th past
-        // ccs)
-        const float l = c == ccs ? lo1[0]
-                        : c < ccs ? lo0[c < N - 1 ? c : N - 2]
-                                  : lo0[c > 0 ? c - 1 : 0];
-        const float h = c == ccs ? hi1[0]
-                        : c < ccs ? hi0[c < N - 1 ? c : N - 2]
-                                  : hi0[c > 0 ? c - 1 : 0];
-        lc[c] = quant_code(inv_s, l);
-        hc[c] = quant_code(inv_s, h);
-        lo_u[c] = unq_s[lc[c]];
-        hi_u[c] = unq_s[hc[c]];
+    for (int c = 0; c < kN; ++c) {
+      int f, k;
+      if constexpr (kLA) {
+        f = b * kF + c;
+        k = 0;
+      } else {
+        f = b * kF + (c == ccs ? N + ccs : ccs);
+        k = c == ccs ? 0 : c < ccs ? c : c - 1;
       }
-      rec_exact<N>(sh, lev, n_lev, p, lo_u, hi_u);
+      const int lc = quant_code(inv_s, lohi[f * 8 + k]);
+      const int hc = quant_code(inv_s, lohi[f * 8 + 4 + k]);
+      R.code[i * 8 + 2 * c] = (uint8_t)lc;
+      R.code[i * 8 + 2 * c + 1] = (uint8_t)hc;
+      lo_u[c] = unq_s[lc];
+      hi_u[c] = unq_s[hc];
+    }
+    exact_table<kN>(R.table + i * (n_lev + 1), lev, n_lev, lo_u, hi_u);
+  }
+  __syncwarp();
+  // each pixel's least error on each plane per choice, and its levels
+  for (int base = 0; base < nb; base += 2) {
+    const int b = base + (lane >> 4), p = lane & 15;
+    if (b >= nb) continue;
+    const float* rgba = R.pix + b * kBlockWords + p * kPix;
+    for (int ccs = 0; ccs < kChoices; ++ccs) {
+      const float4* t = R.table + (b * kChoices + ccs) * (n_lev + 1);
       float e0_min = INFINITY, e1_min = INFINITY;
       int w0 = 0, w1 = 0;
+#pragma unroll 4
       for (int l = 0; l < n_lev; ++l) {
-        const float4 r = sh.rec[l];
-        float e0 = 0.0f, e1 = 0.0f;
+        const float4 r = t[l];
+        float e0 = 0.0f, e1;
+        if constexpr (kLA) {
 #pragma unroll
-        for (int c = 0; c < N; ++c) {
-          const float d = __fsub_rn(rgba[c], chan(r, c));
-          const float dd = __fmul_rn(d, d);
-          if (c == ccs)
-            e1 = dd;
-          else
-            e0 = __fadd_rn(e0, dd);
+          for (int c = 0; c < 3; ++c) {
+            const float d = __fsub_rn(rgba[c], r.x);
+            e0 = c ? __fadd_rn(e0, __fmul_rn(d, d)) : __fmul_rn(d, d);
+          }
+          const float d = __fsub_rn(rgba[3], r.y);
+          e1 = __fmul_rn(d, d);
+        } else {
+          e1 = 0.0f;
+#pragma unroll
+          for (int c = 0; c < N; ++c) {
+            const float d = __fsub_rn(rgba[c], chan(r, c));
+            const float dd = __fmul_rn(d, d);
+            if (c == ccs)
+              e1 = dd;
+            else
+              e0 = __fadd_rn(e0, dd);
+          }
         }
         if (e0 < e0_min) {
           e0_min = e0;
@@ -1300,33 +1849,41 @@ dualplane_trial_kernel(const float* __restrict__ px, long long sb,
           w1 = l;
         }
       }
-      const float err = __fadd_rn(exact_sum16(e0_min), exact_sum16(e1_min));
-      if (err < best_err) {
-        best_err = err;
-        best_ccs = ccs;
-        best_w0 = w0;
-        best_w1 = w1;
-#pragma unroll
-        for (int c = 0; c < N; ++c) {
-          best_lo[c] = lc[c];
-          best_hi[c] = hc[c];
-        }
-      }
+      const int i0 = b * kF + ccs, i1 = b * kF + kChoices + ccs;
+      R.best[i0 * kItemWords + p] = e0_min;
+      R.best[i1 * kItemWords + p] = e1_min;
+      R.wl0[i0 * kItemBytes + p] = (uint8_t)w0;
+      R.wl0[i1 * kItemBytes + p] = (uint8_t)w1;
     }
-    if constexpr (N == 3) best_err = __fadd_rn(best_err, alpha_err(rgba[3]));
   }
-  if (live) {
-    if (p == 0) {
-      err_out[blk] = best_err;
-      if (!kLA) ccs_out[blk] = best_ccs;
+  __syncwarp();
+  // each choice's error: the two planes' sums (exact), added
+  for (int i = lane; i < nb * kChoices; i += 32) {
+    const int b = i / kChoices, ccs = i % kChoices;
+    const float* e0 = R.best + (b * kF + ccs) * kItemWords;
+    const float* e1 = R.best + (b * kF + kChoices + ccs) * kItemWords;
+    R.gerr[i] = __fadd_rn(sum16<true>(e0, 0xffffu), sum16<true>(e1, 0xffffu));
+  }
+  __syncwarp();
+  // the winner: the first choice by strict <
+  for (int base = 0; base < nb; base += 2) {
+    const int b_raw = base + (lane >> 4), p = lane & 15;
+    const int b = b_raw < nb ? b_raw : nb - 1;
+    const long long blk = blk0 + b_raw;
+    const float* rgba = R.pix + b * kBlockWords + p * kPix;
+    const int ccs = first_min(R.gerr + b * kChoices, kChoices);
+    float best_err = R.gerr[b * kChoices + ccs];
+    if constexpr (N == 3) best_err = __fadd_rn(best_err, alpha_err(rgba[3]));
+    if (b_raw < nb && blk < n) {
+      if (p == 0) {
+        err_out[blk] = best_err;
+        if (!kLA) ccs_out[blk] = ccs;
+      }
+      if (p < 2 * N) ep_out[blk * 2 * N + p] = R.code[(b * kChoices + ccs) * 8 + p];
+      const int i0 = b * kF + ccs, i1 = b * kF + kChoices + ccs;
+      w_out[blk * 32 + 2 * p] = R.wl0[i0 * kItemBytes + p];
+      w_out[blk * 32 + 2 * p + 1] = R.wl0[i1 * kItemBytes + p];
     }
-#pragma unroll
-    for (int c = 0; c < N; ++c) {
-      if (p == 2 * c) ep_out[blk * 2 * N + p] = best_lo[c];
-      if (p == 2 * c + 1) ep_out[blk * 2 * N + p] = best_hi[c];
-    }
-    w_out[blk * 32 + 2 * p] = best_w0;
-    w_out[blk * 32 + 2 * p + 1] = best_w1;
   }
 }
 
@@ -1395,7 +1952,29 @@ cudaError_t launch_mode_trial(const float* px, long long sb, long long sp,
   return cudaGetLastError();
 }
 
-template <int C, int S>
+// 4x4 blocks per warp for F fits a block, of n: every fit its own lane, an
+// even count where the fits allow (a pass over the pixels takes two
+// blocks), and fewer blocks a warp, down to two, where n would leave the
+// card without kWarpsWanted warps (a small launch is latency-bound).
+constexpr long long kWarpsWanted = 132 * 8;
+
+int trial_blocks_per_warp(int F, int n) {
+  int most = 32 / F < kMaxWarpBlocks ? 32 / F : kMaxWarpBlocks;
+  if (most > 1) most &= ~1;
+  const int least = most < 2 ? most : 2;
+  const long long nb = n / kWarpsWanted;
+  return nb > most ? most : nb < least ? least : (int)nb;
+}
+
+// Warps per trial CTA: kTrialWarps, fewer where their slices of shared
+// memory would pass the 48 KB a CTA takes without an opt-in (the static
+// tables take 1.7 KB of it).
+int trial_warps(int bytes) {
+  const int w = (48 * 1024 - 4096) / bytes;
+  return w < 1 ? 1 : w > kTrialWarps ? kTrialWarps : w;
+}
+
+template <int C, int S, int kStop>
 cudaError_t launch_subset_trial(const float* px, long long sb, long long sp,
                                 long long sc, const long long* pats,
                                 int n_pat, const long long* inv,
@@ -1403,25 +1982,88 @@ cudaError_t launch_subset_trial(const float* px, long long sb, long long sp,
                                 const float* levels, int n_lev, int ls_iters,
                                 int topk, float* err, int* ep, int* w,
                                 int* pat, int n, cudaStream_t s) {
-  subset_trial_kernel<C, S><<<(n + kFitSlots - 1) / kFitSlots, kFitThreads,
-                              0, s>>>(px, sb, sp, sc, pats, n_pat, inv, unq,
-                                      n_unq, levels, n_lev, ls_iters, topk,
-                                      err, ep, w, pat, n);
+  const int F = topk * S, nb = trial_blocks_per_warp(F, n);
+  const int bytes = trial_layout(nb, F, topk, n_lev, nullptr, nullptr);
+  const int warps = trial_warps(bytes);
+  const long long per_cta = (long long)warps * nb;
+  const unsigned grid = (unsigned)((n + per_cta - 1) / per_cta);
+  subset_trial_kernel<C, S, kStop><<<grid, 32 * warps, warps * bytes, s>>>(
+      px, sb, sp, sc, pats, n_pat, inv, unq, n_unq, levels, n_lev, ls_iters,
+      topk, err, ep, w, pat, n, nb);
   return cudaGetLastError();
 }
 
-template <int N, bool kLA>
+template <int N, bool kLA, int kStop>
 cudaError_t launch_dualplane_trial(const float* px, long long sb,
                                    long long sp, long long sc,
                                    const long long* inv, const float* unq,
                                    int n_unq, const float* levels, int n_lev,
                                    int ls_iters, float* err, int* ep, int* w,
                                    int* ccs, int n, cudaStream_t s) {
-  dualplane_trial_kernel<N, kLA><<<(n + kFitSlots - 1) / kFitSlots,
-                                   kFitThreads, 0, s>>>(
+  constexpr int kF = kLA ? 2 : 2 * N;
+  const int nb = trial_blocks_per_warp(kF, n);
+  const int bytes = trial_layout(nb, kF, kF, n_lev, nullptr, nullptr);
+  const int warps = trial_warps(bytes);
+  const long long per_cta = (long long)warps * nb;
+  const unsigned grid = (unsigned)((n + per_cta - 1) / per_cta);
+  dualplane_trial_kernel<N, kLA, kStop><<<grid, 32 * warps, warps * bytes,
+                                          s>>>(
       px, sb, sp, sc, inv, unq, n_unq, levels, n_lev, ls_iters, err, ep, w,
-      ccs, n);
+      ccs, n, nb);
   return cudaGetLastError();
+}
+
+template <int kStop>
+int subset_trial_at(const float* px, long long sb, long long sp, long long sc,
+                    const long long* pats, int n_pat, const long long* inv,
+                    const float* unq, int n_unq, const float* levels,
+                    int n_lev, int comps, int n_sub, int ls_iters, int topk,
+                    float* err, int* ep, int* w, int* pat, int n,
+                    cudaStream_t s) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (n_pat < 1 || n_pat > kMaxPatterns || topk < 1 || topk > kMaxTopk ||
+      topk > n_pat || n_unq < 1 || n_unq > 256 || n_lev < 1 ||
+      n_lev > kMaxLevels || ls_iters < 0)
+    return (int)cudaErrorInvalidValue;
+  switch (10 * comps + n_sub) {
+    case 22: return (int)launch_subset_trial<2, 2, kStop>(
+        px, sb, sp, sc, pats, n_pat, inv, unq, n_unq, levels, n_lev,
+        ls_iters, topk, err, ep, w, pat, n, s);
+    case 32: return (int)launch_subset_trial<3, 2, kStop>(
+        px, sb, sp, sc, pats, n_pat, inv, unq, n_unq, levels, n_lev,
+        ls_iters, topk, err, ep, w, pat, n, s);
+    case 42: return (int)launch_subset_trial<4, 2, kStop>(
+        px, sb, sp, sc, pats, n_pat, inv, unq, n_unq, levels, n_lev,
+        ls_iters, topk, err, ep, w, pat, n, s);
+    case 33: return (int)launch_subset_trial<3, 3, kStop>(
+        px, sb, sp, sc, pats, n_pat, inv, unq, n_unq, levels, n_lev,
+        ls_iters, topk, err, ep, w, pat, n, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int kStop>
+int dualplane_trial_at(const float* px, long long sb, long long sp,
+                       long long sc, const long long* inv, const float* unq,
+                       int n_unq, const float* levels, int n_lev, int n_ch,
+                       int ls_iters, float* err, int* ep, int* w, int* ccs,
+                       int n, cudaStream_t s) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (n_unq < 1 || n_unq > 256 || n_lev < 1 || n_lev > kMaxLevels ||
+      ls_iters < 0)
+    return (int)cudaErrorInvalidValue;
+  switch (n_ch) {
+    case 2: return (int)launch_dualplane_trial<2, true, kStop>(
+        px, sb, sp, sc, inv, unq, n_unq, levels, n_lev, ls_iters, err, ep, w,
+        ccs, n, s);
+    case 3: return (int)launch_dualplane_trial<3, false, kStop>(
+        px, sb, sp, sc, inv, unq, n_unq, levels, n_lev, ls_iters, err, ep, w,
+        ccs, n, s);
+    case 4: return (int)launch_dualplane_trial<4, false, kStop>(
+        px, sb, sp, sc, inv, unq, n_unq, levels, n_lev, ls_iters, err, ep, w,
+        ccs, n, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1590,28 +2232,10 @@ int uastc_subset_trial(const float* px, long long sb, long long sp,
                        const float* levels, int n_lev, int comps, int n_sub,
                        int ls_iters, int topk, float* err, int* ep, int* w,
                        int* pat, int n, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  if (n_pat < 1 || n_pat > kMaxPatterns || topk < 1 || topk > kMaxTopk ||
-      topk > n_pat || n_unq < 1 || n_unq > 256 || n_lev < 1 ||
-      n_lev > kMaxLevels || ls_iters < 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int kind = 10 * comps + n_sub;
-  switch (kind) {
-    case 22: return (int)launch_subset_trial<2, 2>(
-        px, sb, sp, sc, pats, n_pat, inv, unq, n_unq, levels, n_lev,
-        ls_iters, topk, err, ep, w, pat, n, s);
-    case 32: return (int)launch_subset_trial<3, 2>(
-        px, sb, sp, sc, pats, n_pat, inv, unq, n_unq, levels, n_lev,
-        ls_iters, topk, err, ep, w, pat, n, s);
-    case 42: return (int)launch_subset_trial<4, 2>(
-        px, sb, sp, sc, pats, n_pat, inv, unq, n_unq, levels, n_lev,
-        ls_iters, topk, err, ep, w, pat, n, s);
-    case 33: return (int)launch_subset_trial<3, 3>(
-        px, sb, sp, sc, pats, n_pat, inv, unq, n_unq, levels, n_lev,
-        ls_iters, topk, err, ep, w, pat, n, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return subset_trial_at<kStopAll>(px, sb, sp, sc, pats, n_pat, inv, unq,
+                                   n_unq, levels, n_lev, comps, n_sub,
+                                   ls_iters, topk, err, ep, w, pat, n,
+                                   (cudaStream_t)stream);
 }
 
 // px, inv, unq, levels as uastc_mode_trial's; n_ch 3 (mode 6), 4 (modes 11
@@ -1622,23 +2246,59 @@ int uastc_dualplane_trial(const float* px, long long sb, long long sp,
                           const float* unq, int n_unq, const float* levels,
                           int n_lev, int n_ch, int ls_iters, float* err,
                           int* ep, int* w, int* ccs, int n, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  if (n_unq < 1 || n_unq > 256 || n_lev < 1 || n_lev > kMaxLevels ||
-      ls_iters < 0)
-    return (int)cudaErrorInvalidValue;
+  return dualplane_trial_at<kStopAll>(px, sb, sp, sc, inv, unq, n_unq,
+                                      levels, n_lev, n_ch, ls_iters, err, ep,
+                                      w, ccs, n, (cudaStream_t)stream);
+}
+
+// The per-step split of the two trials (`chip_smoke.py`, measurement only):
+// the same arguments, and stop (TrialStop, 1..6): the trial up to that step,
+// writing only err (a sum of what the steps computed) below kStopAll.
+int uastc_subset_trial_split(const float* px, long long sb, long long sp,
+                             long long sc, const long long* pats, int n_pat,
+                             const long long* inv, const float* unq,
+                             int n_unq, const float* levels, int n_lev,
+                             int comps, int n_sub, int ls_iters, int topk,
+                             float* err, int* ep, int* w, int* pat, int n,
+                             int stop, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (n_ch) {
-    case 2: return (int)launch_dualplane_trial<2, true>(
-        px, sb, sp, sc, inv, unq, n_unq, levels, n_lev, ls_iters, err, ep, w,
-        ccs, n, s);
-    case 3: return (int)launch_dualplane_trial<3, false>(
-        px, sb, sp, sc, inv, unq, n_unq, levels, n_lev, ls_iters, err, ep, w,
-        ccs, n, s);
-    case 4: return (int)launch_dualplane_trial<4, false>(
-        px, sb, sp, sc, inv, unq, n_unq, levels, n_lev, ls_iters, err, ep, w,
-        ccs, n, s);
+#define SUBSET_AT(k)                                                         \
+  case k: return subset_trial_at<k>(px, sb, sp, sc, pats, n_pat, inv, unq,  \
+                                    n_unq, levels, n_lev, comps, n_sub,     \
+                                    ls_iters, topk, err, ep, w, pat, n, s)
+  switch (stop) {
+    SUBSET_AT(kStopSplit);
+    SUBSET_AT(kStopChains);
+    SUBSET_AT(kStopPower);
+    SUBSET_AT(kStopSearch);
+    SUBSET_AT(kStopSolve);
+    SUBSET_AT(kStopAll);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef SUBSET_AT
+}
+
+int uastc_dualplane_trial_split(const float* px, long long sb, long long sp,
+                                long long sc, const long long* inv,
+                                const float* unq, int n_unq,
+                                const float* levels, int n_lev, int n_ch,
+                                int ls_iters, float* err, int* ep, int* w,
+                                int* ccs, int n, int stop, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define DUAL_AT(k)                                                           \
+  case k: return dualplane_trial_at<k>(px, sb, sp, sc, inv, unq, n_unq,     \
+                                       levels, n_lev, n_ch, ls_iters, err,  \
+                                       ep, w, ccs, n, s)
+  switch (stop) {
+    DUAL_AT(kStopSplit);
+    DUAL_AT(kStopChains);
+    DUAL_AT(kStopPower);
+    DUAL_AT(kStopSearch);
+    DUAL_AT(kStopSolve);
+    DUAL_AT(kStopAll);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DUAL_AT
 }
 
 }  // extern "C"

@@ -110,9 +110,14 @@ def _declare_xla_order(lib):
                                        vp]
     lib.uastc_dualplane_trial.argtypes = [vp, ll, ll, ll, vp, vp, ci, vp, ci,
                                           ci, ci, vp, vp, vp, vp, ci, vp]
+    # the trials' per-step split (`chip_smoke.py`): the same and a stop
+    for name in ("uastc_subset_trial", "uastc_dualplane_trial"):
+        fn = getattr(lib, name + "_split")
+        fn.argtypes = getattr(lib, name).argtypes[:-1] + [ci, vp]
     for fn in (lib.xla_fma, lib.xla_reduce, lib.uastc_line_fit,
                lib.uastc_mode_trial, lib.uastc_subset_trial,
-               lib.uastc_dualplane_trial):
+               lib.uastc_dualplane_trial, lib.uastc_subset_trial_split,
+               lib.uastc_dualplane_trial_split):
         fn.restype = ci
     return lib
 

@@ -35,7 +35,12 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    its multi-subset and dual-plane trials, `uastc_subset_trial` and
    `uastc_dualplane_trial`, at each mode of the effort-2 RGB and RGBA
    searches and effort 3's modes 7 and 3, at 24,576 blocks and at 1,001,
-   every output equal (`uastc_trials`);
+   every output equal, each trial's time split by its steps (the luma
+   split and shortlist, the fits' chains, the power iteration, the first
+   level search, the least-squares steps, the winner and its error:
+   `trial_split`, through measurement instances that only
+   `<trial>_split` launches), ptxas' registers, shared memory and spills
+   printed for every instance (`uastc_trials`);
    the UASTC block packing `uastc_pack` on image 0's winner buffer and on
    buffers in which every slot of efforts 1-4, RGB and RGBA, wins blocks,
    byte for byte, `uastc_pack_phase`)
@@ -87,8 +92,10 @@ Phases (any failure raises, so the process exits nonzero with no final line):
 14. with `--ab OTHER_TREE` only: build the kernels of another checkout of
    the repo (e.g. the parent commit unpacked under `_compare/`), check that
    its scan, rescore, `xla_fma`, `xla_reduce`, k-means argmin, bisecting
-   init and refine shortlist give the same bits as this tree's at the
-   shapes of phase 3, and time both in turns (other, this, this, other);
+   init, refine shortlist and UASTC trials (every shape of `uastc_trials`
+   at 24,576 and 1,001 blocks, `trials_ab`) give the same bits as this
+   tree's at the shapes of phase 3, and time both in turns (other, this,
+   this, other);
    then profile the ETC1S path of each on the images of phase 4 in the
    same turns: device ms and kernels per image, and `segment_reduce`'s
    device time by the function that called `segment_sum`
@@ -492,6 +499,36 @@ def phase_build():
     for path in paths.values():
         for line in _build.ptxas_report(path).splitlines():
             print(f"ptxas: {line.strip()}")
+        for kernel, use in _ptxas_summary(_build.ptxas_report(path)):
+            if "trial_kernel" in kernel:
+                print(f"ptxas {kernel}: {use}")
+
+
+def _ptxas_summary(report):
+    """(kernel, "N registers, M bytes smem, spills S/L bytes") per entry
+    function of a ptxas -v report, the mangled name cut to its template
+    arguments (`subset_trial_kernel<3,2,6>`)."""
+    import re
+
+    out, name, spill = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"\d+([A-Za-z_]+_kernel)I((?:L[ib]-?\d+E)+)E",
+                          m.group(1))
+            name = (f"{k.group(1)}<"
+                    + ",".join(re.findall(r"L[ib](-?\d+)E", k.group(2)))
+                    + ">") if k else m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"spills {m.group(1)}/{m.group(2)} bytes"
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out.append((name, f"{m.group(1)} registers, "
+                              f"{m.group(2) or 0} bytes smem, {spill}"))
+            name = None
+    return out
 
 
 def _close(got, want, mag, what):
@@ -1170,6 +1207,62 @@ SUBSET_TRIALS = (("mode 2", 3, 8, 3, 2, 2, 4, 1),
 DUALPLANE_TRIALS = (("mode 6", 2, 18, 3, 1), ("mode 11", 2, 13, 4, 1),
                     ("mode 13", 1, 20, 4, 1), ("mode 17", 2, 20, 2, 1))
 RAGGED_BLOCKS = 1001
+# the trials' stop points (`TrialStop` in `csrc/xla_order_kernels.cu`), each
+# the step that a measurement instance runs last
+TRIAL_STEPS = ("split and shortlist", "chains", "power iteration",
+               "level search", "solves", "winner and error")
+
+
+def _trial_launcher(torch, uenc, name, args, x):
+    """A function of stop (1..6) that launches the measurement entry
+    `<name>_split` of the trial `name` at args on x, with the wrapper's
+    tables and outputs."""
+    from basis_universal_tpu_torch.ops import _build
+
+    lib = _build.get_lib("xla_order_kernels")
+    dev, n = x.device, x.shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    err = torch.empty(n, dtype=torch.float32, device=dev)
+    w = torch.empty((n, 32), dtype=torch.int32, device=dev)
+    aux = torch.empty(n, dtype=torch.int32, device=dev)
+    if name == "uastc_subset_trial":
+        wb, ep_range, comps, ls, n_sub, plist, topk = args
+        pats = uenc._patterns(n_sub, plist == 7, str(dev))
+        inv, unq, wlev = uenc._mode_consts(wb, ep_range, str(dev))
+        ep = torch.empty((n, 2 * n_sub * comps), dtype=torch.int32,
+                         device=dev)
+        return lambda stop: lib.uastc_subset_trial_split(
+            x.data_ptr(), *x.stride(), pats.data_ptr(), len(pats),
+            inv.data_ptr(), unq.data_ptr(), unq.numel(), wlev.data_ptr(),
+            wlev.numel(), comps, n_sub, ls, topk, err.data_ptr(),
+            ep.data_ptr(), w.data_ptr(), aux.data_ptr(), n, stop, stream)
+    wb, ep_range, ls, n_ch = args
+    inv, unq, wlev = uenc._mode_consts(wb, ep_range, str(dev))
+    ep = torch.empty((n, 2 * n_ch), dtype=torch.int32, device=dev)
+    return lambda stop: lib.uastc_dualplane_trial_split(
+        x.data_ptr(), *x.stride(), inv.data_ptr(), unq.data_ptr(),
+        unq.numel(), wlev.data_ptr(), wlev.numel(), n_ch, ls, err.data_ptr(),
+        ep.data_ptr(), w.data_ptr(), aux.data_ptr(), n, stop, stream)
+
+
+def trial_split(torch, uenc, name, label, args, x):
+    """The per-step split of one trial on x: the device ms of each stop
+    point's measurement instance (the trial up to that step; the last is
+    the path's own instance), and each step's share as the difference
+    from the stop before it, printed."""
+    launch = _trial_launcher(torch, uenc, name, args, x)
+
+    def run(stop):
+        status = launch(stop)
+        if status != 0:
+            raise RuntimeError(f"{name}_split stop {stop}: status {status}")
+
+    cum = [_device_ms(torch, lambda stop=stop: run(stop))
+           for stop in range(1, len(TRIAL_STEPS) + 1)]
+    steps = ", ".join(f"{step} {b - a:+.4f}" for step, a, b in
+                      zip(TRIAL_STEPS, [0.0] + cum, cum))
+    print(f"{name} {label} split at {x.shape[0]} blocks, device ms by step: "
+          f"{steps} (cumulative {', '.join(f'{c:.4f}' for c in cum)})")
 
 
 def uastc_trials(torch, px, rng, measure):
@@ -1179,7 +1272,8 @@ def uastc_trials(torch, px, rng, measure):
     CTA), every output held to the plain version with torch.equal; timed
     at 24,576. Bound: the pixels in and the outputs out against
     `_subset_trial_ops` / `_dualplane_trial_ops`. No one PyTorch call
-    computes either."""
+    computes either. Each trial's time is split by its steps
+    (`trial_split`)."""
     from basis_universal_tpu_torch.codecs.uastc import encode as uenc
 
     dev = px.device
@@ -1219,6 +1313,46 @@ def uastc_trials(torch, px, rng, measure):
         measure(name, label, lambda: run(rgba, *args),
                 lambda: plain(rgba, *args), 0.0,
                 _bound(b_n * block_bytes, float(b_n * ops)))
+        trial_split(torch, uenc, name, label, args, rgba)
+
+
+def trials_ab(torch, px, rng, other_uenc):
+    """This tree's `uastc_subset_trial` / `uastc_dualplane_trial` against
+    another tree's (`other_uenc`, its `codecs/uastc/encode.py`) at every
+    trial of `SUBSET_TRIALS` / `DUALPLANE_TRIALS`, on the inputs of
+    `uastc_trials`, at 24,576 and RAGGED_BLOCKS blocks: every output equal,
+    and the device ms of each in turns (other, this, this, other)."""
+    from basis_universal_tpu_torch.codecs.uastc import encode as uenc
+
+    dev = px.device
+    b_n = px.shape[0]
+    rgba = torch.cat([px, torch.as_tensor(rng.integers(0, 256, (b_n, 16, 1)),
+                                          dtype=torch.float32, device=dev)],
+                     -1).contiguous()
+    cases = [("uastc_subset_trial", label, "subset_trial",
+              (wb, ep_range, comps, ls, n_sub, plist, topk))
+             for label, wb, ep_range, comps, n_sub, plist, topk, ls
+             in SUBSET_TRIALS]
+    cases += [("uastc_dualplane_trial", label, "dualplane_trial",
+               (wb, ep_range, ls, n_ch))
+              for label, wb, ep_range, n_ch, ls in DUALPLANE_TRIALS]
+    for name, label, fn, args in cases:
+        for n in (b_n, RAGGED_BLOCKS):
+            x = rgba[:n]
+            mine = getattr(uenc, fn)(x, *args)
+            theirs = getattr(other_uenc, fn)(x, *args)
+            torch.cuda.synchronize()
+            same = len(mine) == len(theirs) and all(
+                torch.equal(a, b) for a, b in zip(mine, theirs))
+            runs = [lambda m=m: getattr(m, fn)(x, *args)
+                    for m in (other_uenc, uenc, uenc, other_uenc)]
+            dt = [_device_ms(torch, r) for r in runs]
+            print(f"ab {name} {label} at {n} blocks: same outputs {same}; "
+                  f"device ms other {dt[0]:.4f}, this {dt[1]:.4f}, this "
+                  f"{dt[2]:.4f}, other {dt[3]:.4f}")
+            if not same:
+                raise AssertionError(f"ab {name} {label} at {n} blocks: the "
+                                     "two trees' outputs differ")
 
 
 def uastc_line_fits(torch, px, rng, measure):
@@ -1943,13 +2077,14 @@ def segment_split(torch, pkg, images):
 
 def phase_ab(torch, blocks, tree, images):
     """`--ab TREE`: this tree's scan, rescore, generic XLA-order kernels,
-    k-means argmin, bisecting init and refine shortlist against another
-    checkout's at the shapes of phase 3: whether they give the same bits
-    (the fused scan's shortlists, the rescore's errors, the argmin's
-    indices, the init's seeds, the refine's columns), and their call times
-    (CUDA events) and device times (torch.profiler) in turns: other, this,
-    this, other; then the ETC1S path of each (`segment_split`, the images
-    of phase 4) in the same turns."""
+    k-means argmin, bisecting init, refine shortlist and UASTC trials
+    against another checkout's at the shapes of phase 3: whether they give
+    the same bits (the fused scan's shortlists, the rescore's errors, the
+    argmin's indices, the init's seeds, the refine's columns, every output
+    of the trials at 24,576 and 1,001 blocks, `trials_ab`), and their call
+    times (CUDA events) and device times (torch.profiler) in turns: other,
+    this, this, other; then the ETC1S path of each (`segment_split`, the
+    images of phase 4) in the same turns."""
     from basis_universal_tpu_torch.ops import cuda_etc1s as ck
     from basis_universal_tpu_torch.ops import etc1s_encode as ops
     from basis_universal_tpu_torch.ops import xla_order as xo
@@ -2055,6 +2190,10 @@ def phase_ab(torch, blocks, tree, images):
           f"{dt[3]:.4f}")
     if n_diff:
         raise AssertionError("ab refine shortlist: the two trees differ")
+    import importlib
+
+    trials_ab(torch, px, np.random.default_rng(1234),
+              importlib.import_module("_other_port.codecs.uastc.encode"))
     for name, label, args, kw in cases:
         mine = getattr(ck, name)(*args, **kw)
         theirs = getattr(other, name)(*args, **kw)

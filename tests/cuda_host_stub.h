@@ -2,20 +2,25 @@
 // barriers, warp barriers, warp shuffles and ballots, on the host: each CUDA
 // thread a fiber (its own stack, switched cooperatively on one host thread),
 // the CTAs one after another, __syncthreads a barrier of the CTA's threads,
-// __syncwarp a barrier of the warp's 32 threads, a shuffle or a ballot a
-// write, a warp barrier, a read and a warp barrier, __shared__ a static (one
-// CTA at a time), __ldg a plain load, and the rounded float intrinsics
-// (__fadd_rn, __fmaf_rn, ...) the plain float operations they name (compile
-// with -ffp-contract=off, so that no product is fused into a sum the source
-// did not fuse). A fiber runs until it waits at a barrier; the next one in
+// __syncwarp a barrier of the warp's 32 threads, a shuffle (xor or from a
+// lane) or a ballot a write, a warp barrier, a read and a warp barrier,
+// __shared__ a static (one CTA at a time), __ldg a plain load, and the
+// rounded float intrinsics (__fadd_rn, __fmaf_rn, ...) the plain float
+// operations they name (compile with -ffp-contract=off, so that no product
+// is fused into a sum the source did not fuse). A fiber runs until it waits at a barrier; the next one in
 // thread order runs then, so a barrier costs one switch per thread and the
 // run is the same on a loaded host. A barrier that some threads never reach
-// (a divergent __syncwarp) aborts the process. A test compiles a kernel
-// source with g++ (x86-64) against this header, its
-// `#include <cuda_runtime.h>` replaced by this one and its
-// `kernel<<<grid, block, 0, stream>>>(args)` by
-// `emu_launch(kernel, grid, block, args)`, and calls its C entry through
-// ctypes on CPU tensors.
+// (a divergent __syncwarp) aborts the process. Dynamic shared memory
+// (`extern __shared__ T name[];`, which a test rewrites to
+// `T* name = (T*)emu_dyn_smem;`) is one static buffer, filled with 0xff
+// bytes (NaNs, out-of-range indices) before each CTA, so a read of what no
+// thread wrote shows. A test compiles a kernel source with g++ (x86-64)
+// against this header, its `#include <cuda_runtime.h>` replaced by this
+// one and its `kernel<<<grid, block, 0, stream>>>(args)` by
+// `emu_launch(kernel, grid, block, args)` (with dynamic shared memory,
+// `<<<grid, block, bytes, stream>>>` by
+// `emu_launch_smem(kernel, grid, block, bytes, args)`), and calls its C
+// entry through ctypes on CPU tensors.
 #pragma once
 #include <math.h>
 #include <stdint.h>
@@ -27,6 +32,7 @@
 #include <vector>
 
 #define __global__
+#define __host__
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
@@ -145,6 +151,18 @@ inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   return r;
 }
 
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src_lane) {
+  static_assert(sizeof(T) <= sizeof(uint64_t), "a shuffled word");
+  const unsigned w = threadIdx.x / 32, l = threadIdx.x % 32;
+  memcpy(&emu_lane_word[w][l], &v, sizeof(T));
+  __syncwarp();
+  T r;
+  memcpy(&r, &emu_lane_word[w][(unsigned)src_lane & 31u], sizeof(T));
+  __syncwarp();
+  return r;
+}
+
 inline unsigned __ballot_sync(unsigned, int pred) {
   const unsigned w = threadIdx.x / 32, l = threadIdx.x % 32;
   emu_lane_word[w][l] = pred ? 1u : 0u;
@@ -187,6 +205,9 @@ typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return cudaSuccess; }
 
+constexpr size_t kEmuDynSmem = 1 << 17;
+alignas(16) inline unsigned char emu_dyn_smem[kEmuDynSmem];
+
 inline void emu_fiber_main() {
   emu_sched.body();
   emu_sched.fibers[emu_sched.cur].done = true;
@@ -205,6 +226,7 @@ void emu_launch(F kernel, unsigned grid, unsigned block, A... args) {
   const unsigned n_warps = (block + 31) / 32;
   for (unsigned b = 0; b < grid; ++b) {
     blockIdx = {b, 0, 0};
+    memset(emu_dyn_smem, 0xff, kEmuDynSmem);
     emu_cta_barrier = EmuBarrier{block};
     for (unsigned w = 0; w < n_warps; ++w)
       emu_warp_barrier[w] =
@@ -236,4 +258,15 @@ void emu_launch(F kernel, unsigned grid, unsigned block, A... args) {
       }
     }
   }
+}
+
+template <class F, class... A>
+void emu_launch_smem(F kernel, unsigned grid, unsigned block, size_t smem,
+                     A... args) {
+  if (smem > kEmuDynSmem) {
+    fprintf(stderr, "emu_launch_smem: %zu bytes of dynamic shared memory, "
+                    "at most %zu\n", smem, kEmuDynSmem);
+    abort();
+  }
+  emu_launch(kernel, grid, block, args...);
 }

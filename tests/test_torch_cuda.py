@@ -1052,6 +1052,39 @@ def test_dualplane_trial_on_card(cuda, wb, ep_range, n_ch, ls_iters):
             assert torch.equal(g.cpu(), w)
 
 
+# the trials of the searches at the paths' sizes (`chip_smoke.py` phase 3),
+# in the wrappers' argument order: (weight bits, endpoint range, comps,
+# steps, subsets, pattern list, top-k) of modes 2, 4, 9, 16, 7 (effort 3)
+# and 3 (effort 3); (weight bits, endpoint range, steps, channels) of
+# modes 6, 11, 13 and 17
+PATH_SUBSET_TRIALS = [(3, 8, 3, 1, 2, 2, 4), (2, 12, 3, 1, 2, 2, 4),
+                      (2, 8, 4, 1, 2, 2, 4), (2, 20, 2, 1, 2, 2, 4),
+                      (2, 12, 3, 2, 2, 7, 8), (2, 7, 3, 2, 3, 3, 2)]
+PATH_DUALPLANE_TRIALS = [(2, 18, 1, 3), (2, 13, 1, 4), (1, 20, 1, 4),
+                         (2, 20, 1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [24576, 1001])
+@pytest.mark.parametrize("args", PATH_SUBSET_TRIALS + PATH_DUALPLANE_TRIALS)
+def test_trials_on_card_at_the_paths_sizes(cuda, args, n):
+    """`uastc_subset_trial` / `uastc_dualplane_trial` at each mode of the
+    searches, on 24,576 blocks (a 768x512 image: the most blocks a warp
+    takes) and 1,001 (a block a warp, a ragged last CTA): every output its
+    plain version's on the card, `torch.equal`."""
+    from basis_universal_tpu_torch.codecs.uastc import encode as uenc
+
+    px = _fit_blocks(n, 7 * len(args) + args[0] + n).to(cuda)
+    run, plain = ((uenc.subset_trial, uenc.subset_trial_reference)
+                  if len(args) == 7 else
+                  (uenc.dualplane_trial, uenc.dualplane_trial_reference))
+    got = run(px, *args)
+    want = plain(px, *args)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("alpha", [False, True])
 def test_uastc_search_launches_on_card(cuda, alpha):

@@ -14,9 +14,12 @@ launch) for a CPU tensor that says it is a CUDA one, and launch that build.
 Inputs, made from a seed with numpy: 403 blocks (a ragged last CTA of 3
 blocks), textured, unstructured, solid (a singular least-squares system)
 and two-tone, with random alpha; every instance of each kernel, at weight
-bits 1..5 and the top-k of the searches. Tolerance: none, every output
-equal (`torch.equal`). Card tests of the same kernels:
-`tests/test_torch_cuda.py`.
+bits 1..5 and the top-k of the searches; for the trials also patterns with
+a one-pixel and an empty subset and a masked pixel 0 whose centred value
+is -0, candidates and channel choices that tie, block counts of 1 to 8,500
+(one to eight blocks a warp), strided pixels and LA's fractional chains.
+Tolerance: none, every output equal (`torch.equal`). Card tests of the
+same kernels: `tests/test_torch_cuda.py`.
 """
 
 import ctypes
@@ -36,10 +39,13 @@ TESTS = pathlib.Path(__file__).resolve().parent
 KERNEL = TESTS.parent / "basis_universal_tpu_torch" / "csrc" / \
     "xla_order_kernels.cu"
 N_BLOCKS = 403
-# a launch `kernel<T...><<<grid, block, 0, stream>>>(`, the grid one level
-# of parentheses deep
-_LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<\s*((?:[^,()]|\([^()]*\))+),"
-                     r"\s*(\w+),\s*0,\s*\w+>>>\(")
+# a launch `kernel<T...><<<grid, block, shared bytes, stream>>>(`, each
+# argument at most one level of parentheses deep
+_ARG = r"\s*((?:[^,()]|\([^()]*\))+),"
+_LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<" + 3 * _ARG + r"\s*\w+>>>\(")
+# dynamic shared memory `extern __shared__ __align__(16) T name[];`
+_DYN_SMEM = re.compile(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) "
+                       r"(\w+)\[\];")
 
 
 @pytest.fixture(scope="module")
@@ -50,8 +56,10 @@ def host_lib(tmp_path_factory):
     src = KERNEL.read_text().replace(
         "#include <cuda_runtime.h>", f'#include "{TESTS / "cuda_host_stub.h"}"')
     n_launch = src.count("<<<")
-    src, n = _LAUNCH.subn(r"emu_launch(\1, \2, \3, ", src)
+    src, n = _LAUNCH.subn(r"emu_launch_smem(\1, \2, \3, \4, ", src)
     assert n == n_launch
+    src = _DYN_SMEM.sub(r"\1* \2 = reinterpret_cast<\1*>(emu_dyn_smem);",
+                        src)
     out = tmp_path_factory.mktemp("xla_order_host")
     (out / "kernels.cpp").write_text(src)
     subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
@@ -67,6 +75,16 @@ class _Card(torch.Tensor):
     @property
     def is_cuda(self):
         return True
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The plain versions on one thread: beside the other test workers a
+    pool of spinning threads per worker slowed this file 50-fold."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -151,6 +169,146 @@ def test_dualplane_trial_kernel_is_the_plain_version(on_host, wb, ep_range,
     px = _blocks(wb + 10 * n_ch + 100 * ls)
     got = uenc.dualplane_trial(px.as_subclass(_Card), wb, ep_range, ls, n_ch)
     _same(got, uenc.dualplane_trial_reference(px, wb, ep_range, ls, n_ch),
+          {"uastc_dualplane_trial": 1})
+
+
+def _corner_patterns(n_sub):
+    """(P, 16) int64 partition patterns that force the fits' corners: pixel
+    0 alone in subset 1 (so subset 0's fit sees pixel 0 masked out, its
+    centred value (x - mean) * 0 = -0 where it lies below the mean), an
+    empty subset (the count's max(., 1)), one pixel alone elsewhere, and
+    duplicates, whose candidates tie (the earlier must win)."""
+    pats = np.zeros((6, 16), np.int64)
+    pats[0, 0] = 1
+    pats[2, 5] = 1
+    pats[4, 8:] = 1
+    if n_sub == 3:
+        pats[0, 1] = 2                     # subsets of one pixel each
+        pats[2, 9:] = 2
+        pats[4, 12:] = 2
+        pats[1, :8] = 1                    # subset 2 empty
+    pats[3] = pats[0]
+    pats[5] = pats[4]
+    return torch.as_tensor(pats)
+
+
+# (comps, subsets, weight bits, least-squares steps)
+CORNER_CASES = [(3, 2, 3, 1), (4, 2, 2, 2), (2, 2, 2, 1), (2, 2, 5, 2),
+                (3, 3, 2, 2), (3, 3, 1, 1)]
+
+
+@pytest.mark.parametrize("comps,n_sub,wb,ls", CORNER_CASES)
+def test_subset_trial_kernel_corner_patterns(on_host, monkeypatch, comps,
+                                             n_sub, wb, ls):
+    """`_corner_patterns` in place of the mode's, every candidate
+    shortlisted: a one-pixel subset, an empty subset, pixel 0 masked out
+    with a centred value of -0 (pixel 0 black in half the blocks), and
+    candidates that tie on error, where the earlier in shortlist order
+    wins (duplicates: the second of a pair never wins)."""
+    pats = _corner_patterns(n_sub)
+    monkeypatch.setattr(uenc, "_patterns", lambda *a: pats)
+    px = _blocks(7 * comps + n_sub + 10 * wb)
+    px[::2, 0, :3] = 0.0
+    args = (wb, 20 if n_sub == 2 else 7, comps, ls, n_sub, 2, len(pats))
+    args = args[:-1] + (min(8, len(pats)),)
+    got = uenc.subset_trial(px.as_subclass(_Card), *args)
+    _same(got, uenc.subset_trial_reference(px, *args),
+          {"uastc_subset_trial": 1})
+    pat = got[3]
+    assert not torch.any((pat == 3) | (pat == 5))
+    assert torch.any(pat == 0) and torch.any(pat == 4)
+
+
+@pytest.mark.parametrize("n_ch,wb,ls", [(3, 2, 1), (4, 2, 2), (4, 1, 1),
+                                        (2, 2, 2)])
+def test_dualplane_trial_kernel_ties_take_the_first_ccs(on_host, n_ch, wb,
+                                                         ls):
+    """Gray blocks (R = G = B, and A with them for 4 channels) give every
+    channel choice the same error: the first (ccs 0) wins, as in the plain
+    version; LA's luma is fractional there."""
+    px = _blocks(3 * n_ch + wb + 10 * ls)
+    k = len(px) // 2
+    px[:k, :, 1:3 if n_ch == 3 else 4] = px[:k, :, :1]
+    got = uenc.dualplane_trial(px.as_subclass(_Card), wb, 18, ls, n_ch)
+    _same(got, uenc.dualplane_trial_reference(px, wb, 18, ls, n_ch),
+          {"uastc_dualplane_trial": 1})
+    if n_ch != 2:
+        assert torch.all(got[3][:k] == 0)
+
+
+# the instances at block counts that are not a multiple of their blocks
+# per CTA (4 warps of up to 32 / fits-a-block blocks each): (label, subset
+# or dual-plane arguments, the least count at which a warp takes its most
+# blocks: 8 for mode 17, 4 for modes 2, 3, 16, 6 and 11; None where that
+# is two blocks, as at every count, or one: mode 3 at top-k 8, its pass
+# over the pixels half a warp with no block)
+COUNT_CASES = [("mode2", (3, 8, 3, 1, 2, 2, 4), 4300),
+               ("mode7-e3", (2, 12, 3, 2, 2, 7, 8), None),
+               ("mode3", (2, 7, 3, 1, 3, 3, 2), 4300),
+               ("mode3-top8", (2, 7, 3, 1, 3, 3, 8), None),
+               ("mode16", (2, 20, 2, 1, 2, 2, 4), 4300),
+               ("mode6", (2, 18, 1, 3), 4300), ("mode11", (2, 13, 1, 4), 4300),
+               ("mode17", (2, 20, 1, 2), 8500)]
+COUNTS = [(c[:2], n) for c in COUNT_CASES
+          for n in (1, 403, 1001) + ((c[2],) if c[2] else ())]
+
+
+@pytest.mark.parametrize("case,n", COUNTS,
+                         ids=[f"{c[0]}-{n}" for c, n in COUNTS])
+def test_trial_kernels_at_ragged_block_counts(on_host, case, n):
+    """Both trials at 1, 403 and 1,001 blocks (two blocks a warp) and at
+    the count where a warp takes its most blocks: a CTA whose last warps,
+    or a warp whose last blocks, have no block of their own (the last
+    block repeats and is written once)."""
+    label, args = case
+    px = _blocks(len(label) + n, n=n)
+    if len(args) == 7:
+        got = uenc.subset_trial(px.as_subclass(_Card), *args)
+        _same(got, uenc.subset_trial_reference(px, *args),
+              {"uastc_subset_trial": 1})
+    else:
+        got = uenc.dualplane_trial(px.as_subclass(_Card), *args)
+        _same(got, uenc.dualplane_trial_reference(px, *args),
+              {"uastc_dualplane_trial": 1})
+
+
+@pytest.mark.parametrize("case", [c[:2] for c in COUNT_CASES[::3]],
+                         ids=[c[0] for c in COUNT_CASES[::3]])
+def test_trial_kernels_take_strided_pixels(on_host, case):
+    """Both trials on a strided view of the pixels (every other channel of
+    a wider tensor, as `tests/test_torch_cuda.py` passes them): the
+    strides reach the kernels as given."""
+    label, args = case
+    wide = _blocks(len(label)).repeat(1, 1, 2)
+    px = wide[:, :, ::2]
+    assert not px.is_contiguous()
+    fn, ref = ((uenc.subset_trial, uenc.subset_trial_reference)
+               if len(args) == 7 else
+               (uenc.dualplane_trial, uenc.dualplane_trial_reference))
+    got = fn(px.as_subclass(_Card), *args)
+    _same(got, ref(px.contiguous(), *args),
+          {"uastc_subset_trial" if len(args) == 7
+           else "uastc_dualplane_trial": 1})
+
+
+# (weight bits, endpoint range, top-k, steps): LA's chains in pixel order,
+# whose luma is fractional, at more shapes
+LA_CASES = [(3, 20, 8, 2), (1, 20, 4, 1), (4, 13, 2, 2)]
+
+
+@pytest.mark.parametrize("wb,ep_range,topk,ls", LA_CASES)
+def test_la_trials_keep_their_chains(on_host, wb, ep_range, topk, ls):
+    """The LA subset trial (mode 16's instance) and the LA dual-plane trial
+    (mode 17's) at more weight bits, top-k and steps: their fractional
+    error chains in pixel order give the plain version's bits."""
+    px = _blocks(wb + 5 * topk + 50 * ls)
+    args = (wb, ep_range, 2, ls, 2, 2, topk)
+    got = uenc.subset_trial(px.as_subclass(_Card), *args)
+    _same(got, uenc.subset_trial_reference(px, *args),
+          {"uastc_subset_trial": 1})
+    ck.reset_launch_counts()
+    got = uenc.dualplane_trial(px.as_subclass(_Card), wb, ep_range, ls, 2)
+    _same(got, uenc.dualplane_trial_reference(px, wb, ep_range, ls, 2),
           {"uastc_dualplane_trial": 1})
 
 
