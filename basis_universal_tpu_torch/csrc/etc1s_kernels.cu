@@ -722,202 +722,422 @@ __global__ void errs_kernel(const float* __restrict__ pixels,
 // Replaces _selbest_kernel / find_best_selector_patterns of
 // basis_universal_tpu/ops/pallas_etc1s.py:173 / :207, which runs the error as
 // a (T, 64) x (64, S_chunk) one-hot product on the MXU fused with a running
-// argmin. The same product here runs on Hopper's tensor cores:
+// argmin. The same product runs here on Hopper's warpgroup tensor-core
+// instruction:
 //     err (B x S) = D_bf16 (B x 64) . Onehot (S x 64)^T, fp32 accumulate,
-// as mma.sync.m16n8k16 (bf16 in, fp32 out). Every product is exact (a bf16
-// distance times 1 or 0); only the tensor core's fp32 accumulation order can
-// differ from a sequential sum, by ulps.
+// as wgmma.mma_async m64nNk16 (bf16 in, fp32 out), the four k-steps of K = 64
+// chained into one accumulator in pixel order (k 0-15, 16-31, 32-47, 48-63).
+// Every product is exact (a bf16 distance times 1 or 0); only the tensor
+// core's fp32 accumulation can differ from a sequential sum, by ulps.
 //
 // Bound at the main path's shape (B 24,576 blocks, S 2,731 patterns):
 // 2*B*S*64 = 8.6 GFLOP of bf16 products, 8.7 us at 989 TFLOP/s, against
-// 6.7 MB of traffic (2 us), so the limit is the tensor cores plus the argmin
-// that must look at each of the B*S errors once (3 instructions each).
-// The design keeps everything but that in registers:
-// - A CTA owns kSelRows = 64 rows (four 16-row m-tiles). Each of its
-//   kSelWarps warps loads the rows' distances once, rounds them to bf16
-//   (RNE, as .to(torch.bfloat16)) and keeps the A fragments of all four
-//   m-tiles and four k-steps (K = 64) in registers for the whole loop.
-// - The warps split the pattern axis (warp w takes n-tiles w, w + 4, ...).
-//   Each quad of threads reads one (16,) int32 pattern (16 bytes a thread)
-//   and packs it into a uint32 word (2 bits per pixel) by two shuffles; the
-//   B fragments (8 patterns x 16 k) are built in registers from the word:
-//   no one-hot matrix is read or stored anywhere, nothing is prepared
-//   before the launch, and one fragment feeds four m-tiles.
-// - After each n-tile each thread folds its accumulators into a running
-//   (value, index) per row it owns, strict '<' in increasing index order;
-//   padded columns (index >= S) are masked. At the end the 4 threads of a
-//   quad merge by shuffles and the warps through shared memory, each merge
-//   keeping the lower index on equal values: ties go to the lowest pattern
-//   index, as in the Pallas kernel. A row whose errors are all +inf/NaN
-//   returns pattern 0 and +inf.
+// 6.7 MB of traffic (2 us): the tensor cores, and beside them the argmin,
+// which must look at each of the B*S errors once. The design:
+// - A CTA of four warpgroups takes kSelRows = 192 rows: three consumer
+//   warpgroups of 64 rows and one producer (24,576 rows are 128 CTAs, one
+//   wave on 132 SMs). Each consumer loads its rows' distances once, rounds
+//   them to bf16 (RNE, as .to(torch.bfloat16)) and keeps them for the whole
+//   loop as wgmma's A operand in registers (16 a thread).
+// - B, the one-hot tile of kSelN patterns x 64, lies in shared memory in
+//   wgmma's K-major layout with the 128-byte swizzle: pattern n's 128-byte
+//   row at n * 128, its 16-byte chunk c (pixels 2c and 2c + 1) at chunk
+//   c ^ (n & 7). The producer warpgroup builds it from the (S, 16) int32
+//   patterns (four threads a pattern, 16 bytes each, loaded a tile ahead,
+//   two chunks each; bf16 NaN at every k for the padding past S) into a
+//   ring of kSelStages tiles guarded by mbarriers (full: the producer's 128
+//   threads; empty: the consumers' 12 warps), so the next tiles are built
+//   while tile j is multiplied. Each SM builds the one-hot once for its
+//   three consumers; no one-hot is read from or written to device memory
+//   and nothing is prepared before the launch.
+// - Each consumer issues tile j's four wgmmas, waits for them, releases the
+//   tile and folds the accumulators into a running (value, index) per row
+//   it owns, while the other consumers' products run on the tensor cores.
+//   The fold takes each row's least value over the thread's columns, two
+//   values an instruction where the warp's distances are all +0 or more
+//   (`sel_row_min`), then over the row's quad, and looks for its first
+//   column only where the warp has a row whose value beats the running
+//   one (strict '<', columns in increasing order): ties go to the lowest
+//   pattern index, as in the Pallas kernel. A padded column's error is NaN
+//   and never wins; a row whose errors are all +inf/NaN returns pattern 0
+//   and +inf.
+// Measured on the H100 (PERF.md): the products and barriers alone take
+// 1.5x the tensor bound at S 2,731 (1.1x at 16,128); the search for a row's
+// column is the largest step after them. Double-buffered accumulators
+// (64-pattern tiles), 192-pattern tiles and tiles built by all three
+// warpgroups were each slower.
 // One launch per call; the result is deterministic.
 // ---------------------------------------------------------------------------
-constexpr int kSelWarps = 4;
-constexpr int kSelMTiles = 4;
-constexpr int kSelRows = 16 * kSelMTiles;
+constexpr int kSelN = 128;                       // patterns a tile
+constexpr int kSelConsumers = 3;                 // warpgroups of 64 rows
+constexpr int kSelRows = 64 * kSelConsumers;
+constexpr int kSelThreads = 128 * (kSelConsumers + 1);
+constexpr int kSelStages = 4;
+constexpr int kSelTileBytes = kSelN * 128;       // 64 bf16 a pattern
+// the ring, and room to align it to 1,024 bytes (the swizzle's atom)
+constexpr int kSelSmem = kSelStages * kSelTileBytes + 1024;
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Two bf16 one-hot entries of one pixel: u = 0 -> (1, 0), u = 1 -> (0, 1),
-// u = 2, 3 -> (0, 0), where u is the 2-bit field of q at bit c (q holds the
-// pixel's selector already XORed with the pair's first selector). PTX clamps
-// shl.b32 amounts above 32 to 32, so 0x3F80 << 32 and << 48 give 0.
-__device__ __forceinline__ uint32_t onehot_pair(uint32_t q, int c) {
-  const uint32_t sh = ((q >> c) & 3u) << 4;
-  uint32_t r;
-  asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(0x3F80u), "r"(sh));
-  return r;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
 }
 
-__device__ __forceinline__ void take_if_less(float& bv, int& bi, float v,
-                                             int i, bool ok) {
-  if (ok && v < bv) {
-    bv = v;
-    bi = i;
+// The same, by lane 0 of the warp alone: a predicated arrive, no branch.
+__device__ __forceinline__ void mbar_arrive_lane0(uint32_t bar, int lane) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.eq.s32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"(lane)
+      : "memory");
+}
+
+// Waits until the barrier's phase of the given parity has completed, the
+// loop inside one asm block (no branch of the compiler's to diverge). A
+// phase error would hang the card; after 10 s (%globaltimer, ns) the kernel
+// traps instead, so the launch fails.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%globaltimer;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra LAB_DONE;\n"
+      "mov.u64 t1, %%globaltimer;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.lt.u64 p, t1, 10000000000;\n"
+      "@p bra LAB_WAIT;\n"
+      "trap;\n"
+      "LAB_DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t x,
+                                             uint32_t y, uint32_t z,
+                                             uint32_t w) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(x), "r"(y), "r"(z), "r"(w)
+               : "memory");
+}
+
+// The bf16 one-hot of pixel i's selector u (its low 2 bits) at k = 4i ..
+// 4i + 3, as the two words of k = 4i, 4i + 1 and 4i + 2, 4i + 3: 1.0
+// (0x3F80) shifted by 16u bits in 64.
+__device__ __forceinline__ uint2 onehot_pixel(uint32_t u) {
+  const uint64_t w = (uint64_t)0x3F80u << ((u & 3u) << 4);
+  return make_uint2((uint32_t)w, (uint32_t)(w >> 32));
+}
+
+// wgmma's shared-memory descriptor of a K-major bf16 tile with the 128-byte
+// swizzle: the start address >> 4 (bits 0-13), a leading byte offset that
+// this layout does not use (1), the stride byte offset 1,024 >> 4 between
+// groups of 8 patterns (bits 32-45), layout type 1, the 128-byte swizzle
+// (bits 62-63). A k-step of 16 bf16 starts 32 bytes further (+2).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of a wgmma operand's
+// registers across the asynchronous product (it sees the asm change them).
+template <int kLen>
+__device__ __forceinline__ void fence_regs(float (&d)[kLen]) {
+#pragma unroll
+  for (int i = 0; i < kLen; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// D (64 x N, fp32, registers) = A (64 x 16, bf16, registers) . B (16 x N,
+// bf16, shared memory, K-major) + (scale_d ? D : 0), for the warpgroup.
+// Accumulator register 4i + 2r + e of thread (warp w, g = lane / 4, t =
+// lane % 4) is row 16w + g + 8r, column 8i + 2t + e; A register r + 2c is
+// row 16w + g + 8r, columns 2t + 8c and + 1 (lower column, lower half).
+__device__ __forceinline__ void wgmma_tile(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// Issues tile j's four wgmmas into acc (one commit group), once the
+// producer has filled its stage.
+__device__ __forceinline__ void sel_issue(float (&acc)[kSelN / 2],
+                                          uint32_t (&a)[4][4], int j,
+                                          uint32_t ring, uint32_t full0) {
+  const int s = j % kSelStages;
+  mbar_wait(full0 + 8 * s, (uint32_t)(j / kSelStages) & 1u);
+  __syncwarp();
+  const uint64_t desc = sw128_desc(ring + s * kSelTileBytes);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) fence_regs(a[ks]);
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) wgmma_tile(acc, a[ks], desc + 2 * ks, ks);
+  wgmma_commit();
+}
+
+// Row r's least error over the thread's columns. Without a negative
+// distance in the warp's rows (sign bits clear), every error is +0 or more,
+// or NaN, and the order of such floats is that of their bits as unsigned
+// integers, NaN above +inf: Hopper's three-way integer minimum (DPX,
+// __vimin3_u32) takes two values an instruction (the kernel ran 10-12%
+// faster so than with fminf chains, PERF.md). Otherwise two fminf chains,
+// which skip NaN. Either way a padded (NaN) column never wins, and m is NaN
+// only where every column is.
+__device__ __forceinline__ float sel_row_min(const float (&acc)[kSelN / 2],
+                                             int r, bool nonneg) {
+  if (nonneg) {
+    uint32_t u[2] = {min(__float_as_uint(acc[2 * r]),
+                         __float_as_uint(acc[2 * r + 1])),
+                     min(__float_as_uint(acc[4 + 2 * r]),
+                         __float_as_uint(acc[4 + 2 * r + 1]))};
+#pragma unroll
+    for (int i = 2; i < kSelN / 8; ++i)
+      u[i & 1] = __vimin3_u32(u[i & 1], __float_as_uint(acc[4 * i + 2 * r]),
+                              __float_as_uint(acc[4 * i + 2 * r + 1]));
+    return __uint_as_float(min(u[0], u[1]));
   }
+  float m2[2] = {fminf(acc[2 * r], acc[2 * r + 1]),
+                 fminf(acc[4 + 2 * r], acc[4 + 2 * r + 1])};
+#pragma unroll
+  for (int i = 2; i < kSelN / 8; ++i)
+    m2[i & 1] = fminf(m2[i & 1], fminf(acc[4 * i + 2 * r],
+                                       acc[4 * i + 2 * r + 1]));
+  return fminf(m2[0], m2[1]);
 }
 
-__device__ __forceinline__ void take_if_better(float& bv, int& bi, float v,
-                                               int i) {
-  if (v < bv || (v == bv && i < bi)) {
-    bv = v;
-    bi = i;
-  }
-}
-
-__global__ void __launch_bounds__(kSelWarps * 32, 3)
-selbest_mma_kernel(const float* __restrict__ dists,
-                   const int32_t* __restrict__ patterns,
-                   int32_t* __restrict__ best_out,
-                   float* __restrict__ val_out, int n_blocks,
-                   int n_patterns) {
-  __shared__ float val_s[kSelWarps][kSelRows];
-  __shared__ int idx_s[kSelWarps][kSelRows];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;          // mma groupID: fragment row / B column
-  const int t = lane & 3;           // thread in group: fragment columns
-  const int row0 = blockIdx.x * kSelRows;
-
-  // A fragments, m16n8k16 row-major: register r + 2c of k-step ks holds
-  // row g + 8r, columns ks*16 + 2t + 8c and + 1 (lower column, lower half).
-  uint32_t a[kSelMTiles][4][4];
+// Folds tile j's errors (acc, after its products) into the running (value,
+// index) of the thread's two rows, which the 4 threads of its quad share:
+// the row's least value over the quad's columns (two shuffles), and where
+// it beats the running one (strict '<': ties keep the lower index), its
+// first column, the least over the quad of each thread's first column
+// 8i + 2t + e holding it. Tracking rows rather than each thread's columns
+// makes a warp search less often (PERF.md).
+__device__ __forceinline__ void sel_fold(const float (&acc)[kSelN / 2],
+                                         int base, int t, bool nonneg,
+                                         float (&bv)[2], int (&bi)[2]) {
 #pragma unroll
-  for (int mt = 0; mt < kSelMTiles; ++mt) {
+  for (int r = 0; r < 2; ++r) {
+    // the row's least value over the quad's columns
+    float m = sel_row_min(acc, r, nonneg);
+    m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const bool better = m < bv[r];
+    if (__any_sync(0xffffffffu, better)) {
+      // the warp searches together, each thread's result predicated
+      int c = 1 << 20;                     // past any column: no match
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + mt * 16 + g + 8 * r;
-      const bool valid = row < n_blocks;
-      const float2* src = reinterpret_cast<const float2*>(
-          dists + (size_t)(valid ? row : 0) * 64);
+      for (int i = kSelN / 8 - 1; i >= 0; --i)
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float2 v = valid ? __ldg(src + ks * 8 + t + 4 * c)
-                                 : make_float2(0.f, 0.f);
-          a[mt][ks][r + 2 * c] = pack_bf16x2(v.x, v.y);
-        }
-      }
+        for (int e = 1; e >= 0; --e)
+          c = acc[4 * i + 2 * r + e] == m ? 8 * i + e : c;
+      c += 2 * t;
+      c = min(c, __shfl_xor_sync(0xffffffffu, c, 1));
+      c = min(c, __shfl_xor_sync(0xffffffffu, c, 2));
+      bv[r] = better ? m : bv[r];
+      bi[r] = better ? base + c : bi[r];
     }
   }
+}
 
-  // B fragments, "col" layout: register h of k-step ks holds column g
-  // (pattern 8j + g), k = ks*16 + 2t + 8h and + 1, i.e. pixel
-  // ks*4 + (t >> 1) + 2h with selectors 2(t & 1) and 2(t & 1) + 1.
-  const int pix_shift = 2 * (t >> 1);
-  const uint32_t flip = (t & 1) ? 0xAAAAAAAAu : 0u;
+__global__ void __launch_bounds__(kSelThreads, 1)
+selbest_wgmma_kernel(const float* __restrict__ dists,
+                     const int32_t* __restrict__ patterns,
+                     int32_t* __restrict__ best_out,
+                     float* __restrict__ val_out, int n_blocks,
+                     int n_patterns) {
+  extern __shared__ uint8_t sel_smem[];
+  __shared__ uint64_t full_bar[kSelStages], empty_bar[kSelStages];
 
-  float bv[kSelMTiles][2];
-  int bi[kSelMTiles][2];
-#pragma unroll
-  for (int mt = 0; mt < kSelMTiles; ++mt) {
-    bv[mt][0] = bv[mt][1] = __int_as_float(0x7f800000);  // +inf
-    bi[mt][0] = bi[mt][1] = 0x7fffffff;
-  }
-
-  const int n_tiles = (n_patterns + 7) >> 3;
-  for (int j = warp; j < n_tiles; j += kSelWarps) {
-    // pattern 8j + g (all selectors 0 past the last): thread t of the quad
-    // packs pixels 4t..4t+3 into bits 8t..8t+7 of the word
-    const int n = j * 8 + g;
-    const int4 s = n < n_patterns
-        ? __ldg(reinterpret_cast<const int4*>(patterns + (size_t)n * 16) + t)
-        : make_int4(0, 0, 0, 0);
-    uint32_t w = (uint32_t)((s.x & 3) | ((s.y & 3) << 2) | ((s.z & 3) << 4) |
-                            ((s.w & 3) << 6)) << (8 * t);
-    w |= __shfl_xor_sync(0xffffffffu, w, 1);
-    w |= __shfl_xor_sync(0xffffffffu, w, 2);
-    const uint32_t q = (w >> pix_shift) ^ flip;
-    uint32_t b[4][2];
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      b[ks][0] = onehot_pair(q, 8 * ks);
-      b[ks][1] = onehot_pair(q, 8 * ks + 4);
+  const uint32_t ring = (smem_u32(sel_smem) + 1023u) & ~1023u;
+  const int wg = threadIdx.x >> 7;
+  const int n_tiles = (n_patterns + kSelN - 1) / kSelN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSelStages; ++s) {
+      mbar_init(smem_u32(&full_bar[s]), 128);
+      mbar_init(smem_u32(&empty_bar[s]), 4 * kSelConsumers);
     }
-    // C fragment: d[0], d[1] are row g, columns 2t, 2t + 1; d[2], d[3]
-    // the same columns of row g + 8
-    const int c0 = j * 8 + 2 * t;
-    const bool ok0 = c0 < n_patterns, ok1 = c0 + 1 < n_patterns;
-#pragma unroll
-    for (int mt = 0; mt < kSelMTiles; ++mt) {
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        mma_bf16_16816(d, a[mt][ks], b[ks][0], b[ks][1]);
-      take_if_less(bv[mt][0], bi[mt][0], d[0], c0, ok0);
-      take_if_less(bv[mt][0], bi[mt][0], d[1], c0 + 1, ok1);
-      take_if_less(bv[mt][1], bi[mt][1], d[2], c0, ok0);
-      take_if_less(bv[mt][1], bi[mt][1], d[3], c0 + 1, ok1);
-    }
-  }
-
-  // the quad's 4 threads hold interleaved columns of the same rows
-#pragma unroll
-  for (int mt = 0; mt < kSelMTiles; ++mt) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv[mt][r], off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi[mt][r], off);
-        take_if_better(bv[mt][r], bi[mt][r], ov, oi);
-      }
-      if (t == 0) {
-        val_s[warp][mt * 16 + g + 8 * r] = bv[mt][r];
-        idx_s[warp][mt * 16 + g + 8 * r] = bi[mt][r];
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x < kSelRows) {
-    const int rr = threadIdx.x;
-    float v = val_s[0][rr];
-    int ix = idx_s[0][rr];
+
+  if (wg == kSelConsumers) {
+    // -- producer: tile j of the one-hot into stage j % kSelStages, once
+    //    the consumers have released that stage's previous tile. Thread p
+    //    takes the quarter q = p & 3 (pixels 4q .. 4q + 3, 16 bytes) of
+    //    patterns (p >> 2) + 32h of each tile, loaded into registers a tile
+    //    ahead, and stores their two chunks.
+    const int p = threadIdx.x & 127;
+    const int q = p & 3;
+    constexpr int kPer = kSelN / 32;   // patterns a thread, per tile
+    uint4 next[kPer];
+    auto load = [&](int j) {
 #pragma unroll
-    for (int k = 1; k < kSelWarps; ++k)
-      take_if_better(v, ix, val_s[k][rr], idx_s[k][rr]);
-    const int row = row0 + rr;
-    if (row < n_blocks) {
-      // no pattern had a finite error (all +inf/NaN): pattern 0, as an
-      // argmin over such a row would
-      best_out[row] = ix == 0x7fffffff ? 0 : ix;
-      val_out[row] = v;
+      for (int h = 0; h < kPer; ++h) {
+        const int n = j * kSelN + (p >> 2) + 32 * h;
+        next[h] = j < n_tiles && n < n_patterns
+            ? __ldg(reinterpret_cast<const uint4*>(patterns + (size_t)n * 16) + q)
+            : make_uint4(0, 0, 0, 0);
+      }
+    };
+    load(0);
+    for (int j = 0; j < n_tiles; ++j) {
+      uint4 v[kPer];
+#pragma unroll
+      for (int h = 0; h < kPer; ++h) v[h] = next[h];
+      load(j + 1);
+      const int s = j % kSelStages;
+      mbar_wait(smem_u32(&empty_bar[s]), ((uint32_t)(j / kSelStages) & 1u) ^ 1u);
+      const uint32_t tile = ring + s * kSelTileBytes;
+#pragma unroll
+      for (int h = 0; h < kPer; ++h) {
+        const int r = (p >> 2) + 32 * h;
+        uint2 a0 = onehot_pixel(v[h].x), a1 = onehot_pixel(v[h].y);
+        uint2 a2 = onehot_pixel(v[h].z), a3 = onehot_pixel(v[h].w);
+        if (j * kSelN + r >= n_patterns) {
+          // past S: bf16 NaN at every k, so the column's error is NaN,
+          // which no fold takes
+          a0 = a1 = a2 = a3 = make_uint2(0x7FC07FC0u, 0x7FC07FC0u);
+        }
+        const uint32_t row = tile + r * 128;
+        const int sw = r & 7;
+        st_shared_v4(row + (((2 * q) ^ sw) << 4), a0.x, a0.y, a1.x, a1.y);
+        st_shared_v4(row + (((2 * q + 1) ^ sw) << 4), a2.x, a2.y, a3.x,
+                     a3.y);
+      }
+      // the stores are read by the tensor cores (the async proxy)
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive(smem_u32(&full_bar[s]));
+    }
+    return;
+  }
+
+  // -- consumers: 64 rows each, all of S
+  const int lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = blockIdx.x * kSelRows + wg * 64 + warp * 16;
+
+  // A, k-step ks: register r + 2c holds row g + 8r, columns ks*16 + 2t + 8c
+  // and + 1
+  uint32_t a[4][4];
+  uint32_t sign = 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    const bool valid = row < n_blocks;
+    const float2* src = reinterpret_cast<const float2*>(
+        dists + (size_t)(valid ? row : 0) * 64);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float2 v = valid ? __ldg(src + ks * 8 + t + 4 * c)
+                               : make_float2(0.f, 0.f);
+        sign |= __float_as_uint(v.x) | __float_as_uint(v.y);
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+        a[ks][r + 2 * c] = *reinterpret_cast<const uint32_t*>(&h);
+      }
     }
   }
+  // no distance of the warp's rows has its sign bit set (a row's 64 are
+  // spread over its quad): see sel_row_min
+  const bool nonneg = !__any_sync(0xffffffffu, sign >> 31);
+
+  const float inf = __int_as_float(0x7f800000);
+  float bv[2] = {inf, inf};
+  int bi[2] = {0x7fffffff, 0x7fffffff};
+  float acc[kSelN / 2];
+#pragma unroll
+  for (int i = 0; i < kSelN / 2; ++i) acc[i] = 0.f;
+  const uint32_t full0 = smem_u32(full_bar), empty0 = smem_u32(empty_bar);
+  for (int j = 0; j < n_tiles; ++j) {
+    sel_issue(acc, a, j, ring, full0);
+    wgmma_wait_all();
+    fence_regs(acc);
+    // the tile's products are done: the producer may refill the stage
+    mbar_arrive_lane0(empty0 + 8 * (j % kSelStages), lane);
+    sel_fold(acc, j * kSelN, t, nonneg, bv, bi);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (t == 0 && row < n_blocks) {
+      // no pattern had a finite error (all +inf/NaN): pattern 0, as an
+      // argmin over such a row would
+      best_out[row] = bi[r] == 0x7fffffff ? 0 : bi[r];
+      val_out[row] = bv[r];
+    }
+  }
+}
+
+inline cudaError_t selbest_attrs() {
+  static std::mutex mu;
+  static std::map<int, bool> done;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count(dev)) return cudaSuccess;
+  e = cudaFuncSetAttribute(selbest_wgmma_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSelSmem);
+  if (e != cudaSuccess) return e;
+  done[dev] = true;
+  return cudaSuccess;
 }
 
 // How many leading rows of an (m, 3) product with P^T XLA-CPU computes in
@@ -2191,8 +2411,10 @@ int etc1s_find_best_selector_patterns(const float* dists,
                                       float* best_err, int n_blocks,
                                       int n_patterns, void* stream) {
   if (n_blocks <= 0) return (int)cudaSuccess;
+  const cudaError_t e = selbest_attrs();
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((n_blocks + kSelRows - 1) / kSelRows);
-  selbest_mma_kernel<<<grid, kSelWarps * 32, 0, (cudaStream_t)stream>>>(
+  selbest_wgmma_kernel<<<grid, kSelThreads, kSelSmem, (cudaStream_t)stream>>>(
       dists, patterns, best, best_err, n_blocks, n_patterns);
   return (int)cudaGetLastError();
 }

@@ -752,40 +752,6 @@ def xla_cpu_min_k_reference(d, k: int, mode: str = "pruned",
 # find_best_selector_patterns
 # ---------------------------------------------------------------------------
 
-def pack_patterns(patterns):
-    """(S, 16) selector patterns -> (S,) int32 words of 16 x 2 bits
-    (pixel i in bits 2i..2i+1): the word each quad of the selector kernel's
-    threads packs from one pattern before it builds its B fragments."""
-    shifts = torch.arange(16, device=patterns.device, dtype=torch.int64) * 2
-    words = ((patterns.to(torch.int64) & 3) << shifts).sum(1)
-    return (words - ((words >> 31) << 32)).to(torch.int32)
-
-
-def selector_b_fragments(words, num_patterns: int):
-    """The bf16 one-hot B fragments the selector kernel builds in registers,
-    (n_tiles, 32 lanes, 4 k-steps, 2 registers) int64 holding the 32-bit
-    registers, made here from the packed words (`pack_patterns`) by the
-    kernel's own bit arithmetic (`onehot_pair` in csrc/etc1s_kernels.cu) so
-    the CPU tests can hold them against the plain version's one-hot.
-
-    Lane (g, t) = (lane >> 2, lane & 3) of n-tile j reads word 8j + g (0
-    past num_patterns); register h of k-step ks holds k = 16 ks + 2t + 8h
-    and + 1 (lower k in the lower half) of pattern 8j + g."""
-    n_tiles = -(-num_patterns // 8)
-    dev = words.device
-    w = torch.zeros(n_tiles * 8, dtype=torch.int64, device=dev)
-    w[:num_patterns] = words[:num_patterns].to(torch.int64) & 0xFFFFFFFF
-    lane = torch.arange(32, device=dev)
-    g, t = lane >> 2, lane & 3
-    w = w.reshape(n_tiles, 8)[:, g]                              # (J,32)
-    q = (w >> (2 * (t >> 1))) ^ torch.where(t & 1 == 1, 0xAAAAAAAA, 0)
-    c = (8 * torch.arange(4, device=dev)[:, None]
-         + 4 * torch.arange(2, device=dev)[None, :])             # (4,2)
-    sh = ((q[:, :, None, None] >> c) & 3) << 4
-    # shl.b32 clamps shift amounts above 32 to 32: 0x3F80 << 32 is 0
-    return torch.where(sh < 32, (0x3F80 << sh) & 0xFFFFFFFF, 0)
-
-
 def find_best_selector_patterns(dists, patterns, num_patterns: int):
     """Per block, the selector pattern of least error: (best (B,) int32,
     min_err (B,) float32), with err[b, s] = sum_i bf16(d[b, i, pat_s[i]])
@@ -795,17 +761,20 @@ def find_best_selector_patterns(dists, patterns, num_patterns: int):
     dists: (B, 16, 4) float32; patterns: (S, 16) integer, S = num_patterns.
 
     The error matrix is a one-hot product, D_bf16 (B, 64) . Onehot (S, 64)^T,
-    as on the TPU's matrix unit; the kernel runs it on Hopper's tensor cores
-    (mma.sync m16n8k16, bf16 in, fp32 accumulate) fused with a running
-    argmin, so the (B, S) matrix (~270 MB at 24,576 blocks x 2,731
-    patterns) is never materialised. Its bound there is the 8.6 GFLOP of
-    bf16 products (~9 us). The distances' A fragments stay in registers;
-    the one-hot B fragments are built in registers from the int32 patterns,
-    packed 2 bits per pixel on the way (`pack_patterns`,
-    `selector_b_fragments`), so nothing is prepared before the launch. The
-    tensor core may round the fp32 sum of the 16 exact products differently
-    from a sequential sum, by ulps, so an index may differ from the plain
-    version where two patterns' errors are that close.
+    as on the TPU's matrix unit; the kernel (`selbest_wgmma_kernel`) runs
+    it on Hopper's warpgroup tensor-core instruction (wgmma m64n128k16, bf16
+    in, fp32 accumulate, the four 16-deep k-steps chained in pixel order)
+    fused with a running argmin, so the (B, S) matrix (~270 MB at 24,576
+    blocks x 2,731 patterns) is never materialised. Its bound there is the
+    8.6 GFLOP of bf16 products (~9 us). A CTA takes 192 rows: three
+    warpgroups keep their 64 rows' bf16 distances in registers as the A
+    operand, and a fourth builds the one-hot of 128 patterns at a time in
+    shared memory (wgmma's K-major layout, 128-byte swizzle) straight from
+    the int32 patterns, into a ring of 4 tiles, so nothing is prepared
+    before the launch. The tensor core may round the fp32 sum of the 16
+    exact products of a k-step differently from a sequential sum, by ulps,
+    so an index may differ from the plain version where two patterns'
+    errors are that close.
     """
     _check(dists, "dists", torch.float32, (None, 16, 4))
     if patterns.dtype not in (torch.int32, torch.int64):

@@ -5,6 +5,7 @@ re-encodes and its image metrics once on one GPU.
 
     python3 chip_smoke.py [--profile OUT_DIR] [--ab OTHER_TREE]
     python3 chip_smoke.py --fit-ab TREE [TREE ...]
+    python3 chip_smoke.py --sel-ab TREE [TREE ...]
     python3 chip_smoke.py --wall-ab TREE PAIRS
 
 Phases (any failure raises, so the process exits nonzero with no final line):
@@ -20,7 +21,9 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    fused scan + shortlist at radius 0/1/2, which must equal the plain
    errors' shortlist bit for bit in RGB; the rescore at
    K 16 and 8; `palette_errs`, which no path calls, at K 16; the selector
-   search at S 2,731 and at 16,128, the most selector clusters; the
+   search (`selbest_wgmma_kernel`, wgmma; ptxas' registers, spills and
+   shared memory printed) at S 2,731 and at 16,128, the most selector
+   clusters; the
    k-means argmin, the refine's distances and their shortlist in XLA-CPU's
    tie order (`xla_cpu_min_k`, held to `std::sort` on the host on every
    row; its time split by its steps, `min_k_split`) at 24,576 x 2,416; the
@@ -29,7 +32,8 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    rounds' time in all and by round beside the bound of their chain of
    adds, and `bisecting_init` alone: 13 launches, no sort or segment
    reduction in its rounds, `bisect_phase`); the generic XLA-order
-   kernels `xla_fma` and `xla_reduce` at a UASTC line fit's shapes; the
+   kernels `xla_fma` and `xla_reduce` at every shape one ETC1S encode of
+   image 0 launches them (`etc1s_xla_phase`) and at a UASTC line fit's; the
    UASTC search's line fits, `uastc_line_fit` and `uastc_mode_trial`, at
    every shape the effort-2 and effort-3 searches give them, bit for bit;
    its multi-subset and dual-plane trials, `uastc_subset_trial` and
@@ -92,7 +96,8 @@ Phases (any failure raises, so the process exits nonzero with no final line):
 14. with `--ab OTHER_TREE` only: build the kernels of another checkout of
    the repo (e.g. the parent commit unpacked under `_compare/`), check that
    its scan, rescore, `xla_fma`, `xla_reduce`, k-means argmin, bisecting
-   init, refine shortlist and UASTC trials (every shape of `uastc_trials`
+   init, refine shortlist, selector search (S 2,731 and 16,128, image 0's
+   distances and drawn ones) and UASTC trials (every shape of `uastc_trials`
    at 24,576 and 1,001 blocks, `trials_ab`) give the same bits as this
    tree's at the shapes of phase 3, and time both in turns (other, this,
    this, other);
@@ -123,7 +128,11 @@ The last two lines are the kernels' JSON record and the result line.
 `--fit-ab TREE [TREE ...]` runs only phase 1, then times the UASTC line
 fits of phase 3 (each shape held to its plain version) with this
 checkout's package and with each other tree's, in turns, and prints no
-result line. `--wall-ab TREE PAIRS` runs only phase 1, then times
+result line. `--sel-ab TREE [TREE ...]` runs only phase 1, then times
+the selector search of this checkout and of each other tree on phase 3's
+inputs and on the ETC1S path's first call, in turns, with each tree's
+outputs against this one's, and prints no result line (`phase_sel_ab`).
+`--wall-ab TREE PAIRS` runs only phase 1, then times
 `compress_batch` of 16 images, ETC1S and UASTC, with this checkout's
 package and the other tree's, PAIRS pairs in alternating order, each run
 in a process of its own (`phase_wall_ab`), and prints no result line.
@@ -391,6 +400,113 @@ def _cross6_bound(n, c, matrix):
     return _bound(n_bytes, float(n * c * _cross6_ops(c)))
 
 
+def _selector_resources():
+    """ptxas' registers, spills and static shared memory of the selector
+    kernel, and its dynamic shared memory (the ring of one-hot tiles, from
+    the source's constants)."""
+    import re
+
+    from basis_universal_tpu_torch.ops import _build
+
+    use = [u for k, u in _ptxas_summary(_build.ptxas_report(
+        _build.library_path())) if "selbest_wgmma_kernel" in k]
+    src = (_build._PKG / "csrc" / "etc1s_kernels.cu").read_text()
+    n, stages = (int(re.search(rf"constexpr int {c} = (\d+);", src).group(1))
+                 for c in ("kSelN", "kSelStages"))
+    return (f"{use[0] if use else 'not in the report'}; dynamic shared "
+            f"memory {stages * n * 128 + 1024} bytes ({stages} tiles of "
+            f"{n} patterns x 128 B, 1 KB for alignment)")
+
+
+def etc1s_xla_phase(torch, img0, measure):
+    """`xla_fma` and `xla_reduce` at the shapes the ETC1S path launches
+    them (q128, effort 1, one 768x512 image): every top-level launch of one
+    encode of image 0, recorded with its operands (`EXPECTED_ETC1S_XLA`
+    of them), then each distinct call held to its plain version, every
+    value, and timed beside its bound and one PyTorch call (`addcmul`;
+    `sum` or `linalg.vecdot`)."""
+    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.ops import xla_order as xo
+
+    calls, depth = [], [0]
+    real = {"xla_fma": xo._fma_card, "xla_reduce": xo._reduce_card}
+
+    def recorded(name):
+        def run(*args):
+            depth[0] += 1
+            try:
+                out = real[name](*args)
+            finally:
+                depth[0] -= 1
+            if depth[0] == 0:           # not the call's own retyped re-entry
+                calls.append((name, args))
+            return out
+        return run
+
+    xo._fma_card, xo._reduce_card = (recorded("xla_fma"),
+                                     recorded("xla_reduce"))
+    try:
+        compressor.compress(img0, compressor.CompressorParams(
+            quality_level=QUALITY, effort=EFFORT, device="cuda"))
+        torch.cuda.synchronize()
+    finally:
+        xo._fma_card, xo._reduce_card = real["xla_fma"], real["xla_reduce"]
+    got = {k: sum(n == k for n, _ in calls) for k in EXPECTED_ETC1S_XLA}
+    if got != EXPECTED_ETC1S_XLA:
+        raise AssertionError(f"ETC1S image 0 launched {got} XLA-order "
+                             f"kernels, expected {EXPECTED_ETC1S_XLA}")
+
+    def shape(x):
+        if isinstance(x, torch.Tensor):
+            return "x".join(map(str, x.shape)) or "0-d"
+        return "scalar" if isinstance(x, float) else x
+
+    distinct = {}
+    for name, args in calls:
+        key = (name, tuple(shape(x) for x in args))
+        distinct.setdefault(key, [args, 0])[1] += 1
+    dev = torch.device("cuda")
+    for (name, sig), (args, count) in distinct.items():
+        if name == "xla_fma":
+            a, b, c = args
+            label = f"ETC1S {sig[0]} * {sig[1]} + {sig[2]}"
+            ts = [x if isinstance(x, torch.Tensor) else
+                  torch.tensor(float(x), device=dev) for x in args]
+            run = lambda a=a, b=b, c=c: real["xla_fma"](a, b, c)
+            plain = lambda a=a, b=b, c=c: xo.fma_reference(a, b, c)
+            library = lambda ts=ts: torch.addcmul(ts[2], ts[0], ts[1])
+            out = run()
+            n_bytes = sum(x.numel() * 4 for x in args
+                          if isinstance(x, torch.Tensor)) + out.numel() * 4
+            ops = float(out.numel())
+        else:
+            a, b, dim, order = args
+            label = (f"ETC1S {order} over dim {dim} of {sig[0]}"
+                     + ("" if b is None else f" and {sig[1]}"))
+            run = lambda a=a, b=b, dim=dim, order=order: real["xla_reduce"](
+                a, b, dim, order)
+            plain = lambda a=a, b=b, dim=dim, order=order: \
+                xo.reduce_reference(a, b, dim, order)
+            library = (lambda a=a, dim=dim: torch.sum(a, dim)) if b is None \
+                else (lambda a=a, b=b, dim=dim: torch.linalg.vecdot(a, b,
+                                                                   dim=dim))
+            out = run()
+            n_bytes = a.numel() * 4 + (0 if b is None else b.numel() * 4) \
+                + out.numel() * 4
+            ops = float(out.numel() * torch.broadcast_shapes(
+                a.shape, a.shape if b is None else b.shape)[dim])
+        want = plain()
+        torch.cuda.synchronize()
+        n_diff = int((out != want).sum())
+        if n_diff:
+            raise AssertionError(f"{name} {label}: {n_diff} of {out.numel()} "
+                                 "values differ from the plain version")
+        print(f"{name} {label}: {count} of the ETC1S image's launches, every "
+              f"one of {out.numel()} values the plain version's")
+        measure(name, f"{label} (x{count} an image)", run, plain, 0.0,
+                _bound(n_bytes, ops), library=library)
+
+
 def _time_ms(fn, torch, reps=20, warmup=3):
     """Median milliseconds of fn() on the card, by CUDA events."""
     for _ in range(warmup):
@@ -420,7 +536,7 @@ def _host_us(torch, fn, n=100):
     return 1e6 * t / n
 
 
-def _device_ms(torch, fn, n=20, tries=3):
+def _device_ms(torch, fn, n=20, tries=6):
     """Device milliseconds per call of fn: the time of every kernel that n
     calls launch (after a warm-up call), by torch.profiler, over n. Every
     caller's fn launches kernels, so a profile with no device time (the
@@ -678,7 +794,7 @@ def bisect_phase(torch, ck, ops, vec6, measure):
           f"{_device_ms(torch, leaves_only):.4f} ms)")
 
 
-def phase_kernels(torch, blocks):
+def phase_kernels(torch, blocks, img0):
     """Each kernel against its plain version at the paths' shapes. Returns
     per kernel the max abs error, the times of its first shape (the ETC1S
     main path's, or K 16 for `palette_errs`) and every shape's row."""
@@ -870,6 +986,7 @@ def phase_kernels(torch, blocks):
                 _selector_bound(b_n, n_pat),
                 library=lambda: torch.min(d_bf @ onehot_t, dim=-1))
         del best_p, val_p
+    print(f"ptxas selbest_wgmma_kernel: {_selector_resources()}")
 
     # -- cross6_argmin / cross6_distances at the main path's shapes: the
     #    24,576 blocks' 6-D endpoint vectors against 2,416 centroids drawn
@@ -954,6 +1071,11 @@ def phase_kernels(torch, blocks):
     #    bit (rows, offsets, leaves); the rounds' time in all and by round;
     #    `bisecting_init` alone (launches and the profiler's operators)
     bisect_phase(torch, ck, ops, vec6, measure)
+
+    # -- the XLA-order kernels at the ETC1S path's own shapes (each distinct
+    #    call of one encode of image 0; the first is these kernels' row in
+    #    the kernels line), then at a UASTC line fit's
+    etc1s_xla_phase(torch, img0, measure)
 
     # -- the XLA-order kernels at a UASTC line fit's shapes (24,576 blocks x
     #    16 pixels x 3 channels): a fused multiply-add with a broadcast and a
@@ -1986,20 +2108,28 @@ def phase_metrics(torch, a, b):
                                  f" {want} on the CPU")
 
 
-def _other_port(tree):
-    """The port package of another checkout of the repo, imported as
-    `_other_port` (its kernels build into that checkout's own build/)."""
-    import importlib
+def _port_package(tree, name):
+    """The port package of another checkout of the repo (or of a copy of
+    the package), imported as `name` (its kernels build into that tree's
+    own build/)."""
     import importlib.util
     import pathlib
 
     pkg = pathlib.Path(tree).resolve() / "basis_universal_tpu_torch"
     spec = importlib.util.spec_from_file_location(
-        "_other_port", pkg / "__init__.py",
-        submodule_search_locations=[str(pkg)])
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
     mod = importlib.util.module_from_spec(spec)
-    sys.modules["_other_port"] = mod
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
+    return mod
+
+
+def _other_port(tree):
+    """The port package of another checkout of the repo, imported as
+    `_other_port`: its kernel wrappers, build, XLA-order and ETC1S ops."""
+    import importlib
+
+    _port_package(tree, "_other_port")
     return (importlib.import_module("_other_port.ops.cuda_etc1s"),
             importlib.import_module("_other_port.ops._build"),
             importlib.import_module("_other_port.ops.xla_order"),
@@ -2077,11 +2207,12 @@ def segment_split(torch, pkg, images):
 
 def phase_ab(torch, blocks, tree, images):
     """`--ab TREE`: this tree's scan, rescore, generic XLA-order kernels,
-    k-means argmin, bisecting init, refine shortlist and UASTC trials
-    against another checkout's at the shapes of phase 3: whether they give
-    the same bits (the fused scan's shortlists, the rescore's errors, the
-    argmin's indices, the init's seeds, the refine's columns, every output
-    of the trials at 24,576 and 1,001 blocks, `trials_ab`), and their call
+    k-means argmin, bisecting init, refine shortlist, selector search and
+    UASTC trials against another checkout's at the shapes of phase 3:
+    whether they give the same bits (the fused scan's shortlists, the
+    rescore's errors, the argmin's indices, the init's seeds, the refine's
+    columns, the selector's indices and errors, every output of the trials
+    at 24,576 and 1,001 blocks, `trials_ab`), and their call
     times (CUDA events) and device times (torch.profiler) in turns: other,
     this, this, other; then the ETC1S path of each (`segment_split`, the
     images of phase 4) in the same turns."""
@@ -2173,6 +2304,40 @@ def phase_ab(torch, blocks, tree, images):
               f"{dt[3]:.4f}")
         if n_diff:
             raise AssertionError(f"ab {label}: the two trees differ")
+
+    # the selector search of both trees at S 2,731 and 16,128, on image 0's
+    # distances (to its encode_blocks palettes, as phase 3) and on drawn
+    # ones: every index and every value equal
+    tabs = torch.as_tensor(ck.ETC1_INTEN_TABLES, dtype=torch.float32,
+                           device=dev)
+    pal = torch.clamp(ops.expand5(enc["color5"]).float()[:, None, :]
+                      + tabs[enc["inten"].long()][:, :, None], 0.0, 255.0)
+    drawn = torch.as_tensor(rng.uniform(0.0, 5000.0, (b_n, 16, 4)),
+                            dtype=torch.float32, device=dev)
+    for label, d in (("image 0", ops.block_selector_distances(
+            px, pal).contiguous()), ("drawn", drawn)):
+        for n_pat in SEL_S:
+            pats = torch.as_tensor(rng.integers(0, 4, (n_pat, 16)),
+                                   dtype=torch.int32, device=dev)
+
+            def sel(m, d=d, pats=pats, n_pat=n_pat):
+                return m.find_best_selector_patterns(d, pats, n_pat)
+
+            mine, theirs = sel(ck), sel(other)
+            torch.cuda.synchronize()
+            n_diff = (int((mine[0] != theirs[0]).sum())
+                      + int((mine[1] != theirs[1]).sum()))
+            runs = [lambda m=m: sel(m) for m in (other, ck, ck, other)]
+            t = [_time_ms(r, torch) for r in runs]
+            dt = [_device_ms(torch, r) for r in runs]
+            print(f"ab find_best_selector_patterns {label} S{n_pat}: same bits "
+                  f"{n_diff == 0} ({n_diff} of {2 * b_n} outputs differ); call "
+                  f"ms other {t[0]:.4f}, this {t[1]:.4f}, this {t[2]:.4f}, "
+                  f"other {t[3]:.4f}; device ms other {dt[0]:.4f}, this "
+                  f"{dt[1]:.4f}, this {dt[2]:.4f}, other {dt[3]:.4f}")
+            if n_diff:
+                raise AssertionError(f"ab find_best_selector_patterns {label} "
+                                     f"S{n_pat}: the two trees differ")
 
     def refine(mod):
         return mod.xla_cpu_min_k(mod.cross6_distances(vec6, cents, *rq), 16)
@@ -2475,6 +2640,104 @@ def phase_fit_ab(trees, timeout=900):
         if proc.returncode != 0:
             raise RuntimeError(f"line-fit timings of {root} failed:\n"
                                f"{proc.stderr[-4000:]}")
+
+
+def phase_sel_ab(trees):
+    """`--sel-ab TREE [TREE ...]`: the selector search of this checkout and
+    of each other tree (e.g. a copy of the package under `_compare/` whose
+    kernel was changed), at S 2,731 and 16,128 on image 0's distances (to
+    its encode_blocks palettes, as phase 3) and on drawn ones, and on the
+    ETC1S path's first call of image 0: whether each tree gives this
+    tree's indices and errors, ptxas' resources, and device ms in turns
+    (this, the trees, the trees again in reverse, this). A tree changed
+    for a measurement may be wrong on purpose: differences are printed,
+    not raised. No result line."""
+    import importlib
+    import threading
+
+    import torch
+
+    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.ops import cuda_etc1s as ck
+    from basis_universal_tpu_torch.ops import etc1s_encode as ops
+    from basis_universal_tpu_torch.ops import _build
+    from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+
+    mods, builds = {"this": ck}, {"this": _build}
+    for i, tree in enumerate(trees):
+        _port_package(tree, f"_sel_port{i}")
+        mods[tree] = importlib.import_module(f"_sel_port{i}.ops.cuda_etc1s")
+        builds[tree] = importlib.import_module(f"_sel_port{i}.ops._build")
+    failed = {}
+
+    def build(label):
+        try:
+            builds[label].build_all(("etc1s_kernels",))
+        except Exception as e:    # noqa: BLE001 (reported below)
+            failed[label] = e
+
+    threads = [threading.Thread(target=build, args=(k,)) for k in builds]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if failed:
+        raise RuntimeError(f"sel-ab: builds failed: {failed}")
+    for label, b in builds.items():
+        use = [u for k, u in _ptxas_summary(b.ptxas_report(
+            b.library_path())) if "selbest" in k]
+        print(f"sel-ab {label} ptxas: {use}")
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1234)
+    img = synthetic_texture(HEIGHT, WIDTH, seed=0)[0]
+    px = torch.as_tensor(compressor._prepare_slices(
+        [img], compressor.CompressorParams())[0]["blocks"],
+        dtype=torch.float32, device=dev).contiguous()
+    b_n = px.shape[0]
+    enc = ops.encode_blocks(px, radius=1)
+    tabs = torch.as_tensor(ck.ETC1_INTEN_TABLES, dtype=torch.float32,
+                           device=dev)
+    pal = torch.clamp(ops.expand5(enc["color5"]).float()[:, None, :]
+                      + tabs[enc["inten"].long()][:, :, None], 0.0, 255.0)
+    cases = []
+    for label, d in (("image 0", ops.block_selector_distances(
+            px, pal).contiguous()), ("drawn", torch.as_tensor(
+                rng.uniform(0.0, 5000.0, (b_n, 16, 4)), dtype=torch.float32,
+                device=dev))):
+        for n_pat in SEL_S:
+            cases.append((f"{label} S{n_pat}", d, torch.as_tensor(
+                rng.integers(0, 4, (n_pat, 16)), dtype=torch.int32,
+                device=dev), n_pat))
+    calls, real = [], ops.find_best_selector_patterns
+
+    def recorded(d, p, n):
+        calls.append((d.clone(), p.clone(), n))
+        return real(d, p, n)
+
+    ops.find_best_selector_patterns = recorded
+    try:
+        compressor.compress(img, compressor.CompressorParams(
+            quality_level=QUALITY, effort=EFFORT, device="cuda"))
+    finally:
+        ops.find_best_selector_patterns = real
+    d, p, n = calls[0]
+    cases.append((f"ETC1S image 0 first call S{n}", d, p, n))
+    order = list(mods) + list(mods)[::-1]
+    for label, d, p, n in cases:
+        want = ck.find_best_selector_patterns(d, p, n)
+        same = []
+        for tree, m in mods.items():
+            got = m.find_best_selector_patterns(d, p, n)
+            torch.cuda.synchronize()
+            n_diff = (int((got[0] != want[0]).sum())
+                      + int((got[1] != want[1]).sum()))
+            same.append(f"{tree} {n_diff}")
+        dt = [_device_ms(torch, lambda m=mods[k]: m.find_best_selector_patterns(
+            d, p, n)) for k in order]
+        print(f"sel-ab {label}: outputs differing from this tree's: "
+              f"{', '.join(same)}; device ms "
+              + ", ".join(f"{k} {t:.4f}" for k, t in zip(order, dt)))
 
 
 def wall_times(torch, n_images=16, reps=3):
@@ -2875,6 +3138,9 @@ def main():
     if "--fit-ab" in sys.argv:
         phase_fit_ab(sys.argv[sys.argv.index("--fit-ab") + 1:])
         return
+    if "--sel-ab" in sys.argv:
+        phase_sel_ab(sys.argv[sys.argv.index("--sel-ab") + 1:])
+        return
     if "--wall-ab" in sys.argv:
         at = sys.argv.index("--wall-ab")
         phase_wall_ab(sys.argv[at + 1], int(sys.argv[at + 2]))
@@ -2896,7 +3162,7 @@ def main():
     phase_build()
     blocks = compressor._prepare_slices(
         [images[0]], compressor.CompressorParams())[0]["blocks"]
-    kernels = phase_kernels(torch, blocks)
+    kernels = phase_kernels(torch, blocks, images[0])
     # each path's launches, counted from 0 just before it
     paths = {}
     paths["etc1s"], etc1s_image0 = phase_main_path(torch, images)

@@ -11,6 +11,8 @@ cancels); indices equal except at ties. Encodes on the card are repeated
 and must give the same bytes (the segment sums are deterministic).
 """
 
+import faulthandler
+
 import numpy as np
 import pytest
 import torch
@@ -222,6 +224,17 @@ def test_uastc_search_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(got_b, want_b)
 
 
+@pytest.fixture
+def limit():
+    """Ends the process, with every thread's traceback, if the test runs
+    past its time limit: a selector launch whose mbarrier phases went wrong
+    would otherwise wait for ever (the kernel traps after 10 s of waiting,
+    which fails the launch; this covers the rest)."""
+    faulthandler.dump_traceback_later(120, exit=True)
+    yield
+    faulthandler.cancel_dump_traceback_later()
+
+
 def _selector_inputs(b, s, seed, cuda):
     gen = torch.Generator().manual_seed(seed)
     dists = torch.rand((b, 16, 4), generator=gen) * 5000.0
@@ -245,7 +258,7 @@ def _check_selector(best, val, dists, pats, s):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 24575, 24576])
 @pytest.mark.parametrize("s", [1, 7, 2731, 16128])
-def test_find_best_selector_patterns_on_card(cuda, s, b):
+def test_find_best_selector_patterns_on_card(cuda, limit, s, b):
     """The tensor-core kernel against its plain version (on the card, TF32
     off) from one pattern up to MAX_SELECTOR_CLUSTERS, at one block, a
     ragged 24,575 and the main path's 24,576."""
@@ -258,8 +271,61 @@ def test_find_best_selector_patterns_on_card(cuda, s, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [25343, 25344, 25345])
+@pytest.mark.parametrize("s", [127, 128, 129])
+def test_selector_around_the_tile_and_the_wave_on_card(cuda, limit, s, b):
+    """S around the kernel's tile of 128 patterns (the last tile full, one
+    short, one pattern into a new tile) and B around one wave of 192-row
+    CTAs on 132 SMs (25,344 rows): one launch a call, the plain version's
+    result up to ties."""
+    dists, pats = _selector_inputs(b, s, 7 * s + b, cuda)
+    best, val = ck.find_best_selector_patterns(dists, pats, s)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["find_best_selector_patterns"] == 1
+    ties = _check_selector(best, val, dists, pats, s)
+    print(f"selector B={b} S={s}: {ties} index ties")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("s", [7, 2731])
-def test_selector_exact_ties_go_to_the_lowest_index_on_card(cuda, s):
+def test_selector_rows_without_a_finite_error_on_card(cuda, limit, s):
+    """A row of +inf distances and a row with one NaN have no finite error
+    (0 x inf and 0 x NaN are NaN in every product): the kernel returns
+    pattern 0 and +inf there, as an argmin that skips NaN would, and the
+    plain version's result on every other row."""
+    dists, pats = _selector_inputs(1000, s, s, cuda)
+    dists[3] = float("inf")
+    dists[500, 7, 2] = float("nan")
+    best, val = ck.find_best_selector_patterns(dists, pats, s)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["find_best_selector_patterns"] == 1
+    for row in (3, 500):
+        assert int(best[row]) == 0 and float(val[row]) == float("inf")
+    keep = torch.ones(1000, dtype=torch.bool, device=cuda)
+    keep[[3, 500]] = False
+    _check_selector(best[keep], val[keep], dists[keep], pats, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [7, 2731])
+def test_selector_negative_distances_on_card(cuda, limit, s):
+    """Warps whose rows hold a negative distance fold with float minima
+    (the unsigned-integer order of the others holds for errors of +0 and
+    more only): rows of negative, mixed and -0.0 distances beside rows of
+    positive ones, the plain version's result up to ties."""
+    dists, pats = _selector_inputs(3000, s, 11 * s, cuda)
+    dists[:1000] -= 2500.0
+    dists[1000:1100] = -0.0
+    best, val = ck.find_best_selector_patterns(dists, pats, s)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["find_best_selector_patterns"] == 1
+    ties = _check_selector(best, val, dists, pats, s)
+    print(f"selector negative distances S={s}: {ties} index ties")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [7, 2731])
+def test_selector_exact_ties_go_to_the_lowest_index_on_card(cuda, limit, s):
     """Small integer distances make every sum exact, so equal errors are
     exact ties, and duplicated patterns tie everywhere: the kernel must
     return the plain version's (the first) index and value exactly."""
@@ -284,7 +350,7 @@ def test_selector_exact_ties_go_to_the_lowest_index_on_card(cuda, s):
 
 
 @pytest.mark.cuda
-def test_selector_kernel_is_deterministic_on_card(cuda):
+def test_selector_kernel_is_deterministic_on_card(cuda, limit):
     """Repeated calls give identical outputs, as do int64 patterns and a
     distance tensor that starts off the 8-byte alignment the kernel's float2
     loads need (the wrapper copies both)."""

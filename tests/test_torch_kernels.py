@@ -364,90 +364,343 @@ def test_find_best_selector_patterns_matches_pallas_and_xla(s):
     assert not np.any(best == s // 2)
 
 
-def test_pack_patterns_layout():
-    rng = np.random.default_rng(3)
-    pats = rng.integers(0, 4, (50, 16)).astype(np.int32)
-    words = ck.pack_patterns(torch.from_numpy(pats)).numpy()
-    assert words.dtype == np.int32
-    u = words.astype(np.int64) & 0xFFFFFFFF
-    back = (u[:, None] >> (np.arange(16) * 2)) & 3
-    np.testing.assert_array_equal(back, pats)
+# The selector kernel (`selbest_wgmma_kernel` in csrc/etc1s_kernels.cu),
+# mirrored step by step: the producer's one-hot tile in shared memory, the
+# tile as wgmma reads it through the kernel's descriptor, the A registers as
+# the consumers load them, the product through the accumulator layout and
+# the consumers' fold into the argmin. The layouts the hardware takes are
+# written as the PTX ISA gives them, independently of the kernel's indexing.
+SEL_N = 128                  # patterns a tile, `kSelN`
 
 
-def _selector_onehot(frag):
-    """(n_tiles * 8, 64) bfloat16: the one-hot matrix that the selector
-    kernel's B fragments (`ck.selector_b_fragments`, (n_tiles, 32 lanes, 4
-    k-steps, 2 registers)) hold, pattern by pattern: register h of k-step ks
-    of lane (g, t) holds pattern 8j + g at k = 16 ks + 2t + 8h (low half)
-    and + 1 (high half)."""
-    n_tiles = frag.shape[0]
-    halves = torch.stack([frag & 0xFFFF, frag >> 16], -1)        # (J,32,4,2,2)
-    lane = torch.arange(32)
-    g, t = lane >> 2, lane & 3
-    ks = torch.arange(4)[:, None, None]
-    h = torch.arange(2)[None, :, None]
-    e = torch.arange(2)[None, None, :]
-    k = 16 * ks + 2 * t[:, None, None, None] + 8 * h + e         # (32,4,2,2)
-    out = torch.zeros((n_tiles, 8, 64), dtype=torch.int64)
-    out[:, g[:, None, None, None].expand_as(k), k] = halves
-    return out.reshape(-1, 64).to(torch.int16).view(torch.bfloat16)
+def _cuda_source():
+    return (pathlib.Path(ck.__file__).resolve().parent.parent / "csrc"
+            / "etc1s_kernels.cu").read_text()
 
 
-@pytest.mark.parametrize("s", [1, 7, 8, 9, 700, 2731])
-def test_selector_fragments_hold_the_plain_one_hot(s):
-    """The word each quad of the selector kernel packs from a pattern
-    (`pack_patterns`) and the bf16 one-hot B fragments it builds from the
-    word in registers (mirrored by `selector_b_fragments`) give back the
-    plain version's one-hot; the padding past S, up to the 8-pattern tile,
-    is built from zero words (all selectors 0) and masked by the kernel."""
+def _onehot_pixel(u):
+    """`onehot_pixel`: 0x3F80 (bf16 1.0) shifted left by 16 (u & 3) bits in
+    64, as its low and high words, (..., 2)."""
+    w = 0x3F80 << (16 * (u & 3))
+    return torch.stack([w & 0xFFFFFFFF, w >> 32], -1)
+
+
+def _selector_tile(patterns, tile):
+    """(SEL_N * 128,) uint8: tile `tile` of the one-hot as the producer
+    warpgroup stores it. Thread p takes quarter q = p & 3 (pixels 4q..4q+3,
+    one 16-byte load) of patterns r = (p >> 2) + 32h of the tile and stores
+    two 16-byte chunks in row r (128 bytes a pattern): the words of pixels
+    4q, 4q+1 at chunk (2q) ^ (r & 7), those of pixels 4q+2, 4q+3 at chunk
+    (2q+1) ^ (r & 7); past S, bf16 NaN at every k."""
+    s_n = patterns.shape[0]
+    p = torch.arange(128)
+    q = (p & 3)[:, None].expand(128, SEL_N // 32)
+    r = (p >> 2)[:, None] + 32 * torch.arange(SEL_N // 32)[None, :]
+    n = tile * SEL_N + r
+    sel = torch.zeros((128, SEL_N // 32, 4), dtype=torch.int64)
+    ok = n < s_n
+    sel[ok] = patterns.long().reshape(s_n, 4, 4)[n[ok], q[ok]]
+    words = _onehot_pixel(sel).reshape(128, SEL_N // 32, 2, 4)
+    words[~ok] = 0x7FC07FC0                             # bf16 NaN pairs
+    mem = torch.zeros(SEL_N * 32, dtype=torch.int64)    # 32-bit words
+    for half in (0, 1):
+        addr = r * 128 + (((2 * q + half) ^ (r & 7)) << 4)
+        mem[(addr // 4)[..., None] + torch.arange(4)] = words[:, :, half]
+    return torch.stack([(mem >> (8 * b)) & 0xFF for b in range(4)],
+                       -1).reshape(-1).to(torch.uint8)
+
+
+def _sw128_desc(addr):
+    """`sw128_desc`: start address >> 4, leading byte offset 1, stride byte
+    offset 1,024 >> 4, layout type 1 (the 128-byte swizzle)."""
+    return ((addr & 0x3FFFF) >> 4) | (1 << 16) | ((1024 >> 4) << 32) | (1 << 62)
+
+
+def _wgmma_b(smem, desc):
+    """(SEL_N, 64) bfloat16: B as wgmma reads it from shared memory
+    (`smem`, bytes from address 0) for the descriptor of k-step 0 (k-step
+    ks uses desc + 2 ks). K-major with the 128-byte swizzle: element (n, kk)
+    of a k-step lies at start + (n % 8) * 128 + (n // 8) * SBO + 2 kk, and
+    the address's bits 4-6 are XORed with its bits 7-9."""
+    assert desc >> 62 == 1                       # 128-byte swizzle
+    sbo = ((desc >> 32) & 0x3FFF) << 4
+    n = torch.arange(SEL_N)[:, None]
+    k = torch.arange(64)[None, :]
+    start = ((desc + 2 * (k // 16)) & 0x3FFF) << 4
+    addr = start + (n % 8) * 128 + (n // 8) * sbo + 2 * (k % 16)
+    addr = addr ^ (((addr >> 7) & 7) << 4)
+    half = smem[addr].long() | (smem[addr + 1].long() << 8)
+    return half.to(torch.int16).view(torch.bfloat16)
+
+
+def _plain_onehot(patterns, n_rows):
+    """The plain version's (n_rows, 64) one-hot as bfloat16, rows past S
+    NaN (the producer's padding)."""
+    s_n = patterns.shape[0]
+    out = torch.full((n_rows, 64), float("nan"), dtype=torch.bfloat16)
+    out[:s_n] = torch.nn.functional.one_hot(patterns.long(), 4).reshape(
+        s_n, 64).to(torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("s", [1, 7, SEL_N - 1, SEL_N, SEL_N + 1, 2731])
+def test_selector_tile_mirror_holds_the_plain_one_hot(s):
+    """Every tile the producer builds, read back as wgmma reads it through
+    the kernel's descriptor (the ring's stages are 1,024-aligned), is the
+    plain version's one-hot of the tile's patterns; past S, up to the
+    tile's end, NaN, so those columns' errors are NaN, which the fold
+    skips."""
     rng = np.random.default_rng(s)
     pats = torch.from_numpy(rng.integers(0, 4, (s, 16)).astype(np.int32))
-    words = ck.pack_patterns(pats)
-    frag = ck.selector_b_fragments(words, s)
-    n_tiles = -(-s // 8)
-    assert frag.shape == (n_tiles, 32, 4, 2)
-    # each register holds two bf16 halves, each 1.0 (0x3F80) or 0
-    for half in (frag & 0xFFFF, frag >> 16):
-        assert set(half.unique().tolist()) <= {0, 0x3F80}
-    onehot = _selector_onehot(frag)
-    assert onehot.dtype == torch.bfloat16 and onehot.shape == (n_tiles * 8,
-                                                               64)
-    want = torch.nn.functional.one_hot(pats.long(), 4).reshape(s, 64)
-    assert torch.equal(onehot[:s], want.to(torch.bfloat16))
-    pad = torch.zeros((n_tiles * 8 - s, 16), dtype=torch.long)
-    assert torch.equal(onehot[s:], torch.nn.functional.one_hot(pad, 4)
-                       .reshape(-1, 64).to(torch.bfloat16))
-    # the kernel's product of bf16 distances by that one-hot is the plain
-    # version's error matrix
-    d = torch.from_numpy(rng.random((40, 64), np.float32) * 5000.0)
-    d = d.to(torch.bfloat16).float()
-    np.testing.assert_array_equal((d @ onehot.float().T)[:, :s].numpy(),
-                                  (d @ want.float().T).numpy())
+    n_tiles = -(-s // SEL_N)
+    want = _plain_onehot(pats, n_tiles * SEL_N).view(torch.int16)
+    for j in range(n_tiles):
+        stage = j % 4
+        smem = torch.zeros(4 * SEL_N * 128 + 2048, dtype=torch.uint8)
+        tile = 1024 + stage * SEL_N * 128
+        smem[tile:tile + SEL_N * 128] = _selector_tile(pats, j)
+        got = _wgmma_b(smem, _sw128_desc(tile)).view(torch.int16)
+        assert torch.equal(got, want[j * SEL_N:(j + 1) * SEL_N]), j
 
 
-def test_selector_fragment_mirror_follows_the_cuda_source():
-    """`selector_b_fragments` repeats the kernel's bit arithmetic: the word
-    shift and selector flip per lane, the field offsets per k-step and
-    register, and the clamped shift of bf16 1.0."""
-    src = (pathlib.Path(ck.__file__).resolve().parent.parent / "csrc"
-           / "etc1s_kernels.cu").read_text()
-    for piece in ("((s.w & 3) << 6)) << (8 * t);",
-                  "w |= __shfl_xor_sync(0xffffffffu, w, 1);",
-                  "w |= __shfl_xor_sync(0xffffffffu, w, 2);",
-                  "const int pix_shift = 2 * (t >> 1);",
-                  "(t & 1) ? 0xAAAAAAAAu : 0u",
-                  "const uint32_t q = (w >> pix_shift) ^ flip;",
-                  "b[ks][0] = onehot_pair(q, 8 * ks);",
-                  "b[ks][1] = onehot_pair(q, 8 * ks + 4);",
-                  "const uint32_t sh = ((q >> c) & 3u) << 4;",
-                  '"r"(0x3F80u)', "shl.b32",
-                  "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"):
+def _ptx_a_coords():
+    """The PTX ISA's register fragment of wgmma's A (m64nNk16, bf16): the
+    (row, column) of half h of register j of warpgroup thread T: warp
+    T // 32 holds rows 16 (T // 32) .. + 15; in it, groupID = lane / 4 and
+    threadID_in_group = lane % 4 place a0..a7 at rows groupID (a0, a1, a4,
+    a5) and groupID + 8 (a2, a3, a6, a7), columns 2 threadID_in_group + (0,
+    1) (a0..a3) and + 8 (a4..a7); register j holds a_{2j}, a_{2j+1}."""
+    T = torch.arange(128)[:, None, None]
+    j = torch.arange(4)[None, :, None]
+    h = torch.arange(2)[None, None, :]
+    lane = T % 32
+    a_idx = 2 * j + h
+    row = 16 * (T // 32) + lane // 4 + 8 * ((a_idx // 2) % 2)
+    col = 2 * (lane % 4) + (a_idx % 2) + 8 * (a_idx // 4)
+    return row.expand(128, 4, 2), col.expand(128, 4, 2)
+
+
+def _ptx_d_coords(n):
+    """The PTX ISA's wgmma accumulator (m64nNk16, f32): register i of
+    thread T is row 16 (T // 32) + lane / 4 + 8 ((i % 4) >= 2), column
+    8 (i // 4) + 2 (lane % 4) + i % 2."""
+    T = torch.arange(128)[:, None]
+    i = torch.arange(n // 2)[None, :]
+    lane = T % 32
+    row = 16 * (T // 32) + lane // 4 + 8 * ((i % 4) >= 2).long()
+    col = 8 * (i // 4) + 2 * (lane % 4) + i % 2
+    return row, col
+
+
+def _kernel_a_regs(d_rows):
+    """The consumers' A registers, (128 threads, 4 k-steps, 4, 2) as the
+    kernel loads them: register r + 2c of k-step ks of thread (warp w, g,
+    t) holds row 16w + g + 8r, the float2 at ks*8 + t + 4c of the row
+    (columns 16 ks + 2t + 8c, + 1), rounded to bf16."""
+    out = torch.zeros((128, 4, 4, 2), dtype=torch.bfloat16)
+    d = d_rows.to(torch.bfloat16)
+    for T in range(128):
+        w, g, t = T // 32, (T % 32) // 4, T % 4
+        for ks in range(4):
+            for r in range(2):
+                for c in range(2):
+                    f2 = ks * 8 + t + 4 * c
+                    out[T, ks, r + 2 * c] = d[16 * w + g + 8 * r,
+                                              2 * f2:2 * f2 + 2]
+    return out
+
+
+def _kernel_acc_coords(n):
+    """The consumers' reading of the accumulator: register 4i + 2r + e of
+    thread (warp w, g, t) is row 16w + g + 8r, column 8i + 2t + e."""
+    row = torch.zeros((128, n // 2), dtype=torch.long)
+    col = torch.zeros((128, n // 2), dtype=torch.long)
+    for T in range(128):
+        w, g, t = T // 32, (T % 32) // 4, T % 4
+        for i in range(n // 8):
+            for r in range(2):
+                for e in range(2):
+                    row[T, 4 * i + 2 * r + e] = 16 * w + g + 8 * r
+                    col[T, 4 * i + 2 * r + e] = 8 * i + 2 * t + e
+    return row, col
+
+
+@pytest.mark.parametrize("s", [37, 300])
+def test_selector_accumulator_mirror_gives_the_plain_errors(s):
+    """A warpgroup's product through the layouts: the A registers the
+    kernel loads are, by the PTX ISA's fragment layout, the bf16 distances
+    of its 64 rows, each once; the product with each B tile (built by the
+    producer, read through the descriptor) lands in the accumulator by the
+    PTX ISA's layout; and the kernel's (row, column) of each accumulator
+    register gives back the plain version's error matrix, every value."""
+    rng = np.random.default_rng(s)
+    d = torch.from_numpy((rng.random((64, 64)) * 5000.0).astype(np.float32))
+    pats = torch.from_numpy(rng.integers(0, 4, (s, 16)).astype(np.int32))
+    regs = _kernel_a_regs(d)
+    a_row, a_col = _ptx_a_coords()
+    a_hw = torch.full((64, 64), float("nan"))
+    for ks in range(4):
+        a_hw[a_row, 16 * ks + a_col] = regs[:, ks].float()
+    assert torch.equal(a_hw, d.to(torch.bfloat16).float())
+    d_row, d_col = _ptx_d_coords(SEL_N)
+    k_row, k_col = _kernel_acc_coords(SEL_N)
+    plain = d.to(torch.bfloat16).double() @ _plain_onehot(pats, s).double().T
+    for j in range(-(-s // SEL_N)):
+        smem = torch.zeros(SEL_N * 128 + 1024, dtype=torch.uint8)
+        smem[1024:] = _selector_tile(pats, j)
+        b_hw = _wgmma_b(smem, _sw128_desc(1024)).double()
+        acc = (a_hw.double() @ b_hw.T)[d_row, d_col]          # (128, N/2)
+        got = torch.full((64, SEL_N), float("nan"), dtype=torch.float64)
+        got[k_row, k_col] = acc
+        n_valid = min(SEL_N, s - j * SEL_N)
+        assert torch.equal(got[:, :n_valid],
+                           plain[:, j * SEL_N:j * SEL_N + n_valid])
+
+
+def _selector_fold(err, s):
+    """The consumers' argmin over an (R, S) error matrix, as the kernel
+    folds it (`sel_fold`): tile by tile (past S the columns are NaN), the
+    row's least value over the tile (each thread's columns 8i + 2t + e,
+    then its quad; NaN skipped, as fminf does) replaces the row's running
+    value where strictly below it, with the least column holding it over
+    the quad's threads, each thread's first in increasing order; a row with
+    no finite error gives pattern 0 and +inf."""
+    n_rows = err.shape[0]
+    n_tiles = -(-s // SEL_N)
+    e = torch.full((n_rows, n_tiles * SEL_N), float("nan"))
+    e[:, :s] = err
+    inf = float("inf")
+    bv = torch.full((n_rows,), inf)
+    bi = torch.full((n_rows,), 0x7FFFFFFF, dtype=torch.long)
+    i = torch.arange(SEL_N // 8)[:, None]
+    ee = torch.arange(2)[None, :]
+    for j in range(n_tiles):
+        m_t, c_t = [], []
+        for t in range(4):
+            cols = (8 * i + 2 * t + ee).reshape(-1)           # increasing
+            v = e[:, j * SEL_N + cols]
+            m = torch.where(torch.isnan(v), inf, v).min(1).values
+            m_t.append(torch.where(torch.isnan(v).all(1), float("nan"), m))
+            c_t.append((v, cols))
+        m = m_t[0]
+        for t in range(1, 4):                                 # fminf
+            m = torch.where(torch.isnan(m), m_t[t],
+                            torch.where(torch.isnan(m_t[t]), m,
+                                        torch.minimum(m, m_t[t])))
+        take = m < bv
+        col = torch.full((n_rows,), 1 << 20, dtype=torch.long)
+        for v, cols in c_t:
+            hit = v == m[:, None]
+            first = torch.where(hit.any(1), cols[hit.long().argmax(1)],
+                                1 << 20)
+            col = torch.minimum(col, first)
+        bv = torch.where(take, m, bv)
+        bi = torch.where(take, j * SEL_N + col, bi)
+    return torch.where(bi == 0x7FFFFFFF, 0, bi).to(torch.int32), bv
+
+
+@pytest.mark.parametrize("s", [7, SEL_N + 1, 300])
+def test_selector_fold_mirror_matches_the_plain_argmin(s):
+    """The kernel's fold gives the plain version's (index, value): the
+    first index of the least error. The errors are small whole numbers
+    with duplicated patterns, so most rows tie exactly, within a thread's
+    columns, across a quad and across tiles; a row of +inf errors and one
+    of NaN errors give pattern 0 and +inf."""
+    rng = np.random.default_rng(s)
+    n_rows = 200
+    d = torch.from_numpy(rng.integers(0, 3, (n_rows, 64)).astype(np.float32))
+    m = -(-s // 2)
+    pats = torch.from_numpy(rng.integers(0, 4, (m, 16))[np.arange(s) % m])
+    err = d @ _plain_onehot(pats, s).float().T
+    err[5] = float("inf")
+    err[6] = float("nan")
+    best, val = _selector_fold(err, s)
+    want_val, want_best = err[:5].min(1)
+    assert torch.equal(best[:5].long(), want_best)
+    assert torch.equal(val[:5], want_val)
+    plain_b, plain_v = ck.find_best_selector_patterns_reference(
+        d.reshape(n_rows, 16, 4)[7:], pats, s)
+    assert torch.equal(best[7:], plain_b) and torch.equal(val[7:], plain_v)
+    assert best[5] == 0 and best[6] == 0
+    assert val[5] == float("inf") and val[6] == float("inf")
+    assert not torch.any(best >= m)          # never a later twin
+
+
+def test_selector_unsigned_minimum_is_the_float_minimum():
+    """The fold's integer path: errors of +0 or more, +inf and NaN (the
+    padding, the products of an infinite distance), taken as unsigned
+    32-bit integers, have the float order, NaN above everything, so their
+    unsigned minimum is the minimum fminf finds (which skips NaN), and NaN
+    only where every value is NaN; a negative value breaks that order,
+    which is why the kernel takes that path only where no distance has its
+    sign bit set."""
+    rng = np.random.default_rng(8)
+    err = torch.from_numpy((rng.random((500, 32)) * 3e5).astype(np.float32))
+    err[rng.random((500, 32)) < 0.2] = float("nan")
+    err[rng.random((500, 32)) < 0.1] = float("inf")
+    err[rng.random((500, 32)) < 0.05] = 0.0
+    err[7] = float("nan")
+    bits = err.view(torch.int32).long() & 0xFFFFFFFF
+    got = bits.min(1).values.to(torch.int64)
+    got = torch.where(got >= 2 ** 31, got - 2 ** 32, got).to(torch.int32)
+    got = got.view(torch.float32)
+    want = torch.where(torch.isnan(err), float("inf"), err).min(1).values
+    assert torch.equal(got[torch.arange(500) != 7], want[torch.arange(500) != 7])
+    assert torch.isnan(got[7])
+    neg = torch.tensor([-1.0, 2.0])
+    u = neg.view(torch.int32).long() & 0xFFFFFFFF
+    assert int(u.argmin()) == 1                       # the order breaks
+
+
+def test_selector_mirrors_follow_the_cuda_source():
+    """The mirrors above repeat the kernel's own constants and index
+    arithmetic: the tile width, the producer's chunks and swizzle, the
+    one-hot words and the NaN past S, the descriptor and its k-step, the A
+    loads, the accumulator's reading and the fold's first column; and the
+    Ampere instruction the kernel used before is gone."""
+    src = _cuda_source()
+    for piece in (f"constexpr int kSelN = {SEL_N};",
+                  "const int q = p & 3;",
+                  "const int r = (p >> 2) + 32 * h;",
+                  "const int n = j * kSelN + (p >> 2) + 32 * h;",
+                  "j < n_tiles && n < n_patterns",
+                  "reinterpret_cast<const uint4*>(patterns + (size_t)n * 16) + q)",
+                  "const uint32_t row = tile + r * 128;",
+                  "const int sw = r & 7;",
+                  "st_shared_v4(row + (((2 * q) ^ sw) << 4), a0.x, a0.y, a1.x, a1.y);",
+                  "st_shared_v4(row + (((2 * q + 1) ^ sw) << 4), a2.x, a2.y, a3.x,",
+                  "onehot_pixel(v[h].x), a1 = onehot_pixel(v[h].y);",
+                  "onehot_pixel(v[h].z), a3 = onehot_pixel(v[h].w);",
+                  "if (j * kSelN + r >= n_patterns) {",
+                  "a0 = a1 = a2 = a3 = make_uint2(0x7FC07FC0u, 0x7FC07FC0u);",
+                  "(uint64_t)0x3F80u << ((u & 3u) << 4);",
+                  "return make_uint2((uint32_t)w, (uint32_t)(w >> 32));",
+                  "((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62)",
+                  "((uint64_t)1 << 16)",
+                  "wgmma_tile(acc, a[ks], desc + 2 * ks, ks);",
+                  "sel_issue(acc, a, j, ring, full0);",
+                  "wgmma_wait_all();",
+                  "sel_fold(acc, j * kSelN, t, nonneg, bv, bi);",
+                  "const bool nonneg = !__any_sync(0xffffffffu, sign >> 31);",
+                  "sign |= __float_as_uint(v.x) | __float_as_uint(v.y);",
+                  "u[i & 1] = __vimin3_u32(u[i & 1], __float_as_uint(acc[4 * i + 2 * r]),",
+                  f"wgmma.mma_async.sync.aligned.m64n{SEL_N}k16.f32.bf16.bf16",
+                  "__ldg(src + ks * 8 + t + 4 * c)",
+                  "a[ks][r + 2 * c] =",
+                  "const int row0 = blockIdx.x * kSelRows + wg * 64 + warp * 16;",
+                  "c = acc[4 * i + 2 * r + e] == m ? 8 * i + e : c;",
+                  "c += 2 * t;",
+                  "c = min(c, __shfl_xor_sync(0xffffffffu, c, 1));",
+                  "c = min(c, __shfl_xor_sync(0xffffffffu, c, 2));",
+                  "m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 1));",
+                  "m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 2));",
+                  "bi[r] = better ? base + c : bi[r];",
+                  "const bool better = m < bv[r];"):
         assert piece in src, piece
-    # lane 6 = (g 1, t 2): pattern 1's pixels 1 and 3 (k 4..5, 12..13)
-    words = ck.pack_patterns(torch.tensor([[0] * 16, [3, 0, 2, 1] * 4]))
-    frag = ck.selector_b_fragments(words, 2)
-    assert frag[0, 6, 0].tolist() == [0x3F80, 0x3F800000]    # sel 0, sel 1
-    assert frag[0, 7, 0].tolist() == [0, 0]                  # sels 2, 3
+    assert "mma.sync" not in src and "selbest_mma_kernel" not in src
+    # the 1,024-byte aligned ring, one tile a stage
+    assert "(smem_u32(sel_smem) + 1023u) & ~1023u" in src
+    assert "constexpr int kSelTileBytes = kSelN * 128;" in src
 
 
 def test_min_k_shared_memory_limit_matches_the_cuda_source():
