@@ -250,7 +250,8 @@ def _mode_trial(px, wb: int, ep_range: int, comps: int, ls_iters: int):
     comps*2) int32, weights (B,16) int32). comps 3 -> RGB (alpha forced
     255), 4 -> RGBA, 2 -> LA. A CUDA tensor launches `uastc_mode_trial`
     (`csrc/xla_order_kernels.cu`), the whole trial in one launch, a lane per
-    pixel; a CPU tensor runs `mode_trial_reference`.
+    block for its serial work and a lane per pixel for the searches; a CPU
+    tensor runs `mode_trial_reference`.
     """
     if not px.is_cuda:
         return mode_trial_reference(px, wb, ep_range, comps, ls_iters)

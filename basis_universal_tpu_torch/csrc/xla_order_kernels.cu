@@ -23,8 +23,9 @@
 //   axis, the search over the weight levels and the least-squares steps,
 //   one launch for the ~50 operators of each subset's plain version;
 // - uastc_mode_trial<C>: a whole single-subset single-plane mode trial
-//   (`mode_trial_reference`): the same fit with the endpoints quantised
-//   through the mode's tables, and the full-pixel error;
+//   (`mode_trial_reference`): the fit of the block's 16 pixels with the
+//   endpoints quantised through the mode's tables, and the full-pixel
+//   error;
 // - uastc_subset_trial<C, S>: a whole 2- or 3-subset mode trial
 //   (`subset_trial_reference`): the ideal luma split, the shortlist of the
 //   mode's partition patterns, each candidate's masked fits (uastc_line_fit's
@@ -55,15 +56,17 @@
 // 2^31 elements), a float4 path for rows whose operands are contiguous or
 // broadcast along the row, and in xla_reduce a block that stages the union
 // of its outputs' K-long slices in shared memory with coalesced loads before
-// each thread runs its chain from there. The line-fit kernels run a lane per
-// pixel (below), so at the search's 24,576 blocks they hold 393k threads;
-// a warp issues the ordered chains and the power iteration once for its two
-// blocks, and that serial part, not the per-pixel search, sets their time
-// (fitting a partition's subsets side by side, each pixel searching once,
-// measured slower at every register budget tried). The trials run a
-// block's fits side by side instead, a lane per fit (below). Their bound is
-// operations (`chip_smoke.py`'s `_line_fit_ops` and the trials' counts);
-// they are latency-bound below it.
+// each thread runs its chain from there. The line-fit kernel runs a lane
+// per pixel (below), so at the search's 24,576 blocks it holds 393k
+// threads; a warp issues the ordered chains and the power iteration once
+// for its two blocks, and that serial part, not the per-pixel search, sets
+// its time (fitting a partition's subsets side by side, each pixel
+// searching once, measured slower at every register budget tried). The
+// trials give each fit's serial work a lane of its own instead, and the
+// per-pixel work a lane per pixel (below): the multi-subset and dual-plane
+// trials run a block's fits side by side, the single-subset trial a warp's
+// blocks. Their bound is operations (`chip_smoke.py`'s `_line_fit_ops` and
+// the trials' counts); they are latency-bound below it.
 //
 // Every launcher takes raw device pointers, the shape and strides by value,
 // and a cudaStream_t; it launches asynchronously and returns
@@ -336,7 +339,7 @@ xla_reduce_kernel64(const float* __restrict__ a, const float* __restrict__ b,
 }
 
 // ---------------------------------------------------------------------------
-// uastc_line_fit, uastc_mode_trial: the UASTC search's line fits
+// uastc_line_fit: the UASTC search's masked line fits
 // ---------------------------------------------------------------------------
 //
 // A lane per pixel: each 4x4 block takes 16 lanes (two blocks a warp), and
@@ -347,8 +350,8 @@ xla_reduce_kernel64(const float* __restrict__ a, const float* __restrict__ b,
 // in pixel order, each on a lane of its own (the C means, the C x C
 // covariance chains, the 2C least-squares chains) or, where every lane needs
 // the result at once, on every lane (the masked error); the weights'
-// moments, whole multiples of 1/4096, and the whole-numbered errors of the
-// mode trials are exact in any order and are summed by shuffles.
+// moments, whole multiples of 1/4096, are exact in any order and are summed
+// by shuffles.
 
 constexpr int kFitSlots = 8;                 // 4x4 blocks per CTA
 constexpr int kFitThreads = 16 * kFitSlots;  // a lane per pixel
@@ -484,32 +487,17 @@ __device__ __forceinline__ float rec16(float lo_u, float hi_u, float w) {
                           kInv16384));
 }
 
+// A pixel (its channels x) against the n_lev levels of table t, the
+// squared differences added over the channels in order: the first index of
+// the least (strict <, from INFINITY), and the least in best.
 template <int C>
-__device__ __forceinline__ void rec_exact(FitScratch& sh, const float* lev,
-                                          int n_lev, int p,
-                                          const float (&lo_u)[C],
-                                          const float (&hi_u)[C]) {
-  __syncwarp();
-  for (int l = p; l < n_lev; l += 16) {
-    float r[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) r[c] = rec16(lo_u[c], hi_u[c], lev[l]);
-    sh.rec[l] = pack4<C>(r);
-  }
-  __syncwarp();
-}
-
-// This lane's pixel against every level of sh.rec: the squared differences
-// rounded and added over the channels in order, the first minimum (w);
-// returns the block's error, the minima times m added in pixel order.
-template <int C>
-__device__ __forceinline__ float level_search(FitScratch& sh, int p,
-                                              const float (&x)[C], int n_lev,
-                                              float m, int& w) {
-  float best = INFINITY;
+__device__ __forceinline__ int table_min(const float4* t, int n_lev,
+                                         const float (&x)[C], float& best) {
+  best = INFINITY;
   int arg = 0;
+#pragma unroll 4
   for (int l = 0; l < n_lev; ++l) {
-    const float4 r = sh.rec[l];
+    const float4 r = t[l];
     float d = __fsub_rn(x[0], r.x);
     float e = __fmul_rn(d, d);
     if constexpr (C > 1) {
@@ -529,7 +517,17 @@ __device__ __forceinline__ float level_search(FitScratch& sh, int p,
       arg = l;
     }
   }
-  w = arg;
+  return arg;
+}
+
+// This lane's pixel against every level of sh.rec (`table_min`); returns
+// the block's error, the minima times m added in pixel order.
+template <int C>
+__device__ __forceinline__ float level_search(FitScratch& sh, int p,
+                                              const float (&x)[C], int n_lev,
+                                              float m, int& w) {
+  float best;
+  w = table_min<C>(sh.rec, n_lev, x, best);
   sh.e[p] = __fmul_rn(best, m);
   __syncwarp();
   const float err = pixel_sum(sh);
@@ -538,22 +536,18 @@ __device__ __forceinline__ float level_search(FitScratch& sh, int p,
 }
 
 // One least-squares step (`ls_step_reference`): the weights a = (64 - w) /
-// 64, b = w / 64 (times m with a mask), their moments, the P and Q chains
-// over the pixels of sh.v (lane k < C runs P_k, lane C + k Q_k), the 2x2
-// solve; where it is singular lo / hi; clamped.
-template <int C, bool kMask>
+// 64, b = w / 64 times the mask m, their moments, the P and Q chains over
+// the pixels of sh.v (lane k < C runs P_k, lane C + k Q_k), the 2x2 solve;
+// where it is singular lo / hi; clamped.
+template <int C>
 __device__ __forceinline__ void ls_solve(FitScratch& sh, const float* lev,
                                          int p, int w, float m,
                                          const float (&lo)[C],
                                          const float (&hi)[C],
                                          float (&lo2)[C], float (&hi2)[C]) {
   const float wl = lev[w];
-  float a = __fmul_rn(__fsub_rn(64.0f, wl), kInv64);
-  float b = __fmul_rn(wl, kInv64);
-  if (kMask) {
-    a = __fmul_rn(a, m);
-    b = __fmul_rn(b, m);
-  }
+  const float a = __fmul_rn(__fmul_rn(__fsub_rn(64.0f, wl), kInv64), m);
+  const float b = __fmul_rn(__fmul_rn(wl, kInv64), m);
   const float sa = exact_sum16(__fmul_rn(a, a));
   const float sab = exact_sum16(__fmul_rn(a, b));
   const float sb2 = exact_sum16(__fmul_rn(b, b));
@@ -586,20 +580,20 @@ __device__ __forceinline__ void ls_solve(FitScratch& sh, const float* lev,
   __syncwarp();
 }
 
-// The block's mean of sh.v over the pixels of `bits` (all 16 without a
-// mask): lane c < C adds channel c in pixel order (each term times its
-// mask), then divides by the count; on every lane.
-template <int C, bool kMask>
+// The block's mean of sh.v over the pixels of `bits`: lane c < C adds
+// channel c in pixel order (each term times its 0 / 1 mask), then divides
+// by the count; on every lane.
+template <int C>
 __device__ __forceinline__ void block_mean(FitScratch& sh, int p,
                                            unsigned bits, float cnt,
                                            float (&mean)[C]) {
   if (p < C) {
     float acc = chan(sh.v[0], p);
-    if (kMask) acc = __fmul_rn(acc, (bits & 1u) ? 1.0f : 0.0f);
+    acc = __fmul_rn(acc, (bits & 1u) ? 1.0f : 0.0f);
 #pragma unroll
     for (int q = 1; q < 16; ++q) {
       float t = chan(sh.v[q], p);
-      if (kMask) t = __fmul_rn(t, (bits >> q) & 1u ? 1.0f : 0.0f);
+      t = __fmul_rn(t, (bits >> q) & 1u ? 1.0f : 0.0f);
       acc = __fadd_rn(acc, t);
     }
     sh.red[p] = __fdiv_rn(acc, cnt);
@@ -610,8 +604,7 @@ __device__ __forceinline__ void block_mean(FitScratch& sh, int p,
   __syncwarp();
 }
 
-// `_fit_line_masked` of one subset, the shared fit code of uastc_line_fit
-// and the trial kernels: the pixels sh.v (this lane's own in x), the mask
+// `_fit_line_masked` of one subset, uastc_line_fit's body: the pixels sh.v (this lane's own in x), the mask
 // `in` (this lane's pixel belongs to the subset); the endpoints (lo, hi),
 // the same on every lane of the block. Every lane of the warp calls it
 // (ballots and shuffles), and it ends past a __syncwarp, after its last
@@ -625,7 +618,7 @@ __device__ __forceinline__ void fit_subset(FitScratch& sh, const float* lev,
   const float m = in ? 1.0f : 0.0f;
   const unsigned bits = (__ballot_sync(0xffffffffu, in) >> half) & 0xffffu;
   float mean[C], cx[C], ax[C];
-  block_mean<C, true>(sh, p, bits, fmaxf((float)__popc(bits), 1.0f), mean);
+  block_mean<C>(sh, p, bits, fmaxf((float)__popc(bits), 1.0f), mean);
 #pragma unroll
   for (int c = 0; c < C; ++c) cx[c] = __fmul_rn(__fsub_rn(x[c], mean[c]), m);
   sh.c[p] = pack4<C>(cx);
@@ -647,7 +640,7 @@ __device__ __forceinline__ void fit_subset(FitScratch& sh, const float* lev,
   float err = level_search<C>(sh, p, x, n_lev, m, w);
   for (int it = 0; it < ls_iters; ++it) {
     float lo2[C], hi2[C];
-    ls_solve<C, true>(sh, lev, p, w, m, lo, hi, lo2, hi2);
+    ls_solve<C>(sh, lev, p, w, m, lo, hi, lo2, hi2);
     rec_fused<C>(sh, lev, n_lev, p, lo2, hi2);
     int w2;
     const float err2 = level_search<C>(sh, p, x, n_lev, m, w2);
@@ -703,18 +696,6 @@ line_fit_kernel(const float* __restrict__ v, long long sb, long long sp,
   }
 }
 
-// The mode's tables into shared memory: the codes of the 256 endpoint
-// values (int64 to int32), the unquantised values, the weight levels.
-__device__ __forceinline__ void load_mode_tables(
-    const long long* inv, const float* unq, int n_unq, const float* levels,
-    int n_lev, int* inv_s, float* unq_s, float* lev) {
-  for (int i = threadIdx.x; i < 256; i += kFitThreads) {
-    inv_s[i] = (int)inv[i];
-    if (i < n_unq) unq_s[i] = unq[i];
-  }
-  if ((int)threadIdx.x < n_lev) lev[threadIdx.x] = levels[threadIdx.x];
-}
-
 // The code of a float endpoint (`_quant`): rounded half to even, clipped.
 template <class T>
 __device__ __forceinline__ int quant_code(const T* inv_s, float f) {
@@ -725,124 +706,6 @@ __device__ __forceinline__ int quant_code(const T* inv_s, float f) {
 __device__ __forceinline__ float alpha_err(float a) {
   const float d = __fsub_rn(a, 255.0f);
   return exact_sum16(__fmul_rn(d, d));
-}
-
-// px: (n, 16, 4) at strides (sb, sp, sc), whole numbers 0..255; inv: the
-// 256 codes (int64) of the endpoint values, unq: the n_unq unquantised
-// values of the codes; lev: the n_lev weight levels. `_mode_trial` of comps
-// C (2: the luma (r + g + b) * float32(1/3) and alpha; 3: RGB; 4: RGBA):
-// err (n,), ep (n, 2C) codes [c0 lo, c0 hi, c1 lo, ...], w (n, 16) level
-// indices.
-template <int C>
-__global__ void __launch_bounds__(kFitThreads)
-mode_trial_kernel(const float* __restrict__ px, long long sb, long long sp,
-                  long long sc, const long long* __restrict__ inv,
-                  const float* __restrict__ unq, int n_unq,
-                  const float* __restrict__ levels, int n_lev, int ls_iters,
-                  float* __restrict__ err_out, int* __restrict__ ep_out,
-                  int* __restrict__ w_out, int n) {
-  __shared__ float lev[kMaxLevels];
-  __shared__ int inv_s[256];
-  __shared__ float unq_s[256];
-  __shared__ FitScratch scratch[kFitSlots];
-  load_mode_tables(inv, unq, n_unq, levels, n_lev, inv_s, unq_s, lev);
-  __syncthreads();
-  const int p = threadIdx.x & 15, slot = threadIdx.x >> 4;
-  const int blk_id = blockIdx.x * kFitSlots + slot;
-  const bool live = blk_id < n;
-  const long long blk = live ? blk_id : n - 1;
-  FitScratch& sh = scratch[slot];
-  float rgba[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) rgba[c] = px[blk * sb + p * sp + c * sc];
-  float x[C];
-  if constexpr (C == 2) {
-    x[0] = __fmul_rn(__fadd_rn(__fadd_rn(rgba[0], rgba[1]), rgba[2]), kThird);
-    x[1] = rgba[3];
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; ++c) x[c] = rgba[c];
-  }
-  sh.v[p] = pack4<C>(x);
-  __syncwarp();
-  float mean[C], cx[C], ax[C];
-  block_mean<C, false>(sh, p, 0xffffu, 16.0f, mean);
-#pragma unroll
-  for (int c = 0; c < C; ++c) cx[c] = __fsub_rn(x[c], mean[c]);
-  sh.c[p] = pack4<C>(cx);
-  __syncwarp();
-  const float pr = principal<C>(sh, p, cx, 6, ax);
-  float mn = pr, mx = pr;
-#pragma unroll
-  for (int o = 8; o; o >>= 1) {
-    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  }
-  float lo_f[C], hi_f[C], lo_u[C], hi_u[C];
-  int lo_c[C], hi_c[C];
-  auto quant = [&](float f, int& code, float& u) {
-    code = quant_code(inv_s, f);
-    u = unq_s[code];
-  };
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    lo_f[c] = __fmaf_rn(ax[c], mn, mean[c]);
-    hi_f[c] = __fmaf_rn(ax[c], mx, mean[c]);
-    quant(lo_f[c], lo_c[c], lo_u[c]);
-    quant(hi_f[c], hi_c[c], hi_u[c]);
-  }
-  rec_exact<C>(sh, lev, n_lev, p, lo_u, hi_u);
-  int w;
-  float err = level_search<C>(sh, p, x, n_lev, 1.0f, w);
-  for (int it = 0; it < ls_iters; ++it) {
-    float lo2[C], hi2[C], lo_u2[C], hi_u2[C];
-    int lo_c2[C], hi_c2[C];
-    ls_solve<C, false>(sh, lev, p, w, 1.0f, lo_f, hi_f, lo2, hi2);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      quant(lo2[c], lo_c2[c], lo_u2[c]);
-      quant(hi2[c], hi_c2[c], hi_u2[c]);
-    }
-    rec_exact<C>(sh, lev, n_lev, p, lo_u2, hi_u2);
-    int w2;
-    const float err2 = level_search<C>(sh, p, x, n_lev, 1.0f, w2);
-    if (err2 < err) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        lo_c[c] = lo_c2[c];
-        hi_c[c] = hi_c2[c];
-        lo_u[c] = lo_u2[c];
-        hi_u[c] = hi_u2[c];
-      }
-      w = w2;
-      err = err2;
-    }
-  }
-  // the full-pixel error: whole numbers, exact in any order
-  if constexpr (C == 3) {
-    err = __fadd_rn(err, alpha_err(rgba[3]));
-  } else if constexpr (C == 2) {
-    const float wl = lev[w];
-    const float l_rec = rec16(lo_u[0], hi_u[0], wl);
-    const float a_rec = rec16(lo_u[1], hi_u[1], wl);
-    float e_rgb = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float d = __fsub_rn(rgba[c], l_rec);
-      e_rgb = c ? __fadd_rn(e_rgb, __fmul_rn(d, d)) : __fmul_rn(d, d);
-    }
-    const float da = __fsub_rn(rgba[3], a_rec);
-    err = __fadd_rn(exact_sum16(e_rgb), exact_sum16(__fmul_rn(da, da)));
-  }
-  if (live) {
-    if (p == 0) err_out[blk] = err;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if (p == 2 * c) ep_out[blk * 2 * C + p] = lo_c[c];
-      if (p == 2 * c + 1) ep_out[blk * 2 * C + p] = hi_c[c];
-    }
-    w_out[blk * 16 + p] = w;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1033,6 +896,39 @@ __device__ __forceinline__ void fit_table(const TrialWarp& R, const float* lev,
   }
 }
 
+// `iters` rounds of the power iteration (`principal`'s, term for term) on
+// the distinct covariance entries cv (i <= j, row by row; fma is symmetric
+// in its two factors, so entry (j, i) is entry (i, j)): the product chain,
+// the rounded sum of squares, the correctly rounded root, + 1e-6 and the
+// divide.
+template <int C>
+__device__ __forceinline__ void power_axis(const float (&cv)[C * (C + 1) / 2],
+                                           int iters, float (&ax)[C]) {
+  auto cov = [&](int i, int j) {
+    const int a = i < j ? i : j, b = i < j ? j : i;
+    return cv[a * C - a * (a - 1) / 2 + (b - a)];
+  };
+#pragma unroll
+  for (int i = 0; i < C; ++i) ax[i] = 1.0f;
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+    float w[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      float s = __fmul_rn(cov(i, 0), ax[0]);
+#pragma unroll
+      for (int j = 1; j < C; ++j) s = __fmaf_rn(cov(i, j), ax[j], s);
+      w[i] = s;
+    }
+    float sq = __fmul_rn(w[0], w[0]);
+#pragma unroll
+    for (int i = 1; i < C; ++i) sq = __fadd_rn(sq, __fmul_rn(w[i], w[i]));
+    const float den = __fadd_rn(__fsqrt_rn(sq), 1e-6f);
+#pragma unroll
+    for (int i = 0; i < C; ++i) ax[i] = __fdiv_rn(w[i], den);
+  }
+}
+
 // A fit's lane, the first part of `fit_subset`: the masked mean, the
 // covariance chains, 4 power-iteration rounds, the extremes of the
 // projections over its pixels, the endpoints (lo, hi) and their table.
@@ -1087,30 +983,8 @@ __device__ __forceinline__ float fit_begin(const TrialWarp& R,
     for (int c = 0; c < C; ++c) s = __fadd_rn(s, mean[c]);
     return s;
   }
-  auto cov = [&](int i, int j) {
-    const int a = i < j ? i : j, b = i < j ? j : i;
-    return cv[a * C - a * (a - 1) / 2 + (b - a)];
-  };
   float ax[C];
-#pragma unroll
-  for (int i = 0; i < C; ++i) ax[i] = 1.0f;
-#pragma unroll 1
-  for (int it = 0; it < 4; ++it) {
-    float w[C];
-#pragma unroll
-    for (int i = 0; i < C; ++i) {
-      float s = __fmul_rn(cov(i, 0), ax[0]);
-#pragma unroll
-      for (int j = 1; j < C; ++j) s = __fmaf_rn(cov(i, j), ax[j], s);
-      w[i] = s;
-    }
-    float sq = __fmul_rn(w[0], w[0]);
-#pragma unroll
-    for (int i = 1; i < C; ++i) sq = __fadd_rn(sq, __fmul_rn(w[i], w[i]));
-    const float den = __fadd_rn(__fsqrt_rn(sq), 1e-6f);
-#pragma unroll
-    for (int i = 0; i < C; ++i) ax[i] = __fdiv_rn(w[i], den);
-  }
+  power_axis<C>(cv, 4, ax);
   float mn4[4] = {1e9f, 1e9f, 1e9f, 1e9f};
   float mx4[4] = {-1e9f, -1e9f, -1e9f, -1e9f};
 #pragma unroll
@@ -1176,6 +1050,25 @@ __device__ __forceinline__ float fit_error(const TrialWarp& R,
                        fr.mask);
 }
 
+// The 2x2 least-squares solve of a step (`ls_solve`'s) from the weights'
+// moments and the P and Q chains: where it is singular lo / hi; clamped.
+template <int C>
+__device__ __forceinline__ void solve_endpoints(
+    float sa, float sab, float sb2, const float (&P)[C], const float (&Q)[C],
+    const float (&lo)[C], const float (&hi)[C], float (&lo2)[C],
+    float (&hi2)[C]) {
+  const float det = __fmaf_rn(sa, sb2, -__fmul_rn(sab, sab));
+  const bool ok = fabsf(det) > 1e-6f;
+  const float dd = ok ? det : 1.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float ln = __fdiv_rn(__fmaf_rn(sb2, P[c], -__fmul_rn(sab, Q[c])), dd);
+    const float hn = __fdiv_rn(__fmaf_rn(sa, Q[c], -__fmul_rn(sab, P[c])), dd);
+    lo2[c] = clamp255(ok ? ln : lo[c]);
+    hi2[c] = clamp255(ok ? hn : hi[c]);
+  }
+}
+
 // A fit's lane, one least-squares step (`ls_solve`'s): the weights of its
 // current best (0 outside its pixels), their moments, the P and Q chains in
 // pixel order, the 2x2 solve; where it is singular lo / hi; clamped.
@@ -1210,54 +1103,19 @@ __device__ __forceinline__ void fit_solve(const TrialWarp& R,
       Q[c] = q ? __fmaf_rn(b, v, Q[c]) : __fmul_rn(b, v);
     }
   }
-  const float sa = __fadd_rn(sa2[0], sa2[1]);
-  const float sab = __fadd_rn(sab2[0], sab2[1]);
-  const float sb2 = __fadd_rn(sb22[0], sb22[1]);
-  const float det = __fmaf_rn(sa, sb2, -__fmul_rn(sab, sab));
-  const bool ok = fabsf(det) > 1e-6f;
-  const float dd = ok ? det : 1.0f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float ln = __fdiv_rn(__fmaf_rn(sb2, P[c], -__fmul_rn(sab, Q[c])), dd);
-    const float hn = __fdiv_rn(__fmaf_rn(sa, Q[c], -__fmul_rn(sab, P[c])), dd);
-    lo2[c] = clamp255(ok ? ln : lo[c]);
-    hi2[c] = clamp255(ok ? hn : hi[c]);
-  }
+  solve_endpoints<C>(__fadd_rn(sa2[0], sa2[1]), __fadd_rn(sab2[0], sab2[1]),
+                     __fadd_rn(sb22[0], sb22[1]), P, Q, lo, hi, lo2, hi2);
 }
 
 // Pixel q of block b (its channels x) against the levels of fit f's
-// table, the squared differences added over the channels in order, the
-// first minimum; into R.best and weight buffer buf (buf < 0: the one after
-// the fit's current best) at the block's group g.
+// table (`table_min`); into R.best and weight buffer buf (buf < 0: the one
+// after the fit's current best) at the block's group g.
 template <int C>
 __device__ __forceinline__ void search_table(const TrialWarp& R, int b,
                                              int g, int q, int f,
                                              const float (&x)[C], int buf) {
-  const float4* t = R.table + f * (R.L + 1);
-  float best = INFINITY;
-  int arg = 0;
-#pragma unroll 4
-  for (int l = 0; l < R.L; ++l) {
-    const float4 r = t[l];
-    float d = __fsub_rn(x[0], r.x);
-    float e = __fmul_rn(d, d);
-    if constexpr (C > 1) {
-      d = __fsub_rn(x[1], r.y);
-      e = __fadd_rn(e, __fmul_rn(d, d));
-    }
-    if constexpr (C > 2) {
-      d = __fsub_rn(x[2], r.z);
-      e = __fadd_rn(e, __fmul_rn(d, d));
-    }
-    if constexpr (C > 3) {
-      d = __fsub_rn(x[3], r.w);
-      e = __fadd_rn(e, __fmul_rn(d, d));
-    }
-    if (e < best) {
-      best = e;
-      arg = l;
-    }
-  }
+  float best;
+  const int arg = table_min<C>(R.table + f * (R.L + 1), R.L, x, best);
   const int item = b * R.G + g;
   R.best[item * kItemWords + q] = best;
   weight_buf(R, buf < 0 ? 1 - R.fit[f].cur : buf)[item * kItemBytes + q] =
@@ -1888,6 +1746,540 @@ dualplane_trial_kernel(const float* __restrict__ px, long long sb,
 }
 
 // ---------------------------------------------------------------------------
+// uastc_mode_trial: the single-subset single-plane mode trials
+// ---------------------------------------------------------------------------
+//
+// A trial fits each block once, so a warp takes nb blocks (up to 16, at
+// the search's sizes; fewer in small launches, `mode_blocks_per_warp`)
+// and gives each a lane for its serial work: the C mean chains and the
+// C (C + 1) / 2 distinct covariance chains over the block's 16 pixels in
+// pixel order, the 6 power-iteration rounds, the extremes of the
+// projections, the endpoints and their codes, after each weight search the
+// error chain in pixel order, and per least-squares step the weights'
+// moments (exact), the 2C P / Q chains, the 2x2 solve, the codes and the
+// select; RGB's alpha error too. The per-pixel work runs a lane per pixel,
+// two blocks a pass: the reconstruction of the block's quantised endpoints
+// at each level (a level a lane), the search over the levels, and LA's
+// full-pixel error (whole numbers, exact in any order: shuffles). The two
+// hand over through the warp's slice of the dynamic shared memory, ordered
+// by __syncwarp; the CTA meets once, after the mode's tables and the
+// pixels are loaded.
+//
+// The searches of RGB and RGBA run in integers: a pixel's channels x and
+// a reconstruction's r are whole numbers 0..255, so each squared
+// difference and their sum e over 3 or 4 channels (below 2^24) are exact
+// in float32 and equal to the integers'. e = x.x - 2 x.r + r.r, and x.x is
+// the pixel's own, so the table holds each level's r as four bytes and
+// 64 r.r + l, and a level's key, 64 (r.r - 2 x.r) + l = 64 (e - x.x) + l,
+// is one dp4a of the bytes and one multiply-add: the least key is the
+// least error at its first level. A level costs a load, dp4a, a
+// multiply-add and a minimum, where the float search takes a subtract, a
+// multiply and an add a channel and a compare and two selects.
+// LA's luma is fractional: its search stays in float (`table_min`).
+//
+// Every rounding is `_mode_trial`'s as the plain version spells it
+// (`mode_trial_reference`), not a masked fit's: no mask products, the mean
+// divided by 16, 6 power-iteration rounds, the endpoints unclamped until
+// the codes (the least-squares fallback takes them so). Shared with the
+// other trials, each the same operations in the same order: `power_axis`,
+// `solve_endpoints` (`ls_solve`'s solve), `table_min` (`level_search`'s
+// and the other trials' search), `sum16` (a block's error: LA's fractional
+// luma in pixel order, whole numbers in four partial sums), `rec16`,
+// `quant_code` and `load_trial_tables`.
+
+constexpr int kModeWarps = 4;       // warps per CTA at most
+constexpr int kModeMaxBlocks = 16;  // 4x4 blocks per warp: a lane each
+constexpr int kPixStride = 17;      // float4s per block's pixels, + 1 (banks)
+
+// The mode trial's per-step split (`chip_smoke.py`, measurement only): an
+// instance with kStop < kModeAll runs the trial up to that step and writes
+// a sum of what it computed to err; the paths' instance runs to kModeAll.
+enum ModeStop {
+  kModeChains = 1,  // each block's mean and covariance chains
+  kModePower = 2,   // + the power iteration
+  kModeQuant = 3,   // + the projections' extremes, the endpoints, codes
+  kModeSearch = 4,  // + the reconstruction tables and the first search
+  kModeSolve = 5,   // + the least-squares steps (solves and searches)
+  kModeAll = 6      // + the full-pixel error and the outputs
+};
+
+// A block's record, written by its lane: the quantised endpoints' values
+// (the current trial's, which the tables are built from; at the end, for
+// LA, the best's), the best's codes (a byte each: c0 lo, c0 hi, c1 lo, ...), its
+// error and weight buffer. 48 bytes: 8 lanes' records on distinct banks.
+struct alignas(16) ModeRec {
+  float4 lo_u, hi_u;
+  uint32_t code[2];
+  float err;
+  int cur;
+};
+
+// A warp's slice of shared memory, nb blocks of C channels at L weight
+// levels (`mode_layout`).
+struct ModeWarp {
+  float4* x;      // [nb][kPixStride] each pixel's fitted channels (LA: the
+                  // luma and the alpha)
+  float4* rgba;   // [nb][kPixStride] each pixel (LA; otherwise x)
+  float4* table;  // [nb][L + 1] the reconstruction at each level
+  ModeRec* rec;   // [nb]
+  float* best;    // [nb][kItemWords] each pixel's least error
+  uint8_t* wl;    // [2][nb][kItemBytes] its level: two buffers
+  int nb, L;
+};
+
+// The slice's byte offsets (each 16-byte aligned) and its size; with base,
+// the pointers of W.
+__host__ __device__ inline int mode_layout(int C, int nb, int L, char* base,
+                                           ModeWarp* W) {
+  const int px_bytes = nb * kPixStride * 16;
+  const int bytes[6] = {px_bytes,
+                        C == 2 ? px_bytes : 0,
+                        nb * (L + 1) * 16,
+                        nb * (int)sizeof(ModeRec),
+                        nb * kItemWords * 4,
+                        2 * nb * kItemBytes};
+  int off = 0, o[6];
+  for (int i = 0; i < 6; ++i) {
+    o[i] = off;
+    off += (bytes[i] + 15) & ~15;
+  }
+  if (W) {
+    W->x = reinterpret_cast<float4*>(base + o[0]);
+    W->rgba = C == 2 ? reinterpret_cast<float4*>(base + o[1]) : W->x;
+    W->table = reinterpret_cast<float4*>(base + o[2]);
+    W->rec = reinterpret_cast<ModeRec*>(base + o[3]);
+    W->best = reinterpret_cast<float*>(base + o[4]);
+    W->wl = reinterpret_cast<uint8_t*>(base + o[5]);
+    W->nb = nb;
+    W->L = L;
+  }
+  return off;
+}
+
+__device__ __forceinline__ uint8_t* mode_weights(const ModeWarp& W, int buf,
+                                                 int b) {
+  return W.wl + (buf * W.nb + b) * kItemBytes;
+}
+
+// This warp's nb blocks (from blk0; past n the last repeats) into W: a
+// pixel a lane, one 16-byte load where the pixels' four channels are
+// contiguous and aligned.
+template <int C>
+__device__ __forceinline__ void mode_load(const ModeWarp& W, const float* px,
+                                          long long sb, long long sp,
+                                          long long sc, long long blk0, int n,
+                                          int lane) {
+  const bool vec = sc == 1 && sp == 4 && (sb & 3) == 0 &&
+                   ((uintptr_t)px & 15) == 0;
+  for (int i = lane; i < W.nb * 16; i += 32) {
+    const int b = i >> 4, q = i & 15;
+    const long long blk = blk0 + b < n ? blk0 + b : n - 1;
+    const float* p = px + blk * sb + q * sp;
+    const float4 v = vec ? *reinterpret_cast<const float4*>(p)
+                         : make_float4(p[0], p[sc], p[2 * sc], p[3 * sc]);
+    const int at = b * kPixStride + q;
+    if constexpr (C == 2) {
+      W.rgba[at] = v;
+      // `_la`: (r + g + b) * float32(1/3), and the alpha
+      W.x[at] = make_float4(
+          __fmul_rn(__fadd_rn(__fadd_rn(v.x, v.y), v.z), kThird), v.w, 0.0f,
+          0.0f);
+    } else {
+      W.x[at] = v;
+    }
+  }
+}
+
+// The least key 64 (r.r - 2 x.r) + l over the levels of table t (each
+// level: r's bytes, 64 r.r + l) for a pixel's channels as bytes x: kL
+// levels unrolled, or n_lev. The dot products are exact (bytes, sums
+// below 2^19), the keys above -2^26.
+template <int kL>
+__device__ __forceinline__ int key_min(const int2* t, int n_lev, unsigned x) {
+  auto key = [&](int l) {
+    const int2 e = t[l];
+    return e.y - 128 * (int)__dp4a((unsigned)e.x, x, 0u);
+  };
+  int best = INT_MAX;
+  if constexpr (kL > 0) {
+#pragma unroll
+    for (int l = 0; l < kL; ++l) best = min(best, key(l));
+  } else {
+#pragma unroll 4
+    for (int l = 0; l < n_lev; ++l) best = min(best, key(l));
+  }
+  return best;
+}
+
+__device__ __forceinline__ int key_search(const int2* t, int n_lev,
+                                          unsigned x) {
+  switch (n_lev) {
+    case 4: return key_min<4>(t, n_lev, x);
+    case 8: return key_min<8>(t, n_lev, x);
+    case 16: return key_min<16>(t, n_lev, x);
+    case 32: return key_min<32>(t, n_lev, x);
+    default: return key_min<0>(t, n_lev, x);
+  }
+}
+
+// Whole-numbered channels 0..255 as bytes (the unused ones 0), and the
+// sum of their squares.
+template <int C>
+__device__ __forceinline__ unsigned pack_bytes(const float (&v)[C],
+                                               int& sq) {
+  unsigned packed = 0u;
+  sq = 0;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int b = (int)v[c];
+    packed |= (unsigned)b << (8 * c);
+    sq += b * b;
+  }
+  return packed;
+}
+
+// The codes of float endpoints (`_quant`) and their values.
+template <int C>
+__device__ __forceinline__ void mode_quant(const uint8_t* inv_s,
+                                           const float* unq_s,
+                                           const float (&lo)[C],
+                                           const float (&hi)[C],
+                                           int (&lo_c)[C], int (&hi_c)[C],
+                                           float (&lo_u)[C],
+                                           float (&hi_u)[C]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    lo_c[c] = quant_code(inv_s, lo[c]);
+    hi_c[c] = quant_code(inv_s, hi[c]);
+    lo_u[c] = unq_s[lo_c[c]];
+    hi_u[c] = unq_s[hi_c[c]];
+  }
+}
+
+// Block b's lane, the fit: the mean chains (divided by 16), the covariance
+// chains of the centred pixels, 6 power-iteration rounds, the extremes of
+// the projections, the endpoints (lo_f, hi_f; unclamped) and their codes
+// and values; RGB also the alpha's error (`_alpha_err`: whole numbers,
+// four partial sums). Below kModeSearch it returns a sum of what it
+// computed at its stop.
+template <int C, int kStop>
+__device__ __forceinline__ float mode_fit(const ModeWarp& W,
+                                          const uint8_t* inv_s,
+                                          const float* unq_s, int b,
+                                          float (&lo_f)[C], float (&hi_f)[C],
+                                          int (&lo_c)[C], int (&hi_c)[C],
+                                          float (&lo_u)[C], float (&hi_u)[C],
+                                          float& alpha) {
+  const float4* xb = W.x + b * kPixStride;
+  float mean[C];
+  {
+    float acc[C], a4[4];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const float4 v = xb[q];
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        acc[c] = q ? __fadd_rn(acc[c], chan(v, c)) : chan(v, c);
+      if constexpr (C == 3) {
+        const float d = __fsub_rn(v.w, 255.0f), t = __fmul_rn(d, d);
+        a4[q & 3] = q < 4 ? t : __fadd_rn(a4[q & 3], t);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) mean[c] = __fdiv_rn(acc[c], 16.0f);
+    if constexpr (C == 3)
+      alpha = __fadd_rn(__fadd_rn(a4[0], a4[1]), __fadd_rn(a4[2], a4[3]));
+  }
+  constexpr int kCov = C * (C + 1) / 2;
+  float cv[kCov];
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const float4 v = xb[q];
+    float cx[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) cx[c] = __fsub_rn(chan(v, c), mean[c]);
+    int k = 0;
+#pragma unroll
+    for (int i = 0; i < C; ++i)
+#pragma unroll
+      for (int j = i; j < C; ++j, ++k)
+        cv[k] = q ? __fmaf_rn(cx[i], cx[j], cv[k]) : __fmul_rn(cx[i], cx[j]);
+  }
+  if constexpr (kStop == kModeChains) {
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kCov; ++k) s = __fadd_rn(s, cv[k]);
+#pragma unroll
+    for (int c = 0; c < C; ++c) s = __fadd_rn(s, mean[c]);
+    return s;
+  }
+  float ax[C];
+  power_axis<C>(cv, 6, ax);
+  if constexpr (kStop == kModePower) {
+    float s = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) s = __fadd_rn(s, ax[c]);
+    return s;
+  }
+  // the extremes of the projections (exact in any order: four of each)
+  float mn4[4], mx4[4];
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const float4 v = xb[q];
+    float pr = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float cx = __fsub_rn(chan(v, c), mean[c]);
+      pr = c ? __fmaf_rn(cx, ax[c], pr) : __fmul_rn(cx, ax[c]);
+    }
+    mn4[q & 3] = q < 4 ? pr : fminf(mn4[q & 3], pr);
+    mx4[q & 3] = q < 4 ? pr : fmaxf(mx4[q & 3], pr);
+  }
+  const float mn = fminf(fminf(mn4[0], mn4[1]), fminf(mn4[2], mn4[3]));
+  const float mx = fmaxf(fmaxf(mx4[0], mx4[1]), fmaxf(mx4[2], mx4[3]));
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    lo_f[c] = __fmaf_rn(ax[c], mn, mean[c]);
+    hi_f[c] = __fmaf_rn(ax[c], mx, mean[c]);
+  }
+  mode_quant<C>(inv_s, unq_s, lo_f, hi_f, lo_c, hi_c, lo_u, hi_u);
+  if constexpr (kStop == kModeQuant) {
+    float s = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      s = __fadd_rn(s, __fadd_rn((float)(lo_c[c] + hi_c[c]),
+                                 __fadd_rn(lo_u[c], hi_u[c])));
+    return s;
+  }
+  return 0.0f;
+}
+
+// Block b's lane, one least-squares step (`ls_step_reference`, no mask):
+// the weights a = (64 - w) / 64, b = w / 64 of weight buffer buf, their
+// moments (multiples of 1/4096 up to 16, exact in any order: two partial
+// sums each), the P and Q chains in pixel order, the 2x2 solve.
+template <int C>
+__device__ __forceinline__ void mode_solve(const ModeWarp& W, const float* lev,
+                                           int b, int buf,
+                                           const float (&lo)[C],
+                                           const float (&hi)[C],
+                                           float (&lo2)[C], float (&hi2)[C]) {
+  const float4* xb = W.x + b * kPixStride;
+  const uint32_t* wv =
+      reinterpret_cast<const uint32_t*>(mode_weights(W, buf, b));
+  float sa2[2] = {0.0f, 0.0f}, sab2[2] = {0.0f, 0.0f}, sb22[2] = {0.0f, 0.0f};
+  float P[C], Q[C];
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const float wl = lev[(wv[q >> 2] >> (8 * (q & 3))) & 255u];
+    const float a = __fmul_rn(__fsub_rn(64.0f, wl), kInv64);
+    const float bw = __fmul_rn(wl, kInv64);
+    sa2[q & 1] = __fadd_rn(sa2[q & 1], __fmul_rn(a, a));
+    sab2[q & 1] = __fadd_rn(sab2[q & 1], __fmul_rn(a, bw));
+    sb22[q & 1] = __fadd_rn(sb22[q & 1], __fmul_rn(bw, bw));
+    const float4 v = xb[q];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      P[c] = q ? __fmaf_rn(a, chan(v, c), P[c]) : __fmul_rn(a, chan(v, c));
+      Q[c] = q ? __fmaf_rn(bw, chan(v, c), Q[c]) : __fmul_rn(bw, chan(v, c));
+    }
+  }
+  solve_endpoints<C>(__fadd_rn(sa2[0], sa2[1]), __fadd_rn(sab2[0], sab2[1]),
+                     __fadd_rn(sb22[0], sb22[1]), P, Q, lo, hi, lo2, hi2);
+}
+
+// The pixel lanes, two blocks a pass: each block's table from its record's
+// endpoint values (`rec16`, a level a lane; RGB(A): bytes and 64 r.r + l),
+// then each pixel against it (LA `table_min`, RGB(A) `key_search`) into
+// W.best and weight buffer 0 (first) or the one after the block's best.
+// Every lane of the warp calls it; it ends past a __syncwarp.
+template <int C>
+__device__ __forceinline__ void mode_search(const ModeWarp& W, const float* lev,
+                                            int lane, bool first) {
+  const int q = lane & 15;
+  __syncwarp();
+  for (int b = lane >> 4; b < W.nb; b += 2) {
+    const ModeRec& r = W.rec[b];
+    float4* t = W.table + b * (W.L + 1);
+    for (int l = q; l < W.L; l += 16) {
+      float rr[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        rr[c] = rec16(chan(r.lo_u, c), chan(r.hi_u, c), lev[l]);
+      if constexpr (C == 2) {
+        t[l] = pack4<C>(rr);
+      } else {
+        int sq;
+        const unsigned bytes = pack_bytes<C>(rr, sq);
+        reinterpret_cast<int2*>(t)[l] = make_int2((int)bytes, 64 * sq + l);
+      }
+    }
+  }
+  __syncwarp();
+  for (int b = lane >> 4; b < W.nb; b += 2) {
+    const float4 v = W.x[b * kPixStride + q];
+    const float4* t = W.table + b * (W.L + 1);
+    float best;
+    int arg;
+    if constexpr (C == 2) {
+      const float x[2] = {v.x, v.y};
+      arg = table_min<C>(t, W.L, x, best);
+    } else {
+      float x[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) x[c] = chan(v, c);
+      int sq;
+      const unsigned bytes = pack_bytes<C>(x, sq);
+      const int key =
+          key_search(reinterpret_cast<const int2*>(t), W.L, bytes);
+      best = (float)(sq + (key >> 6));  // floor(key / 64) = e - x.x
+      arg = key & 63;
+    }
+    W.best[b * kItemWords + q] = best;
+    mode_weights(W, first ? 0 : 1 - W.rec[b].cur, b)[q] = (uint8_t)arg;
+  }
+  __syncwarp();
+}
+
+// px: (n, 16, 4) at strides (sb, sp, sc), whole numbers 0..255; inv: the
+// 256 codes (int64) of the endpoint values, unq: the n_unq unquantised
+// values of the codes; lev: the n_lev weight levels. `_mode_trial` of comps
+// C (2: the luma (r + g + b) * float32(1/3) and alpha; 3: RGB; 4: RGBA):
+// err (n,), ep (n, 2C) codes [c0 lo, c0 hi, c1 lo, ...], w (n, 16) level
+// indices. A warp takes nb blocks, its slice of the dynamic shared memory
+// mode_layout's.
+template <int C, int kStop>
+__global__ void __launch_bounds__(kModeWarps * 32)
+mode_trial_kernel(const float* __restrict__ px, long long sb, long long sp,
+                  long long sc, const long long* __restrict__ inv,
+                  const float* __restrict__ unq, int n_unq,
+                  const float* __restrict__ levels, int n_lev, int ls_iters,
+                  float* __restrict__ err_out, int* __restrict__ ep_out,
+                  int* __restrict__ w_out, int n, int nb) {
+  __shared__ float lev[kMaxLevels];
+  __shared__ uint8_t inv_s[256];
+  __shared__ float unq_s[256];
+  extern __shared__ __align__(16) uint8_t mode_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  ModeWarp W;
+  const int bytes = mode_layout(C, nb, n_lev, nullptr, nullptr);
+  mode_layout(C, nb, n_lev, (char*)mode_smem + warp * bytes, &W);
+  const long long blk0 =
+      ((long long)blockIdx.x * (blockDim.x >> 5) + warp) * nb;
+  // the pixels' loads and the tables' in flight together
+  if (blk0 < n) mode_load<C>(W, px, sb, sp, sc, blk0, n, lane);
+  load_trial_tables(inv, unq, n_unq, levels, n_lev, inv_s, unq_s, lev);
+  __syncthreads();
+  if (blk0 >= n) return;  // a warp past the last block
+
+  // 1. the fits: block `lane` on this lane (a repeated block too)
+  const bool fits = lane < nb;
+  const bool live = fits && blk0 + lane < n;
+  float lo_f[C], hi_f[C], lo_u[C], hi_u[C], alpha = 0.0f;
+  int lo_c[C], hi_c[C];
+  float err = 0.0f;
+  if (fits) {
+    err = mode_fit<C, kStop>(W, inv_s, unq_s, lane, lo_f, hi_f, lo_c, hi_c,
+                             lo_u, hi_u, alpha);
+    W.rec[lane].lo_u = pack4<C>(lo_u);
+    W.rec[lane].hi_u = pack4<C>(hi_u);
+    W.rec[lane].cur = 0;
+  }
+  if constexpr (kStop < kModeSearch) {
+    if (live) err_out[blk0 + lane] = err;
+    return;
+  }
+  // 2. the first weight search, and its error
+  mode_search<C>(W, lev, lane, true);
+  if (fits) err = sum16<C != 2>(W.best + lane * kItemWords, 0xffffu);
+  if constexpr (kStop == kModeSearch) {
+    if (live) err_out[blk0 + lane] = err;
+    return;
+  }
+  // 3. the least-squares steps, each from the unquantised endpoints of the
+  //    fit and the best's weights, kept where its error is strictly less
+  for (int it = 0; it < ls_iters; ++it) {
+    float lo_u2[C], hi_u2[C];
+    int lo_c2[C], hi_c2[C];
+    if (fits) {
+      float lo2[C], hi2[C];
+      mode_solve<C>(W, lev, lane, W.rec[lane].cur, lo_f, hi_f, lo2, hi2);
+      mode_quant<C>(inv_s, unq_s, lo2, hi2, lo_c2, hi_c2, lo_u2, hi_u2);
+      W.rec[lane].lo_u = pack4<C>(lo_u2);
+      W.rec[lane].hi_u = pack4<C>(hi_u2);
+    }
+    mode_search<C>(W, lev, lane, false);
+    if (fits) {
+      const float err2 = sum16<C != 2>(W.best + lane * kItemWords, 0xffffu);
+      if (err2 < err) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          lo_c[c] = lo_c2[c];
+          hi_c[c] = hi_c2[c];
+          lo_u[c] = lo_u2[c];
+          hi_u[c] = hi_u2[c];
+        }
+        err = err2;
+        W.rec[lane].cur = 1 - W.rec[lane].cur;
+      }
+    }
+  }
+  if (fits) {
+    ModeRec& r = W.rec[lane];
+    if constexpr (C == 2) {  // the best's values, for the full-pixel error
+      r.lo_u = pack4<C>(lo_u);
+      r.hi_u = pack4<C>(hi_u);
+    }
+    uint32_t code[2] = {0u, 0u};
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      code[c >> 1] |= (uint32_t)lo_c[c] << (16 * (c & 1)) |
+                      (uint32_t)hi_c[c] << (16 * (c & 1) + 8);
+    r.code[0] = code[0];
+    r.code[1] = code[1];
+    // the full-pixel error: RGB adds the alpha's
+    r.err = C == 3 ? __fadd_rn(err, alpha) : err;
+  }
+  if constexpr (kStop == kModeSolve) {
+    if (live) err_out[blk0 + lane] = err;
+    return;
+  }
+  __syncwarp();
+
+  // 4. the outputs, two blocks a pass; LA's full-pixel error: its gray
+  //    reconstruction against R, G and B and its alpha's against A (whole
+  //    numbers, exact in any order)
+  for (int base = 0; base < nb; base += 2) {
+    const int b_raw = base + (lane >> 4), q = lane & 15;
+    const int b = b_raw < nb ? b_raw : nb - 1;
+    const long long blk = blk0 + b_raw;
+    const ModeRec& r = W.rec[b];
+    const int w = mode_weights(W, r.cur, b)[q];
+    float e = r.err;
+    if constexpr (C == 2) {
+      const float4 p = W.rgba[b * kPixStride + q];
+      const float wl = lev[w];
+      const float l_rec = rec16(r.lo_u.x, r.hi_u.x, wl);
+      const float a_rec = rec16(r.lo_u.y, r.hi_u.y, wl);
+      float e_rgb = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float d = __fsub_rn(chan(p, c), l_rec);
+        e_rgb = c ? __fadd_rn(e_rgb, __fmul_rn(d, d)) : __fmul_rn(d, d);
+      }
+      const float da = __fsub_rn(p.w, a_rec);
+      e = __fadd_rn(exact_sum16(e_rgb), exact_sum16(__fmul_rn(da, da)));
+    }
+    if (b_raw < nb && blk < n) {
+      if (q == 0) err_out[blk] = e;
+      if (q < 2 * C)
+        ep_out[blk * 2 * C + q] = (int)((r.code[q >> 2] >> (8 * (q & 3))) & 255u);
+      w_out[blk * 16 + q] = w;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host helpers
 // ---------------------------------------------------------------------------
 
@@ -1939,19 +2331,6 @@ cudaError_t launch_line_fit(const float* v, long long sb, long long sp,
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t launch_mode_trial(const float* px, long long sb, long long sp,
-                              long long sc, const long long* inv,
-                              const float* unq, int n_unq,
-                              const float* levels, int n_lev,
-                              int ls_iters, float* err, int* ep, int* w, int n,
-                              cudaStream_t s) {
-  mode_trial_kernel<C><<<(n + kFitSlots - 1) / kFitSlots, kFitThreads, 0,
-                         s>>>(px, sb, sp, sc, inv, unq, n_unq, levels, n_lev,
-                              ls_iters, err, ep, w, n);
-  return cudaGetLastError();
-}
-
 // 4x4 blocks per warp for F fits a block, of n: every fit its own lane, an
 // even count where the fits allow (a pass over the pixels takes two
 // blocks), and fewer blocks a warp, down to two, where n would leave the
@@ -1966,12 +2345,71 @@ int trial_blocks_per_warp(int F, int n) {
   return nb > most ? most : nb < least ? least : (int)nb;
 }
 
-// Warps per trial CTA: kTrialWarps, fewer where their slices of shared
+// Warps per trial CTA: up to `most`, fewer where their slices of shared
 // memory would pass the 48 KB a CTA takes without an opt-in (the static
 // tables take 1.7 KB of it).
-int trial_warps(int bytes) {
-  const int w = (48 * 1024 - 4096) / bytes;
-  return w < 1 ? 1 : w > kTrialWarps ? kTrialWarps : w;
+constexpr int kSliceBytes = 48 * 1024 - 4096;
+
+int trial_warps(int bytes, int most = kTrialWarps) {
+  const int w = kSliceBytes / bytes;
+  return w < 1 ? 1 : w > most ? most : w;
+}
+
+// 4x4 blocks per warp of a mode trial of n blocks: kModeBlocks (a lane
+// each), fewer where n would leave the card without kWarpsWanted warps,
+// down to two (a pass over the pixels takes two).
+constexpr int kModeBlocks = 16;
+
+int mode_blocks_per_warp(int n) {
+  const long long nb = n / kWarpsWanted;
+  return nb >= kModeBlocks ? kModeBlocks : nb < 2 ? 2 : (int)nb;
+}
+
+// nb, warps: 0 for the defaults (mode_blocks_per_warp, trial_warps); a
+// count that does not fit is refused.
+template <int C, int kStop>
+cudaError_t launch_mode_trial(const float* px, long long sb, long long sp,
+                              long long sc, const long long* inv,
+                              const float* unq, int n_unq,
+                              const float* levels, int n_lev, int ls_iters,
+                              float* err, int* ep, int* w, int n, int nb,
+                              int warps, cudaStream_t s) {
+  if (nb == 0) nb = mode_blocks_per_warp(n);
+  if (nb < 1 || nb > kModeMaxBlocks) return cudaErrorInvalidValue;
+  const int bytes = mode_layout(C, nb, n_lev, nullptr, nullptr);
+  if (warps == 0) warps = trial_warps(bytes, kModeWarps);
+  if (warps < 1 || warps > kModeWarps || warps * bytes > kSliceBytes)
+    return cudaErrorInvalidValue;
+  const long long per_cta = (long long)warps * nb;
+  const unsigned grid = (unsigned)((n + per_cta - 1) / per_cta);
+  mode_trial_kernel<C, kStop><<<grid, 32 * warps, warps * bytes, s>>>(
+      px, sb, sp, sc, inv, unq, n_unq, levels, n_lev, ls_iters, err, ep, w, n,
+      nb);
+  return cudaGetLastError();
+}
+
+template <int kStop>
+int mode_trial_at(const float* px, long long sb, long long sp, long long sc,
+                  const long long* inv, const float* unq, int n_unq,
+                  const float* levels, int n_lev, int comps, int ls_iters,
+                  float* err, int* ep, int* w, int n, int nb, int warps,
+                  cudaStream_t s) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (n_unq < 1 || n_unq > 256 || n_lev < 1 || n_lev > kMaxLevels ||
+      ls_iters < 0)
+    return (int)cudaErrorInvalidValue;
+  switch (comps) {
+    case 2: return (int)launch_mode_trial<2, kStop>(
+        px, sb, sp, sc, inv, unq, n_unq, levels, n_lev, ls_iters, err, ep, w,
+        n, nb, warps, s);
+    case 3: return (int)launch_mode_trial<3, kStop>(
+        px, sb, sp, sc, inv, unq, n_unq, levels, n_lev, ls_iters, err, ep, w,
+        n, nb, warps, s);
+    case 4: return (int)launch_mode_trial<4, kStop>(
+        px, sb, sp, sc, inv, unq, n_unq, levels, n_lev, ls_iters, err, ep, w,
+        n, nb, warps, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <int C, int S, int kStop>
@@ -2202,23 +2640,9 @@ int uastc_mode_trial(const float* px, long long sb, long long sp,
                      int n_unq, const float* levels, int n_lev, int comps,
                      int ls_iters, float* err, int* ep, int* w, int n,
                      void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  if (n_unq < 1 || n_unq > 256 || n_lev < 1 || n_lev > kMaxLevels ||
-      ls_iters < 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (comps) {
-    case 2: return (int)launch_mode_trial<2>(px, sb, sp, sc, inv, unq, n_unq,
-                                             levels, n_lev, ls_iters, err, ep,
-                                             w, n, s);
-    case 3: return (int)launch_mode_trial<3>(px, sb, sp, sc, inv, unq, n_unq,
-                                             levels, n_lev, ls_iters, err, ep,
-                                             w, n, s);
-    case 4: return (int)launch_mode_trial<4>(px, sb, sp, sc, inv, unq, n_unq,
-                                             levels, n_lev, ls_iters, err, ep,
-                                             w, n, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return mode_trial_at<kModeAll>(px, sb, sp, sc, inv, unq, n_unq, levels,
+                                 n_lev, comps, ls_iters, err, ep, w, n, 0, 0,
+                                 (cudaStream_t)stream);
 }
 
 // px: (n, 16, 4) at strides (sb, sp, sc); pats: (n_pat, 16) int64
@@ -2276,6 +2700,32 @@ int uastc_subset_trial_split(const float* px, long long sb, long long sp,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SUBSET_AT
+}
+
+// The mode trial's per-step split and its launch shape (`chip_smoke.py`,
+// measurement only): uastc_mode_trial's arguments, stop (ModeStop, 1..6),
+// blocks per warp nb (1..32) and warps per CTA (1..4), 0 for the defaults.
+int uastc_mode_trial_split(const float* px, long long sb, long long sp,
+                           long long sc, const long long* inv,
+                           const float* unq, int n_unq, const float* levels,
+                           int n_lev, int comps, int ls_iters, float* err,
+                           int* ep, int* w, int n, int stop, int nb, int warps,
+                           void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define MODE_AT(k)                                                         \
+  case k: return mode_trial_at<k>(px, sb, sp, sc, inv, unq, n_unq, levels, \
+                                  n_lev, comps, ls_iters, err, ep, w, n,  \
+                                  nb, warps, s)
+  switch (stop) {
+    MODE_AT(kModeChains);
+    MODE_AT(kModePower);
+    MODE_AT(kModeQuant);
+    MODE_AT(kModeSearch);
+    MODE_AT(kModeSolve);
+    MODE_AT(kModeAll);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef MODE_AT
 }
 
 int uastc_dualplane_trial_split(const float* px, long long sb, long long sp,

@@ -114,10 +114,13 @@ def _declare_xla_order(lib):
     for name in ("uastc_subset_trial", "uastc_dualplane_trial"):
         fn = getattr(lib, name + "_split")
         fn.argtypes = getattr(lib, name).argtypes[:-1] + [ci, vp]
+    # the mode trial's: a stop, blocks per warp and warps per CTA
+    lib.uastc_mode_trial_split.argtypes = \
+        lib.uastc_mode_trial.argtypes[:-1] + [ci, ci, ci, vp]
     for fn in (lib.xla_fma, lib.xla_reduce, lib.uastc_line_fit,
                lib.uastc_mode_trial, lib.uastc_subset_trial,
                lib.uastc_dualplane_trial, lib.uastc_subset_trial_split,
-               lib.uastc_dualplane_trial_split):
+               lib.uastc_dualplane_trial_split, lib.uastc_mode_trial_split):
         fn.restype = ci
     return lib
 

@@ -1235,7 +1235,7 @@ def uastc_pack_phase(torch, px, rng, measure):
                     _bound(n_bytes, _pack_ops(compact, tabs)))
 
 
-def _line_fit_ops(n_ch, n_sub, n_lev, ls_iters, iters=4):
+def _line_fit_ops(n_ch, n_sub, n_lev, ls_iters, iters=4, per_level=None):
     """Instructions per 4x4 block of one line fit of n_sub subsets (an add,
     multiply, fused multiply-add, compare, select, divide, root or floor
     each one). A pixel adds nothing to another subset's result (its mask
@@ -1243,15 +1243,18 @@ def _line_fit_ops(n_ch, n_sub, n_lev, ls_iters, iters=4):
     pixel's own subset: the mean's terms (16 C), the centring (16 C), the
     covariance (16 C^2 fused multiply-adds), the projections (16 C) and the
     extremes (2 x 16); per weight search (1 + ls_iters) each pixel's search
-    (3 C + 1 per level) and the error (16); per least-squares step the
+    (per_level a level, by default 3 C + 1) and the error (16); per
+    least-squares step the
     weights (16 x 2), their moments (16 x 6) and the P and Q chains (2 C x
     16). Per subset: the mean's C divides, the power iteration (per round
     C^2 + C products, C - 1 adds, a root, an add, C divides), the endpoints
     (3 C), per weight search the reconstruction (5 per level and channel),
     per least-squares step the solve (3 + 10 C) and the select (2 C + 2)."""
     searches = 1 + ls_iters
+    if per_level is None:
+        per_level = 3 * n_ch + 1
     per_block = (16 * n_ch * 3 + 16 * n_ch * n_ch + 32
-                 + searches * (16 * n_lev * (3 * n_ch + 1) + 16)
+                 + searches * (16 * n_lev * per_level + 16)
                  + ls_iters * (16 * 2 + 16 * 6 + 32 * n_ch))
     per_subset = (n_ch + iters * (n_ch * n_ch + 3 * n_ch + 1) + 3 * n_ch
                   + searches * 5 * n_lev * n_ch
@@ -1261,11 +1264,15 @@ def _line_fit_ops(n_ch, n_sub, n_lev, ls_iters, iters=4):
 
 def _mode_trial_ops(comps, n_lev, ls_iters):
     """Instructions per 4x4 block of one mode trial: the line fit of
-    `_line_fit_ops` of one subset with 6 power iterations, and per quantised
-    endpoint pair 12 C (round, clip, convert, two table reads), the
-    reconstruction at 7 per level and channel instead of 5, the luma (16 x
-    3) of LA and the full-pixel error (16 x 3; LA 16 x 25)."""
-    ops = _line_fit_ops(comps, 1, n_lev, ls_iters, iters=6)
+    `_line_fit_ops` of one subset with 6 power iterations, its search at
+    the cheaper of the two forms a level (RGB and RGBA, whose errors are
+    whole numbers: 4, a load, a dot product of bytes, a multiply-add and a
+    minimum; LA: 3 C + 1), and per quantised endpoint pair 12 C (round,
+    clip, convert, two table reads), the reconstruction at 7 per level and
+    channel instead of 5, the luma (16 x 3) of LA and the full-pixel error
+    (16 x 3; LA 16 x 25)."""
+    ops = _line_fit_ops(comps, 1, n_lev, ls_iters, iters=6,
+                        per_level=3 * comps + 1 if comps == 2 else 4)
     ops += (1 + ls_iters) * (12 * comps + 2 * n_lev * comps)
     return ops + {2: 16 * 3 + 16 * 25, 3: 16 * 3, 4: 0}[comps]
 
@@ -1477,19 +1484,114 @@ def trials_ab(torch, px, rng, other_uenc):
                                      "two trees' outputs differ")
 
 
-def uastc_line_fits(torch, px, rng, measure):
-    """`uastc_line_fit` at the (C, S, weight bits, least-squares steps) and
-    `uastc_mode_trial` at the (comps, weight bits, steps) of the effort-2
-    and effort-3 searches (the first of each is the effort-2 RGB search's
-    most frequent), each against its plain version bit for bit."""
-    from basis_universal_tpu_torch.codecs.uastc import encode as uenc
+# the mode trial's stop points (`ModeStop` in `csrc/xla_order_kernels.cu`),
+# each the step that a measurement instance runs last
+MODE_STEPS = ("mean and covariance", "power iteration",
+              "endpoints and codes", "tables and level search",
+              "least-squares steps", "full-pixel error")
+
+
+def mode_split(torch, uenc, label, args, x):
+    """The per-step split of one mode trial on x: the device ms of each
+    stop point's measurement instance (`uastc_mode_trial_split`, the trial
+    up to that step, the last the whole trial), and each step's share as
+    the difference from the stop before it, printed."""
+    from basis_universal_tpu_torch.ops import _build
+
+    lib = _build.get_lib("xla_order_kernels")
+    wb, ep_range, comps, ls = args
+    dev, n = x.device, x.shape[0]
+    inv, unq, wlev = uenc._mode_consts(wb, ep_range, str(dev))
+    err = torch.empty(n, dtype=torch.float32, device=dev)
+    ep = torch.empty((n, 2 * comps), dtype=torch.int32, device=dev)
+    w = torch.empty((n, 16), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(stop):
+        status = lib.uastc_mode_trial_split(
+            x.data_ptr(), *x.stride(), inv.data_ptr(), unq.data_ptr(),
+            unq.numel(), wlev.data_ptr(), wlev.numel(), comps, ls,
+            err.data_ptr(), ep.data_ptr(), w.data_ptr(), n, stop, 0, 0,
+            stream)
+        if status != 0:
+            raise RuntimeError(f"uastc_mode_trial_split stop {stop}: "
+                               f"status {status}")
+
+    cum = [_device_ms(torch, lambda stop=stop: run(stop))
+           for stop in range(1, len(MODE_STEPS) + 1)]
+    steps = ", ".join(f"{step} {b - a:+.4f}" for step, a, b in
+                      zip(MODE_STEPS, [0.0] + cum, cum))
+    print(f"uastc_mode_trial {label} split at {n} blocks, device ms by step: "
+          f"{steps} (cumulative {', '.join(f'{c:.4f}' for c in cum)})")
+
+
+def _mode_cases():
+    """(mode, weight bits, endpoint range, comps) of every single-subset
+    mode, mode 0 (the effort-2 RGB search's most frequent) first."""
     from basis_universal_tpu_torch.codecs.uastc import pack
+
+    return sorted(pack.ALL_MODES, key=lambda m: (m[3] != 3, m[0] != 0))
+
+
+def _with_alpha(torch, px, rng):
+    """Image 0's blocks (B, 16, 3) with a random alpha, contiguous."""
+    b_n = px.shape[0]
+    return torch.cat([px, torch.as_tensor(rng.integers(0, 256, (b_n, 16, 1)),
+                                          dtype=torch.float32,
+                                          device=px.device)],
+                     -1).contiguous()
+
+
+# the launches `mode_trials_ab` holds: image 0's blocks, a 512x512, a
+# 512x256 and a 256x256 image's, and RAGGED_BLOCKS (small launches, where
+# the launcher gives a warp fewer blocks and their serial chains show)
+MODE_AB_BLOCKS = (24576, 16384, 8192, 4096, RAGGED_BLOCKS)
+
+
+def mode_trials_ab(torch, px, rng, other_uenc):
+    """This tree's `uastc_mode_trial` against another tree's
+    (`other_uenc`, its `codecs/uastc/encode.py`) at every single-subset
+    mode and 1 and 2 least-squares steps, on the first MODE_AB_BLOCKS of
+    image 0's blocks: every output equal, and the device ms of each in
+    turns (other, this, this, other)."""
+    from basis_universal_tpu_torch.codecs.uastc import encode as uenc
+
+    rgba = _with_alpha(torch, px, rng)
+    for ls in (1, 2):
+        for mode, wb, ep_range, comps in _mode_cases():
+            args = (wb, ep_range, comps, ls)
+            for n in MODE_AB_BLOCKS:
+                x = rgba[:n]
+                mine = uenc._mode_trial(x, *args)
+                theirs = other_uenc._mode_trial(x, *args)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(mine, theirs))
+                runs = [lambda m=m: m._mode_trial(x, *args)
+                        for m in (other_uenc, uenc, uenc, other_uenc)]
+                dt = [_device_ms(torch, r) for r in runs]
+                print(f"ab uastc_mode_trial mode {mode} comps {comps} "
+                      f"L{1 << wb} ls{ls} at {n} blocks: same outputs "
+                      f"{same}; device ms other {dt[0]:.4f}, this "
+                      f"{dt[1]:.4f}, this {dt[2]:.4f}, other {dt[3]:.4f}")
+                if not same:
+                    raise AssertionError(f"ab uastc_mode_trial mode {mode} "
+                                         f"ls{ls} at {n} blocks: the two "
+                                         "trees' outputs differ")
+
+
+def uastc_line_fits(torch, px, rng, measure, split=True):
+    """`uastc_line_fit` at the (C, S, weight bits, least-squares steps) and
+    `uastc_mode_trial` at the (comps, weight bits, steps) of every
+    single-subset mode (the first of each is the effort-2 RGB search's
+    most frequent), each against its plain version bit for bit; the mode
+    trials at 24,576 and RAGGED_BLOCKS blocks, timed at 24,576, and with
+    `split` each mode's one-step trial split by its steps
+    (`mode_split`)."""
+    from basis_universal_tpu_torch.codecs.uastc import encode as uenc
 
     dev = px.device
     b_n = px.shape[0]
-    rgba = torch.cat([px, torch.as_tensor(rng.integers(0, 256, (b_n, 16, 1)),
-                                          dtype=torch.float32, device=dev)],
-                     -1).contiguous()
+    rgba = _with_alpha(torch, px, rng)
     # (C, S, weight bits): modes 2, 4 (and 7); the dual planes of mode 6;
     # mode 9; the planes of modes 11 and 13, and mode 17's; mode 3
     fits = [(3, 2, 3), (3, 2, 2), (2, 1, 2), (1, 1, 2), (4, 2, 2), (3, 1, 2),
@@ -1519,24 +1621,27 @@ def uastc_line_fits(torch, px, rng, measure):
                 lambda: uenc.line_fit_reference(*args), 0.0,
                 _bound(n_bytes, float(b_n * _line_fit_ops(
                     n_ch, n_sub, len(levels), ls))))
-    modes = sorted(pack.ALL_MODES, key=lambda m: (m[3] != 3, m[0] != 0))
     for ls in (1, 2):
-        for mode, wb, ep_range, comps in modes:
-            args = (rgba, wb, ep_range, comps, ls)
-            got = uenc._mode_trial(*args)
-            want = uenc.mode_trial_reference(*args)
-            torch.cuda.synchronize()
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                raise AssertionError(f"uastc_mode_trial mode {mode} ls{ls}: "
-                                     "differs from the plain version")
+        for mode, wb, ep_range, comps in _mode_cases():
+            args = (wb, ep_range, comps, ls)
+            for n in (b_n, RAGGED_BLOCKS):
+                got = uenc._mode_trial(rgba[:n], *args)
+                want = uenc.mode_trial_reference(rgba[:n], *args)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"uastc_mode_trial mode {mode} "
+                                         f"ls{ls} at {n} blocks: differs "
+                                         "from the plain version")
             n_lev = 1 << wb
             n_bytes = 4 * b_n * (64 + 1 + 2 * comps + 16)
-            measure("uastc_mode_trial",
-                    f"mode {mode} comps {comps} L{n_lev} ls{ls}",
-                    lambda: uenc._mode_trial(*args),
-                    lambda: uenc.mode_trial_reference(*args), 0.0,
+            label = f"mode {mode} comps {comps} L{n_lev} ls{ls}"
+            measure("uastc_mode_trial", label,
+                    lambda: uenc._mode_trial(rgba, *args),
+                    lambda: uenc.mode_trial_reference(rgba, *args), 0.0,
                     _bound(n_bytes, float(b_n * _mode_trial_ops(
                         comps, n_lev, ls))))
+            if split and ls == 1:
+                mode_split(torch, uenc, label, args, rgba)
 
 
 def phase_main_path(torch, images):
@@ -2212,7 +2317,8 @@ def phase_ab(torch, blocks, tree, images):
     whether they give the same bits (the fused scan's shortlists, the
     rescore's errors, the argmin's indices, the init's seeds, the refine's
     columns, the selector's indices and errors, every output of the trials
-    at 24,576 and 1,001 blocks, `trials_ab`), and their call
+    at 24,576 and 1,001 blocks, `trials_ab` and `mode_trials_ab`), and
+    their call
     times (CUDA events) and device times (torch.profiler) in turns: other,
     this, this, other; then the ETC1S path of each (`segment_split`, the
     images of phase 4) in the same turns."""
@@ -2357,8 +2463,9 @@ def phase_ab(torch, blocks, tree, images):
         raise AssertionError("ab refine shortlist: the two trees differ")
     import importlib
 
-    trials_ab(torch, px, np.random.default_rng(1234),
-              importlib.import_module("_other_port.codecs.uastc.encode"))
+    other_uenc = importlib.import_module("_other_port.codecs.uastc.encode")
+    trials_ab(torch, px, np.random.default_rng(1234), other_uenc)
+    mode_trials_ab(torch, px, np.random.default_rng(1234), other_uenc)
     for name, label, args, kw in cases:
         mine = getattr(ck, name)(*args, **kw)
         theirs = getattr(other, name)(*args, **kw)
@@ -2608,7 +2715,8 @@ def fit_timings(torch, label):
               f"{_device_ms(torch, run):.4f} ms, bound {bound[0]:.4f} ms "
               f"({bound[1]})")
 
-    uastc_line_fits(torch, px, np.random.default_rng(1234), measure)
+    uastc_line_fits(torch, px, np.random.default_rng(1234), measure,
+                    split=False)
 
 
 # this script's line-fit timings of the port package at the working directory

@@ -52,6 +52,10 @@ struct uint4 {
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
   return {a, b, c, d};
 }
+struct alignas(8) int2 {
+  int x, y;
+};
+inline int2 make_int2(int a, int b) { return {a, b}; }
 struct alignas(16) float4 {
   float x, y, z, w;
 };
@@ -175,6 +179,11 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 }
 
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// the four byte products of a and b, added to c
+inline unsigned __dp4a(unsigned a, unsigned b, unsigned c) {
+  for (int i = 0; i < 32; i += 8) c += ((a >> i) & 255u) * ((b >> i) & 255u);
+  return c;
+}
 inline uint32_t __umulhi(uint32_t a, uint32_t b) {
   return (uint32_t)(((uint64_t)a * b) >> 32);
 }

@@ -1031,27 +1031,52 @@ def test_line_fit_on_card(cuda, n_ch, n_sub, wb, ls_iters):
             assert torch.equal(g.cpu(), w)
 
 
+# (comps, weight bits, endpoint range, block counts): each instance at
+# weight bits 1..5 on a strided view (2,999 blocks and one), then every
+# single-subset mode of the search (RGB 0, 1, 5, 18, RGBA 10, 12, 14, LA
+# 15) at the path's 24,576 contiguous blocks and 1,001 rows of 65 floats
+MODE_TRIALS = [pytest.param(comps, wb, {1: 20, 2: 20, 3: 19, 4: 13, 5: 11}[wb],
+                            (2999, 1), id=f"C{comps}-wb{wb}")
+               for comps in (2, 3, 4) for wb in (1, 2, 3, 4, 5)]
+MODE_TRIALS += [pytest.param(comps, wb, ep_range, (24576, 1001),
+                             id=f"mode{mode}")
+                for mode, wb, ep_range, comps in (
+                    (0, 4, 19, 3), (1, 2, 20, 3), (5, 3, 20, 3),
+                    (18, 5, 11, 3), (10, 4, 13, 4), (12, 3, 19, 4),
+                    (14, 2, 20, 4), (15, 4, 20, 2))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ls_iters", [1, 2])
-@pytest.mark.parametrize("wb", [1, 2, 3, 4, 5])
-@pytest.mark.parametrize("comps", [2, 3, 4])
-def test_mode_trial_on_card(cuda, comps, wb, ls_iters):
+@pytest.mark.parametrize("comps,wb,ep_range,counts", MODE_TRIALS)
+def test_mode_trial_on_card(cuda, comps, wb, ep_range, counts, ls_iters):
     """One `uastc_mode_trial` launch gives the errors, endpoint codes and
     weights of its plain version on the card and on the CPU, bit for bit:
-    solid blocks, pixels through a strided view, a ragged last CTA and one
-    block."""
+    solid blocks, a ragged last warp and CTA, one block; pixels through a
+    strided view (element loads), contiguous (16-byte loads) and in rows
+    of 65 floats (element loads where a block is not 16-byte aligned)."""
     from basis_universal_tpu_torch.codecs.uastc import encode as uenc
 
-    ep_range = {1: 20, 2: 20, 3: 19, 4: 13, 5: 11}[wb]
-    wide = _fit_blocks(2999, comps + 10 * wb).repeat(1, 1, 2)
-    for b in (2999, 1):
-        px = wide[:b, :, ::2]                       # a strided view
-        args = (wb, ep_range, comps, ls_iters)
+    n = max(counts)
+    blocks = _fit_blocks(n, comps + 10 * wb)
+    # each view taken of its base tensor on the host and on the card
+    if counts[0] == 2999:
+        wide = blocks.repeat(1, 1, 2)
+        views = [(lambda t, b=b: t[:b, :, ::2], wide) for b in counts]
+    else:
+        b = counts[1]
+        rows = torch.cat([blocks[:b].reshape(b, 64), torch.zeros(b, 1)], 1)
+        views = [(lambda t: t, blocks),
+                 (lambda t: t.as_strided((b, 16, 4), (65, 4, 1)), rows)]
+    args = (wb, ep_range, comps, ls_iters)
+    for view, base in views:
+        px, card = view(base), view(base.to(cuda))
+        assert card.stride() == px.stride()
         ck.reset_launch_counts()
-        got = uenc._mode_trial(px.to(cuda), *args)
+        got = uenc._mode_trial(card, *args)
         assert ck.LAUNCHES["uastc_mode_trial"] == 1
         assert sum(ck.LAUNCHES.values()) == 1
-        for g, w in zip(got, uenc.mode_trial_reference(px.to(cuda), *args)):
+        for g, w in zip(got, uenc.mode_trial_reference(card, *args)):
             assert torch.equal(g, w)
         for g, w in zip(got, uenc.mode_trial_reference(px, *args)):
             assert torch.equal(g.cpu(), w)

@@ -17,7 +17,12 @@ and two-tone, with random alpha; every instance of each kernel, at weight
 bits 1..5 and the top-k of the searches; for the trials also patterns with
 a one-pixel and an empty subset and a masked pixel 0 whose centred value
 is -0, candidates and channel choices that tie, block counts of 1 to 8,500
-(one to eight blocks a warp), strided pixels and LA's fractional chains.
+(one to eight blocks a warp), strided pixels and LA's fractional chains;
+for the single-subset trial every mode of the search at 1 and 2
+least-squares steps, 1, 33 and 1,001 blocks, strided, planar and
+unaligned pixels, blocks of zero or rank-one covariance and level searches
+that tie, and launch shapes of 1 to 16 blocks a warp and 1 to 4 warps a
+CTA through its measurement entry, whose per-step stops are held too.
 Tolerance: none, every output equal (`torch.equal`). Card tests of the
 same kernels: `tests/test_torch_cuda.py`.
 """
@@ -32,6 +37,7 @@ import pytest
 import torch
 
 from basis_universal_tpu_torch.codecs.uastc import encode as uenc
+from basis_universal_tpu_torch.codecs.uastc import pack
 from basis_universal_tpu_torch.ops import _build, xla_order
 from basis_universal_tpu_torch.ops import cuda_etc1s as ck
 
@@ -333,16 +339,183 @@ def test_line_fit_kernel_is_the_plain_version(on_host, n_ch, n_sub, wb, ls):
           {"uastc_line_fit": 1})
 
 
-@pytest.mark.parametrize("comps,wb,ls", [(2, 2, 1), (3, 3, 2), (4, 5, 1),
-                                         (3, 1, 1)])
-def test_mode_trial_kernel_is_the_plain_version(on_host, comps, wb, ls):
+# (comps, weight bits, least-squares steps, endpoint range): each
+# instance at weight bits 1..5 (the range by the weight bits), then every
+# single-subset mode of the search (`pack.ALL_MODES`: RGB 0, 1, 5, 18, RGBA
+# 10, 12, 14, LA 15) at 1 and 2 steps
+MODE_CASES = [pytest.param(2, 2, 1, None, id="2-2-1"),
+              pytest.param(3, 3, 2, None, id="3-3-2"),
+              pytest.param(4, 5, 1, None, id="4-5-1"),
+              pytest.param(3, 1, 1, None, id="3-1-1")]
+MODE_CASES += [pytest.param(comps, wb, ls, ep_range, id=f"mode{mode}-ls{ls}")
+               for mode, wb, ep_range, comps in pack.ALL_MODES
+               for ls in (1, 2)]
+_EP_RANGE = {1: 20, 2: 20, 3: 19, 4: 13, 5: 11}
+
+
+@pytest.mark.parametrize("comps,wb,ls,ep_range", MODE_CASES)
+def test_mode_trial_kernel_is_the_plain_version(on_host, comps, wb, ls,
+                                                ep_range):
     """`uastc_mode_trial` gives `mode_trial_reference`'s errors, codes and
     weights."""
-    px = _blocks(comps + 10 * wb)
-    ep_range = {1: 20, 2: 20, 3: 19, 4: 13, 5: 11}[wb]
+    if ep_range is None:  # the instance cases, on their own blocks
+        px, ep_range = _blocks(comps + 10 * wb), _EP_RANGE[wb]
+    else:
+        px = _blocks(comps + 10 * wb + 100 * ls)
     got = uenc._mode_trial(px.as_subclass(_Card), wb, ep_range, comps, ls)
     _same(got, uenc.mode_trial_reference(px, wb, ep_range, comps, ls),
           {"uastc_mode_trial": 1})
+
+
+# (label, weight bits, endpoint range, comps, steps): one mode of each
+# instance, mode 18 (32 levels) and LA's fractional chains among them
+MODE_SHAPES = [("mode0", 4, 19, 3, 1), ("mode18", 5, 11, 3, 2),
+               ("mode10", 4, 13, 4, 1), ("mode15", 4, 20, 2, 2)]
+MODE_COUNTS = [(c, n) for c in MODE_SHAPES for n in (1, 33, 1001)]
+
+
+@pytest.mark.parametrize("case,n", MODE_COUNTS,
+                         ids=[f"{c[0]}-{n}" for c, n in MODE_COUNTS])
+def test_mode_trial_kernel_at_ragged_block_counts(on_host, case, n):
+    """1, 33 and 1,001 blocks: a warp, or a CTA, whose last blocks or warps
+    have no block of their own (the last block repeats, written once)."""
+    label, wb, ep_range, comps, ls = case
+    px = _blocks(len(label) + n, n=n)
+    got = uenc._mode_trial(px.as_subclass(_Card), wb, ep_range, comps, ls)
+    _same(got, uenc.mode_trial_reference(px, wb, ep_range, comps, ls),
+          {"uastc_mode_trial": 1})
+
+
+@pytest.mark.parametrize("case", MODE_SHAPES, ids=[c[0] for c in MODE_SHAPES])
+def test_mode_trial_kernel_takes_strided_pixels(on_host, case):
+    """Strided views of the pixels: every other channel of a wider tensor,
+    planar channels (a channel stride of 16 n), and rows of 65 floats
+    (contiguous pixels, but a block's start 16-byte aligned only in every
+    fourth block): the kernel's element loads, not its 16-byte ones."""
+    label, wb, ep_range, comps, ls = case
+    wide = _blocks(len(label) + 1).repeat(1, 1, 2)
+    rows = torch.cat([_blocks(len(label) + 3).reshape(N_BLOCKS, 64),
+                      torch.zeros(N_BLOCKS, 1)], 1)
+    planar = _blocks(len(label) + 2).permute(2, 0, 1).contiguous()
+    views = [wide[:, :, ::2], planar.permute(1, 2, 0),
+             rows.as_strided((N_BLOCKS, 16, 4), (65, 4, 1))]
+    for px in views:
+        assert not px.is_contiguous()
+        ck.reset_launch_counts()
+        got = uenc._mode_trial(px.as_subclass(_Card), wb, ep_range, comps, ls)
+        _same(got, uenc.mode_trial_reference(px.contiguous(), wb, ep_range,
+                                             comps, ls),
+              {"uastc_mode_trial": 1})
+
+
+def _flat_blocks(seed, n=N_BLOCKS):
+    """Blocks whose fits are degenerate or tie: solid (zero covariance, the
+    axis 0 / (sqrt(0) + 1e-6)), two-level (rank one), gray (R = G = B: the
+    LA luma whole), channels of one or two values (rank one or two), and a
+    spread of 0..3 around a value, whose reconstructions at 16 or 32
+    levels repeat, so that a pixel's least error is reached at several
+    levels (the first is taken)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (n, 1, 4))
+    kind = np.arange(n) % 5
+    px = np.broadcast_to(base, (n, 16, 4)).copy()
+    two = rng.integers(0, 256, (n, 1, 4))
+    pick = rng.integers(0, 2, (n, 16, 1)) == 1
+    px = np.where((kind == 1)[:, None, None] & pick, two, px)
+    gray = np.where(pick, two[..., :1], base[..., :1])
+    px[kind == 2, :, :3] = gray[kind == 2]
+    px[kind == 3, :, 1] = rng.integers(0, 256, (n, 16))[kind == 3]
+    px = np.where((kind == 4)[:, None, None],
+                  base + rng.integers(0, 4, (n, 16, 4)), px)
+    return torch.as_tensor(np.clip(px, 0, 255).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", MODE_SHAPES, ids=[c[0] for c in MODE_SHAPES])
+def test_mode_trial_kernel_degenerate_blocks_and_ties(on_host, case):
+    """`_flat_blocks`: zero and rank-one covariance, endpoints that clamp,
+    a singular least-squares system, and level searches that tie; every
+    output the plain version's."""
+    label, wb, ep_range, comps, ls = case
+    px = _flat_blocks(len(label) + wb)
+    got = uenc._mode_trial(px.as_subclass(_Card), wb, ep_range, comps, ls)
+    _same(got, uenc.mode_trial_reference(px, wb, ep_range, comps, ls),
+          {"uastc_mode_trial": 1})
+    # the ties are there: pixels whose least error, through the winning
+    # codes, is reached at more than one level
+    _, unq, wlev = uenc._mode_consts(wb, ep_range, "cpu")
+    ep = got[1].long()
+    acc = (unq[ep[:, 0::2]][:, None] * (64.0 - wlev)[None, :, None]
+           + unq[ep[:, 1::2]][:, None] * wlev[None, :, None])
+    rec = torch.floor((acc * 257.0 + 32.0) / 16384.0)          # (B, L, C)
+    v = uenc._la(px) if comps == 2 else px[..., :comps]
+    e = ((v[:, :, None, :] - rec[:, None]) ** 2).sum(-1)       # (B, 16, L)
+    assert ((e == e.amin(-1, keepdim=True)).sum(-1) > 1).any()
+
+
+def _split(host_lib, px, wb, ep_range, comps, ls, stop=6, nb=0, warps=0):
+    """`uastc_mode_trial_split` of the host build on px: (status, err, ep,
+    w)."""
+    inv, unq, wlev = uenc._mode_consts(wb, ep_range, "cpu")
+    n = px.shape[0]
+    err = torch.full((n,), float("nan"))
+    ep = torch.full((n, 2 * comps), -1, dtype=torch.int32)
+    w = torch.full((n, 16), -1, dtype=torch.int32)
+    status = host_lib.uastc_mode_trial_split(
+        px.data_ptr(), *px.stride(), inv.data_ptr(), unq.data_ptr(),
+        unq.numel(), wlev.data_ptr(), wlev.numel(), comps, ls,
+        err.data_ptr(), ep.data_ptr(), w.data_ptr(), n, stop, nb, warps, None)
+    return status, err, ep, w
+
+
+# (blocks per warp, warps per CTA, blocks): one block a warp, an odd count
+# (half a pass without a block), the launcher's most (16) at one and two
+# warps a CTA, each with a last warp and a last CTA that are not full
+LAUNCH_SHAPES = [(1, 4, 7), (3, 2, 23), (15, 1, 40), (16, 2, 161),
+                 (16, 1, 70), (8, 3, 101)]
+
+
+@pytest.mark.parametrize("nb,warps,n", LAUNCH_SHAPES)
+@pytest.mark.parametrize("case", MODE_SHAPES[1:], ids=[c[0] for c in
+                                                        MODE_SHAPES[1:]])
+def test_mode_trial_kernel_at_every_launch_shape(host_lib, case, nb, warps,
+                                                 n):
+    """The kernel at blocks per warp and warps per CTA other than the
+    launcher's choice (the measurement entry's): the same outputs."""
+    label, wb, ep_range, comps, ls = case
+    px = _blocks(nb + warps + n, n=n)
+    status, *got = _split(host_lib, px, wb, ep_range, comps, ls, nb=nb,
+                          warps=warps)
+    assert status == 0
+    for g, want in zip(got, uenc.mode_trial_reference(px, wb, ep_range,
+                                                      comps, ls)):
+        assert torch.equal(g, want)
+
+
+def test_mode_trial_split_stops_at_its_steps(host_lib):
+    """The per-step split's instances: each stop writes every block's err
+    (finite) and nothing else; RGBA's error after the first search is the
+    trial's without a least-squares step, after the steps the trial's; the
+    last stop is the trial; shapes past the kernel's are refused."""
+    px = _blocks(5, n=45)
+    wb, ep_range, ls = 4, 13, 2
+    for stop in range(1, 6):
+        status, err, ep, w = _split(host_lib, px, wb, ep_range, 4, ls, stop)
+        assert status == 0 and torch.all(torch.isfinite(err))
+        assert torch.all(ep == -1) and torch.all(w == -1)
+        if stop == 4:
+            want = uenc.mode_trial_reference(px, wb, ep_range, 4, 0)[0]
+            assert torch.equal(err, want)
+        if stop == 5:
+            want = uenc.mode_trial_reference(px, wb, ep_range, 4, ls)[0]
+            assert torch.equal(err, want)
+    status, *got = _split(host_lib, px, wb, ep_range, 4, ls, 6)
+    assert status == 0
+    for g, want in zip(got, uenc.mode_trial_reference(px, wb, ep_range, 4,
+                                                      ls)):
+        assert torch.equal(g, want)
+    for stop, nb, warps in ((0, 0, 0), (7, 0, 0), (6, 17, 0), (6, 0, 5),
+                            (6, 16, 4)):
+        assert _split(host_lib, px, 5, 11, 2, ls, stop, nb, warps)[0] != 0
 
 
 def test_trial_wrappers_refuse_what_the_kernels_do_not_take(on_host):
