@@ -3,8 +3,10 @@
 // Each scan, rescore and selector kernel replaces one Pallas kernel of
 // basis_universal_tpu/ops/pallas_etc1s.py (all four are here); the cross6
 // kernels replace the frontend's two XLA matrix products whose rounding
-// decides its codebooks, bisect_rows and bisect_round its bisecting init,
-// min_k_kernel its ApproxTopK. Each computes the same function with the same
+// decides its codebooks and cluster_scan_assemble its cluster scan's
+// assembly (both in etc1s_codebook.h), bisect_rows and bisect_round its
+// bisecting init, min_k_kernel its ApproxTopK. Each computes the same
+// function with the same
 // float32 operation order per element; the plain PyTorch versions live
 // beside the wrappers in basis_universal_tpu_torch/ops/cuda_etc1s.py.
 //
@@ -1190,97 +1192,9 @@ int launch_fscan_radius(const float* pixels, const float* base5,
   return (int)cudaErrorInvalidValue;
 }
 
-// ---------------------------------------------------------------------------
-// cross6_argmin and cross6_distances: the 6-D codebook distances of the
-// frontend's k-means assignment and of the refine's shortlist,
-//     d[n, j] = (r[n] - 2 * x[n, j]) + q[j],   x[n, j] = sum_k a[n,k] c[j,k],
-// with r = 0 for the k-means form q[j] - 2 x[n, j]. cross6_argmin returns
-// each row's first index of least d (the order of torch.argmin and
-// jnp.argmin); cross6_distances writes the (N, C) float32 matrix, row-major,
-// which the refine shortlists (etc1s_encode._refine_shortlist).
-//
-// These replace no Pallas kernel: in the reference they are XLA's matrix
-// products (basis_universal_tpu/ops/etc1s_encode.py:357, the k-means
-// dot_general, and :452, the refine's blk_vec6 @ cb_vec6.T), whose CPU
-// rounding decides the assignment and the shortlist, hence the codebook
-// bytes. x is summed as XLA's CPU dot sums a 6-long contraction for C
-// columns: two fused multiply-add chains over the even and the odd terms,
-// added at the end, where C mod 64 is 1..32; one chain in index order
-// otherwise (measured on an AVX-512 x86 host, `ops/xla_order._cross6`, which
-// is this kernel's plain version and holds the rule's test). Every rounding
-// is spelled out (__fmul_rn, __fmaf_rn, __fadd_rn, __fsub_rn), so the card
-// gives the plain version's bits.
-constexpr int kXWarps = 8;
-constexpr int kXRows = 8;       // rows per warp
-constexpr int kXTile = 512;     // centroids staged per pass
-
-template <bool kTwoChains>
-__device__ __forceinline__ float cross6(const float (&a)[6], float c0, float c1,
-                                        float c2, float c3, float c4,
-                                        float c5) {
-  if (kTwoChains) {
-    float e = __fmul_rn(a[0], c0);
-    float o = __fmul_rn(a[1], c1);
-    e = __fmaf_rn(a[2], c2, e);
-    o = __fmaf_rn(a[3], c3, o);
-    e = __fmaf_rn(a[4], c4, e);
-    o = __fmaf_rn(a[5], c5, o);
-    return __fadd_rn(e, o);
-  }
-  float x = __fmul_rn(a[0], c0);
-  x = __fmaf_rn(a[1], c1, x);
-  x = __fmaf_rn(a[2], c2, x);
-  x = __fmaf_rn(a[3], c3, x);
-  x = __fmaf_rn(a[4], c4, x);
-  return __fmaf_rn(a[5], c5, x);
-}
-
-// cross6_distances. Bound at the main path's shape (N 24,576 blocks, C 2,416
-// clusters): 59.4 M pairs x 9 instructions (6 products and fused
-// multiply-adds, the scale, the subtract and the add), and 237 MB written
-// (71 us at 3.35 TB/s): bound by its bytes. A CTA of 8 warps owns 64 rows (8
-// per warp, held in registers with their r), and stages the codebook in
-// tiles of 512 centroids (6 coordinates and q, 7 floats a centroid: an odd
-// stride, so 32 lanes reading 32 consecutive centroids hit 32 distinct
-// banks); lane l takes the tile's centroids l, l + 32, ..., so a warp's
-// stores of one row are 128 contiguous bytes.
-template <bool kTwoChains>
-__global__ void __launch_bounds__(kXWarps * 32)
-cross6_kernel(const float* __restrict__ a, const float* __restrict__ c,
-              const float* __restrict__ r, const float* __restrict__ q,
-              float* __restrict__ out, int n, int n_c) {
-  __shared__ float cs[kXTile * 7];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = (blockIdx.x * kXWarps + warp) * kXRows;
-  float av[kXRows][6], rv[kXRows];
-#pragma unroll
-  for (int i = 0; i < kXRows; ++i) {
-    const int row = min(row0 + i, n - 1);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) av[i][k] = a[(size_t)row * 6 + k];
-    rv[i] = r[row];
-  }
-  for (int t0 = 0; t0 < n_c; t0 += kXTile) {
-    const int tn = min(kXTile, n_c - t0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < tn * 7; i += kXWarps * 32) {
-      const int j = i / 7, k = i - j * 7;
-      cs[i] = k < 6 ? c[(size_t)(t0 + j) * 6 + k] : q[t0 + j];
-    }
-    __syncthreads();
-    for (int j = lane; j < tn; j += 32) {
-      const float* cj = cs + j * 7;
-      const float qj = cj[6];
-#pragma unroll
-      for (int i = 0; i < kXRows; ++i) {
-        const float x = cross6<kTwoChains>(av[i], cj[0], cj[1], cj[2], cj[3],
-                                           cj[4], cj[5]);
-        const float d = __fadd_rn(__fsub_rn(rv[i], __fmul_rn(2.f, x)), qj);
-        if (row0 + i < n) out[(size_t)(row0 + i) * n_c + t0 + j] = d;
-      }
-    }
-  }
-}
+// The k-means and refine distances (cross6_argmin, cross6_distances) and
+// the cluster scan's assembly (cluster_scan_assemble).
+#include "etc1s_codebook.h"
 
 // Asynchronous 16-byte copies from global to shared memory (cp.async, which
 // waits on no register: completion is counted per commit group).
@@ -1295,108 +1209,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// count floats from src (16-byte aligned) to dst by the CTA's threads: the
-// whole 16-byte chunks by cp.async, the rest by plain copies
-__device__ __forceinline__ void stage_floats(float* dst, const float* src,
-                                             int count) {
-  const int n4 = count >> 2;
-  for (int i = threadIdx.x; i < n4; i += blockDim.x)
-    cp_async16(dst + 4 * i, src + 4 * i);
-  for (int i = 4 * n4 + threadIdx.x; i < count; i += blockDim.x)
-    dst[i] = src[i];
-}
-
-// cross6_argmin, redesigned for Hopper. d = q - 2x is one fused multiply-add,
-// fma(-2, x, q): -2x is exact (a power of two times a float32 far from
-// overflow), so the fused form rounds once where q - 2x rounds once (signed
-// zeros agree too: q is a sum of squares, never -0). Bound at the main
-// path's shape: 59.4 M pairs x 9 instructions (6 products and fused
-// multiply-adds, the fold, the compare and the select; + the chains' add
-// where C mod 64 is 1..32), 16.0 us at the issue rate; its bytes are 0.7
-// MB. So it is bound by its instructions, and the design keeps every
-// instruction that is not one of those off the inner loop: a warp holds 16
-// rows in registers (each lane all 16), lane l takes the centroids l, l +
-// 32, ... and reads each from shared memory as three float2 and q (4 loads
-// and the loop's step per 16 pairs; a warp's reads are conflict-free); the
-// running argmin is a compare and two selects per pair (the first index on
-// ties: a lane walks its centroids in increasing order and keeps a strictly
-// smaller value; lanes meet in (value, index) order). The CTA stages up to
-// 2,432 centroids at once (68 KB by cp.async: the main path's whole
-// codebook), read by 12 warps of 16 rows (the most that 168 registers a
-// thread allow on an SM): 128 CTAs at the main path's shape, one an SM, so
-// each SM stages the codebook once.
-constexpr int kAWarps = 12;
-constexpr int kARows = 16;      // rows per warp, all held by every lane
-constexpr int kATile = 2432;    // centroids staged at once
-constexpr int kASmem = kATile * 7 * 4;
-
-// where the staged q start, in floats: 16-byte aligned for cp.async
-__host__ __device__ constexpr int a_q_offset(int n_c) {
-  return ((n_c < kATile ? n_c : kATile) * 6 + 3) & ~3;
-}
-
-template <bool kTwoChains>
-__global__ void __launch_bounds__(kAWarps * 32, 1)
-cross6_argmin_kernel(const float* __restrict__ a, const float* __restrict__ c,
-                     const float* __restrict__ q, int64_t* __restrict__ idx_out,
-                     int n, int n_c) {
-  extern __shared__ float4 a_smem[];
-  float* cs = reinterpret_cast<float*>(a_smem);   // (tile, 6)
-  float* qs = cs + a_q_offset(n_c);                // (tile,)
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = (blockIdx.x * kAWarps + warp) * kARows;
-  float av[kARows][6], best[kARows];
-  int bidx[kARows];
-#pragma unroll
-  for (int i = 0; i < kARows; ++i) {
-    const int row = min(row0 + i, n - 1);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) av[i][k] = a[(size_t)row * 6 + k];
-    best[i] = __int_as_float(0x7f800000);   // +inf
-    bidx[i] = 0;
-  }
-  for (int t0 = 0; t0 < n_c; t0 += kATile) {
-    const int tn = min(kATile, n_c - t0);
-    __syncthreads();
-    stage_floats(cs, c + (size_t)t0 * 6, tn * 6);
-    stage_floats(qs, q + t0, tn);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll 2
-    for (int j = lane; j < tn; j += 32) {
-      const float2* cj = reinterpret_cast<const float2*>(cs + j * 6);
-      const float2 c01 = cj[0], c23 = cj[1], c45 = cj[2];
-      const float qj = qs[j];
-      const int jj = t0 + j;
-#pragma unroll
-      for (int i = 0; i < kARows; ++i) {
-        const float x = cross6<kTwoChains>(av[i], c01.x, c01.y, c23.x, c23.y,
-                                           c45.x, c45.y);
-        const float d = __fmaf_rn(-2.f, x, qj);
-        const bool lt = d < best[i];
-        best[i] = lt ? d : best[i];
-        bidx[i] = lt ? jj : bidx[i];
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kARows; ++i) {
-    float v = best[i];
-    int ix = bidx[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, ix, off);
-      if (ov < v || (ov == v && oi < ix)) {
-        v = ov;
-        ix = oi;
-      }
-    }
-    if (lane == 0 && row0 + i < n) idx_out[row0 + i] = ix;
-  }
 }
 
 // the argmin kernels' shared-memory limit, raised once per device
@@ -2419,35 +2231,29 @@ int etc1s_find_best_selector_patterns(const float* dists,
   return (int)cudaGetLastError();
 }
 
-int etc1s_cross6_argmin(const float* a, const float* c, const float* q,
-                        int64_t* out, int n, int n_c, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  if (n_c <= 0) return (int)cudaErrorInvalidValue;
+// a (n, 6), c (n_c, 6) float32; out (n,) int64. The centroids' squared
+// norms and, at kCross6Bf16Clusters or more, the bf16 operands are the
+// kernel's own.
+int etc1s_cross6_argmin(const float* a, const float* c, int64_t* out, int n,
+                        int n_c, void* stream) {
   const cudaError_t e = cross6_argmin_attrs();
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n + kAWarps * kARows - 1) / (kAWarps * kARows));
-  const int smem = (a_q_offset(n_c) + min(n_c, kATile)) * 4;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int m64 = n_c % 64;
-  if (m64 >= 1 && m64 <= 32)
-    cross6_argmin_kernel<true><<<grid, kAWarps * 32, smem, s>>>(a, c, q, out, n, n_c);
-  else
-    cross6_argmin_kernel<false><<<grid, kAWarps * 32, smem, s>>>(a, c, q, out, n, n_c);
-  return (int)cudaGetLastError();
+  return launch_cross6_argmin(a, c, out, n, n_c, (cudaStream_t)stream);
 }
 
-int etc1s_cross6_distances(const float* a, const float* c, const float* r,
-                           const float* q, float* out, int n, int n_c,
-                           void* stream) {
-  if (n <= 0 || n_c <= 0) return (int)cudaSuccess;
-  const dim3 grid((n + kXWarps * kXRows - 1) / (kXWarps * kXRows));
-  cudaStream_t s = (cudaStream_t)stream;
-  const int m64 = n_c % 64;
-  if (m64 >= 1 && m64 <= 32)
-    cross6_kernel<true><<<grid, kXWarps * 32, 0, s>>>(a, c, r, q, out, n, n_c);
-  else
-    cross6_kernel<false><<<grid, kXWarps * 32, 0, s>>>(a, c, r, q, out, n, n_c);
-  return (int)cudaGetLastError();
+// a (n, 6), c (n_c, 6) float32; out (n, n_c) float32.
+int etc1s_cross6_distances(const float* a, const float* c, float* out, int n,
+                           int n_c, void* stream) {
+  return launch_cross6_distances(a, c, out, n, n_c, (cudaStream_t)stream);
+}
+
+// sums (n_c, 7 + n_d * 8), base8 (n_d, n_c, 3), lb null or (n_d, n_c)
+// float32; out (n_c, n_d * 8) float32.
+int etc1s_cluster_scan_assemble(const float* sums, const float* base8,
+                                const float* lb, float* out, int n_c, int n_d,
+                                void* stream) {
+  return launch_cluster_scan_assemble(sums, base8, lb, out, n_c, n_d,
+                                      (cudaStream_t)stream);
 }
 
 // members: (n, kBisectM) float32 out (v, w, 0); starts: 2 int32 out (0, n).

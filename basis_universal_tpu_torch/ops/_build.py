@@ -141,8 +141,6 @@ def _declare(lib):
     lib.etc1s_palette_errs.argtypes = [vp, vp, vp, ci, ci, vp]
     lib.etc1s_find_best_selector_patterns.argtypes = [vp, vp, vp, vp, ci, ci,
                                                       vp]
-    lib.etc1s_cross6_argmin.argtypes = [vp, vp, vp, vp, ci, ci, vp]
-    lib.etc1s_cross6_distances.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
     lib.etc1s_bisect_rows.argtypes = [vp, vp, vp, vp, ci, vp]
     lib.etc1s_bisect_round.argtypes = [vp, vp, vp, vp, vp, ci, vp]
     lib.etc1s_xla_cpu_min_k.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
@@ -151,9 +149,21 @@ def _declare(lib):
     for fn in (lib.etc1s_factorized_scan, lib.etc1s_factorized_scan_shortlist,
                lib.etc1s_palette_errs_packed,
                lib.etc1s_palette_errs, lib.etc1s_find_best_selector_patterns,
-               lib.etc1s_cross6_argmin, lib.etc1s_cross6_distances,
                lib.etc1s_bisect_rows, lib.etc1s_bisect_round,
                lib.etc1s_xla_cpu_min_k):
+        fn.restype = ci
+    return declare_codebook(lib)
+
+
+def declare_codebook(lib):
+    """The C entries of `csrc/etc1s_codebook.h`'s kernels, which the
+    tests also build for the host."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.etc1s_cross6_argmin.argtypes = [vp, vp, vp, ci, ci, vp]
+    lib.etc1s_cross6_distances.argtypes = [vp, vp, vp, ci, ci, vp]
+    lib.etc1s_cluster_scan_assemble.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    for fn in (lib.etc1s_cross6_argmin, lib.etc1s_cross6_distances,
+               lib.etc1s_cluster_scan_assemble):
         fn.restype = ci
     return lib
 

@@ -7,7 +7,8 @@ and the packed rescore too), and `palette_errs`, which no path of either
 package calls; and the kernels for operators that are XLA's in the
 reference and whose CPU rounding decides the codebooks: the 6-D codebook
 distances (`cross6_argmin` for the k-means assignment, `cross6_distances`
-for the refine's shortlist), the bisecting init's rounds (`bisect_rows`,
+for the refine's shortlist), the cluster scan's assembly
+(`cluster_scan_assemble`), the bisecting init's rounds (`bisect_rows`,
 `bisect_round`), and the refine shortlist in the tie order of the
 reference's `approx_min_k` on the CPU (`xla_cpu_min_k`, whose plain version
 is the same sort on the host, `csrc/host_sort.cpp`: no PyTorch operator
@@ -18,7 +19,8 @@ error columns. Each wrapper checks its inputs, then dispatches on the
 device of the tensors it was given:
 
 - a CUDA tensor launches the hand-written kernel of `csrc/etc1s_kernels.cu`
-  on the current stream (and raises if the launch is refused);
+  (or of `csrc/etc1s_codebook.h`, which it includes) on the current stream
+  (and raises if the launch is refused);
 - a CPU tensor runs the plain PyTorch version kept beside it (`*_reference`).
 
 The plain version never runs for a CUDA tensor. `LAUNCHES` counts the kernel
@@ -40,6 +42,7 @@ LAUNCHES = {
     "find_best_selector_patterns": 0,
     "cross6_argmin": 0,
     "cross6_distances": 0,
+    "cluster_scan_assemble": 0,
     "bisect_rows": 0,
     "bisect_round": 0,
     "xla_cpu_min_k": 0,
@@ -59,6 +62,9 @@ LAUNCHES = {
 # value (so `tensor * const` rounds the same way on every device)
 THIRD = float(np.float32(1.0 / 3.0))
 C31_255 = float(np.float32(31.0 / 255.0))
+# the k-means cross term takes bf16 operands from this many centroids on
+# (`kCross6Bf16Clusters`), as the reference's `kmeans` does
+CROSS6_BF16_CLUSTERS = 1024
 _INTEN_MID = (ETC1_INTEN_TABLES[:, :-1] + ETC1_INTEN_TABLES[:, 1:]) / 2.0
 
 
@@ -410,90 +416,160 @@ def palette_errs_reference(pixels, palettes):
 # cross6_argmin / cross6_distances
 # ---------------------------------------------------------------------------
 
-def _cross6_inputs(a, c, q, r=None):
+def _cross6_inputs(a, c):
     _check(a, "a", torch.float32, (None, 6))
     _check(c, "c", torch.float32, (None, 6))
-    _check(q, "q", torch.float32, (c.shape[0],))
-    if r is not None:
-        _check(r, "r", torch.float32, (a.shape[0],))
     if c.shape[0] < 1:
         raise ValueError("c: at least one centroid")
-    return _same_device(a, c, q, r)
+    return _same_device(a, c)
 
 
-def cross6_argmin(a, c, q):
+def cross6_argmin(a, c):
     """argmin_j (q[j] - 2 a[n].c[j]) per row, (N,) int64, the first index on
-    ties: the k-means assignment, q the centroids' squared norms.
+    ties: the k-means assignment of the vectors a (N, 6) to the centroids c
+    (C, 6), float32, q the centroids' squared norms.
 
-    a (N, 6), c (C, 6), q (C,) float32. The product is summed in the order
-    of XLA's CPU matrix product for C columns (`xla_order._cross6`), the
-    reference's `kmeans` cross term (`basis_universal_tpu/ops/
-    etc1s_encode.py:357`), which has no Pallas kernel; the kernel
-    (`cross6_argmin_kernel`) spells every rounding out, folds q - 2x into
-    one fused multiply-add (-2x is exact, so the bits are the same) and
-    keeps a running argmin of 16 rows per warp in registers, so no (N, C)
-    matrix reaches device memory. At the main path's shape (24,576 x
-    2,416) it is bound by its instructions, 9 per (row, centroid) pair.
+    The reference's `kmeans` step (`basis_universal_tpu/ops/
+    etc1s_encode.py:357`, which has no Pallas kernel) in its CPU rounding:
+    q = `_sum(c * c, -1)` of the centroids as given, and at C >=
+    `CROSS6_BF16_CLUSTERS` the cross term of the bf16-rounded operands (the
+    reference's bf16 matmul with float32 accumulation); the product summed
+    in the order of XLA's CPU matrix product for C columns
+    (`xla_order._cross6`). The kernel (`cross6_argmin_kernel`,
+    `csrc/etc1s_codebook.h`) spells every rounding out: the thread that
+    stages a centroid sums its q and rounds its coordinates, q - 2x is one
+    fused multiply-add (-2x is exact, so the bits are the same), and a
+    running argmin of 16 rows per warp stays in registers, so no (N, C)
+    matrix reaches device memory. At the main path's shape (24,576 x 2,416)
+    it is bound by its instructions, 9 per (row, centroid) pair.
     """
-    dev = _cross6_inputs(a, c, q)
+    dev = _cross6_inputs(a, c)
     if dev.type == "cpu":
-        return cross6_argmin_reference(a, c, q)
+        return cross6_argmin_reference(a, c)
     from ._build import get_lib
-
-    # the kernel stages the codebook in 16-byte pieces
-    if c.data_ptr() % 16:
-        c = c.clone()
-    if q.data_ptr() % 16:
-        q = q.clone()
 
     out = torch.empty(a.shape[0], dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         status = get_lib().etc1s_cross6_argmin(
-            a.data_ptr(), c.data_ptr(), q.data_ptr(), out.data_ptr(),
-            a.shape[0], c.shape[0], _stream(dev))
+            a.data_ptr(), c.data_ptr(), out.data_ptr(), a.shape[0],
+            c.shape[0], _stream(dev))
     LAUNCHES["cross6_argmin"] += 1
     _raise_on(status, "cross6_argmin")
     return out
 
 
-def cross6_argmin_reference(a, c, q):
+def cross6_argmin_reference(a, c):
     """Plain PyTorch version of `cross6_argmin`."""
-    from .xla_order import _cross6
+    from .xla_order import _cross6, _sum
 
+    q = _sum(c * c, -1)
+    if c.shape[0] >= CROSS6_BF16_CLUSTERS:
+        a = a.to(torch.bfloat16).float()
+        c = c.to(torch.bfloat16).float()
     return torch.argmin(q[None, :] - 2.0 * _cross6(a, c), dim=-1)
 
 
-def cross6_distances(a, c, r, q):
+def cross6_distances(a, c):
     """(r[n] - 2 a[n].c[j]) + q[j], (N, C) float32: the refine's 6-D
-    codebook distances, r the blocks' and q the centroids' squared norms.
+    codebook distances of the blocks' vectors a (N, 6) to the codebook's c
+    (C, 6), r and q their squared norms, each `_dot(v, v)` (a fused
+    multiply-add chain).
 
     The product is summed as in `cross6_argmin`; this is the reference's
     `d6` of `refine_endpoint_assignment` (`basis_universal_tpu/ops/
     etc1s_encode.py:452`, an XLA matrix product) with its 2 x taken out of
-    the product (exact). The kernel (`cross6_kernel<false>`) writes the
+    the product (exact). The kernel (`cross6_kernel<false>`) computes r from
+    the rows a warp holds and q as it stages the codebook, and writes the
     matrix row-major, 237 MB at the main path's shape, which bounds it.
     """
-    dev = _cross6_inputs(a, c, q, r)
+    dev = _cross6_inputs(a, c)
     if dev.type == "cpu":
-        return cross6_distances_reference(a, c, r, q)
+        return cross6_distances_reference(a, c)
     from ._build import get_lib
 
     out = torch.empty((a.shape[0], c.shape[0]), dtype=torch.float32,
                       device=dev)
     with torch.cuda.device(dev):
         status = get_lib().etc1s_cross6_distances(
-            a.data_ptr(), c.data_ptr(), r.data_ptr(), q.data_ptr(),
-            out.data_ptr(), a.shape[0], c.shape[0], _stream(dev))
+            a.data_ptr(), c.data_ptr(), out.data_ptr(), a.shape[0],
+            c.shape[0], _stream(dev))
     LAUNCHES["cross6_distances"] += 1
     _raise_on(status, "cross6_distances")
     return out
 
 
-def cross6_distances_reference(a, c, r, q):
+def cross6_distances_reference(a, c):
     """Plain PyTorch version of `cross6_distances`."""
-    from .xla_order import _cross6
+    from .xla_order import _cross6, _dot
 
-    return (r[:, None] - 2.0 * _cross6(a, c)) + q[None, :]
+    return (_dot(a, a)[:, None] - 2.0 * _cross6(a, c)) + _dot(c, c)[None, :]
+
+
+# ---------------------------------------------------------------------------
+# cluster_scan_assemble
+# ---------------------------------------------------------------------------
+
+def cluster_scan_assemble(sums, base8, lb=None):
+    """The cluster scan's unclipped errors, (C, D*8) float32: column d*8 + t
+    of cluster c is the error of its base plus delta d with table t.
+
+    sums (C, 7 + D*8) float32 are the clusters' summed block moments and
+    gray-axis sums, each row n, sum_x (3), sum_x2, sum_l, sum_l2, then the
+    D*8 gray-axis sums (`etc1s_encode._cluster_scan`'s one segment sum, read
+    in place); base8 (D, C, 3) the cluster bases (perceptually transformed
+    with that metric); lb None or (D, C) their gray-axis levels under the
+    perceptual metric (None: each base's sum). Rounded as XLA's CPU code
+    rounds the reference's assembly (`basis_universal_tpu/ops/
+    etc1s_encode.py:291-306`, no Pallas kernel): q = fma(16n, b.b, sum_x2 -
+    2 b.sum_x), su2 = fma(lb, 16n lb, fma(-2 sum_l, lb, sum_l2)), err =
+    fma(mt, 3, fma(-su2, 1/3, q)), the dot products fused multiply-add
+    chains (`cluster_scan_assemble_reference`).
+
+    The kernel (`cluster_scan_assemble_kernel`, `csrc/etc1s_codebook.h`)
+    runs a thread per output in the output's order, so the constant parts
+    and every intermediate stay in registers: one launch where the
+    composition took 5 `xla_fma`, 3 `xla_reduce` and ~9 eager operators.
+    It is bound by its bytes (~5 MB at C 2,416, D 27).
+    """
+    _check(base8, "base8", torch.float32, (None, None, 3))
+    d_n, c_n = base8.shape[:2]
+    _check(sums, "sums", torch.float32, (c_n, 7 + 8 * d_n))
+    if lb is not None:
+        _check(lb, "lb", torch.float32, (d_n, c_n))
+    dev = _same_device(sums, base8, lb)
+    if dev.type == "cpu":
+        return cluster_scan_assemble_reference(sums, base8, lb)
+    from ._build import get_lib
+
+    out = torch.empty((c_n, d_n * 8), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = get_lib().etc1s_cluster_scan_assemble(
+            sums.data_ptr(), base8.data_ptr(),
+            None if lb is None else lb.data_ptr(), out.data_ptr(), c_n, d_n,
+            _stream(dev))
+    LAUNCHES["cluster_scan_assemble"] += 1
+    _raise_on(status, "cluster_scan_assemble")
+    return out
+
+
+def cluster_scan_assemble_reference(sums, base8, lb=None):
+    """Plain PyTorch version of `cluster_scan_assemble`: the port's
+    composition of the reference's assembly, in `ops/xla_order.py`'s
+    roundings."""
+    from .xla_order import _dot, _fma, _sum
+
+    d_n, c_n = base8.shape[:2]
+    npix = 16.0 * sums[:, 0]                                    # (C,)
+    c_sum_x = sums[:, 1:4]
+    c_sum_x2, c_sum_l, c_sum_l2 = sums[:, 4], sums[:, 5], sums[:, 6]
+    if lb is None:
+        lb = _sum(base8, -1)                                    # (D,C)
+    q = _fma(npix, _dot(base8, base8),
+             c_sum_x2 - 2.0 * _dot(base8, c_sum_x[None]))
+    su2 = _fma(lb, npix * lb, _fma(-(2.0 * c_sum_l), lb, c_sum_l2))
+    cst = _fma(-su2, THIRD, q)                                  # (D,C)
+    err = _fma(sums[:, 7:].reshape(c_n, d_n, 8), 3.0, cst.T[..., None])
+    return err.reshape(c_n, d_n * 8)
 
 
 # ---------------------------------------------------------------------------

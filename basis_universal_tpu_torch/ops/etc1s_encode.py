@@ -5,8 +5,9 @@ kernel-shaped formulation: the per-block candidate scan and its shortlist
 are one kernel, `factorized_scan_shortlist`; the gray-axis sums of the
 scan against each block's cluster base (`factorized_scan`) are
 segment-summed to clusters and assembled with the clusters' moments
-before their shortlist; exact rescoring goes through `palette_errs_packed`
-on packed candidate descriptors, the selector search through
+(`cluster_scan_assemble`) before their shortlist; exact rescoring goes
+through `palette_errs_packed` on packed candidate descriptors, the
+selector search through
 `find_best_selector_patterns`, the k-means and refine distances through
 `cross6_argmin` / `cross6_distances`, the bisecting init's rounds through
 `bisect_rows` / `bisect_round` and the refine's shortlist through
@@ -27,11 +28,12 @@ Equivalences with the reference kept on purpose:
   runs them under `exact_matmuls()`;
 - every operator that ranks rounds as the reference's compiled frontend
   does on the CPU (XLA's fused multiply-adds and summation orders, read
-  from its LLVM IR, spelled out with `ops/xla_order.py`: the scan's
-  gray-axis sum, the cluster scan's assembly, the bisecting power
-  iteration, the 6-D cross terms of the `cross6_*` kernels), and empty
-  k-means seeds take the training vectors `jax.random.choice` draws
-  (`ops/threefry.py`), so the CPU gives the reference's codebooks;
+  from its LLVM IR, spelled out with `ops/xla_order.py` and in the kernels:
+  the scan's gray-axis sum, the cluster scan's assembly, the bisecting
+  power iteration, the 6-D cross terms and norms of the `cross6_*`
+  kernels), and empty k-means seeds take the training vectors
+  `jax.random.choice` draws (`ops/threefry.py`), so the CPU gives the
+  reference's codebooks;
 - segment sums go through `segment_sum`, which sums each segment in row
   order on every device, so a card run gives the same bits every time (an
   `index_add_` of floats on CUDA sums with atomics, in an order that
@@ -311,13 +313,12 @@ def optimize_cluster_endpoints(pixels, cluster_ids, cluster_means,
 
 def _cluster_scan(pixels, ids, base8, lb, mt, perceptual: bool):
     """(C, D*8) unclipped cluster errors from the blocks' gray-axis terms mt
-    (B, D*8), summed per cluster: the constant part of each (delta,
-    cluster) from the members' summed moments, rounded as XLA's CPU code
-    rounds the reference's (q = fma(n, b.b, sum|x|^2 - 2 b.sum x), su2 =
-    fma(lb, n lb, fma(-2 sum_l, lb, sum_l2)), err = fma(mt, 3, fma(-su2,
-    1/3, q)), the dot products fused multiply-add chains). base8 (D, C, 3)
-    are the cluster bases (perceptually transformed with the metric), lb
-    (D, C) their gray-axis levels under the metric (None: their sums)."""
+    (B, D*8), summed per cluster: the members' moments and terms are summed
+    per cluster in one segment sum, and `cuda_etc1s.cluster_scan_assemble`
+    adds each (delta, cluster)'s constant part, rounded as XLA's CPU code
+    rounds the reference's. base8 (D, C, 3) are the cluster bases
+    (perceptually transformed with the metric), lb (D, C) their gray-axis
+    levels under the metric (None: their sums)."""
     num_clusters = base8.shape[1]
     px = perceptual_transform(pixels) if perceptual else pixels
     gvec = torch.as_tensor(GVEC, device=pixels.device) if perceptual else None
@@ -330,32 +331,18 @@ def _cluster_scan(pixels, ids, base8, lb, mt, perceptual: bool):
         ones[:, None], mom["sum_x"], mom["sum_x2"][:, None],
         mom["sum_l"][:, None], mom["sum_l2"][:, None], mt], 1),
         ids, num_clusters)
-    npix = 16.0 * sums[:, 0]                                    # (C,)
-    c_sum_x = sums[:, 1:4]
-    c_sum_x2, c_sum_l, c_sum_l2 = sums[:, 4], sums[:, 5], sums[:, 6]
-    mt_ct = sums[:, 7:]
-    if lb is None:
-        lb = _sum(base8, -1)                                    # (D,C)
-    q = _fma(npix, _dot(base8, base8),
-             c_sum_x2 - 2.0 * _dot(base8, c_sum_x[None]))
-    su2 = _fma(lb, npix * lb, _fma(-(2.0 * c_sum_l), lb, c_sum_l2))
-    cst = _fma(-su2, cuda_etc1s.THIRD, q)                       # (D,C)
-    d_n = base8.shape[0]
-    err = _fma(mt_ct.reshape(num_clusters, d_n, 8), 3.0, cst.T[..., None])
-    return err.reshape(num_clusters, d_n * 8)
+    return cuda_etc1s.cluster_scan_assemble(sums, base8, lb)
 
 
 def kmeans_assign(vecs, centroids, num_clusters: int):
     """Each vector's nearest centroid by |b|^2 - 2ab, (N,) int64, the first
-    on ties (`cuda_etc1s.cross6_argmin`). The reference's bf16 cross term
-    (>= 1024 clusters): bf16-rounded operands, float32 product."""
-    if num_clusters >= 1024:
-        vecs = vecs.to(torch.bfloat16).float()
-        c_h = centroids.to(torch.bfloat16).float()
-    else:
-        c_h = centroids
-    return cuda_etc1s.cross6_argmin(vecs.contiguous(), c_h.contiguous(),
-                                    _sum(centroids * centroids, -1))
+    on ties (`cuda_etc1s.cross6_argmin`, which also takes the reference's
+    bf16 cross term at >= 1024 clusters: bf16-rounded operands, float32
+    product). centroids holds the num_clusters rows."""
+    if centroids.shape[0] != num_clusters:
+        raise ValueError(f"kmeans_assign: {centroids.shape[0]} centroids for "
+                         f"{num_clusters} clusters")
+    return cuda_etc1s.cross6_argmin(vecs.contiguous(), centroids.contiguous())
 
 
 def kmeans_update(sums, cnts, centroids):
@@ -427,9 +414,8 @@ def refine_endpoint_assignment(pixels, blk_vec6, cb_vec6, cb_color5, cb_inten,
     """Reassign each block to its best endpoint cluster by exact error:
     a shortlist by 6D codebook distance, then the exact clipped rescore.
     Returns (assignment (B,) int64, err (B,) f32)."""
-    d6 = cuda_etc1s.cross6_distances(
-        blk_vec6.contiguous(), cb_vec6.contiguous(),
-        _dot(blk_vec6, blk_vec6), _dot(cb_vec6, cb_vec6))       # (B,C)
+    d6 = cuda_etc1s.cross6_distances(blk_vec6.contiguous(),
+                                     cb_vec6.contiguous())      # (B,C)
     cand = _refine_shortlist(d6, topk)                          # (B,K)
     ptab = _pack(cb_color5, cb_inten)                           # (C,)
     if perceptual:

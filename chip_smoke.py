@@ -8,6 +8,9 @@ re-encodes and its image metrics once on one GPU.
     python3 chip_smoke.py --sel-ab TREE [TREE ...]
     python3 chip_smoke.py --wall-ab TREE PAIRS
 
+Run it from the root of the repository's whole tree: alone, it names what
+is missing and exits nonzero.
+
 Phases (any failure raises, so the process exits nonzero with no final line):
 1. require CUDA; print versions and the card's name and power limit; load
    the port's native host library (fail if it does not load); say whether
@@ -23,8 +26,11 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    K 16 and 8; `palette_errs`, which no path calls, at K 16; the selector
    search (`selbest_wgmma_kernel`, wgmma; ptxas' registers, spills and
    shared memory printed) at S 2,731 and at 16,128, the most selector
-   clusters; the
-   k-means argmin, the refine's distances and their shortlist in XLA-CPU's
+   clusters; the cluster scan's assembly (`cluster_scan_assemble`) on ETC1S
+   image 0's own inputs (C 2,416, D 27) and at D 125 and perceptual
+   (`cluster_scan_phase`); the
+   k-means argmin, the refine's distances (their norms inside) and their
+   shortlist in XLA-CPU's
    tie order (`xla_cpu_min_k`, held to `std::sort` on the host on every
    row; its time split by its steps, `min_k_split`) at 24,576 x 2,416; the
    bisecting init on image 0's endpoint vectors (`bisect_rows` and each of
@@ -95,9 +101,10 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    other), each in a process of its own;
 14. with `--ab OTHER_TREE` only: build the kernels of another checkout of
    the repo (e.g. the parent commit unpacked under `_compare/`), check that
-   its scan, rescore, `xla_fma`, `xla_reduce`, k-means argmin, bisecting
-   init, refine shortlist, selector search (S 2,731 and 16,128, image 0's
-   distances and drawn ones) and UASTC trials (every shape of `uastc_trials`
+   its scan, rescore, `xla_fma`, `xla_reduce`, k-means argmin (alone and
+   `kmeans_assign`), refine distances, cluster scan (`_cluster_scan`),
+   bisecting init, refine shortlist, selector search (S 2,731 and 16,128,
+   image 0's distances and drawn ones) and UASTC trials (every shape of `uastc_trials`
    at 24,576 and 1,001 blocks, `trials_ab`) give the same bits as this
    tree's at the shapes of phase 3, and time both in turns (other, this,
    this, other);
@@ -236,12 +243,14 @@ QUALITY, EFFORT = 128, 1
 UASTC_EFFORT = 2
 RGBA_SEED = 4
 # kernel launches per image at q128 / effort 1: the fused scan + shortlist
-# in encode_blocks and the full scan in the one refine pass, the rescore in
-# encode_blocks, the refine's cluster rescore and its reassignment, the
-# selector search in the two selector iterations and the final assignment,
-# the k-means assignment in its two iterations, the refine's distances and
-# their shortlist, and the bisecting init's rows and rounds
+# in encode_blocks and the full scan in the one refine pass, its cluster
+# errors' assembly, the rescore in encode_blocks, the refine's cluster
+# rescore and its reassignment, the selector search in the two selector
+# iterations and the final assignment, the k-means assignment in its two
+# iterations, the refine's distances and their shortlist, and the bisecting
+# init's rows and rounds
 EXPECTED_PER_IMAGE = {"factorized_scan": 1, "factorized_scan_shortlist": 1,
+                      "cluster_scan_assemble": 1,
                       "palette_errs_packed": 3,
                       "find_best_selector_patterns": 3,
                       "cross6_argmin": 2, "cross6_distances": 1,
@@ -274,6 +283,9 @@ REPLACES = {"factorized_scan": f"{PALLAS}:343",
             # no Pallas kernel: the reference's XLA matrix products
             "cross6_argmin": "basis_universal_tpu/ops/etc1s_encode.py:357",
             "cross6_distances": "basis_universal_tpu/ops/etc1s_encode.py:452",
+            # no Pallas kernel: the XLA assembly of the cluster scan's errors
+            "cluster_scan_assemble":
+                "basis_universal_tpu/ops/etc1s_encode.py:291-306",
             # the bisecting init's moment features and its rounds
             "bisect_rows": "basis_universal_tpu/ops/etc1s_encode.py:394",
             "bisect_round": "basis_universal_tpu/ops/etc1s_encode.py:403",
@@ -313,15 +325,20 @@ EXPECTED_UASTC_XLA = {
     True: {"xla_reduce": 0, "xla_fma": 0, "uastc_mode_trial": 8,
            "uastc_subset_trial": 3, "uastc_dualplane_trial": 4,
            "uastc_line_fit": 0}}
-# XLA-order launches per 768x512 ETC1S image at q128 / effort 1, counted on
-# the CPU as the UASTC test counts (the top-level calls of
-# `ops/xla_order.py`'s plain versions outside every hand-written kernel's;
-# a 128x192 or 64x64 image makes a ninth `xla_reduce`); the transcoder's
-# ETC1 re-encode makes none
-EXPECTED_ETC1S_XLA = {"xla_fma": 5, "xla_reduce": 8}
+# XLA-order launches per ETC1S image at q128 / effort 1 (768x512, and as
+# many at 128x192 and 64x64), counted on the CPU as the UASTC test counts
+# (the top-level calls of `ops/xla_order.py`'s plain versions outside every
+# hand-written kernel's): the one ordered sum left outside the kernels, the
+# selector distances' dot (`block_selector_distances`); the cluster scan's
+# assembly and the k-means and refine norms are inside their kernels. The
+# transcoder's ETC1 re-encode makes none
+EXPECTED_ETC1S_XLA = {"xla_fma": 0, "xla_reduce": 1}
+CODEBOOK_KERNELS = ("cross6_argmin", "cross6_distances",
+                    "cluster_scan_assemble")
 SOURCES = {name: "basis_universal_tpu_torch/csrc/"
            + ("xla_order_kernels.cu" if name in XLA_ORDER_KERNELS
               else "uastc_pack_kernels.cu" if name == "uastc_pack"
+              else "etc1s_codebook.h" if name in CODEBOOK_KERNELS
               else "etc1s_kernels.cu") for name in REPLACES}
 RTOL = 1e-5
 SCAN_MAG_TOL = 1e-6     # ~8 float32 ulps of the scan's cancelled terms
@@ -393,11 +410,27 @@ def _cross6_ops(c):
 
 
 def _cross6_bound(n, c, matrix):
-    """cross6_*: `_cross6_ops` per pair; bytes: a (N, 6), c (C, 6), q (C,)
-    (and r (N,)) in, the (N, C) float32 distances or the (N,) int64
-    indices out."""
-    n_bytes = n * 24 + c * 28 + (n * 4 + n * c * 4 if matrix else n * 8)
-    return _bound(n_bytes, float(n * c * _cross6_ops(c)))
+    """cross6_*: `_cross6_ops` per pair, and per vector its squared norm
+    (6 products and adds; the argmin's centroids only) and, in the argmin
+    from 1,024 centroids, its 6 coordinates rounded to bf16 and back (2
+    instructions each); bytes: a (N, 6) and c (C, 6) in, the (N, C)
+    float32 distances or the (N,) int64 indices out."""
+    n_bytes = n * 24 + c * 24 + (n * c * 4 if matrix else n * 8)
+    norms = 11 * (c + (n if matrix else 0))
+    rounds = 0 if matrix or c < 1024 else 12 * (n + c)
+    return _bound(n_bytes, float(n * c * _cross6_ops(c) + norms + rounds))
+
+
+def _assemble_bound(c_n, d_n, with_lb):
+    """cluster_scan_assemble: per (cluster, delta) its constant part, 17
+    instructions (16 npix, b.b and b.sum_x chains, the subtract with its
+    scale, q, the level's sum or read, npix lb, -2 sum_l, su2's two fused
+    multiply-adds and the constant's), and per output one fused
+    multiply-add; bytes: the sums (C, 7 + 8D), bases (D, C, 3) and levels
+    (D, C) in, the (C, 8D) errors out."""
+    n_bytes = 4 * (c_n * (7 + 8 * d_n) + d_n * c_n * 3
+                   + (d_n * c_n if with_lb else 0) + c_n * 8 * d_n)
+    return _bound(n_bytes, float(c_n * d_n * (17 + 8)))
 
 
 def _selector_resources():
@@ -505,6 +538,59 @@ def etc1s_xla_phase(torch, img0, measure):
               f"one of {out.numel()} values the plain version's")
         measure(name, f"{label} (x{count} an image)", run, plain, 0.0,
                 _bound(n_bytes, ops), library=library)
+
+
+def cluster_scan_phase(torch, ck, ops, px, ids, img0, measure):
+    """`cluster_scan_assemble` at the paths' shapes: its inputs recorded
+    from one ETC1S encode of image 0 (q128, effort 1: C 2,416, D 27) and
+    from `optimize_cluster_endpoints` of image 0's blocks px with the
+    cluster ids ids at radius 2 and with the perceptual metric; each held
+    to the plain version on the CPU, every value, and timed beside its
+    bytes bound and the plain version on the card."""
+    from basis_universal_tpu_torch import compressor
+
+    seen, real = [], ck.cluster_scan_assemble
+
+    def recorded(*args):
+        seen.append(args)
+        return real(*args)
+
+    rng = np.random.default_rng(7)
+    means = torch.as_tensor(rng.uniform(0, 255, (2416, 3)),
+                            dtype=torch.float32, device=px.device)
+    ck.cluster_scan_assemble = recorded
+    try:
+        compressor.compress(img0, compressor.CompressorParams(
+            quality_level=QUALITY, effort=EFFORT, device="cuda"))
+        for radius, perceptual in ((2, False), (1, True)):
+            ops.optimize_cluster_endpoints(px, ids, means, 2416,
+                                           radius=radius,
+                                           perceptual=perceptual)
+        torch.cuda.synchronize()
+    finally:
+        ck.cluster_scan_assemble = real
+    if len(seen) != 3:
+        raise AssertionError(f"cluster_scan_assemble: {len(seen)} calls "
+                             "recorded, expected 3")
+    for label, (sums, base8, lb) in zip(
+            ("ETC1S image 0", "radius 2", "perceptual"), seen):
+        d_n, c_n = base8.shape[:2]
+        label = f"C{c_n} D{d_n} {label}"
+        got = real(sums, base8, lb)
+        want = ck.cluster_scan_assemble_reference(
+            sums.cpu(), base8.cpu(), None if lb is None else lb.cpu())
+        n_diff = int((got.cpu() != want).sum())
+        if n_diff:
+            raise AssertionError(f"cluster_scan_assemble {label}: {n_diff} of "
+                                 f"{got.numel()} values differ from the "
+                                 "plain version")
+        print(f"cluster_scan_assemble {label}: every one of {got.numel()} "
+              "values the plain version's")
+        measure("cluster_scan_assemble", label,
+                lambda a=(sums, base8, lb): real(*a),
+                lambda a=(sums, base8, lb):
+                    ck.cluster_scan_assemble_reference(*a), 0.0,
+                _assemble_bound(c_n, d_n, lb is not None))
 
 
 def _time_ms(fn, torch, reps=20, warmup=3):
@@ -874,6 +960,13 @@ def phase_kernels(torch, blocks, img0):
           f"sum {dev_ms[2]:.4f} vs {dev_ms[3]:.4f}")
     del by_row, by_col
 
+    # -- cluster_scan_assemble on the inputs the paths give it: ETC1S image
+    #    0's own call (C 2,416, D 27), and `optimize_cluster_endpoints` of
+    #    image 0's blocks at radius 2 (D 125) and with the perceptual
+    #    metric; the plain version's bits (on the CPU, and timed on the
+    #    card, where it is the XLA-order composition the kernel replaced)
+    cluster_scan_phase(torch, ck, ops, px, ids, img0, measure)
+
     # -- factorized_scan_shortlist at the shapes of encode_blocks (radius 1;
     #    radius 2 at effort 6 and up; the perceptual metric; radius 0, the
     #    UASTC hint): equal to `_shortlist` of the plain errors, bit for bit
@@ -990,40 +1083,38 @@ def phase_kernels(torch, blocks, img0):
 
     # -- cross6_argmin / cross6_distances at the main path's shapes: the
     #    24,576 blocks' 6-D endpoint vectors against 2,416 centroids drawn
-    #    from them, bf16-rounded for the k-means form (>= 1024 clusters) as
-    #    the frontend rounds them; the plain version's bits, every index and
-    #    every distance. The library call for the distances is one addmm on
+    #    from them, the squared norms and (the k-means form, >= 1024
+    #    clusters) the bf16 operands inside the kernels, as the frontend
+    #    calls them; the plain version's bits, every index and every
+    #    distance. The library call for the distances is one addmm on
     #    prepared operands (the row and column terms added beforehand).
-    from basis_universal_tpu_torch.ops.xla_order import _dot, _sum
+    from basis_universal_tpu_torch.ops.xla_order import _dot
 
     vec6 = torch.cat([enc["low"], enc["high"]], -1) * (1.0 / 255.0)
     cents = vec6[torch.as_tensor(rng.choice(b_n, 2416, replace=False),
                                  device=dev)].contiguous()
-    v_h = vec6.to(torch.bfloat16).float().contiguous()
-    c_h = cents.to(torch.bfloat16).float().contiguous()
-    q = _sum(cents * cents, -1)
-    got = ck.cross6_argmin(v_h, c_h, q)
-    want = ck.cross6_argmin_reference(v_h, c_h, q)
+    got = ck.cross6_argmin(vec6, cents)
+    want = ck.cross6_argmin_reference(vec6, cents)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError(f"cross6_argmin: {int((got != want).sum())} of "
                              f"{b_n} indices differ from the plain version")
     measure("cross6_argmin", "N24576 C2416 bf16",
-            lambda: ck.cross6_argmin(v_h, c_h, q),
-            lambda: ck.cross6_argmin_reference(v_h, c_h, q), 0.0,
+            lambda: ck.cross6_argmin(vec6, cents),
+            lambda: ck.cross6_argmin_reference(vec6, cents), 0.0,
             _cross6_bound(b_n, 2416, False))
-    r, q = _dot(vec6, vec6), _dot(cents, cents)
-    got = ck.cross6_distances(vec6, cents, r, q)
-    want = ck.cross6_distances_reference(vec6, cents, r, q)
+    got = ck.cross6_distances(vec6, cents)
+    want = ck.cross6_distances_reference(vec6, cents)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError(f"cross6_distances: {int((got != want).sum())} "
                              "distances differ from the plain version")
     del got, want
+    r, q = _dot(vec6, vec6), _dot(cents, cents)
     bias = r[:, None] + q[None, :]
     measure("cross6_distances", "N24576 C2416",
-            lambda: ck.cross6_distances(vec6, cents, r, q),
-            lambda: ck.cross6_distances_reference(vec6, cents, r, q), 0.0,
+            lambda: ck.cross6_distances(vec6, cents),
+            lambda: ck.cross6_distances_reference(vec6, cents), 0.0,
             _cross6_bound(b_n, 2416, True),
             library=lambda: torch.addmm(bias, vec6, cents.T, alpha=-2.0))
 
@@ -1033,7 +1124,7 @@ def phase_kernels(torch, blocks, img0):
     #    bit, every row; the sort stopped after each step (`min_k_split`).
     #    No PyTorch call orders ties so; torch.topk, which takes the same 16
     #    values in another order, is timed beside.
-    d6 = ck.cross6_distances(vec6, cents, r, q)
+    d6 = ck.cross6_distances(vec6, cents)
     d6_host = d6.cpu()
     stv = torch.sort(d6_host, dim=-1, stable=True).values
     tied = int((stv[:, 1:17] == stv[:, :16]).any(1).sum())
@@ -2376,9 +2467,11 @@ def phase_ab(torch, blocks, tree, images):
         if n_diff:
             raise AssertionError(f"ab {name}: the two trees' bits differ")
     # the refine shortlist of the main path, `cross6_distances` then
-    # `xla_cpu_min_k`, of both trees at phase 3's shape; the k-means
-    # argmin (bf16-rounded operands) and the bisecting init of image 0's
-    # endpoint vectors
+    # `xla_cpu_min_k`, of both trees at phase 3's shape (a tree whose
+    # kernel takes the norms computes them in the call); the k-means argmin
+    # and the distances alone (such a tree's operands prepared beforehand)
+    # and the whole `kmeans_assign`; the cluster scan; the bisecting init
+    # of image 0's endpoint vectors
     enc = ops.encode_blocks(px, radius=1)
     vec6 = torch.cat([enc["low"], enc["high"]], -1) * (1.0 / 255.0)
     cents = vec6[torch.as_tensor(rng.choice(b_n, 2416, replace=False),
@@ -2389,9 +2482,45 @@ def phase_ab(torch, blocks, tree, images):
     q_h = xo._sum(cents * cents, -1)
     ones = torch.ones(b_n, dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev)
+
+    def norms_given(m, name):
+        # a tree whose cross6 kernels take the norms (and the argmin its
+        # bf16 operands) from the caller, as before they moved inside
+        import inspect
+
+        return "q" in inspect.signature(getattr(m, name)).parameters
+
+    def argmin(m):
+        return (m.cross6_argmin(v_h, c_h, q_h)
+                if norms_given(m, "cross6_argmin")
+                else m.cross6_argmin(vec6, cents))
+
+    def distances(m, norms=None):
+        if not norms_given(m, "cross6_distances"):
+            return m.cross6_distances(vec6, cents)
+        return m.cross6_distances(vec6, cents, *(norms() if norms else rq))
+
+    # the cluster scan of the main path's shape (C 2,416, D 27) on drawn
+    # clusters of image 0's blocks: each tree's `_cluster_scan` (one
+    # segment sum, then the assembly: one kernel here, the XLA-order
+    # composition in a tree before it)
+    ids = torch.as_tensor(rng.integers(0, 2416, b_n), device=dev)
+    cbase5 = torch.as_tensor(rng.integers(0, 32, (2416, 3)), device=dev)
+    deltas = torch.as_tensor(ops._candidate_deltas(1), device=dev)
+    base8 = ops.expand5(torch.clamp(cbase5[None] + deltas[:, None, :], 0,
+                                    31)).float()
+    mt = ck.factorized_scan(px, base5=cbase5[ids].float().contiguous(),
+                            radius=1)
     for label, fn in (
-            ("cross6_argmin N24576 C2416 bf16",
-             lambda m, m_ops: m.cross6_argmin(v_h, c_h, q_h)),
+            ("cross6_argmin N24576 C2416 bf16 (kernel alone)",
+             lambda m, m_ops: argmin(m)),
+            ("kmeans_assign N24576 C2416 (its operands, norms and kernel)",
+             lambda m, m_ops: m_ops.kmeans_assign(vec6, cents, 2416)),
+            ("cross6_distances N24576 C2416 (kernel alone)",
+             lambda m, m_ops: distances(m)),
+            ("_cluster_scan C2416 D27 (moments, segment sum, assembly)",
+             lambda m, m_ops: m_ops._cluster_scan(px, ids, base8, None, mt,
+                                                  False)),
             ("bisecting_init N24576 C2416",
              lambda m, m_ops: m_ops.bisecting_init(vec6, ones, 2416,
                                                    generator=gen))):
@@ -2446,7 +2575,8 @@ def phase_ab(torch, blocks, tree, images):
                                      f"S{n_pat}: the two trees differ")
 
     def refine(mod):
-        return mod.xla_cpu_min_k(mod.cross6_distances(vec6, cents, *rq), 16)
+        return mod.xla_cpu_min_k(distances(mod, lambda: (
+            xo._dot(vec6, vec6), xo._dot(cents, cents))), 16)
 
     mine, theirs = refine(ck), refine(other)
     torch.cuda.synchronize()
@@ -3239,7 +3369,23 @@ def _on_device(fp, device):
     return dataclasses.replace(fp, device=device)
 
 
+def _require_tree():
+    """Exits, naming what is missing, where the port's package or the
+    native sources it builds do not lie beside this script: it runs from
+    the root of the whole tree."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent
+    missing = [d for d in ("basis_universal_tpu_torch", "native")
+               if not (root / d).is_dir()]
+    if missing:
+        raise SystemExit(f"chip_smoke: {', '.join(missing)} not found in "
+                         f"{root}: run this script from the root of the "
+                         "repository's whole tree")
+
+
 def main():
+    _require_tree()
     import torch
 
     card, have_zstd = phase_env(torch)

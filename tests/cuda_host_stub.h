@@ -4,13 +4,14 @@
 // the CTAs one after another, __syncthreads a barrier of the CTA's threads,
 // __syncwarp a barrier of the warp's 32 threads, a shuffle (xor or from a
 // lane) or a ballot a write, a warp barrier, a read and a warp barrier,
-// __shared__ a static (one CTA at a time), __ldg a plain load, and the
-// rounded float intrinsics (__fadd_rn, __fmaf_rn, ...) the plain float
-// operations they name (compile with -ffp-contract=off, so that no product
-// is fused into a sum the source did not fuse). A fiber runs until it waits at a barrier; the next one in
-// thread order runs then, so a barrier costs one switch per thread and the
-// run is the same on a loaded host. A barrier that some threads never reach
-// (a divergent __syncwarp) aborts the process. Dynamic shared memory
+// __shared__ a static (one CTA at a time), __ldg a plain load, bf16 its 16
+// bits, and the rounded float intrinsics (__fadd_rn, __fmaf_rn, ...) the
+// plain float operations they name (compile with -ffp-contract=off, so
+// that no product is fused into a sum the source did not fuse). A fiber
+// runs until it waits at a barrier; the next one in thread order runs
+// then, so a barrier costs one switch per thread and the run is the same on
+// a loaded host. A barrier that some threads never reach (a divergent
+// __syncwarp) aborts the process. Dynamic shared memory
 // (`extern __shared__ T name[];`, which a test rewrites to
 // `T* name = (T*)emu_dyn_smem;`) is one static buffer, filled with 0xff
 // bytes (NaNs, out-of-range indices) before each CTA, so a read of what no
@@ -189,6 +190,29 @@ inline uint32_t __umulhi(uint32_t a, uint32_t b) {
 }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline int min(int a, int b) { return a < b ? a : b; }
+
+inline float __int_as_float(int x) {
+  float f;
+  memcpy(&f, &x, sizeof f);
+  return f;
+}
+// bf16 as its 16 bits; float to bf16 rounds to nearest even (NaN stays NaN)
+struct __nv_bfloat16 {
+  uint16_t x;
+};
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u;
+  memcpy(&u, &f, sizeof u);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {(uint16_t)((u >> 16) | 0x40u)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {(uint16_t)(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 h) {
+  const uint32_t u = (uint32_t)h.x << 16;
+  float f;
+  memcpy(&f, &u, sizeof f);
+  return f;
+}
 
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }

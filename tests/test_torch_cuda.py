@@ -381,17 +381,19 @@ def test_compress_on_card_launches_each_kernel(cuda):
         256, compressor._frontend_params(params, 256), None)
     refine, sel = knobs["refine_iters"], knobs["sel_iters"]
     # encode_blocks scans (fused with its shortlist) and rescores once; each
-    # refine pass scans once, rescores twice and takes one distance matrix;
-    # each selector iteration and the final pass search once;
-    # each k-means iteration takes one argmin; the XLA-order kernels run
-    # wherever the frontend spells out XLA's float32 order
+    # refine pass scans once, assembles its cluster errors once, rescores
+    # twice and takes one distance matrix; each selector iteration and the
+    # final pass search once; each k-means iteration takes one argmin; the
+    # ordered sums run where the frontend spells out XLA's float32 order
+    # outside those kernels (the selector distances), no fused multiply-add
     xla = {k: ck.LAUNCHES[k] for k in ("xla_fma", "xla_reduce")}
-    assert min(xla.values()) > 0
+    assert xla["xla_fma"] == 0 and xla["xla_reduce"] > 0
     assert {k: v for k, v in ck.LAUNCHES.items() if k not in xla} == {
         "factorized_scan": refine, "factorized_scan_shortlist": 1,
         "palette_errs_packed": 1 + 2 * refine, "palette_errs": 0,
         "find_best_selector_patterns": sel + 1,
         "cross6_argmin": knobs["kmeans_iters"], "cross6_distances": refine,
+        "cluster_scan_assemble": refine,
         "bisect_rows": 1,
         "bisect_round": int(np.ceil(np.log2(knobs["num_e"]))),
         "xla_cpu_min_k": refine,
@@ -618,28 +620,108 @@ def test_mesh_on_card(cuda):
 @pytest.mark.parametrize("n, c", [(1, 97), (300, 64), (1000, 1025),
                                   (24575, 2400), (24576, 2416)])
 def test_cross6_on_card(cuda, n, c):
-    """The k-means argmin and the refine's distances: the plain version's
-    bits on the card (every rounding spelled out), at ragged row and tile
-    counts and on both sides of the C mod 64 rule, the first index on a
-    planted tie."""
-    from basis_universal_tpu_torch.ops.xla_order import _dot, _sum
-
+    """The k-means argmin and the refine's distances, their squared norms
+    (and from 1,024 centroids the argmin's bf16 operands) inside: the plain
+    version's bits on the card (every rounding spelled out), at ragged row
+    and tile counts and on both sides of the C mod 64 rule, the first
+    index on a planted tie; one launch each."""
     rng = np.random.default_rng(n + c)
     a = torch.as_tensor(rng.uniform(0, 1, (n, 6)), dtype=torch.float32)
     cb = torch.as_tensor(rng.uniform(0, 1, (c, 6)), dtype=torch.float32)
     cb[c // 2] = cb[c // 3]
     a[0] = cb[c // 3]
-    q = _sum(cb * cb, -1)
-    got = ck.cross6_argmin(a.to(cuda), cb.to(cuda), q.to(cuda))
-    want = ck.cross6_argmin_reference(a, cb, q)
+    got = ck.cross6_argmin(a.to(cuda), cb.to(cuda))
+    want = ck.cross6_argmin_reference(a, cb)
     assert torch.equal(got.cpu(), want)
     assert int(got[0]) == min(c // 2, c // 3)
-    r, q2 = _dot(a, a), _dot(cb, cb)
-    got = ck.cross6_distances(a.to(cuda), cb.to(cuda), r.to(cuda),
-                              q2.to(cuda))
-    assert torch.equal(got.cpu(), ck.cross6_distances_reference(a, cb, r, q2))
+    got = ck.cross6_distances(a.to(cuda), cb.to(cuda))
+    assert torch.equal(got.cpu(), ck.cross6_distances_reference(a, cb))
     assert ck.LAUNCHES["cross6_argmin"] == 1
     assert ck.LAUNCHES["cross6_distances"] == 1
+
+
+def _assemble_inputs(c_n, radius, perceptual, seed):
+    """The cluster scan's segment sums (C, 7 + D*8) of clusters of 0..40
+    blocks with fractional moments and gray-axis sums, the cluster bases
+    (D, C, 3) of drawn 5-bit colours and deltas, and with the perceptual
+    metric the bases transformed and their levels lb (D, C), as
+    `optimize_cluster_endpoints` makes them (on the CPU)."""
+    from basis_universal_tpu_torch.ops import etc1s_encode as ops
+    from basis_universal_tpu_torch.ops.xla_order import _dot
+
+    rng = np.random.default_rng(seed)
+    deltas = torch.as_tensor(ops._candidate_deltas(radius))
+    d_n = deltas.shape[0]
+    n = torch.as_tensor(rng.integers(0, 41, c_n), dtype=torch.float32)
+    sums = torch.as_tensor(rng.uniform(0, 1, (c_n, 7 + 8 * d_n)),
+                           dtype=torch.float32)
+    scale = torch.tensor([1.0, 16 * 255, 16 * 255, 16 * 255, 48 * 255 ** 2,
+                          16 * 442, 16 * 442 ** 2] + [4e4] * (8 * d_n))
+    sums = sums * scale * n[:, None]
+    sums[:, 0] = n
+    base5 = torch.as_tensor(rng.integers(0, 32, (c_n, 3)))
+    base8 = ops.expand5(torch.clamp(base5[None] + deltas[:, None, :], 0,
+                                    31)).float()
+    lb = None
+    if perceptual:
+        base8 = ops.perceptual_transform(base8)
+        lb = _dot(base8, torch.as_tensor(ops.GVEC))
+    return sums.contiguous(), base8.contiguous(), lb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_n,radius,perceptual", [
+    (2416, 1, False), (2416, 2, False), (2416, 1, True), (37, 1, False),
+    (37, 2, True)])
+def test_cluster_scan_assemble_on_card(cuda, c_n, radius, perceptual):
+    """The cluster scan's assembly on the card gives its plain version's
+    bits (every rounding spelled out) at the main path's C 2,416 with D 27,
+    with D 125 and with the perceptual metric (lb given), and at a ragged
+    C; one launch."""
+    sums, base8, lb = _assemble_inputs(c_n, radius, perceptual, c_n + radius)
+    got = ck.cluster_scan_assemble(sums.to(cuda), base8.to(cuda),
+                                   None if lb is None else lb.to(cuda))
+    assert torch.equal(got.cpu(),
+                       ck.cluster_scan_assemble_reference(sums, base8, lb))
+    assert ck.LAUNCHES["cluster_scan_assemble"] == 1
+    assert ck.LAUNCHES["xla_fma"] == ck.LAUNCHES["xla_reduce"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("perceptual", [False, True])
+def test_cluster_scan_on_card_is_the_cpus(cuda, perceptual):
+    """`optimize_cluster_endpoints` on the card gives the CPU's endpoints,
+    its cluster scan (the full scan, the segment sum and the assembly) the
+    CPU's errors bit for bit."""
+    from basis_universal_tpu_torch.ops import etc1s_encode as ops
+
+    px = _blocks(3000, 77)
+    rng = np.random.default_rng(78)
+    ids = torch.as_tensor(rng.integers(0, 300, 3000))
+    means = torch.as_tensor(rng.uniform(0, 255, (300, 3)), dtype=torch.float32)
+    seen = {}
+    scan = ops._cluster_scan
+
+    def kept(*args):
+        out = scan(*args)
+        seen[out.device.type] = out.cpu()
+        return out
+
+    ops._cluster_scan = kept
+    try:
+        want = ops.optimize_cluster_endpoints(px, ids, means, 300,
+                                              perceptual=perceptual)
+        got = ops.optimize_cluster_endpoints(px.to(cuda), ids.to(cuda),
+                                             means.to(cuda), 300,
+                                             perceptual=perceptual)
+    finally:
+        ops._cluster_scan = scan
+    assert torch.equal(seen["cuda"], seen["cpu"])
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert ck.LAUNCHES["cluster_scan_assemble"] == 1
+    if not perceptual:
+        assert ck.LAUNCHES["xla_fma"] == ck.LAUNCHES["xla_reduce"] == 0
 
 
 @pytest.mark.cuda
@@ -697,15 +779,12 @@ def test_refine_shortlist_on_card(cuda, n, c):
     centroid components so that rows tie, at C on both sides of the C mod
     64 rule and past the longest row sorted in shared memory, k 2 to
     32."""
-    from basis_universal_tpu_torch.ops.xla_order import _dot
-
     rng = np.random.default_rng(n + c)
     a = torch.as_tensor(rng.integers(0, 4, (n, 6)) / 4.0, dtype=torch.float32)
     cb = torch.as_tensor(rng.integers(0, 3, (c, 6)) / 4.0,
                          dtype=torch.float32)
-    r, q = _dot(a, a), _dot(cb, cb)
-    d6 = ck.cross6_distances(*[t.to(cuda) for t in (a, cb, r, q)])
-    plain = ck.cross6_distances_reference(a, cb, r, q)
+    d6 = ck.cross6_distances(a.to(cuda), cb.to(cuda))
+    plain = ck.cross6_distances_reference(a, cb)
     assert torch.equal(d6.cpu(), plain)
     ks = [k for k in (2, 16, 32) if k <= c]
     for k in ks:
@@ -846,8 +925,8 @@ def test_cross6_argmin_ties_on_card(cuda, n, c):
                          dtype=torch.float32)
     cb[c // 2:] = cb[:c - c // 2].clone()
     q = (cb * cb).sum(-1)
-    got = ck.cross6_argmin(a.to(cuda), cb.to(cuda), q.to(cuda))
-    want = ck.cross6_argmin_reference(a, cb, q)
+    got = ck.cross6_argmin(a.to(cuda), cb.to(cuda))
+    want = ck.cross6_argmin_reference(a, cb)
     assert torch.equal(got.cpu(), want)
     d = q[None, :] - 2.0 * (a @ cb.T)
     assert int((d == d.min(1, keepdim=True).values).sum(1).max()) > 1

@@ -422,13 +422,19 @@ def test_state_dtypes_and_devices():
     assert ETC1_INTEN_TABLES.shape == (8, 4)
 
 
+@pytest.mark.parametrize("perceptual", [False, True])
 @pytest.mark.parametrize("radius", [0, 1, 2])
-def test_cluster_scan_is_the_references_formulation(radius):
+def test_cluster_scan_is_the_references_formulation(radius, perceptual):
     """The per-block gray-axis sums against the cluster base (the full
     scan's columns) equal the reference's `_gray_axis_minterm` of its
-    XLA branch bit for bit, and the assembled (C, D*8) cluster errors equal
-    the reference's `flat` of `optimize_cluster_endpoints` (jitted as the
-    frontend runs it) bit for bit, with whole-numbered pixels."""
+    XLA branch, and the assembled (C, D*8) cluster errors
+    (`cluster_scan_assemble`) the reference's `flat` of
+    `optimize_cluster_endpoints` (jitted as the frontend runs it), with
+    whole-numbered pixels: bit for bit in RGB; with the perceptual metric
+    (the bases and pixels transformed, the cluster levels lb given; a
+    fragment jitted alone fuses otherwise than the whole frontend, whose
+    roundings the port keeps) the gray-axis sums and the errors within rtol
+    1e-5, the errors' of |constant part| + |error|."""
 
     rng = np.random.default_rng(30 + radius)
     px = _blocks(500, 31 + radius)
@@ -437,15 +443,19 @@ def test_cluster_scan_is_the_references_formulation(radius):
     base5 = rng.integers(0, 32, (c, 3)).astype(np.int32)
     deltas = jops._candidate_deltas(radius)
     d_n = len(deltas)
+    gvec = jnp.asarray(jops.PERC_P @ np.ones(3, np.float32))
 
     @jax.jit
     def ref(px, ids, base5):
         c5s = jnp.clip(base5[None] + jnp.asarray(deltas)[:, None, :], 0, 31)
         base8 = jops.expand5(c5s).astype(jnp.float32)           # (D,C,3)
-        mom = jops._block_moments(px)
+        if perceptual:
+            base8 = jops.perceptual_transform(base8)
+            px = jops.perceptual_transform(px)
+        mom = jops._block_moments(px, gvec if perceptual else None)
         seg = lambda x: jax.ops.segment_sum(x, ids, num_segments=c)
         npix = 16.0 * seg(jnp.ones(px.shape[0], jnp.float32))
-        lb = jnp.sum(base8, axis=-1)
+        lb = base8 @ gvec if perceptual else jnp.sum(base8, axis=-1)
         q = (seg(mom["sum_x2"])[None]
              - 2.0 * jnp.einsum("dcx,cx->dc", base8, seg(mom["sum_x"]))
              + npix[None] * jnp.sum(base8 * base8, axis=-1))
@@ -455,19 +465,35 @@ def test_cluster_scan_is_the_references_formulation(radius):
         mt = jnp.moveaxis(jops._gray_axis_minterm(u), 0, 1).reshape(-1, d_n * 8)
         errs = (q - su2 * (1.0 / 3.0)).T[:, :, None] \
             + 3.0 * seg(mt).reshape(c, d_n, 8)
-        return mt, errs.reshape(c, -1)
+        return mt, errs.reshape(c, -1), q - su2 * (1.0 / 3.0)
 
-    want_mt, want_flat = (np.asarray(x) for x in ref(
+    want_mt, want_flat, want_cst = (np.asarray(x) for x in ref(
         jnp.asarray(px), jnp.asarray(ids), jnp.asarray(base5)))
     t_ids = torch.from_numpy(ids).long()
     t_base5 = torch.from_numpy(base5)
-    mt = ck.factorized_scan(_t(px), base5=t_base5[t_ids].float().contiguous(),
-                            radius=radius)
-    np.testing.assert_array_equal(mt.numpy(), want_mt)
     base8 = tops.expand5(torch.clamp(
         t_base5[None] + torch.as_tensor(deltas)[:, None, :], 0, 31)).float()
-    flat = tops._cluster_scan(_t(px), t_ids, base8, None, mt, False)
-    np.testing.assert_array_equal(flat.numpy(), want_flat)
+    lb = None
+    if perceptual:
+        base8 = tops.perceptual_transform(base8)
+        lb = tops._dot(base8, torch.as_tensor(tops.GVEC))
+    mt = ck.factorized_scan(_t(px), base5=t_base5[t_ids].float().contiguous(),
+                            radius=radius, perceptual=perceptual,
+                            lb=None if lb is None else
+                            lb[:, t_ids].T.contiguous())
+    ck.reset_launch_counts()
+    flat = tops._cluster_scan(_t(px), t_ids, base8, lb, mt, perceptual)
+    assert ck.LAUNCHES == dict.fromkeys(ck.LAUNCHES, 0)
+    if not perceptual:
+        np.testing.assert_array_equal(mt.numpy(), want_mt)
+        np.testing.assert_array_equal(flat.numpy(), want_flat)
+        return
+    mag = np.abs(want_cst).T[:, :, None] + np.abs(want_flat).reshape(
+        c, d_n, 8)
+    np.testing.assert_allclose(mt.numpy(), want_mt, rtol=RTOL, atol=1e-3)
+    err = np.abs(flat.numpy().reshape(c, d_n, 8)
+                 - want_flat.reshape(c, d_n, 8))
+    assert (err <= RTOL * mag + 1e-3).all()
 
 
 @pytest.mark.parametrize("c", [24, 64, 65, 96, 97, 1000, 2400, 2416])
@@ -496,7 +522,6 @@ def test_cross6_argmin_and_distances_are_the_references(c):
     (distinct codebook entries, so no two candidates tie); the CPU
     launches nothing."""
     from basis_universal_tpu_torch.ops import cuda_etc1s as ck
-    from basis_universal_tpu_torch.ops.xla_order import _dot, _sum
 
     rng = np.random.default_rng(c + 1)
     vecs = rng.uniform(0, 1, (3000, 6)).astype(np.float32)
@@ -534,18 +559,22 @@ def test_cross6_argmin_and_distances_are_the_references(c):
         jnp.asarray(c5), jnp.asarray(it), topk=8)
     np.testing.assert_array_equal(ga.numpy(), np.asarray(wa))
 
+    # the distances with their norms inside: the norms as the caller
+    # computed them before (`_dot`, a fused multiply-add chain)
+    from basis_universal_tpu_torch.ops.xla_order import _cross6, _dot
+
     tv, tc = _t(vecs), _t(cents)
     np.testing.assert_array_equal(
-        ck.cross6_distances(tv, tc, _dot(tv, tv), _dot(tc, tc)).numpy(),
-        ck.cross6_distances_reference(tv, tc, _dot(tv, tv),
-                                      _dot(tc, tc)).numpy())
+        ck.cross6_distances(tv, tc).numpy(),
+        ((_dot(tv, tv)[:, None] - 2.0 * _cross6(tv, tc))
+         + _dot(tc, tc)[None, :]).numpy())
     assert ck.LAUNCHES == dict.fromkeys(ck.LAUNCHES, 0)
     with pytest.raises(ValueError):
-        ck.cross6_argmin(tv[:, :5].contiguous(), tc, _sum(tc * tc, -1))
+        ck.cross6_argmin(tv[:, :5].contiguous(), tc)
     with pytest.raises(ValueError):
-        ck.cross6_distances(tv, tc, _dot(tv, tv)[:-1], _dot(tc, tc))
+        ck.cross6_distances(tv, tc[:0])
     with pytest.raises(TypeError):
-        ck.cross6_argmin(tv.double(), tc, _sum(tc * tc, -1))
+        ck.cross6_argmin(tv.double(), tc)
 
 
 def _tied_rows(n, levels, seed, zeros=False):
@@ -700,13 +729,10 @@ def test_refine_shortlist_is_the_references_d6_and_approx_min_k(c):
     reference's own `d6` (`refine_endpoint_assignment`) and the columns of
     its jitted `approx_min_k`, with whole-numbered centroid components so
     that rows tie, at C on both sides of the C mod 64 rule, k 2 to 32."""
-    from basis_universal_tpu_torch.ops.xla_order import _dot
-
     rng = np.random.default_rng(c)
     a = rng.integers(0, 4, (300, 6)).astype(np.float32) / 4.0
     cb = rng.integers(0, 3, (c, 6)).astype(np.float32) / 4.0
-    d6 = ck.cross6_distances(_t(a), _t(cb), _dot(_t(a), _t(a)),
-                             _dot(_t(cb), _t(cb)))
+    d6 = ck.cross6_distances(_t(a), _t(cb))
     ja, jc = jnp.asarray(a), jnp.asarray(cb)
     want = (jnp.sum(ja * ja, -1, keepdims=True) - 2.0 * ja @ jc.T
             + jnp.sum(jc * jc, -1)[None, :])
@@ -793,3 +819,44 @@ def test_perceptual_rescore_is_the_references(c):
     np.testing.assert_array_equal(
         ck.palette_errs_packed(_t(px), pk, perceptual=True).numpy(),
         np.asarray(ref_blocks(jnp.asarray(px), jnp.asarray(pal))))
+
+
+@pytest.mark.parametrize("h,w", [(64, 64), (128, 192)])
+def test_etc1s_orders_xla_sums_outside_kernels_once(h, w):
+    """One ETC1S encode (q128, effort 1) makes one ordered sum outside the
+    hand-written kernels' plain versions (the selector distances' dot) and
+    no fused multiply-add: the cluster scan's assembly and the k-means and
+    refine norms are inside `cluster_scan_assemble` and the `cross6_*`
+    kernels. On the card each such call is one `xla_reduce` / `xla_fma`
+    launch (`chip_smoke.EXPECTED_ETC1S_XLA`)."""
+    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.ops import xla_order as xo
+    from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+
+    calls, depth = dict(fma=0, reduce=0), [0]
+
+    def counted(name, fn):
+        def run(*args, **kw):
+            if name in calls and not depth[0]:
+                calls[name] += 1
+            depth[0] += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+        return run
+
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(xo, "fma_reference", counted("fma", xo.fma_reference))
+        mp.setattr(xo, "reduce_reference",
+                   counted("reduce", xo.reduce_reference))
+        for name in dir(ck):
+            if name.endswith("_reference"):
+                mp.setattr(ck, name, counted(name, getattr(ck, name)))
+        img, _ = synthetic_texture(h, w, seed=0)
+        compressor.compress(img, compressor.CompressorParams(
+            quality_level=128, effort=1, device="cpu"))
+    finally:
+        mp.undo()
+    assert calls == dict(fma=0, reduce=1)

@@ -886,3 +886,202 @@ def test_xla_order_layout_holds_three_operands(n_ops):
     assert nd == (1 if n_ops == 1 else 2)
     assert len(meta) == 4 * 8
     assert list(meta[8 * (1 + min(n_ops, 2)):]) == [0] * 8 * (3 - min(n_ops, 2))
+
+
+# ---------------------------------------------------------------------------
+# The kernels of `csrc/etc1s_codebook.h` (`cross6_argmin`, `cross6_distances`,
+# `cluster_scan_assemble`) on the CPU: the header compiled with g++ against
+# `tests/cuda_host_stub.h` (a fiber per CUDA thread; the rounded intrinsics
+# plain float operations under -ffp-contract=off; bf16 rounded to nearest
+# even in its bits) and called through the C entries that
+# `etc1s_kernels.cu` gives its launchers, on CPU tensors. Every output
+# `torch.equal` to the plain version; no tolerance.
+
+_CSRC = pathlib.Path(ck.__file__).resolve().parent.parent / "csrc"
+# a launch `kernel<T...><<<grid, block, shared bytes, stream>>>(`
+_ARG = r"\s*((?:[^,()]|\([^()]*\))+),"
+_LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<" + 3 * _ARG + r"\s*\w+>>>\(")
+_DYN_SMEM = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
+# the C entries of `etc1s_kernels.cu` over the header's launchers (less the
+# argmin's shared-memory attribute, which the emulator does not need)
+_CODEBOOK_ENTRIES = r"""
+extern "C" {
+int etc1s_cross6_argmin(const float* a, const float* c, int64_t* out, int n,
+                        int n_c, void* s) {
+  return launch_cross6_argmin(a, c, out, n, n_c, (cudaStream_t)s);
+}
+int etc1s_cross6_distances(const float* a, const float* c, float* out, int n,
+                           int n_c, void* s) {
+  return launch_cross6_distances(a, c, out, n, n_c, (cudaStream_t)s);
+}
+int etc1s_cluster_scan_assemble(const float* sums, const float* base8,
+                                const float* lb, float* out, int n_c, int n_d,
+                                void* s) {
+  return launch_cluster_scan_assemble(sums, base8, lb, out, n_c, n_d,
+                                      (cudaStream_t)s);
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def codebook_lib(tmp_path_factory):
+    """`csrc/etc1s_codebook.h` built for the host, its C entries declared as
+    `_build` declares the card library's."""
+    import ctypes
+    import subprocess
+
+    from basis_universal_tpu_torch.ops import _build
+
+    third = re.search(r"#define THIRD .*",
+                      (_CSRC / "etc1s_kernels.cu").read_text()).group(0)
+    src = (_CSRC / "etc1s_codebook.h").read_text()
+    n_launch = src.count("<<<")
+    src, n = _LAUNCH.subn(r"emu_launch_smem(\1, \2, \3, \4, ", src)
+    assert n == n_launch == 6
+    src = _DYN_SMEM.sub(r"\1* \2 = reinterpret_cast<\1*>(emu_dyn_smem);", src)
+    stub = pathlib.Path(__file__).resolve().parent / "cuda_host_stub.h"
+    out = tmp_path_factory.mktemp("etc1s_codebook_host")
+    (out / "codebook.cpp").write_text(
+        f'#include "{stub}"\n{third}\n{src}\n{_CODEBOOK_ENTRIES}')
+    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-o", str(out / "codebook.so"),
+                    str(out / "codebook.cpp")], check=True)
+    return _build.declare_codebook(ctypes.CDLL(str(out / "codebook.so")))
+
+
+def _assemble_inputs(c_n, radius, with_lb, seed):
+    """The cluster scan's segment sums (C, 7 + D*8) of clusters of 0..40
+    blocks (some empty), float bases (D, C, 3) as the perceptual metric
+    gives them and, with_lb, their levels (D, C): fractional values, so
+    that every step rounds."""
+    rng = np.random.default_rng(seed)
+    d_n = (2 * radius + 1) ** 3
+    n = rng.integers(0, 41, c_n).astype(np.float32)
+    n[:2] = 0.0
+    sums = np.empty((c_n, 7 + 8 * d_n), np.float32)
+    sums[:, 0] = n
+    sums[:, 1:4] = rng.uniform(0, 16 * 255, (c_n, 3)) * n[:, None]
+    sums[:, 4] = rng.uniform(0, 48 * 255 ** 2, c_n) * n
+    sums[:, 5] = rng.uniform(0, 16 * 442, c_n) * n
+    sums[:, 6] = rng.uniform(0, 16 * 442 ** 2, c_n) * n
+    sums[:, 7:] = rng.uniform(0, 4e4, (c_n, 8 * d_n)) * n[:, None]
+    base8 = rng.uniform(-60, 320, (d_n, c_n, 3)).astype(np.float32)
+    lb = rng.uniform(-100, 450, (d_n, c_n)).astype(np.float32)
+    return (torch.from_numpy(sums), torch.from_numpy(base8),
+            torch.from_numpy(lb) if with_lb else None)
+
+
+@pytest.mark.parametrize("c_n,radius,with_lb,seed", [
+    (37, 1, False, 0), (37, 1, True, 1), (37, 1, False, 2), (300, 1, True, 3),
+    (61, 2, False, 4), (61, 2, True, 5), (1, 1, False, 6),
+    (2416, 1, False, 7)])
+def test_cluster_scan_assemble_kernel_is_the_plain_version(
+        codebook_lib, c_n, radius, with_lb, seed):
+    """`cluster_scan_assemble_kernel` against
+    `cluster_scan_assemble_reference` (the port's composition before the
+    kernel): D 27 and 125, lb null (the bases' sums) and given, ragged
+    tails (C x D x 8 not a multiple of the CTA's 256 threads), one cluster,
+    and the main path's C 2,416."""
+    sums, base8, lb = _assemble_inputs(c_n, radius, with_lb, seed)
+    d_n = base8.shape[0]
+    out = torch.full((c_n, 8 * d_n), float("nan"))
+    assert codebook_lib.etc1s_cluster_scan_assemble(
+        sums.data_ptr(), base8.data_ptr(),
+        None if lb is None else lb.data_ptr(), out.data_ptr(), c_n, d_n,
+        None) == 0
+    assert torch.equal(out, ck.cluster_scan_assemble_reference(sums, base8,
+                                                               lb))
+
+
+def _codebook_rows(n, c_n, kind, seed):
+    """Vectors (n, 6) and centroids (C, 6): uniform in [0, 1); on a coarse
+    grid with every centroid present twice or more ("ties"); or ("norms")
+    centroids that permute the coordinates of one vector, so that their
+    exact norms tie and the rounded ones differ by the order of the sum,
+    against rows t (1, ..., 1) with t < 1e-3, whose cross terms tie
+    exactly too, so that the norms' last bits decide. A duplicated centroid
+    and a row on it planted in each."""
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        a = rng.integers(0, 5, (n, 6)) / 4.0
+        c = rng.integers(0, 5, (c_n, 6)) / 4.0
+        c[c_n // 2:] = c[:c_n - c_n // 2]
+    elif kind == "norms":
+        base = rng.uniform(0, 1, 6)
+        c = np.stack([rng.permutation(base) for _ in range(c_n)])
+        a = rng.uniform(0, 1e-3, (n, 1)) * np.ones(6)
+    else:
+        a = rng.uniform(0, 1, (n, 6))
+        c = rng.uniform(0, 1, (c_n, 6))
+    c[c_n // 2] = c[c_n // 3]
+    a[0] = c[c_n // 3]
+    return (torch.as_tensor(a, dtype=torch.float32),
+            torch.as_tensor(c, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("n,c_n,kind", [
+    (200, 97, "uniform"), (200, 65, "uniform"), (200, 128, "ties"),
+    (100, 1023, "uniform"), (100, 1024, "uniform"), (200, 1025, "uniform"),
+    (200, 1088, "ties"), (40, 2500, "uniform"), (300, 2416, "uniform"),
+    (200, 97, "norms"), (200, 1025, "norms")])
+def test_cross6_kernels_are_the_plain_versions(codebook_lib, n, c_n, kind):
+    """`cross6_argmin_kernel` and `cross6_kernel` with the squared norms
+    inside, against their plain versions (the norms as the callers
+    computed them before: `_sum(c * c, -1)` for the argmin, `_dot` for the
+    distances): C below 1,024 and from 1,024 on (the bf16 operands),
+    either summation order (C mod 64 of 33, 1, 0, 63, 0, 1, 0, 4, 48), more
+    centroids than one staged tile (2,432; the distances' 512), rows past a
+    CTA's, ties everywhere (the first index taken) and norms that differ
+    by their rounding alone."""
+    a, c = _codebook_rows(n, c_n, kind, n + c_n)
+    idx = torch.full((n,), -1, dtype=torch.int64)
+    assert codebook_lib.etc1s_cross6_argmin(
+        a.data_ptr(), c.data_ptr(), idx.data_ptr(), n, c_n, None) == 0
+    want = ck.cross6_argmin_reference(a, c)
+    assert torch.equal(idx, want)
+    if kind == "ties":
+        d = (c * c).sum(-1)[None, :] - 2.0 * (a @ c.T)
+        assert int((d == d.min(1, keepdim=True).values).sum(1).max()) > 1
+    elif kind == "uniform":
+        assert int(idx[0]) == min(c_n // 2, c_n // 3)
+    dist = torch.full((n, c_n), float("nan"))
+    assert codebook_lib.etc1s_cross6_distances(
+        a.data_ptr(), c.data_ptr(), dist.data_ptr(), n, c_n, None) == 0
+    assert torch.equal(dist, ck.cross6_distances_reference(a, c))
+
+
+def test_codebook_constants_match_python():
+    """The k-means argmin's bf16 rule starts where its plain version's does
+    (the reference's `num_clusters >= 1024`; the plain rule is held to the
+    reference's jitted step in `test_torch_etc1s_encode.py`)."""
+    src = (_CSRC / "etc1s_codebook.h").read_text()
+    assert ("constexpr int kCross6Bf16Clusters = "
+            f"{ck.CROSS6_BF16_CLUSTERS};") in src
+    assert ck.CROSS6_BF16_CLUSTERS == 1024
+
+
+def test_cluster_scan_assemble_wrapper_checks_its_inputs():
+    """The wrapper takes the segment sums, bases and levels as
+    `_cluster_scan` gives them and refuses other shapes, dtypes and
+    layouts; CPU tensors run the plain version and launch nothing."""
+    sums, base8, lb = _assemble_inputs(5, 1, True, 9)
+    ck.reset_launch_counts()
+    for levels in (None, lb):
+        assert torch.equal(ck.cluster_scan_assemble(sums, base8, levels),
+                           ck.cluster_scan_assemble_reference(sums, base8,
+                                                              levels))
+    assert all(v == 0 for v in ck.LAUNCHES.values())
+    with pytest.raises(ValueError):
+        ck.cluster_scan_assemble(sums[:, :-1].contiguous(), base8)
+    with pytest.raises(ValueError):
+        ck.cluster_scan_assemble(sums[:4].contiguous(), base8)
+    with pytest.raises(ValueError):
+        ck.cluster_scan_assemble(sums, base8, lb[:, :4].contiguous())
+    with pytest.raises(ValueError):
+        ck.cluster_scan_assemble(sums, base8.transpose(0, 1).contiguous()
+                                 .transpose(0, 1))
+    with pytest.raises(TypeError):
+        ck.cluster_scan_assemble(sums.double(), base8)
+    with pytest.raises(ValueError):
+        ck.cluster_scan_assemble(sums, base8[..., :2].contiguous())
