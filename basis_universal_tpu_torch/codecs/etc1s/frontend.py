@@ -126,12 +126,14 @@ def _frontend_impl(px, generator, left_idx, up_idx, e_thresh, s_thresh, *,
     inten = torch.zeros(num_e, dtype=torch.int32, device=dev)
     blk_mean = px.mean(1)
     for _ in range(refine_iters):
-        cnt = ops.segment_sum(weights, assign, num_e)
-        mean_px = ops.segment_sum(blk_mean, assign, num_e)
+        # one order of the assignment for every sum of the pass
+        order = ops.segment_order(assign, num_e)
+        cnt = ops.segment_sum(weights, assign, num_e, order=order)
+        mean_px = ops.segment_sum(blk_mean, assign, num_e, order=order)
         cluster_means = mean_px / torch.clamp(cnt, min=1.0)[:, None]
         color5, inten = ops.optimize_cluster_endpoints(
             px, assign, cluster_means, num_e, radius=radius,
-            perceptual=perceptual)
+            perceptual=perceptual, order=order)
         cb_vec6 = _vec6(_palette(color5, inten))
         assign, _ = ops.refine_endpoint_assignment(
             px, vec6, cb_vec6, color5, inten, topk=topk,

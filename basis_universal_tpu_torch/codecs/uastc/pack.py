@@ -714,8 +714,10 @@ def uastc_pack(compact, alpha0, tables):
     colour's; its low 8 bits are written) and tables `pack_tables`' buffer
     of the search's slot list: `_pack_from_compact`'s bytes.
 
-    A CUDA tensor launches `uastc_pack` (`csrc/uastc_pack_kernels.cu`), a
-    thread per block, and counts the launch; a CPU tensor runs
+    A CUDA tensor launches `uastc_pack` (`csrc/uastc_pack_kernels.cu`), 8
+    lanes a block (4 from 16,384 blocks on), each writing its share of the
+    block's fields at their closed-form places, and counts the launch; a
+    CPU tensor runs
     `pack_reference`. It replaces the numpy packing
     (`_pack_from_compact`), which no TPU kernel stood behind; it is bound
     by its bytes, 59 + 4 in and 16 out per block."""

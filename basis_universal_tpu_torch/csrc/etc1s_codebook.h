@@ -1,7 +1,8 @@
 // The ETC1S frontend's codebook arithmetic on the card: the 6-D codebook
 // distances of the k-means assignment (cross6_argmin) and of the refine's
-// shortlist (cross6_distances), and the assembly of the cluster scan's
-// errors (cluster_scan_assemble). Part of etc1s_kernels.cu, which includes
+// shortlist (cross6_distances), and the cluster scan's errors, its segment
+// sums and their assembly (cluster_scan_assemble). Part of
+// etc1s_kernels.cu, which includes
 // it inside its anonymous namespace after <cuda_runtime.h>, <cuda_bf16.h>,
 // <stdint.h> and its THIRD (float32 1/3). Its kernels meet only at
 // __syncthreads and warp shuffles, so tests/test_torch_kernels.py also
@@ -266,66 +267,227 @@ inline int launch_cross6_distances(const float* a, const float* c, float* out,
 }
 
 // ---------------------------------------------------------------------------
-// cluster_scan_assemble: the unclipped ETC1S error of every (cluster,
-// delta, table) from the cluster's summed block moments and gray-axis sums,
-// the assembly of `etc1s_encode._cluster_scan` (the reference's
-// basis_universal_tpu/ops/etc1s_encode.py:291-306, XLA code with no Pallas
-// kernel), in one launch where the composition took 5 xla_fma, 3 xla_reduce
-// and ~9 eager operators, with its roundings operation for operation:
+// cluster_scan_assemble: the unclipped ETC1S error of every (cluster, delta,
+// table) from the members of each endpoint cluster, in one launch: the
+// cluster scan of `etc1s_encode._cluster_scan` (the reference's
+// basis_universal_tpu/ops/etc1s_encode.py:284-306, XLA code with no Pallas
+// kernel): no copy, sort, gather or segment reduction of the rows outside
+// it.
+//
+// The sums. The members of cluster c are the blocks order[offsets[c]] ..
+// order[offsets[c + 1] - 1], in ascending row order (a stable order of the
+// ids, which the refine pass builds once and shares with its other segment
+// sums). Each column is summed as one chain of adds in that order, starting
+// from +0.0: the order of `etc1s_encode.segment_sum` (torch.segment_reduce)
+// and of the reference's jax.ops.segment_sum on the CPU. The columns are n
+// (a 1 per member), sum_x (3), sum_x2, sum_l, sum_l2 and the D*8 gray-axis
+// terms mt (B, D*8) of the cluster-base scan, read where they lie. Without
+// the perceptual metric the block moments are computed here from the pixels
+// (B, 16, 3), whole numbers in [0, 255]: each is exact in any order (sum_l2
+// <= 16 * 765^2 < 2^24), so it equals `_block_moments`'. With the metric
+// they are read from `_block_moments`' tensors (sum_x (B, 3), sum_x2, sum_l,
+// sum_l2 (B,)), which round as XLA-CPU rounds the reference's.
+//
+// The assembly, `_cluster_scan`'s roundings operation for operation:
 //     npix = 16 n                          (exact)
 //     bb   = b . b,  bx = b . sum_x        (fused multiply-add chains)
 //     q    = fma(npix, bb, sum_x2 - 2 bx)  (the subtract rounded apart)
-//     lb   = given, or (b0 + b1) + b2
+//     lb   = given (perceptual), or (b0 + b1) + b2
 //     su2  = fma(lb, npix lb, fma(-(2 sum_l), lb, sum_l2))
 //     cst  = fma(-su2, 1/3, q)
 //     err  = fma(mt, 3, cst)               (each of the 8 tables)
-// sums is (C, 7 + D*8), each row n, sum_x (3), sum_x2, sum_l, sum_l2 and
-// the D*8 summed gray-axis terms mt, as the segment sum writes it; base8
-// (D, C, 3) the cluster bases; lb null or (D, C) their gray-axis levels
-// under the perceptual metric; out (C, D*8). A thread an output, in the
-// output's order: a warp stores 128 contiguous bytes of the rows and reads
-// the mt terms beside them; the 8 threads of a (cluster, delta) read the
-// same base and moments (one transaction) and each computes its constant.
-// Bound: its bytes (2,416 x 223 x 4 B in, 0.78 MB of bases, 2.09 MB out at
-// the main path's C 2,416, D 27: ~1.5 us at 3.35 TB/s).
-constexpr int kAsmThreads = 256;
+// with base8 (D, C, 3) the cluster bases, lb (D, C) their gray-axis levels
+// under the perceptual metric, and out (C, D*8).
+//
+// The design: a CTA of 8 warps per cluster. Its columns are taken 32 at a
+// time, a lane a column: chunk 0 the 7 moment columns, chunk k >= 1 the terms
+// 32 (k - 1) .. 32 k - 1 (8 chunks at D 27, 33 at D 125; warp w takes chunks
+// w, w + 8, ...), so a large cluster keeps all 8 warps of its CTA busy. A
+// warp takes the members 32 at a time: lane l reads member l's row index
+// (the next batch's are read ahead), then every lane loads its column of
+// the 32 members (32 independent loads, each a warp's 128 contiguous bytes
+// of one row) before its 32 dependent adds. Past the cluster's end a batch
+// adds +0.0, which leaves a sum's bits alone (a chain that starts from +0.0
+// is never -0.0). In chunk 0 lane l computes member l's moments (from its 12
+// float4 of pixels, or its 6 moments) into shared memory and lanes 0..6 add
+// down their column. The sums meet in shared memory, and the CTA writes the
+// cluster's D*8 errors, a thread a column, each thread's first column's base
+// (and level) read before the sums so that its load overlaps theirs. At 64
+// registers (RGB; 80 perceptual) an SM holds 4 (3) CTAs. Two other forms
+// were slower on the H100 and were not kept: 4 or 8 consecutive clusters a
+// CTA, each warp's chains running on from one cluster into the next over
+// 32 consecutive members a batch (2.7-3.2x slower at image 0's clusters),
+// and register limits that hold 5, 6 or 8 CTAs an SM (spills).
+//
+// Bounds at the main path's shape (B 24,576, C 2,416, D 27): its bytes, mt
+// 21.2 MB, the pixels 4.7 MB, the order 0.2 MB, the bases 0.8 MB and the
+// errors 2.1 MB in and out, ~8.7 us at 3.35 TB/s; and the chain of adds,
+// the largest cluster's member count times an add's latency.
+constexpr int kCsWarps = 8;
+constexpr int kCsBatch = 32;    // members a warp takes at once, a lane each
+constexpr int kCsMoments = 7;   // n, sum_x (3), sum_x2, sum_l, sum_l2
+constexpr int kCsMaxCols = 8 * 125;
 
-template <bool kLb>
-__global__ void __launch_bounds__(kAsmThreads)
-cluster_scan_assemble_kernel(const float* __restrict__ sums,
-                             const float* __restrict__ base8,
-                             const float* __restrict__ lb,
-                             float* __restrict__ out, int n_c, int n_d) {
-  const int cols = n_d * 8;
-  const int i = blockIdx.x * kAsmThreads + threadIdx.x;
-  if (i >= n_c * cols) return;
-  const int c = i / cols, col = i - c * cols, d = col >> 3;
-  const float* s = sums + (size_t)c * (7 + cols);
-  const float* b = base8 + ((size_t)d * n_c + c) * 3;
-  const float b0 = b[0], b1 = b[1], b2 = b[2];
-  const float npix = __fmul_rn(16.f, s[0]);
-  const float bb = __fmaf_rn(b2, b2, __fmaf_rn(b1, b1, __fmul_rn(b0, b0)));
-  const float bx = __fmaf_rn(b2, s[3], __fmaf_rn(b1, s[2], __fmul_rn(b0, s[1])));
-  const float q = __fmaf_rn(npix, bb, __fsub_rn(s[4], __fmul_rn(2.f, bx)));
-  const float l = kLb ? lb[(size_t)d * n_c + c] : __fadd_rn(__fadd_rn(b0, b1), b2);
-  const float su2 = __fmaf_rn(l, __fmul_rn(npix, l),
-                              __fmaf_rn(-__fmul_rn(2.f, s[5]), l, s[6]));
-  const float cst = __fmaf_rn(-su2, THIRD, q);
-  out[i] = __fmaf_rn(s[7 + col], 3.f, cst);
+// m = (1, sum_x, sum_x2, sum_l, sum_l2) of block `row`: from its pixels
+// (whole numbers, every sum exact), or read from the moment tensors
+template <bool kPerceptual>
+__device__ __forceinline__ void cs_block_moments(
+    int row, const float* __restrict__ px, const float* __restrict__ sum_x,
+    const float* __restrict__ sum_x2, const float* __restrict__ sum_l,
+    const float* __restrict__ sum_l2, float (&m)[kCsMoments]) {
+  m[0] = 1.f;
+  if (kPerceptual) {
+    m[1] = __ldg(sum_x + (size_t)row * 3);
+    m[2] = __ldg(sum_x + (size_t)row * 3 + 1);
+    m[3] = __ldg(sum_x + (size_t)row * 3 + 2);
+    m[4] = __ldg(sum_x2 + row);
+    m[5] = __ldg(sum_l + row);
+    m[6] = __ldg(sum_l2 + row);
+    return;
+  }
+  const float4* p = reinterpret_cast<const float4*>(px + (size_t)row * 48);
+  float f[48];
+#pragma unroll
+  for (int q = 0; q < 12; ++q) {
+    const float4 v = __ldg(p + q);
+    f[4 * q] = v.x;
+    f[4 * q + 1] = v.y;
+    f[4 * q + 2] = v.z;
+    f[4 * q + 3] = v.w;
+  }
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, sq = 0.f, sl = 0.f, sl2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float r = f[3 * i], g = f[3 * i + 1], b = f[3 * i + 2];
+    const float l = r + g + b;
+    s0 += r;
+    s1 += g;
+    s2 += b;
+    sq += r * r + g * g + b * b;
+    sl += l;
+    sl2 += l * l;
+  }
+  m[1] = s0;
+  m[2] = s1;
+  m[3] = s2;
+  m[4] = sq;
+  m[5] = sl;
+  m[6] = sl2;
 }
 
-inline int launch_cluster_scan_assemble(const float* sums, const float* base8,
-                                        const float* lb, float* out, int n_c,
-                                        int n_d, cudaStream_t s) {
+// the assembly's operands of column col of cluster c: its base's three
+// coordinates and, with the perceptual metric, its level
+template <bool kPerceptual>
+__device__ __forceinline__ void cs_base(const float* __restrict__ base8,
+                                        const float* __restrict__ lb, int c,
+                                        int n_c, int col, float (&b)[4]) {
+  const size_t at = (size_t)(col >> 3) * n_c + c;
+  b[0] = __ldg(base8 + at * 3);
+  b[1] = __ldg(base8 + at * 3 + 1);
+  b[2] = __ldg(base8 + at * 3 + 2);
+  b[3] = kPerceptual ? __ldg(lb + at) : 0.f;
+}
+
+template <bool kPerceptual>
+__global__ void __launch_bounds__(kCsWarps * 32, kPerceptual ? 3 : 4)
+cluster_scan_assemble_kernel(
+    const float* __restrict__ mt, const int64_t* __restrict__ order,
+    const int64_t* __restrict__ offsets, const float* __restrict__ px,
+    const float* __restrict__ sum_x, const float* __restrict__ sum_x2,
+    const float* __restrict__ sum_l, const float* __restrict__ sum_l2,
+    const float* __restrict__ base8, const float* __restrict__ lb,
+    float* __restrict__ out, int n_c, int n_d) {
+  extern __shared__ float cs_sums[];              // (7 + D*8,)
+  __shared__ float cs_mom[kCsBatch][kCsMoments + 1];
+  const int c = blockIdx.x, cols = n_d * 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long beg = offsets[c], end = offsets[c + 1];
+  const int n_chunks = 1 + (cols + 31) / 32;
+  // the operands of this thread's first column, read ahead of the sums
+  float first[4] = {};
+  if ((int)threadIdx.x < cols)
+    cs_base<kPerceptual>(base8, lb, c, n_c, threadIdx.x, first);
+  for (int k = warp; k < n_chunks; k += kCsWarps) {
+    const int col = (k - 1) * 32 + lane;          // chunk k >= 1's term
+    const bool live = k == 0 ? lane < kCsMoments : col < cols;
+    float acc = 0.f;
+    int next = beg + lane < end ? (int)order[beg + lane] : 0;
+    for (long long i = beg; i < end; i += kCsBatch) {
+      const int cnt = end - i < kCsBatch ? (int)(end - i) : kCsBatch;
+      const int row = next;
+      next = i + kCsBatch + lane < end ? (int)order[i + kCsBatch + lane] : 0;
+      if (k == 0) {
+        float m[kCsMoments] = {};
+        if (lane < cnt)
+          cs_block_moments<kPerceptual>(row, px, sum_x, sum_x2, sum_l, sum_l2,
+                                        m);
+#pragma unroll
+        for (int j = 0; j < kCsMoments; ++j) cs_mom[lane][j] = m[j];
+        __syncwarp();
+        if (live)
+          for (int u = 0; u < kCsBatch; ++u)
+            acc = __fadd_rn(acc, cs_mom[u][lane]);
+        __syncwarp();
+      } else {
+        float v[kCsBatch];
+#pragma unroll
+        for (int u = 0; u < kCsBatch; ++u) {
+          const int r = __shfl_sync(0xffffffffu, row, u);
+          v[u] = live && u < cnt ? __ldg(mt + (size_t)r * cols + col) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kCsBatch; ++u) acc = __fadd_rn(acc, v[u]);
+      }
+    }
+    if (live) cs_sums[k == 0 ? lane : kCsMoments + col] = acc;
+  }
+  __syncthreads();
+
+  const float npix = __fmul_rn(16.f, cs_sums[0]);
+  const float sx0 = cs_sums[1], sx1 = cs_sums[2], sx2 = cs_sums[3];
+  const float sxx = cs_sums[4], sl = cs_sums[5], sll = cs_sums[6];
+  for (int col = threadIdx.x; col < cols; col += kCsWarps * 32) {
+    float b[4] = {first[0], first[1], first[2], first[3]};
+    if (col != (int)threadIdx.x)
+      cs_base<kPerceptual>(base8, lb, c, n_c, col, b);
+    const float b0 = b[0], b1 = b[1], b2 = b[2];
+    const float bb = __fmaf_rn(b2, b2, __fmaf_rn(b1, b1, __fmul_rn(b0, b0)));
+    const float bx =
+        __fmaf_rn(b2, sx2, __fmaf_rn(b1, sx1, __fmul_rn(b0, sx0)));
+    const float q = __fmaf_rn(npix, bb, __fsub_rn(sxx, __fmul_rn(2.f, bx)));
+    const float l = kPerceptual ? b[3] : __fadd_rn(__fadd_rn(b0, b1), b2);
+    const float su2 = __fmaf_rn(l, __fmul_rn(npix, l),
+                                __fmaf_rn(-__fmul_rn(2.f, sl), l, sll));
+    const float cst = __fmaf_rn(-su2, THIRD, q);
+    out[(size_t)c * cols + col] =
+        __fmaf_rn(cs_sums[kCsMoments + col], 3.f, cst);
+  }
+}
+
+// mt (n_b, n_d * 8), order (n_b,) int64 (the blocks in a stable order of
+// their cluster ids), offsets (n_c + 1,) int64 (each cluster's first place
+// in it), base8 (n_d, n_c, 3), out (n_c, n_d * 8). Without the perceptual
+// metric px (n_b, 16, 3), 16-byte aligned, and sum_x ... lb null; with it
+// px null and sum_x (n_b, 3), sum_x2, sum_l, sum_l2 (n_b,) and lb (n_d, n_c).
+inline int launch_cluster_scan_assemble(
+    const float* mt, const int64_t* order, const int64_t* offsets,
+    const float* px, const float* sum_x, const float* sum_x2,
+    const float* sum_l, const float* sum_l2, const float* base8,
+    const float* lb, float* out, int n_c, int n_d, cudaStream_t s) {
   if (n_c <= 0) return (int)cudaSuccess;
-  if (n_d <= 0 || (long long)n_c * n_d * 8 > 0x7fffffffLL)
+  if (n_d <= 0 || n_d * 8 > kCsMaxCols) return (int)cudaErrorInvalidValue;
+  const bool perceptual = sum_x != nullptr;
+  if (perceptual ? (px || !sum_x2 || !sum_l || !sum_l2 || !lb)
+                 : (!px || sum_x2 || sum_l || sum_l2 || lb))
     return (int)cudaErrorInvalidValue;
-  const unsigned grid = (n_c * n_d * 8 + kAsmThreads - 1) / kAsmThreads;
-  if (lb)
-    cluster_scan_assemble_kernel<true><<<grid, kAsmThreads, 0, s>>>(
-        sums, base8, lb, out, n_c, n_d);
+  const int smem = (kCsMoments + n_d * 8) * 4;
+  if (perceptual)
+    cluster_scan_assemble_kernel<true><<<n_c, kCsWarps * 32, smem, s>>>(
+        mt, order, offsets, px, sum_x, sum_x2, sum_l, sum_l2, base8, lb, out,
+        n_c, n_d);
   else
-    cluster_scan_assemble_kernel<false><<<grid, kAsmThreads, 0, s>>>(
-        sums, base8, lb, out, n_c, n_d);
+    cluster_scan_assemble_kernel<false><<<n_c, kCsWarps * 32, smem, s>>>(
+        mt, order, offsets, px, sum_x, sum_x2, sum_l, sum_l2, base8, lb, out,
+        n_c, n_d);
   return (int)cudaGetLastError();
 }

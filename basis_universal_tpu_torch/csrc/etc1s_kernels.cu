@@ -4,9 +4,9 @@
 // basis_universal_tpu/ops/pallas_etc1s.py (all four are here); the cross6
 // kernels replace the frontend's two XLA matrix products whose rounding
 // decides its codebooks and cluster_scan_assemble its cluster scan's
-// assembly (both in etc1s_codebook.h), bisect_rows and bisect_round its
-// bisecting init, min_k_kernel its ApproxTopK. Each computes the same
-// function with the same
+// segment sums and assembly (both in etc1s_codebook.h), bisect_rows and
+// bisect_round its bisecting init, min_k_kernel its ApproxTopK. Each
+// computes the same function with the same
 // float32 operation order per element; the plain PyTorch versions live
 // beside the wrappers in basis_universal_tpu_torch/ops/cuda_etc1s.py.
 //
@@ -1193,7 +1193,7 @@ int launch_fscan_radius(const float* pixels, const float* base5,
 }
 
 // The k-means and refine distances (cross6_argmin, cross6_distances) and
-// the cluster scan's assembly (cluster_scan_assemble).
+// the cluster scan's segment sums and assembly (cluster_scan_assemble).
 #include "etc1s_codebook.h"
 
 // Asynchronous 16-byte copies from global to shared memory (cp.async, which
@@ -2247,12 +2247,18 @@ int etc1s_cross6_distances(const float* a, const float* c, float* out, int n,
   return launch_cross6_distances(a, c, out, n, n_c, (cudaStream_t)stream);
 }
 
-// sums (n_c, 7 + n_d * 8), base8 (n_d, n_c, 3), lb null or (n_d, n_c)
-// float32; out (n_c, n_d * 8) float32.
-int etc1s_cluster_scan_assemble(const float* sums, const float* base8,
-                                const float* lb, float* out, int n_c, int n_d,
-                                void* stream) {
-  return launch_cluster_scan_assemble(sums, base8, lb, out, n_c, n_d,
+// The cluster scan (launch_cluster_scan_assemble): mt (n_b, n_d * 8),
+// order (n_b,) and offsets (n_c + 1,) int64, base8 (n_d, n_c, 3); px
+// (n_b, 16, 3) without the perceptual metric, else sum_x (n_b, 3), sum_x2,
+// sum_l, sum_l2 (n_b,) and lb (n_d, n_c); out (n_c, n_d * 8) float32.
+int etc1s_cluster_scan_assemble(const float* mt, const int64_t* order,
+                                const int64_t* offsets, const float* px,
+                                const float* sum_x, const float* sum_x2,
+                                const float* sum_l, const float* sum_l2,
+                                const float* base8, const float* lb,
+                                float* out, int n_c, int n_d, void* stream) {
+  return launch_cluster_scan_assemble(mt, order, offsets, px, sum_x, sum_x2,
+                                      sum_l, sum_l2, base8, lb, out, n_c, n_d,
                                       (cudaStream_t)stream);
 }
 

@@ -14,37 +14,57 @@
 // and its endpoint pairs swapped, subset after subset), the endpoints as
 // trit / quint bundles (the last one truncated) followed by every value's
 // raw bits, and the weights, an anchor's one bit narrower. Every field is
-// masked to its width, as `_wr` masks it; a field may cross bit 64.
+// masked to its width, as `_wr` masks it; a field may cross bit 64, and bits
+// past 128 are dropped.
 //
 // The tables come from `pack.pack_tables`, one int32 buffer per slot list:
 // a header, 16 words per slot, 3 per partition pattern, then the 32 x 256
-// solid-colour LUT. Nothing of them is retyped here.
+// solid-colour LUT. Nothing of them is retyped here; they are read through
+// the read-only cache.
 //
-// What bounds it on the H100: its bytes, 59 + 4 in and 16 out a block (1.5
-// MB at the 24,576 blocks of a 768x512 image, under a microsecond at the
-// card's memory rate), so at that size the launch. The work is a few
-// hundred integer operations a block, one thread each. The design: a CTA of
-// 256 threads stages its 256 rows (15,104 bytes, a multiple of 16) in
-// shared memory with 16-byte loads, and the tables before the LUT beside
-// them; each thread flips its own row there in place, builds its block in
-// two 64-bit registers and stores it as one 16-byte write. The LUT (32 KB)
-// is read through the read-only cache: only solid blocks read it, and in
-// shared memory it would halve the CTAs an SM holds. Threads of a warp on
-// different slots take different branches (the slot decides the fields);
-// that divergence is accepted.
+// What bounds it on the H100: its bytes, 59 + 4 in and 16 out a block (1.9
+// MB at the 24,576 blocks of a 768x512 image, ~0.6 us at the card's memory
+// rate), and a block's ~75 fields, each a few integer operations. Every
+// field's place is a closed form of the slot's widths
+// (the bundles' bits, ep_bits a value, wb a weight less one for each anchor
+// before it), so a block's fields are shared by a group of G lanes: lane 0
+// the code and the header, lane j the bundles j, j + G, ..., the endpoint
+// values j, j + G, ... and the weights j, j + G, ...; each lane builds its
+// own 128 bits and the group ORs them by xor shuffles. A solid block's LUT
+// search takes the combinations j, j + G, ... in lane j, and the group
+// keeps the first least (error, combination); a warp runs it only where
+// its ballot finds a solid block. G is 8, or 4 from 16,384 blocks on: on
+// the H100 4 lanes were faster at 24,576 blocks (the lanes' shared work,
+// the table reads and the flips, counts twice as often with 8) and 8 at
+// 4,096 and 1,001 (a block's path is shorter). A CTA takes 32 blocks: it
+// stages the tables before the LUT (at most 4 KB) and its 1,888 bytes of
+// rows in shared memory together, by 4-byte loads (byte loads for a buffer
+// that is not 4-byte aligned), and several CTAs on an SM overlap one's
+// staging with the others' packing (768 CTAs at 24,576 blocks, 32 at
+// 1,001). Blocks of 8 a CTA (3,072 CTAs at 24,576) and the tables read
+// through the read-only cache were no faster.
 //
-// The launcher takes raw device pointers and a cudaStream_t; it launches
-// asynchronously and returns cudaGetLastError().
+// uastc_pack_split runs the kernel up to a step, for measurement and the
+// tests only (kStop 1: staging, the code and the store; 2: + the header
+// fields and the solid blocks; 3: + the anchor flips; 4: + the endpoints;
+// 5: + the weights, the whole kernel that uastc_pack launches), with either
+// G.
+//
+// The launchers take raw device pointers and a cudaStream_t; they launch
+// asynchronously and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kCtaBlocks = 32;            // blocks a CTA
+// lanes a block: 8, or 4 from kNarrowFrom blocks on
+constexpr long long kNarrowFrom = 16384;
 constexpr int kRow = 59;                  // bytes of a winner-buffer row
 constexpr int kMaxPrefixWords = 1024;     // pack.MAX_PREFIX_WORDS
 constexpr int kLutWords = 32 * 256;       // pack.LUT_WORDS
+constexpr int kFull = 5;                  // the last step: the whole kernel
 
 // the table layout of pack.py
 constexpr int kHeaderSlots = 0, kHeaderSlotOfs = 1, kHeaderLutOfs = 2;
@@ -60,27 +80,19 @@ constexpr int kEp = 1, kW = 25, kAux = 57, kInten = 58;
 
 struct Bits {
   uint64_t lo = 0, hi = 0;
-  int ofs = 0;
 
-  // n (0..8) low bits of v at the running offset (`_wr`)
-  __device__ __forceinline__ void put(uint32_t v, int n) {
-    if (n <= 0) return;
+  // the n (0..8) low bits of v at bit pos (`_wr`'s field)
+  __device__ __forceinline__ void put(uint32_t v, int n, int pos) {
+    if (n <= 0 || pos >= 128) return;
     const uint64_t x = (uint64_t)(v & ((1u << n) - 1u));
-    if (ofs < 64) {
-      lo |= x << ofs;
-      if (ofs + n > 64) hi |= x >> (64 - ofs);
-    } else if (ofs < 128) {
-      hi |= x << (ofs - 64);
+    if (pos < 64) {
+      lo |= x << pos;
+      if (pos + n > 64) hi |= x >> (64 - pos);
+    } else {
+      hi |= x << (pos - 64);
     }
-    ofs += n;
   }
 };
-
-__device__ __forceinline__ void swap_pair(uint8_t* row, int col) {
-  const uint8_t t = row[col];
-  row[col] = row[col + 1];
-  row[col + 1] = t;
-}
 
 // bits of a trit (quint) bundle of 0..5 (0..3) values
 __device__ __forceinline__ int bundle_bits(bool trits, int cnt) {
@@ -88,140 +100,247 @@ __device__ __forceinline__ int bundle_bits(bool trits, int cnt) {
   return cnt == 3 ? 7 : (cnt == 2 ? 5 : (cnt == 1 ? 3 : 0));
 }
 
-__device__ void pack_solid(Bits& out, const uint8_t* row, int alpha,
-                           const int* __restrict__ lut) {
-  const int r = row[kEp], g = row[kEp + 1], b = row[kEp + 2];
+// The solid colour's ETC1 hint: the first (intensity, selector) combination
+// of least error, lanes j of a group taking j, j + 8, j + 16, j + 24. Every
+// lane of the warp calls it (its shuffles); only a solid block reads the LUT.
+template <int kGroup>
+__device__ __forceinline__ int solid_best(bool solid, int r, int g, int b,
+                                          const int* __restrict__ lut, int j) {
   int best = 0, best_e = 0x7FFFFFFF;
-  for (int k = 0; k < 32; ++k) {
-    const int er = __ldg(lut + k * 256 + r) & 0xFFFF;
-    const int eg = __ldg(lut + k * 256 + g) & 0xFFFF;
-    const int eb = __ldg(lut + k * 256 + b) & 0xFFFF;
-    const int e = er * er + eg * eg + eb * eb;
-    if (e < best_e) {                     // the first minimum
-      best_e = e;
-      best = k;
+  if (solid) {
+#pragma unroll
+    for (int t = 0; t < 32 / kGroup; ++t) {
+      const int k = j + kGroup * t;
+      const int er = __ldg(lut + k * 256 + r) & 0xFFFF;
+      const int eg = __ldg(lut + k * 256 + g) & 0xFFFF;
+      const int eb = __ldg(lut + k * 256 + b) & 0xFFFF;
+      const int e = er * er + eg * eg + eb * eb;
+      if (e < best_e) {                   // the first minimum of the lane
+        best_e = e;
+        best = k;
+      }
     }
   }
-  out.put(r, 8);
-  out.put(g, 8);
-  out.put(b, 8);
-  out.put((uint32_t)alpha, 8);
-  out.put(1, 1);                          // ETC1 diff
-  out.put(best >> 2, 3);
-  out.put(best & 3, 2);
-  out.put(__ldg(lut + best * 256 + r) >> 16, 5);
-  out.put(__ldg(lut + best * 256 + g) >> 16, 5);
-  out.put(__ldg(lut + best * 256 + b) >> 16, 5);
+#pragma unroll
+  for (int m = 1; m < kGroup; m <<= 1) {
+    const int oe = __shfl_xor_sync(0xffffffffu, best_e, m);
+    const int ok = __shfl_xor_sync(0xffffffffu, best, m);
+    if (oe < best_e || (oe == best_e && ok < best)) {
+      best_e = oe;
+      best = ok;
+    }
+  }
+  return best;
 }
 
-__device__ void pack_mode(Bits& out, uint8_t* row, const int* slot,
-                          const int* tab) {
-  const int flags = slot[S_FLAGS], inten = row[kInten], aux = row[kAux];
-  if (flags & kHint0) out.put(0, 1);
-  if (flags & kHint1) out.put(0, 1);
-  out.put(0, 1);                          // flip
-  out.put(1, 1);                          // diff
-  out.put(inten, 3);
-  out.put(inten, 3);
-  if (flags & kBias) out.put(0, 5);
-  if (flags & kAlpha) out.put(0x10, 8);   // EAC multiplier 1, table 0
-  out.put(aux, slot[S_AUX_BITS]);
+template <int kGroup, int kStop>
+__device__ __forceinline__ void pack_mode(Bits& out, const uint8_t* row,
+                                          const int* slot, const int* tab,
+                                          int pos, int j) {
+  const int flags = slot[S_FLAGS], inten = row[kInten];
+  const int aux = row[kAux], aux_bits = slot[S_AUX_BITS];
+  // the header: hints, flip, diff, the intensities twice, bias, EAC, aux
+  pos += ((flags & kHint0) != 0) + ((flags & kHint1) != 0) + 1;
+  if (j == 0) {
+    out.put(1, 1, pos);                   // diff
+    out.put(inten, 3, pos + 1);
+    out.put(inten, 3, pos + 4);
+  }
+  pos += 7 + ((flags & kBias) ? 5 : 0);
+  if (flags & kAlpha) {
+    if (j == 0) out.put(0x10, 8, pos);    // EAC multiplier 1, table 0
+    pos += 8;
+  }
+  if (j == 0) out.put(aux, aux_bits, pos);
+  pos += aux_bits;
+  if (kStop < 3) return;
 
   const int count = slot[S_PAT_COUNT];
   const int* pat = tab + slot[S_PAT_OFS]
                    + kPatternWords * (aux < count ? aux : count - 1);
-  const uint32_t labels = (uint32_t)pat[0], anchor_mask = (uint32_t)pat[1];
+  const uint32_t labels = (uint32_t)pat[0];
+  const uint32_t anchor_mask = (uint32_t)pat[1];
   const int anchors = pat[2];
   const int wb = slot[S_WB], comps = slot[S_COMPS];
+  const int subsets = slot[S_SUBSETS];
   const int wmax = (1 << wb) - 1, top = wb > 0 ? wb - 1 : 0;
-  uint8_t* w = row + kW;
+  const uint8_t* w = row + kW;
   const bool dual = slot[S_KIND] == kKindDual;
+  // the flips, subset after subset (plane after plane): bit s of `flips`
+  int flips = 0, ccs = 0;
   if (!dual) {
-    for (int s = 0; s < slot[S_SUBSETS]; ++s) {
-      if (!((w[(anchors >> (4 * s)) & 15] >> top) & 1)) continue;
-      for (int i = 0; i < 16; ++i)
-        if ((int)((labels >> (2 * i)) & 3) == s) w[i] = (uint8_t)(wmax - w[i]);
-      for (int c = 0; c < comps; ++c) swap_pair(row, kEp + s * comps * 2 + 2 * c);
+    for (int s = 0; s < subsets; ++s) {
+      const int a = (anchors >> (4 * s)) & 15;
+      const int la = (int)((labels >> (2 * a)) & 3);
+      const uint8_t wa = (la < s && ((flips >> la) & 1))
+                             ? (uint8_t)(wmax - w[a]) : w[a];
+      flips |= ((wa >> top) & 1) << s;
     }
   } else {
-    const int ccs = slot[S_CCS] >= 0 ? slot[S_CCS] : aux;
-    for (int plane = 0; plane < 2; ++plane) {
-      if (!((w[plane] >> top) & 1)) continue;
-      for (int i = plane; i < 32; i += 2) w[i] = (uint8_t)(wmax - w[i]);
-      for (int c = 0; c < comps; ++c)
-        if ((ccs == c) == (plane == 1)) swap_pair(row, kEp + 2 * c);
-    }
+    ccs = slot[S_CCS] >= 0 ? slot[S_CCS] : aux;
+    flips = ((w[0] >> top) & 1) | (((w[1] >> top) & 1) << 1);
+  }
+  if (kStop == 3) {
+    out.lo ^= (uint64_t)flips << (8 * j);
+    return;
   }
 
-  // endpoints: the trit / quint bundles, then the raw bits
-  const uint8_t* ep = row + kEp;
-  const int n_values = slot[S_SUBSETS] * comps * 2;
+  // the endpoints: the trit / quint bundles, then the raw bits, each value
+  // taken from its pair's other end where its subset (plane) flipped
+  const int n_values = subsets * comps * 2;
   const int ep_bits = slot[S_EP_BITS];
-  const bool trits = slot[S_TRITS] != 0, quints = slot[S_QUINTS] != 0;
+  const bool trits = slot[S_TRITS] != 0;
+  const bool quints = slot[S_QUINTS] != 0;
+  auto ep = [&](int i) -> uint32_t {
+    // value i's subset: i / (2 comps), of at most 3
+    const bool swap = dual ? (flips >> ((i >> 1) == ccs ? 1 : 0)) & 1
+                           : (flips >> ((i >= 2 * comps) + (i >= 4 * comps)))
+                                 & 1;
+    return row[kEp + (swap ? i ^ 1 : i)];
+  };
   if (trits || quints) {
     const int bundle = trits ? 5 : 3, mul = trits ? 3 : 5;
-    for (int i = 0; i < n_values; i += bundle) {
-      const int cnt = n_values - i < bundle ? n_values - i : bundle;
+    const int full = bundle_bits(trits, bundle);
+    for (int b = j; b * bundle < n_values; b += kGroup) {
+      const int first = b * bundle;
+      const int cnt = n_values - first < bundle ? n_values - first : bundle;
       uint32_t accum = 0, m = 1;
       for (int k = 0; k < cnt; ++k) {
-        accum += (uint32_t)(ep[i + k] >> ep_bits) * m;
+        accum += (ep(first + k) >> ep_bits) * m;
         m *= mul;
       }
-      out.put(accum, bundle_bits(trits, cnt));
+      out.put(accum, bundle_bits(trits, cnt), pos + b * full);
+    }
+    pos += (n_values / bundle) * full + bundle_bits(trits, n_values % bundle);
+  }
+#pragma unroll
+  for (int t = 0; t < 24 / kGroup; ++t) {
+    const int i = j + kGroup * t;
+    if (i < n_values) out.put(ep(i), ep_bits, pos + i * ep_bits);
+  }
+  if (kStop < 5) return;
+
+  // the weights: 16, or 32 interleaved; anchors one bit narrower
+  pos += n_values * ep_bits;
+  const int n_weights = dual ? 32 : 16;
+#pragma unroll
+  for (int t = 0; t < 32 / kGroup; ++t) {
+    const int i = j + kGroup * t;
+    if (i < n_weights) {
+      const bool flip = dual ? (flips >> (i & 1)) & 1
+                             : (flips >> ((labels >> (2 * i)) & 3)) & 1;
+      const uint8_t v = flip ? (uint8_t)(wmax - w[i]) : w[i];
+      const int before = __popc(anchor_mask & ((1u << i) - 1u));
+      out.put(v, wb - (int)((anchor_mask >> i) & 1), pos + i * wb - before);
     }
   }
-  for (int i = 0; i < n_values; ++i) out.put(ep[i], ep_bits);
-
-  // weights: 16, or 32 interleaved; anchors one bit narrower
-  const int n_weights = dual ? 32 : 16;
-  for (int i = 0; i < n_weights; ++i)
-    out.put(w[i], wb - (int)((anchor_mask >> i) & 1));
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int kGroup, int kStop>
+__global__ void __launch_bounds__(kGroup * kCtaBlocks)
 uastc_pack_kernel(const uint8_t* __restrict__ compact,
                   const int* __restrict__ alpha0,
                   const int* __restrict__ tables, int n_prefix,
                   uint8_t* __restrict__ out, long long n) {
+  constexpr int kThreads = kGroup * kCtaBlocks;
   __shared__ int s_tab[kMaxPrefixWords];
-  __shared__ __align__(16) uint8_t s_rows[kThreads * kRow];
+  __shared__ __align__(16) uint8_t s_rows[kCtaBlocks * kRow];
 
-  const long long first = (long long)blockIdx.x * kThreads;
-  const int rows = n - first < kThreads ? (int)(n - first) : kThreads;
+  // the tables before the LUT and the CTA's rows, staged together
   for (int i = threadIdx.x; i < n_prefix; i += kThreads)
     s_tab[i] = __ldg(tables + i);
+  const long long first = (long long)blockIdx.x * kCtaBlocks;
+  const int rows = n - first < kCtaBlocks ? (int)(n - first) : kCtaBlocks;
   const uint8_t* src = compact + first * kRow;
   const int n_bytes = rows * kRow;
-  if (((uintptr_t)src & 15) == 0) {
-    const int n16 = n_bytes >> 4;
-    for (int i = threadIdx.x; i < n16; i += kThreads)
-      reinterpret_cast<uint4*>(s_rows)[i] =
-          __ldg(reinterpret_cast<const uint4*>(src) + i);
-    for (int i = (n16 << 4) + threadIdx.x; i < n_bytes; i += kThreads)
+  if (((uintptr_t)src & 3) == 0) {
+    const int n4 = n_bytes >> 2;
+    for (int i = threadIdx.x; i < n4; i += kThreads)
+      reinterpret_cast<uint32_t*>(s_rows)[i] =
+          __ldg(reinterpret_cast<const uint32_t*>(src) + i);
+    for (int i = (n4 << 2) + threadIdx.x; i < n_bytes; i += kThreads)
       s_rows[i] = __ldg(src + i);
   } else {
     for (int i = threadIdx.x; i < n_bytes; i += kThreads)
       s_rows[i] = __ldg(src + i);
   }
   __syncthreads();
-  if ((int)threadIdx.x >= rows) return;
 
-  uint8_t* row = s_rows + threadIdx.x * kRow;
-  const long long blk = first + threadIdx.x;
+  const int g = threadIdx.x / kGroup, j = threadIdx.x % kGroup;
+  const bool live = g < rows;
+  const long long blk = first + g;
+  const uint8_t* row = s_rows + g * kRow;
+  const int slot_id = live ? row[0] : 0x7FFFFFFF;
+  const bool known = slot_id < s_tab[kHeaderSlots];
+  const int* slot = s_tab + s_tab[kHeaderSlotOfs]
+                    + kSlotWords * (known ? slot_id : 0);
+  const bool solid = known && slot[S_KIND] == kKindSolid;
   Bits bits;
-  const int slot_id = row[0];
-  if (slot_id < s_tab[kHeaderSlots]) {
-    const int* slot = s_tab + s_tab[kHeaderSlotOfs] + kSlotWords * slot_id;
-    bits.put(slot[S_CODE], slot[S_CODE_SIZE]);
-    if (slot[S_KIND] == kKindSolid)
-      pack_solid(bits, row, __ldg(alpha0 + blk),
-                 tables + s_tab[kHeaderLutOfs]);
-    else
-      pack_mode(bits, row, slot, s_tab);
+  const int code_size = known ? slot[S_CODE_SIZE] : 0;
+  if (known && j == 0) bits.put(slot[S_CODE], code_size, 0);
+
+  if (kStop >= 2) {
+    if (__ballot_sync(0xffffffffu, solid)) {
+      const int r = row[kEp], gr = row[kEp + 1], b = row[kEp + 2];
+      const int* lut = tables + s_tab[kHeaderLutOfs];
+      const int best = solid_best<kGroup>(solid, r, gr, b, lut, j);
+      if (solid && j == 0) {
+        int pos = code_size;
+        bits.put(r, 8, pos);
+        bits.put(gr, 8, pos + 8);
+        bits.put(b, 8, pos + 16);
+        bits.put((uint32_t)__ldg(alpha0 + blk), 8, pos + 24);
+        bits.put(1, 1, pos + 32);         // ETC1 diff
+        bits.put(best >> 2, 3, pos + 33);
+        bits.put(best & 3, 2, pos + 36);
+        bits.put(__ldg(lut + best * 256 + r) >> 16, 5, pos + 38);
+        bits.put(__ldg(lut + best * 256 + gr) >> 16, 5, pos + 43);
+        bits.put(__ldg(lut + best * 256 + b) >> 16, 5, pos + 48);
+      }
+    }
+    if (known && !solid)
+      pack_mode<kGroup, kStop>(bits, row, slot, s_tab, code_size, j);
   }
-  reinterpret_cast<uint4*>(out)[blk] =
-      make_uint4((uint32_t)bits.lo, (uint32_t)(bits.lo >> 32),
-                 (uint32_t)bits.hi, (uint32_t)(bits.hi >> 32));
+
+#pragma unroll
+  for (int m = 1; m < kGroup; m <<= 1) {
+    bits.lo |= __shfl_xor_sync(0xffffffffu, bits.lo, m);
+    bits.hi |= __shfl_xor_sync(0xffffffffu, bits.hi, m);
+  }
+  if (live && j == 0)
+    reinterpret_cast<uint4*>(out)[blk] =
+        make_uint4((uint32_t)bits.lo, (uint32_t)(bits.lo >> 32),
+                   (uint32_t)bits.hi, (uint32_t)(bits.hi >> 32));
+}
+
+template <int kGroup, int kStop>
+int launch_pack(const uint8_t* compact, const int* alpha0, const int* tables,
+                int n_words, uint8_t* out, long long n, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const int n_prefix = n_words - kLutWords;
+  if (n_prefix < 4 || n_prefix > kMaxPrefixWords || ((uintptr_t)out & 15))
+    return (int)cudaErrorInvalidValue;
+  const long long grid = (n + kCtaBlocks - 1) / kCtaBlocks;
+  cudaStream_t s = (cudaStream_t)stream;
+  constexpr int kThreads = kGroup * kCtaBlocks;
+  uastc_pack_kernel<kGroup, kStop><<<(unsigned)grid, kThreads, 0, s>>>(
+      compact, alpha0, tables, n_prefix, out, n);
+  return (int)cudaGetLastError();
+}
+
+// group: the lanes a block, 4 or 8 (0: by n, as uastc_pack takes them)
+template <int kStop>
+int launch_stop(const uint8_t* compact, const int* alpha0, const int* tables,
+                int n_words, uint8_t* out, long long n, int group,
+                void* stream) {
+  if (group == 0) group = n >= kNarrowFrom ? 4 : 8;
+  if (group == 4)
+    return launch_pack<4, kStop>(compact, alpha0, tables, n_words, out, n,
+                                 stream);
+  if (group == 8)
+    return launch_pack<8, kStop>(compact, alpha0, tables, n_words, out, n,
+                                 stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -232,14 +351,34 @@ extern "C" {
 // int32 (the LUT its last kLutWords), out (n, 16) uint8, 16-byte aligned.
 int uastc_pack(const uint8_t* compact, const int* alpha0, const int* tables,
                int n_words, uint8_t* out, long long n, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const int n_prefix = n_words - kLutWords;
-  if (n_prefix < 4 || n_prefix > kMaxPrefixWords || ((uintptr_t)out & 15))
-    return (int)cudaErrorInvalidValue;
-  const long long grid = (n + kThreads - 1) / kThreads;
-  uastc_pack_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
-      compact, alpha0, tables, n_prefix, out, n);
-  return (int)cudaGetLastError();
+  return launch_stop<kFull>(compact, alpha0, tables, n_words, out, n, 0,
+                            stream);
+}
+
+// The kernel up to step `stop` (1..5, see above) with `group` lanes a block
+// (4 or 8; 0: uastc_pack's choice), for measurement and the tests only: the
+// blocks it writes are the whole kernel's at stop 5 only.
+int uastc_pack_split(const uint8_t* compact, const int* alpha0,
+                     const int* tables, int n_words, uint8_t* out, long long n,
+                     int stop, int group, void* stream) {
+  switch (stop) {
+    case 1:
+      return launch_stop<1>(compact, alpha0, tables, n_words, out, n, group,
+                            stream);
+    case 2:
+      return launch_stop<2>(compact, alpha0, tables, n_words, out, n, group,
+                            stream);
+    case 3:
+      return launch_stop<3>(compact, alpha0, tables, n_words, out, n, group,
+                            stream);
+    case 4:
+      return launch_stop<4>(compact, alpha0, tables, n_words, out, n, group,
+                            stream);
+    case 5:
+      return launch_stop<5>(compact, alpha0, tables, n_words, out, n, group,
+                            stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -128,7 +128,9 @@ def _declare_xla_order(lib):
 def _declare_uastc_pack(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.uastc_pack.argtypes = [vp, vp, vp, ci, vp, ctypes.c_longlong, vp]
-    lib.uastc_pack.restype = ci
+    lib.uastc_pack_split.argtypes = [vp, vp, vp, ci, vp, ctypes.c_longlong,
+                                     ci, ci, vp]
+    lib.uastc_pack.restype = lib.uastc_pack_split.restype = ci
     return lib
 
 
@@ -161,7 +163,7 @@ def declare_codebook(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.etc1s_cross6_argmin.argtypes = [vp, vp, vp, ci, ci, vp]
     lib.etc1s_cross6_distances.argtypes = [vp, vp, vp, ci, ci, vp]
-    lib.etc1s_cluster_scan_assemble.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    lib.etc1s_cluster_scan_assemble.argtypes = [vp] * 11 + [ci, ci, vp]
     for fn in (lib.etc1s_cross6_argmin, lib.etc1s_cross6_distances,
                lib.etc1s_cluster_scan_assemble):
         fn.restype = ci

@@ -7,7 +7,7 @@ and the packed rescore too), and `palette_errs`, which no path of either
 package calls; and the kernels for operators that are XLA's in the
 reference and whose CPU rounding decides the codebooks: the 6-D codebook
 distances (`cross6_argmin` for the k-means assignment, `cross6_distances`
-for the refine's shortlist), the cluster scan's assembly
+for the refine's shortlist), the cluster scan's segment sums and assembly
 (`cluster_scan_assemble`), the bisecting init's rounds (`bisect_rows`,
 `bisect_round`), and the refine shortlist in the tie order of the
 reference's `approx_min_k` on the CPU (`xla_cpu_min_k`, whose plain version
@@ -509,53 +509,110 @@ def cross6_distances_reference(a, c):
 # cluster_scan_assemble
 # ---------------------------------------------------------------------------
 
-def cluster_scan_assemble(sums, base8, lb=None):
+def cluster_scan_assemble(mt, order, offsets, base8, lb=None, *, pixels=None,
+                          moments=None):
     """The cluster scan's unclipped errors, (C, D*8) float32: column d*8 + t
     of cluster c is the error of its base plus delta d with table t.
 
-    sums (C, 7 + D*8) float32 are the clusters' summed block moments and
-    gray-axis sums, each row n, sum_x (3), sum_x2, sum_l, sum_l2, then the
-    D*8 gray-axis sums (`etc1s_encode._cluster_scan`'s one segment sum, read
-    in place); base8 (D, C, 3) the cluster bases (perceptually transformed
-    with that metric); lb None or (D, C) their gray-axis levels under the
-    perceptual metric (None: each base's sum). Rounded as XLA's CPU code
-    rounds the reference's assembly (`basis_universal_tpu/ops/
-    etc1s_encode.py:291-306`, no Pallas kernel): q = fma(16n, b.b, sum_x2 -
-    2 b.sum_x), su2 = fma(lb, 16n lb, fma(-2 sum_l, lb, sum_l2)), err =
-    fma(mt, 3, fma(-su2, 1/3, q)), the dot products fused multiply-add
-    chains (`cluster_scan_assemble_reference`).
+    The clusters' sums of their members' block moments and gray-axis terms,
+    then their assembly: mt (B, D*8) float32 are the blocks' gray-axis sums
+    against their cluster bases (`factorized_scan`); order (B,) and offsets
+    (C + 1,) int64 the stable order of the blocks' cluster ids and each
+    cluster's first place in it (`etc1s_encode.segment_order`); base8 (D, C,
+    3) the cluster bases (perceptually transformed with that metric). The
+    block moments: without the perceptual metric the pixels (B, 16, 3),
+    whole numbers in [0, 255] as the frontend gives them (every moment
+    exact, so the kernel computes them); with it `moments` = (sum_x (B, 3),
+    sum_x2, sum_l, sum_l2 (B,)) of `etc1s_encode._block_moments` and lb (D,
+    C) the bases' gray-axis levels under the metric. Each sum is one chain
+    of adds over the cluster's members in row order from +0.0 (`segment_sum`'s
+    order); the assembly rounds as XLA's CPU code rounds the reference's
+    (`basis_universal_tpu/ops/etc1s_encode.py:284-306`, no Pallas kernel):
+    q = fma(16n, b.b, sum_x2 - 2 b.sum_x), su2 = fma(lb, 16n lb, fma(-2 sum_l,
+    lb, sum_l2)), err = fma(mt, 3, fma(-su2, 1/3, q)), the dot products fused
+    multiply-add chains (`cluster_scan_assemble_reference`).
 
     The kernel (`cluster_scan_assemble_kernel`, `csrc/etc1s_codebook.h`)
-    runs a thread per output in the output's order, so the constant parts
-    and every intermediate stay in registers: one launch where the
-    composition took 5 `xla_fma`, 3 `xla_reduce` and ~9 eager operators.
-    It is bound by its bytes (~5 MB at C 2,416, D 27).
+    runs a CTA of 8 warps per cluster, a lane per column, and reads every
+    member's row where it lies: one launch where the composition took a
+    `torch.cat`, a sort, a gather and a segment reduction before the
+    assembly. It is bound by its bytes (~29 MB at B 24,576, C 2,416, D 27).
     """
     _check(base8, "base8", torch.float32, (None, None, 3))
     d_n, c_n = base8.shape[:2]
-    _check(sums, "sums", torch.float32, (c_n, 7 + 8 * d_n))
-    if lb is not None:
+    _check(mt, "mt", torch.float32, (None, 8 * d_n))
+    b_n = mt.shape[0]
+    _check(order, "order", torch.int64, (b_n,))
+    _check(offsets, "offsets", torch.int64, (c_n + 1,))
+    if (pixels is None) == (moments is None):
+        raise ValueError("cluster_scan_assemble: give the pixels (RGB) or the "
+                         "moments (perceptual), not both")
+    if pixels is not None:
+        if lb is not None:
+            raise ValueError("cluster_scan_assemble: lb goes with the "
+                             "perceptual moments")
+        _check(pixels, "pixels", torch.float32, (b_n, 16, 3))
+        moments = (None,) * 4
+    else:
+        if lb is None:
+            raise ValueError("cluster_scan_assemble: the perceptual moments "
+                             "need lb")
         _check(lb, "lb", torch.float32, (d_n, c_n))
-    dev = _same_device(sums, base8, lb)
+        if len(moments) != 4:
+            raise ValueError("cluster_scan_assemble: moments are (sum_x, "
+                             "sum_x2, sum_l, sum_l2)")
+        _check(moments[0], "sum_x", torch.float32, (b_n, 3))
+        for name, m in zip(("sum_x2", "sum_l", "sum_l2"), moments[1:]):
+            _check(m, name, torch.float32, (b_n,))
+    dev = _same_device(mt, order, offsets, base8, lb, pixels, *moments)
     if dev.type == "cpu":
-        return cluster_scan_assemble_reference(sums, base8, lb)
+        return cluster_scan_assemble_reference(
+            mt, order, offsets, base8, lb, pixels=pixels,
+            moments=None if pixels is not None else moments)
+    if b_n >= 1 << 31:
+        raise ValueError(f"cluster_scan_assemble: {b_n} blocks, at most "
+                         "2^31 - 1")
+    if pixels is not None and pixels.data_ptr() % 16:
+        pixels = pixels.clone()
     from ._build import get_lib
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
 
     out = torch.empty((c_n, d_n * 8), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         status = get_lib().etc1s_cluster_scan_assemble(
-            sums.data_ptr(), base8.data_ptr(),
-            None if lb is None else lb.data_ptr(), out.data_ptr(), c_n, d_n,
-            _stream(dev))
+            mt.data_ptr(), order.data_ptr(), offsets.data_ptr(), ptr(pixels),
+            *(ptr(m) for m in moments), base8.data_ptr(), ptr(lb),
+            out.data_ptr(), c_n, d_n, _stream(dev))
     LAUNCHES["cluster_scan_assemble"] += 1
     _raise_on(status, "cluster_scan_assemble")
     return out
 
 
-def cluster_scan_assemble_reference(sums, base8, lb=None):
+def cluster_scan_assemble_reference(mt, order, offsets, base8, lb=None, *,
+                                    pixels=None, moments=None):
     """Plain PyTorch version of `cluster_scan_assemble`: the port's
-    composition of the reference's assembly, in `ops/xla_order.py`'s
-    roundings."""
+    composition before the kernel, the block moments (`_block_moments` of
+    the pixels, or the given ones) and terms summed per cluster in one
+    segment sum over the given order, then `_assemble_reference`."""
+    from .etc1s_encode import _block_moments, segment_sum
+
+    if moments is None:
+        mom = _block_moments(pixels)
+        moments = mom["sum_x"], mom["sum_x2"], mom["sum_l"], mom["sum_l2"]
+    sum_x, sum_x2, sum_l, sum_l2 = moments
+    ones = torch.ones(mt.shape[0], dtype=torch.float32, device=mt.device)
+    sums = segment_sum(torch.cat([
+        ones[:, None], sum_x, sum_x2[:, None], sum_l[:, None], sum_l2[:, None],
+        mt], 1), None, base8.shape[1], order=(order, offsets))
+    return _assemble_reference(sums, base8, lb)
+
+
+def _assemble_reference(sums, base8, lb=None):
+    """The assembly of the cluster scan's errors from the clusters' sums
+    (C, 7 + D*8): n, sum_x (3), sum_x2, sum_l, sum_l2, then the D*8 gray-axis
+    sums; in `ops/xla_order.py`'s roundings."""
     from .xla_order import _dot, _fma, _sum
 
     d_n, c_n = base8.shape[:2]

@@ -4,7 +4,7 @@ Counterpart of `basis_universal_tpu/ops/etc1s_encode.py`, in its
 kernel-shaped formulation: the per-block candidate scan and its shortlist
 are one kernel, `factorized_scan_shortlist`; the gray-axis sums of the
 scan against each block's cluster base (`factorized_scan`) are
-segment-summed to clusters and assembled with the clusters' moments
+summed to clusters with the blocks' moments and assembled into errors
 (`cluster_scan_assemble`) before their shortlist; exact rescoring goes
 through `palette_errs_packed` on packed candidate descriptors, the
 selector search through
@@ -34,10 +34,11 @@ Equivalences with the reference kept on purpose:
   kernels), and empty k-means seeds take the training vectors
   `jax.random.choice` draws (`ops/threefry.py`), so the CPU gives the
   reference's codebooks;
-- segment sums go through `segment_sum`, which sums each segment in row
-  order on every device, so a card run gives the same bits every time (an
-  `index_add_` of floats on CUDA sums with atomics, in an order that
-  changes from run to run).
+- segment sums go through `segment_sum` (and the cluster scan's kernel),
+  which sum each segment in row order on every device, so a card run gives
+  the same bits every time (an `index_add_` of floats on CUDA sums with
+  atomics, in an order that changes from run to run); sums over the same
+  ids share one `segment_order`.
 """
 
 import contextlib
@@ -71,23 +72,36 @@ def exact_matmuls():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def segment_sum(data, segment_ids, num_segments: int):
+def segment_order(segment_ids, num_segments: int):
+    """(order (N,), offsets (num_segments + 1,)) int64: the rows in a stable
+    order of their segment ids, and each segment's first place in it, the
+    order that `segment_sum` sums in. The offsets come from a search in the
+    sorted ids, which needs no device-to-host copy (a `bincount` on CUDA
+    waits for one). Sums over the same ids can share one order."""
+    ids = segment_ids.long()
+    sorted_ids, order = torch.sort(ids, stable=True)
+    offsets = torch.searchsorted(sorted_ids, torch.arange(
+        num_segments + 1, dtype=torch.int64, device=ids.device))
+    return order, offsets
+
+
+def segment_sum(data, segment_ids, num_segments: int, order=None):
     """out[s] = sum of the rows data[i] with segment_ids[i] == s, shape
     (num_segments, *data.shape[1:]), the same bits on every run.
 
     Float rows are stably sorted by segment and each segment is summed in
     row order (`torch.segment_reduce`): the order of a sequential
-    `index_add_`, whose result it equals bit for bit on the CPU. The
-    segment offsets come from a search in the sorted ids, which needs no
-    device-to-host copy (a `bincount` on CUDA waits for one). Integer sums
-    are exact in any order and stay an `index_add_`."""
-    ids = segment_ids.long()
+    `index_add_`, whose result it equals bit for bit on the CPU. order, if
+    given, is `segment_order(segment_ids, num_segments)`, built once for
+    sums that share the ids (segment_ids is then not read); the bits are
+    those of the sum that sorts. Integer sums are exact in any order and
+    stay an `index_add_`."""
     if not data.is_floating_point():
         return torch.zeros((num_segments, *data.shape[1:]), dtype=data.dtype,
-                           device=data.device).index_add_(0, ids, data)
-    sorted_ids, order = torch.sort(ids, stable=True)
-    offsets = torch.searchsorted(sorted_ids, torch.arange(
-        num_segments + 1, dtype=torch.int64, device=ids.device))
+                           device=data.device).index_add_(
+                               0, segment_ids.long(), data)
+    order, offsets = (segment_order(segment_ids, num_segments)
+                      if order is None else order)
     return torch.segment_reduce(data[order], "sum", offsets=offsets, axis=0,
                                 unsafe=True)
 
@@ -272,17 +286,21 @@ def encode_blocks(pixels, radius: int = 1, perceptual: bool = False):
 
 def optimize_cluster_endpoints(pixels, cluster_ids, cluster_means,
                                num_clusters: int, radius: int = 1,
-                               perceptual: bool = False):
+                               perceptual: bool = False, order=None):
     """Optimal (color5 (C,3) int32, inten (C,) int32) per endpoint cluster.
 
     The reference's formulation: each block's gray-axis sums against its
-    CLUSTER base (`factorized_scan`) are segment-summed to clusters, and
-    each cluster's constant part comes from its summed block moments
-    (`_cluster_scan`); the shortlist of the cluster errors is then
-    rescored exactly over the member pixels.
+    CLUSTER base (`factorized_scan`) are summed per cluster with its block
+    moments, and each cluster's constant part added (`_cluster_scan`); the
+    shortlist of the cluster errors is then rescored exactly over the member
+    pixels. order is `segment_order(cluster_ids, num_clusters)` where the
+    caller has it (else it is built here); the cluster scan and the rescore's
+    sum both read it.
     """
     dev = pixels.device
     ids = cluster_ids.long()
+    if order is None:
+        order = segment_order(ids, num_clusters)
     deltas = torch.as_tensor(_candidate_deltas(radius), device=dev)
     base5 = torch.clamp(
         torch.round(cluster_means * C31_255).to(torch.int32), 0, 31)  # (C,3)
@@ -299,39 +317,39 @@ def optimize_cluster_endpoints(pixels, cluster_ids, cluster_means,
         pixels, base5=base5[ids].float().contiguous(), radius=radius,
         perceptual=perceptual,
         lb=None if lb is None else lb[:, ids].T.contiguous())  # (B,D*8)
-    flat = _cluster_scan(pixels, ids, base8, lb, mt, perceptual)
+    flat = _cluster_scan(pixels, ids, base8, lb, mt, perceptual, order)
     cand = _shortlist(flat, min(16, flat.shape[1]))             # (C,K)
     c5k = torch.clamp(base5[:, None, :] + deltas[cand // 8], 0, 31)
     packed_c = _pack(c5k, cand % 8)                             # (C,K)
     berr = cuda_etc1s.palette_errs_packed(
         pixels, packed_c[ids].contiguous(), perceptual=perceptual)
-    cerr = segment_sum(berr, ids, num_clusters)
+    cerr = segment_sum(berr, ids, num_clusters, order=order)
     kbest = torch.argmin(cerr, dim=-1)
     c = torch.arange(num_clusters, device=dev)
     return _unpack(packed_c[c, kbest])
 
 
-def _cluster_scan(pixels, ids, base8, lb, mt, perceptual: bool):
+def _cluster_scan(pixels, ids, base8, lb, mt, perceptual: bool, order=None):
     """(C, D*8) unclipped cluster errors from the blocks' gray-axis terms mt
-    (B, D*8), summed per cluster: the members' moments and terms are summed
-    per cluster in one segment sum, and `cuda_etc1s.cluster_scan_assemble`
-    adds each (delta, cluster)'s constant part, rounded as XLA's CPU code
-    rounds the reference's. base8 (D, C, 3) are the cluster bases
-    (perceptually transformed with the metric), lb (D, C) their gray-axis
-    levels under the metric (None: their sums)."""
-    num_clusters = base8.shape[1]
-    px = perceptual_transform(pixels) if perceptual else pixels
-    gvec = torch.as_tensor(GVEC, device=pixels.device) if perceptual else None
-    mom = _block_moments(px, gvec)
-    ones = torch.ones(pixels.shape[0], dtype=torch.float32,
-                      device=pixels.device)
-    # one segment sum of every per-block column (each column is summed in
-    # row order on its own, so the bits are those of separate sums)
-    sums = segment_sum(torch.cat([
-        ones[:, None], mom["sum_x"], mom["sum_x2"][:, None],
-        mom["sum_l"][:, None], mom["sum_l2"][:, None], mt], 1),
-        ids, num_clusters)
-    return cuda_etc1s.cluster_scan_assemble(sums, base8, lb)
+    (B, D*8): `cuda_etc1s.cluster_scan_assemble` sums each cluster's
+    members' moments and terms in row order and adds each (delta, cluster)'s
+    constant part, rounded as XLA's CPU code rounds the reference's. base8
+    (D, C, 3) are the cluster bases (perceptually transformed with the
+    metric), lb (D, C) their gray-axis levels under the metric (None: their
+    sums); order is `segment_order(ids, C)` (built here when None). Without
+    the metric the kernel computes the block moments from the pixels (whole
+    numbers); with it they are `_block_moments`' of the transformed
+    pixels."""
+    if order is None:
+        order = segment_order(ids, base8.shape[1])
+    if not perceptual:
+        return cuda_etc1s.cluster_scan_assemble(mt, *order, base8,
+                                                pixels=pixels)
+    mom = _block_moments(perceptual_transform(pixels),
+                         torch.as_tensor(GVEC, device=pixels.device))
+    return cuda_etc1s.cluster_scan_assemble(
+        mt, *order, base8, lb,
+        moments=(mom["sum_x"], mom["sum_x2"], mom["sum_l"], mom["sum_l2"]))
 
 
 def kmeans_assign(vecs, centroids, num_clusters: int):

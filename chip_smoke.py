@@ -26,9 +26,14 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    K 16 and 8; `palette_errs`, which no path calls, at K 16; the selector
    search (`selbest_wgmma_kernel`, wgmma; ptxas' registers, spills and
    shared memory printed) at S 2,731 and at 16,128, the most selector
-   clusters; the cluster scan's assembly (`cluster_scan_assemble`) on ETC1S
-   image 0's own inputs (C 2,416, D 27) and at D 125 and perceptual
-   (`cluster_scan_phase`); the
+   clusters; the cluster scan, its clusters' sums and their assembly in one
+   kernel (`cluster_scan_assemble`), on ETC1S image 0's own inputs (C 2,416,
+   D 27) and at D 125 and perceptual, beside its bytes bound and the chain
+   of adds of its largest cluster, then from the profiler `_cluster_scan`
+   with the refine pass's order (one kernel; no cat, sort, gather or
+   segment reduction) and the sorts of an ETC1S encode of image 0 by call
+   site (its refine pass sorts the assignment once) (`cluster_scan_phase`);
+   the
    k-means argmin, the refine's distances (their norms inside) and their
    shortlist in XLA-CPU's
    tie order (`xla_cpu_min_k`, held to `std::sort` on the host on every
@@ -53,7 +58,9 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    printed for every instance (`uastc_trials`);
    the UASTC block packing `uastc_pack` on image 0's winner buffer and on
    buffers in which every slot of efforts 1-4, RGB and RGBA, wins blocks,
-   byte for byte, `uastc_pack_phase`)
+   byte for byte, image 0's at 24,576, 4,096 and 1,001 blocks, each size's
+   time split by step through the measurement instances of
+   `uastc_pack_split`, `pack_split`; `uastc_pack_phase`)
    and time both with CUDA events, beside the least time the card could
    take (bound)
    and, where one PyTorch call computes the same function, that call
@@ -102,16 +109,18 @@ Phases (any failure raises, so the process exits nonzero with no final line):
 14. with `--ab OTHER_TREE` only: build the kernels of another checkout of
    the repo (e.g. the parent commit unpacked under `_compare/`), check that
    its scan, rescore, `xla_fma`, `xla_reduce`, k-means argmin (alone and
-   `kmeans_assign`), refine distances, cluster scan (`_cluster_scan`),
-   bisecting init, refine shortlist, selector search (S 2,731 and 16,128,
-   image 0's distances and drawn ones) and UASTC trials (every shape of `uastc_trials`
-   at 24,576 and 1,001 blocks, `trials_ab`) give the same bits as this
-   tree's at the shapes of phase 3, and time both in turns (other, this,
-   this, other);
+   `kmeans_assign`), refine distances, cluster scan (`_cluster_scan`, also
+   with this tree's refine-pass order given), bisecting init, refine
+   shortlist, selector search (S 2,731 and 16,128, image 0's distances and
+   drawn ones), UASTC trials (every shape of `uastc_trials` at 24,576 and
+   1,001 blocks, `trials_ab`) and `uastc_pack` (image 0's buffer at 24,576,
+   4,096 and 1,001 blocks, `pack_ab`) give the same bits as this tree's at
+   the shapes of phase 3, and time both in turns (other, this, this,
+   other);
    then profile the ETC1S path of each on the images of phase 4 in the
-   same turns: device ms and kernels per image, and `segment_reduce`'s
-   device time by the function that called `segment_sum`
-   (`segment_split`);
+   same turns: device ms and kernels per image, `segment_reduce`'s
+   device time by the function that called `segment_sum`, and the sorts
+   per image by call site (`segment_split`);
 15. front doors, at 768x512: `api.Encoder(device="cuda")` (ETC1S q 50 =
    native 128, effort 1: its bytes equal `compressor.compress`'s; UASTC
    LDR 4x4 and ASTC LDR 4x4: the JAX-CPU reference's bytes) and
@@ -283,9 +292,10 @@ REPLACES = {"factorized_scan": f"{PALLAS}:343",
             # no Pallas kernel: the reference's XLA matrix products
             "cross6_argmin": "basis_universal_tpu/ops/etc1s_encode.py:357",
             "cross6_distances": "basis_universal_tpu/ops/etc1s_encode.py:452",
-            # no Pallas kernel: the XLA assembly of the cluster scan's errors
+            # no Pallas kernel: the XLA segment sums of the cluster scan and
+            # the assembly of its errors
             "cluster_scan_assemble":
-                "basis_universal_tpu/ops/etc1s_encode.py:291-306",
+                "basis_universal_tpu/ops/etc1s_encode.py:284-306",
             # the bisecting init's moment features and its rounds
             "bisect_rows": "basis_universal_tpu/ops/etc1s_encode.py:394",
             "bisect_round": "basis_universal_tpu/ops/etc1s_encode.py:403",
@@ -421,16 +431,21 @@ def _cross6_bound(n, c, matrix):
     return _bound(n_bytes, float(n * c * _cross6_ops(c) + norms + rounds))
 
 
-def _assemble_bound(c_n, d_n, with_lb):
-    """cluster_scan_assemble: per (cluster, delta) its constant part, 17
-    instructions (16 npix, b.b and b.sum_x chains, the subtract with its
-    scale, q, the level's sum or read, npix lb, -2 sum_l, su2's two fused
-    multiply-adds and the constant's), and per output one fused
-    multiply-add; bytes: the sums (C, 7 + 8D), bases (D, C, 3) and levels
-    (D, C) in, the (C, 8D) errors out."""
-    n_bytes = 4 * (c_n * (7 + 8 * d_n) + d_n * c_n * 3
-                   + (d_n * c_n if with_lb else 0) + c_n * 8 * d_n)
-    return _bound(n_bytes, float(c_n * d_n * (17 + 8)))
+def _assemble_bound(b_n, c_n, d_n, perceptual):
+    """cluster_scan_assemble, the clusters' sums and their assembly: bytes,
+    the terms (B, 8D), the order (B,) and offsets (C + 1,) int64, the
+    pixels (B, 16, 3) (RGB) or the six moments a block and the levels (D,
+    C) (perceptual) and the bases (D, C, 3) in, the (C, 8D) errors out;
+    operations, per member an add per column (7 + 8D) and in RGB its
+    moments, 14 a pixel (3 channel sums, 3 squares and their adds, the
+    luma's 2 adds, its square and 2 adds), per (cluster, delta) its
+    constant part (17, as before) and per output a fused multiply-add."""
+    n_bytes = (4 * b_n * 8 * d_n + 8 * b_n + 8 * (c_n + 1)
+               + 12 * d_n * c_n + 4 * c_n * 8 * d_n
+               + (4 * (6 * b_n + d_n * c_n) if perceptual else 192 * b_n))
+    ops = b_n * (7 + 8 * d_n) + (0 if perceptual else 16 * 14 * b_n) \
+        + c_n * d_n * (17 + 8)
+    return _bound(n_bytes, float(ops))
 
 
 def _selector_resources():
@@ -541,19 +556,27 @@ def etc1s_xla_phase(torch, img0, measure):
 
 
 def cluster_scan_phase(torch, ck, ops, px, ids, img0, measure):
-    """`cluster_scan_assemble` at the paths' shapes: its inputs recorded
-    from one ETC1S encode of image 0 (q128, effort 1: C 2,416, D 27) and
-    from `optimize_cluster_endpoints` of image 0's blocks px with the
-    cluster ids ids at radius 2 and with the perceptual metric; each held
-    to the plain version on the CPU, every value, and timed beside its
-    bytes bound and the plain version on the card."""
+    """`cluster_scan_assemble`, the clusters' sums and their assembly in one
+    kernel, at the paths' shapes: its inputs recorded from one ETC1S encode
+    of image 0 (q128, effort 1: C 2,416, D 27, RGB) and from
+    `optimize_cluster_endpoints` of image 0's blocks px with the cluster ids
+    ids at radius 2 and with the perceptual metric; each held to the plain
+    version on the CPU, every bit, and timed beside its bytes bound, the
+    chain of adds of its largest cluster and the plain version on the card.
+    Then, from the profiler: `_cluster_scan` as the refine pass calls it
+    (its order given) runs one kernel and no cat, sort, gather or segment
+    reduction; and an ETC1S encode of image 0 sorts its assignment once in
+    its refine pass, the pass's other sums reading that order
+    (`segment_split`'s sorts by call site)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from basis_universal_tpu_torch import compressor
 
     seen, real = [], ck.cluster_scan_assemble
 
-    def recorded(*args):
-        seen.append(args)
-        return real(*args)
+    def recorded(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
 
     rng = np.random.default_rng(7)
     means = torch.as_tensor(rng.uniform(0, 255, (2416, 3)),
@@ -572,25 +595,79 @@ def cluster_scan_phase(torch, ck, ops, px, ids, img0, measure):
     if len(seen) != 3:
         raise AssertionError(f"cluster_scan_assemble: {len(seen)} calls "
                              "recorded, expected 3")
-    for label, (sums, base8, lb) in zip(
-            ("ETC1S image 0", "radius 2", "perceptual"), seen):
+
+    def on_cpu(v):
+        if isinstance(v, tuple):
+            return tuple(on_cpu(x) for x in v)
+        return None if v is None else v.cpu()
+
+    for label, (args, kw) in zip(("ETC1S image 0", "radius 2", "perceptual"),
+                                 seen):
+        mt, order, offsets, base8 = args[:4]
         d_n, c_n = base8.shape[:2]
+        perceptual = kw.get("moments") is not None
+        counts = offsets[1:] - offsets[:-1]
+        longest = int(counts.max())
         label = f"C{c_n} D{d_n} {label}"
-        got = real(sums, base8, lb)
+        got = real(*args, **kw)
         want = ck.cluster_scan_assemble_reference(
-            sums.cpu(), base8.cpu(), None if lb is None else lb.cpu())
-        n_diff = int((got.cpu() != want).sum())
+            *on_cpu(args), **{k: on_cpu(v) for k, v in kw.items()})
+        n_diff = int((got.cpu().view(torch.int32)
+                      != want.view(torch.int32)).sum())
         if n_diff:
             raise AssertionError(f"cluster_scan_assemble {label}: {n_diff} of "
                                  f"{got.numel()} values differ from the "
                                  "plain version")
+        chain = _bisect_chain_ms([longest])
         print(f"cluster_scan_assemble {label}: every one of {got.numel()} "
-              "values the plain version's")
+              f"values the plain version's; {mt.shape[0]} blocks, "
+              f"{int((counts == 0).sum())} empty clusters, the largest "
+              f"{longest} members (its chain of adds {chain:.4f} ms)")
         measure("cluster_scan_assemble", label,
-                lambda a=(sums, base8, lb): real(*a),
-                lambda a=(sums, base8, lb):
-                    ck.cluster_scan_assemble_reference(*a), 0.0,
-                _assemble_bound(c_n, d_n, lb is not None))
+                lambda a=args, k=kw: real(*a, **k),
+                lambda a=args, k=kw: ck.cluster_scan_assemble_reference(*a,
+                                                                        **k),
+                0.0, _assemble_bound(mt.shape[0], c_n, d_n, perceptual),
+                chain_ms=chain)
+
+    # `_cluster_scan` as the refine pass calls it: the pass's order given
+    (mt, order, offsets, base8), kw = seen[0]
+    scan = lambda: ops._cluster_scan(  # noqa: E731
+        kw["pixels"], None, base8, None, mt, False, (order, offsets))
+    scan()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        scan()
+        torch.cuda.synchronize()
+    cuda_type = torch.autograd.DeviceType.CUDA
+    avgs = prof.key_averages()
+    kernels = sum(e.count for e in avgs if e.device_type == cuda_type)
+    banned = [e.key for e in avgs if e.device_type != cuda_type and any(
+        b in e.key for b in ("aten::cat", "sort", "segment_reduce",
+                             "aten::index"))]
+    if kernels != 1 or banned:
+        raise AssertionError(f"_cluster_scan ran {kernels} device kernels "
+                             f"and {banned}")
+    print(f"_cluster_scan C{base8.shape[1]} D{base8.shape[0]} with the "
+          f"refine pass's order: {kernels} device kernel, no cat, sort, "
+          "gather or segment reduction; call "
+          f"{_time_ms(scan, torch):.4f} ms, device "
+          f"{_device_ms(torch, scan):.4f} ms")
+
+    # the sorts of one ETC1S encode of image 0, by call site: the refine
+    # pass sorts its assignment once (`segment_order` in the frontend), and
+    # none of its sums sorts again
+    got = segment_split(torch, "basis_universal_tpu_torch", [img0])
+    sorts = got["sorts"]
+    print("ETC1S image 0 sorts by call site: " + ", ".join(
+        f"{k} {v:g}" for k, v in sorted(sorts.items())))
+    again = [k for k in sorts if k.split("@")[1] in (
+        "optimize_cluster_endpoints", "_cluster_scan")
+        and not k.startswith("_shortlist@")]
+    if sorts.get("segment_order@_frontend_impl") != 1 or again or \
+            "segment_sum@_frontend_impl" in sorts:
+        raise AssertionError(f"the refine pass's sorts: {sorts}")
 
 
 def _time_ms(fn, torch, reps=20, warmup=3):
@@ -778,7 +855,8 @@ def _bisect_chain_ms(lengths):
     """The dependent chain of the bisecting rounds: each round waits at
     least 4 cycles (a float32 add's latency) per member of its largest
     cluster, the leaf sums per member of the largest leaf; ms at the SM's
-    top clock (`phase_env`)."""
+    top clock (`phase_env`). With one length, the chain of a sum in row
+    order over that many members (the cluster scan's)."""
     return 4.0 * sum(lengths) / (SM_MHZ * 1e3)
 
 
@@ -1260,6 +1338,42 @@ def _pack_ops(compact, tables):
     return float(ops)
 
 
+PACK_SIZES = (24576, 4096, 1001)      # the last RAGGED_BLOCKS
+PACK_STEPS = ("staging, the code and the store",
+              "the header and the solid blocks", "the anchor flips",
+              "the endpoints", "the weights")
+
+
+def pack_split(torch, compact, alpha0, tabs, label):
+    """The device ms of each stop point of `uastc_pack_split` on the buffer
+    (the kernel up to that step, with the lanes a block that `uastc_pack`
+    takes at its size; the last the whole kernel) and each step's
+    share as the difference from the stop before it, printed; returns the
+    cumulative times."""
+    from basis_universal_tpu_torch.ops import _build
+
+    lib = _build.get_lib("uastc_pack_kernels")
+    n = compact.shape[0]
+    out = torch.empty((n, 16), dtype=torch.uint8, device=compact.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(stop):
+        status = lib.uastc_pack_split(
+            compact.data_ptr(), alpha0.data_ptr(), tabs.data_ptr(),
+            tabs.numel(), out.data_ptr(), n, stop, 0, stream)
+        if status != 0:
+            raise RuntimeError(f"uastc_pack_split stop {stop}: status "
+                               f"{status}")
+
+    cum = [_device_ms(torch, lambda stop=stop: run(stop))
+           for stop in range(1, len(PACK_STEPS) + 1)]
+    steps = ", ".join(f"{step} {b - a:+.4f}" for step, a, b in
+                      zip(PACK_STEPS, [0.0] + cum, cum))
+    print(f"uastc_pack {label} split at {n} blocks, device ms by step: "
+          f"{steps} (cumulative {', '.join(f'{c:.4f}' for c in cum)})")
+    return cum
+
+
 def uastc_pack_phase(torch, px, rng, measure):
     """`uastc_pack` at 24,576 blocks, each call held to `pack_reference`
     byte for byte: image 0's own winner buffer (the effort-2 RGB search of
@@ -1267,8 +1381,9 @@ def uastc_pack_phase(torch, px, rng, measure):
     each slot list of efforts 1-4, RGB and RGBA, a buffer drawn so that
     every slot wins blocks (`testing.synthetic.uastc_winner_buffer`); the
     effort-4 RGBA one also with its rows sorted by slot (no warp spans two
-    slots but at the boundaries: the divergence's cost). Timed: image 0's,
-    the drawn effort-4 RGBA and its sorted rows.
+    slots but at the boundaries: the divergence's cost). Timed: image 0's
+    at 24,576 blocks and its first 4,096 and 1,001 rows (each size split by
+    step, `pack_split`), the drawn effort-4 RGBA and its sorted rows.
     Bound: the bytes the function moves (the buffer, pixel 0's alpha as
     int32, the tables once, the blocks) against `_pack_ops`."""
     from basis_universal_tpu_torch.codecs.uastc import encode as uenc
@@ -1310,6 +1425,7 @@ def uastc_pack_phase(torch, px, rng, measure):
                 f"uastc_pack {label}: {int((got != want).any(1).sum())} of "
                 f"{b_n} blocks differ from the plain version")
         if label.startswith("image 0"):
+            image0 = (compact, alpha0, tabs)
             px_np = np.zeros((b_n, 16, 4), np.float32)
             px_np[:, 0, 3] = alpha0.cpu().numpy()
             if not np.array_equal(got.cpu().numpy(), pack._pack_from_compact(
@@ -1324,6 +1440,55 @@ def uastc_pack_phase(torch, px, rng, measure):
                     lambda: pack.uastc_pack(compact, alpha0, tabs),
                     lambda: pack.pack_reference(compact, alpha0, tabs), 0.0,
                     _bound(n_bytes, _pack_ops(compact, tabs)))
+    # image 0's buffer at the three sizes: the smaller ones timed too, each
+    # split by step
+    compact0, alpha00, tabs0 = image0
+    for n in PACK_SIZES:
+        c, a = compact0[:n].contiguous(), alpha00[:n].contiguous()
+        label = f"image 0 effort 2 RGB, {n} blocks"
+        if n != b_n:
+            got = pack.uastc_pack(c, a, tabs0)
+            if not torch.equal(got, pack.pack_reference(c, a, tabs0)):
+                raise AssertionError(f"uastc_pack {label}: differs from the "
+                                     "plain version")
+            measure("uastc_pack", label,
+                    lambda c=c, a=a: pack.uastc_pack(c, a, tabs0),
+                    lambda c=c, a=a: pack.pack_reference(c, a, tabs0), 0.0,
+                    _bound(n * (59 + 4 + 16) + 4 * tabs0.numel(),
+                           _pack_ops(c, tabs0)))
+        pack_split(torch, c, a, tabs0, label)
+
+
+def pack_ab(torch, px, other_pack):
+    """`uastc_pack` of this tree and of another (`other_pack`, its
+    `codecs.uastc.pack`) on image 0's winner buffer at `PACK_SIZES`: the
+    same bytes, call and device ms in turns (other, this, this, other)."""
+    from basis_universal_tpu_torch.codecs.uastc import encode as uenc
+    from basis_universal_tpu_torch.codecs.uastc import pack
+
+    rgba = torch.cat([px, torch.full_like(px[..., :1], 255.0)], -1)
+    modes, ls, extra, topk = pack._effort_mode_set(UASTC_EFFORT, False)
+    compact = uenc._search_device(rgba, modes, ls, extra, topk)
+    alpha0 = rgba[:, 0, 3].to(torch.int32)
+    tabs = pack.pack_tables(modes, extra, px.device)
+    for n in PACK_SIZES:
+        c, a = compact[:n].contiguous(), alpha0[:n].contiguous()
+        mine, theirs = pack.uastc_pack(c, a, tabs), other_pack.uastc_pack(
+            c, a, tabs)
+        torch.cuda.synchronize()
+        n_diff = int((mine != theirs).any(1).sum())
+        runs = [lambda m=m, c=c, a=a: m.uastc_pack(c, a, tabs)
+                for m in (other_pack, pack, pack, other_pack)]
+        t = [_time_ms(r, torch) for r in runs]
+        dt = [_device_ms(torch, r) for r in runs]
+        print(f"ab uastc_pack image 0 effort 2 RGB, {n} blocks: same bytes "
+              f"{n_diff == 0} ({n_diff} of {n} blocks differ); call ms other "
+              f"{t[0]:.4f}, this {t[1]:.4f}, this {t[2]:.4f}, other "
+              f"{t[3]:.4f}; device ms other {dt[0]:.4f}, this {dt[1]:.4f}, "
+              f"this {dt[2]:.4f}, other {dt[3]:.4f}")
+        if n_diff:
+            raise AssertionError(f"ab uastc_pack {n} blocks: the two trees "
+                                 "differ")
 
 
 def _line_fit_ops(n_ch, n_sub, n_lev, ls_iters, iters=4, per_level=None):
@@ -2341,42 +2506,61 @@ SEGMENT_SITES = {"bisecting_init rounds": "bisecting rounds",
                  "optimize_cluster_endpoints": "refine cluster errors",
                  "_frontend_impl": "refine cluster means",
                  "update_selector_patterns": "update_selector_patterns"}
+# the functions of the ETC1S path whose calls `segment_split` labels
+# `name@caller` (module, name; a tree without one skips it), so that each
+# sort is counted at the labelled call that encloses it
+SORT_SITES = (("ops.etc1s_encode", "segment_sum"),
+              ("ops.etc1s_encode", "segment_order"),
+              ("ops.etc1s_encode", "_cluster_scan"),
+              ("ops.etc1s_encode", "_shortlist"),
+              ("ops.etc1s_encode", "bisecting_init"),
+              ("codecs.etc1s.frontend", "_init_selector_patterns"))
 
 
 def segment_split(torch, pkg, images):
     """ETC1S `compress_batch` of images through the port package `pkg`
     (this tree's, or `_other_port`) under torch.profiler, after a warm-up
-    run, with its `segment_sum` wrapped in a profiler range named by its
-    caller: the device ms per image of `segment_reduce` by call site
-    (`SEGMENT_SITES`), the device ms per image of every kernel, and the
-    device kernels per image."""
+    run, with the functions of `SORT_SITES` each in a profiler range named
+    `name@caller` (`segment_order` only where a sum does not call it): the
+    device ms per image of `segment_reduce` by the caller of `segment_sum`
+    (`SEGMENT_SITES`), the sorts per image (`aten::sort` calls, each counted
+    at its innermost labelled range; "other@none" outside them), the device
+    ms per image of every kernel, and the device kernels per image."""
     import importlib
 
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    ops = importlib.import_module(f"{pkg}.ops.etc1s_encode")
     compressor = importlib.import_module(f"{pkg}.compressor")
     params = compressor.CompressorParams(quality_level=QUALITY, effort=EFFORT,
                                          device="cuda")
-    plain = ops.segment_sum
 
-    def labelled(data, ids, num):
-        site = sys._getframe(1).f_code.co_name
-        if site == "bisecting_init":
-            site += " leaves" if data.shape[-1] == 7 else " rounds"
-        with record_function(f"segment_sum@{site}"):
-            return plain(data, ids, num)
+    def labelled(name, fn):
+        def run(*args, **kw):
+            site = sys._getframe(1).f_code.co_name
+            if name == "segment_order" and site == "segment_sum":
+                return fn(*args, **kw)
+            if name == "segment_sum" and site == "bisecting_init":
+                site += " leaves" if args[0].shape[-1] == 7 else " rounds"
+            with record_function(f"{name}@{site}"):
+                return fn(*args, **kw)
+        return run
 
     compressor.compress_batch(images, params)
     torch.cuda.synchronize()
-    ops.segment_sum = labelled
+    patched = []
+    for mod_name, name in SORT_SITES:
+        mod = importlib.import_module(f"{pkg}.{mod_name}")
+        if hasattr(mod, name):
+            patched.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, labelled(name, getattr(mod, name)))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             compressor.compress_batch(images, params)
             torch.cuda.synchronize()
     finally:
-        ops.segment_sum = plain
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
 
     def reduce_us(ev):
         if "segment_reduce" in ev.name:
@@ -2385,20 +2569,28 @@ def segment_split(torch, pkg, images):
 
     split = dict.fromkeys(SEGMENT_SITES.values(), 0.0)
     split["other"] = 0.0
+    sorts = {}
     for ev in prof.events():
         if ev.name.startswith("segment_sum@"):
             site = SEGMENT_SITES.get(ev.name.split("@", 1)[1], "other")
             split[site] += reduce_us(ev) / 1e3 / len(images)
+        if ev.name == "aten::sort":
+            up = ev.cpu_parent
+            while up is not None and "@" not in up.name:
+                up = up.cpu_parent
+            site = "other@none" if up is None else up.name
+            sorts[site] = sorts.get(site, 0) + 1 / len(images)
     cuda_type = torch.autograd.DeviceType.CUDA
     # the device rows, less the ranges' own spans on the device timeline
     kernels = [e for e in prof.key_averages() if e.device_type == cuda_type
-               and not e.key.startswith("segment_sum@")]
+               and "@" not in e.key]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     reduce_all = sum(e.self_device_time_total for e in kernels
                      if "segment_reduce" in e.key) / 1e3
     return dict(split=split, segment_reduce_ms=reduce_all / len(images),
                 device_ms=device_ms / len(images),
-                kernels=sum(e.count for e in kernels) / len(images))
+                kernels=sum(e.count for e in kernels) / len(images),
+                sorts=sorts)
 
 
 def phase_ab(torch, blocks, tree, images):
@@ -2511,6 +2703,14 @@ def phase_ab(torch, blocks, tree, images):
                                     31)).float()
     mt = ck.factorized_scan(px, base5=cbase5[ids].float().contiguous(),
                             radius=1)
+    order = ops.segment_order(ids, 2416)
+
+    def takes_order(m_ops):
+        # a tree whose refine pass shares one order of the ids
+        import inspect
+
+        return "order" in inspect.signature(m_ops._cluster_scan).parameters
+
     for label, fn in (
             ("cross6_argmin N24576 C2416 bf16 (kernel alone)",
              lambda m, m_ops: argmin(m)),
@@ -2518,9 +2718,15 @@ def phase_ab(torch, blocks, tree, images):
              lambda m, m_ops: m_ops.kmeans_assign(vec6, cents, 2416)),
             ("cross6_distances N24576 C2416 (kernel alone)",
              lambda m, m_ops: distances(m)),
-            ("_cluster_scan C2416 D27 (moments, segment sum, assembly)",
+            ("_cluster_scan C2416 D27 (moments, segment sum, assembly; "
+             "its own sort of the ids)",
              lambda m, m_ops: m_ops._cluster_scan(px, ids, base8, None, mt,
                                                   False)),
+            ("_cluster_scan C2416 D27 (this tree with the refine pass's "
+             "order given)",
+             lambda m, m_ops: m_ops._cluster_scan(
+                 px, ids, base8, None, mt, False,
+                 *((order,) if takes_order(m_ops) else ()))),
             ("bisecting_init N24576 C2416",
              lambda m, m_ops: m_ops.bisecting_init(vec6, ones, 2416,
                                                    generator=gen))):
@@ -2595,6 +2801,8 @@ def phase_ab(torch, blocks, tree, images):
 
     other_uenc = importlib.import_module("_other_port.codecs.uastc.encode")
     trials_ab(torch, px, np.random.default_rng(1234), other_uenc)
+    pack_ab(torch, px,
+            importlib.import_module("_other_port.codecs.uastc.pack"))
     mode_trials_ab(torch, px, np.random.default_rng(1234), other_uenc)
     for name, label, args, kw in cases:
         mine = getattr(ck, name)(*args, **kw)
@@ -2617,10 +2825,13 @@ def phase_ab(torch, blocks, tree, images):
                        ("other", "_other_port")):
         got = segment_split(torch, pkg, images)
         split = ", ".join(f"{k} {v:.4f}" for k, v in got["split"].items())
+        sorts = ", ".join(f"{k} {v:g}" for k, v in sorted(
+            got["sorts"].items()))
         print(f"ab ETC1S {label}: device {got['device_ms']:.4f} ms/image, "
               f"{got['kernels']:.1f} device kernels/image; segment_reduce "
               f"{got['segment_reduce_ms']:.4f} ms/image, by call site: "
-              f"{split}")
+              f"{split}; sorts {sum(got['sorts'].values()):g}/image, by call "
+              f"site: {sorts}")
 
 
 def phase_profile(torch, out_dir, n_images=16):

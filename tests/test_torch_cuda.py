@@ -640,49 +640,66 @@ def test_cross6_on_card(cuda, n, c):
     assert ck.LAUNCHES["cross6_distances"] == 1
 
 
-def _assemble_inputs(c_n, radius, perceptual, seed):
-    """The cluster scan's segment sums (C, 7 + D*8) of clusters of 0..40
-    blocks with fractional moments and gray-axis sums, the cluster bases
-    (D, C, 3) of drawn 5-bit colours and deltas, and with the perceptual
-    metric the bases transformed and their levels lb (D, C), as
-    `optimize_cluster_endpoints` makes them (on the CPU)."""
+def _assemble_inputs(b_n, c_n, radius, perceptual, seed, large=False):
+    """The cluster scan's inputs: whole-numbered pixels (B, 16, 3), drawn
+    cluster ids (with `large`, 2/3 of the blocks in one cluster) and their
+    order, fractional gray-axis terms (B, D*8), the cluster bases (D, C, 3)
+    of drawn 5-bit colours and deltas, and with the perceptual metric the
+    bases transformed, their levels lb (D, C) and the block moments of the
+    transformed pixels, as `optimize_cluster_endpoints` makes them (on the
+    CPU). Returns (mt, order, offsets, base8, lb, keyword arguments)."""
     from basis_universal_tpu_torch.ops import etc1s_encode as ops
     from basis_universal_tpu_torch.ops.xla_order import _dot
 
     rng = np.random.default_rng(seed)
     deltas = torch.as_tensor(ops._candidate_deltas(radius))
     d_n = deltas.shape[0]
-    n = torch.as_tensor(rng.integers(0, 41, c_n), dtype=torch.float32)
-    sums = torch.as_tensor(rng.uniform(0, 1, (c_n, 7 + 8 * d_n)),
-                           dtype=torch.float32)
-    scale = torch.tensor([1.0, 16 * 255, 16 * 255, 16 * 255, 48 * 255 ** 2,
-                          16 * 442, 16 * 442 ** 2] + [4e4] * (8 * d_n))
-    sums = sums * scale * n[:, None]
-    sums[:, 0] = n
+    px = torch.as_tensor(rng.integers(0, 256, (b_n, 16, 3)),
+                         dtype=torch.float32)
+    ids = torch.as_tensor(rng.integers(0, c_n, b_n))
+    if large:
+        ids[torch.as_tensor(rng.random(b_n) < 2 / 3)] = c_n // 2
+    mt = torch.as_tensor(rng.uniform(0, 4e3, (b_n, 8 * d_n)),
+                         dtype=torch.float32)
     base5 = torch.as_tensor(rng.integers(0, 32, (c_n, 3)))
     base8 = ops.expand5(torch.clamp(base5[None] + deltas[:, None, :], 0,
-                                    31)).float()
-    lb = None
+                                    31)).float().contiguous()
+    lb, kw = None, dict(pixels=px)
     if perceptual:
-        base8 = ops.perceptual_transform(base8)
+        base8 = ops.perceptual_transform(base8).contiguous()
         lb = _dot(base8, torch.as_tensor(ops.GVEC))
-    return sums.contiguous(), base8.contiguous(), lb
+        m = ops._block_moments(ops.perceptual_transform(px),
+                               torch.as_tensor(ops.GVEC))
+        kw = dict(moments=(m["sum_x"], m["sum_x2"], m["sum_l"], m["sum_l2"]))
+    order, offsets = ops.segment_order(ids, c_n)
+    return mt, order, offsets, base8, lb, kw
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c_n,radius,perceptual", [
-    (2416, 1, False), (2416, 2, False), (2416, 1, True), (37, 1, False),
-    (37, 2, True)])
-def test_cluster_scan_assemble_on_card(cuda, c_n, radius, perceptual):
-    """The cluster scan's assembly on the card gives its plain version's
-    bits (every rounding spelled out) at the main path's C 2,416 with D 27,
-    with D 125 and with the perceptual metric (lb given), and at a ragged
-    C; one launch."""
-    sums, base8, lb = _assemble_inputs(c_n, radius, perceptual, c_n + radius)
-    got = ck.cluster_scan_assemble(sums.to(cuda), base8.to(cuda),
-                                   None if lb is None else lb.to(cuda))
-    assert torch.equal(got.cpu(),
-                       ck.cluster_scan_assemble_reference(sums, base8, lb))
+@pytest.mark.parametrize("b_n,c_n,radius,perceptual,large", [
+    (24576, 2416, 1, False, False), (24576, 2416, 2, False, False),
+    (24576, 2416, 1, True, False), (300, 37, 1, False, False),
+    (300, 37, 2, True, False), (3000, 41, 1, False, True)])
+def test_cluster_scan_assemble_on_card(cuda, b_n, c_n, radius, perceptual,
+                                       large):
+    """The cluster scan (the clusters' sums in row order and the assembly)
+    on the card gives its plain version's bits at the main path's B 24,576
+    and C 2,416 with D 27, with D 125 and with the perceptual metric (the
+    moments and lb given), at a ragged C, and with a cluster of 2,000
+    members; one launch."""
+    mt, order, offsets, base8, lb, kw = _assemble_inputs(
+        b_n, c_n, radius, perceptual, c_n + radius, large)
+
+    def on(dev):
+        return {k: tuple(x.to(dev) for x in v) if isinstance(v, tuple)
+                else v.to(dev) for k, v in kw.items()}
+
+    got = ck.cluster_scan_assemble(
+        mt.to(cuda), order.to(cuda), offsets.to(cuda), base8.to(cuda),
+        None if lb is None else lb.to(cuda), **on(cuda))
+    want = ck.cluster_scan_assemble_reference(mt, order, offsets, base8, lb,
+                                              **kw)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
     assert ck.LAUNCHES["cluster_scan_assemble"] == 1
     assert ck.LAUNCHES["xla_fma"] == ck.LAUNCHES["xla_reduce"] == 0
 
@@ -691,8 +708,8 @@ def test_cluster_scan_assemble_on_card(cuda, c_n, radius, perceptual):
 @pytest.mark.parametrize("perceptual", [False, True])
 def test_cluster_scan_on_card_is_the_cpus(cuda, perceptual):
     """`optimize_cluster_endpoints` on the card gives the CPU's endpoints,
-    its cluster scan (the full scan, the segment sum and the assembly) the
-    CPU's errors bit for bit."""
+    its cluster scan (the full scan, then the clusters' sums and the
+    assembly in one kernel) the CPU's errors bit for bit."""
     from basis_universal_tpu_torch.ops import etc1s_encode as ops
 
     px = _blocks(3000, 77)
@@ -702,8 +719,8 @@ def test_cluster_scan_on_card_is_the_cpus(cuda, perceptual):
     seen = {}
     scan = ops._cluster_scan
 
-    def kept(*args):
-        out = scan(*args)
+    def kept(*args, **kw):
+        out = scan(*args, **kw)
         seen[out.device.type] = out.cpu()
         return out
 
@@ -1286,7 +1303,7 @@ def test_uastc_search_launches_on_card(cuda, alpha):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 255, 24575, 24576])
+@pytest.mark.parametrize("n", [1, 255, 1001, 4096, 24575, 24576])
 @pytest.mark.parametrize("effort,alpha", [(e, a) for e in (1, 2, 3, 4)
                                           for a in (False, True)])
 def test_uastc_pack_on_card(cuda, effort, alpha, n):

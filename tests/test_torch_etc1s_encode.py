@@ -860,3 +860,46 @@ def test_etc1s_orders_xla_sums_outside_kernels_once(h, w):
     finally:
         mp.undo()
     assert calls == dict(fma=0, reduce=1)
+
+
+@pytest.mark.parametrize("effort", [1, 2])
+def test_refine_pass_sorts_the_assignment_once(effort):
+    """Each refine pass builds one `segment_order` of the assignment and
+    every sum of the pass reads it: the clusters' counts and means, the
+    cluster scan and the rescore's cluster errors build none of their own
+    (effort 1: one pass, effort 2: two). `optimize_cluster_endpoints` gives
+    the same codebook with the shared order as with its own."""
+    import sys
+
+    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+
+    callers, plain = [], tops.segment_order
+
+    def counted(ids, num):
+        callers.append(sys._getframe(1).f_code.co_name)
+        return plain(ids, num)
+
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(tops, "segment_order", counted)
+        img, _ = synthetic_texture(64, 64, seed=effort)
+        compressor.compress(img, compressor.CompressorParams(
+            quality_level=128, effort=effort, device="cpu"))
+    finally:
+        mp.undo()
+    assert callers.count("_frontend_impl") == effort
+    assert not {"optimize_cluster_endpoints", "_cluster_scan"} & set(callers)
+    assert set(callers) == {"_frontend_impl", "segment_sum"}
+
+    rng = np.random.default_rng(8)
+    px = _blocks(400, 9)
+    ids = torch.from_numpy(rng.integers(0, 30, 400))
+    means = _t(rng.uniform(0, 255, (33, 3)).astype(np.float32))
+    for perceptual in (False, True):
+        shared = tops.optimize_cluster_endpoints(
+            _t(px), ids, means, 33, perceptual=perceptual,
+            order=tops.segment_order(ids, 33))
+        own = tops.optimize_cluster_endpoints(_t(px), ids, means, 33,
+                                              perceptual=perceptual)
+        assert all(torch.equal(a, b) for a, b in zip(shared, own))

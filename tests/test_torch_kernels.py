@@ -325,6 +325,24 @@ def test_segment_sum_matches_index_add_and_jax(rows):
                                   np.bincount(ids, minlength=260))
 
 
+@pytest.mark.parametrize("rows", [(4000,), (4000, 6), (4000, 16, 4)])
+def test_segment_sum_with_a_shared_order_is_the_same_sum(rows):
+    """`segment_sum` over a `segment_order` built once (as the refine pass
+    shares one across its sums) gives the bits of the sum that sorts, -0.0
+    rows and an empty segment included."""
+    rng = np.random.default_rng(10 + len(rows))
+    data = (rng.standard_normal(rows) * 1000.0).astype(np.float32)
+    data[rng.random(rows[0]) < 0.05] = -0.0
+    ids = torch.from_numpy(rng.integers(0, 250, rows[0]))
+    ids[ids == 17] = 18
+    order = tops.segment_order(ids, 260)
+    assert order[0].dtype == order[1].dtype == torch.int64
+    assert order[1].shape == (261,) and int(order[1][-1]) == rows[0]
+    got = tops.segment_sum(torch.from_numpy(data), ids, 260, order=order)
+    want = tops.segment_sum(torch.from_numpy(data), ids, 260)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def _selector_check(best, val, want_best, want_val, dists, patterns):
     """Min errors close; indices equal except at ties. Returns tie count."""
     _assert_close(val, want_val)
@@ -914,10 +932,14 @@ int etc1s_cross6_distances(const float* a, const float* c, float* out, int n,
                            int n_c, void* s) {
   return launch_cross6_distances(a, c, out, n, n_c, (cudaStream_t)s);
 }
-int etc1s_cluster_scan_assemble(const float* sums, const float* base8,
-                                const float* lb, float* out, int n_c, int n_d,
-                                void* s) {
-  return launch_cluster_scan_assemble(sums, base8, lb, out, n_c, n_d,
+int etc1s_cluster_scan_assemble(const float* mt, const int64_t* order,
+                                const int64_t* offsets, const float* px,
+                                const float* sum_x, const float* sum_x2,
+                                const float* sum_l, const float* sum_l2,
+                                const float* base8, const float* lb,
+                                float* out, int n_c, int n_d, void* s) {
+  return launch_cluster_scan_assemble(mt, order, offsets, px, sum_x, sum_x2,
+                                      sum_l, sum_l2, base8, lb, out, n_c, n_d,
                                       (cudaStream_t)s);
 }
 }
@@ -950,48 +972,130 @@ def codebook_lib(tmp_path_factory):
     return _build.declare_codebook(ctypes.CDLL(str(out / "codebook.so")))
 
 
-def _assemble_inputs(c_n, radius, with_lb, seed):
-    """The cluster scan's segment sums (C, 7 + D*8) of clusters of 0..40
-    blocks (some empty), float bases (D, C, 3) as the perceptual metric
-    gives them and, with_lb, their levels (D, C): fractional values, so
-    that every step rounds."""
+# the cluster scan's cases: (blocks, clusters, radius, perceptual, the
+# clusters' make-up), see `_scan_inputs`
+SCAN_CASES = {
+    "rgb-d27": (300, 37, 1, False, "drawn"),
+    "rgb-d125": (200, 61, 2, False, "drawn"),
+    "perceptual-d27": (300, 37, 1, True, "drawn"),
+    "perceptual-d125": (160, 23, 2, True, "drawn"),
+    "empty": (120, 300, 1, False, "drawn"),
+    "single-members": (96, 96, 1, True, "single"),
+    "large-cluster": (700, 19, 1, False, "large"),
+    "large-cluster-perceptual": (500, 7, 2, True, "large"),
+    "signed-zeros": (300, 41, 1, False, "zeros"),
+    "main-path-c": (3000, 2416, 1, False, "drawn"),
+}
+
+
+def _scan_inputs(b_n, c_n, radius, perceptual, kind, seed):
+    """The cluster scan's inputs as the refine pass gives them: whole-numbered
+    pixels (B, 16, 3); cluster ids in no order ("drawn": uniform over C, so
+    some clusters are empty and the first two always are; "single": a
+    permutation, one member each; "large": 2/3 of the blocks in one cluster,
+    more than the kernel takes at once; "zeros": as "drawn", with -0.0 in a
+    third of the terms and some clusters whose terms are all -0.0); the
+    terms mt (B, D*8) and cluster bases (D, C, 3) fractional, so that every
+    step rounds; with the perceptual metric fractional block moments and
+    levels lb (D, C). Returns (pixels, ids, mt, base8, lb, moments)."""
     rng = np.random.default_rng(seed)
     d_n = (2 * radius + 1) ** 3
-    n = rng.integers(0, 41, c_n).astype(np.float32)
-    n[:2] = 0.0
-    sums = np.empty((c_n, 7 + 8 * d_n), np.float32)
-    sums[:, 0] = n
-    sums[:, 1:4] = rng.uniform(0, 16 * 255, (c_n, 3)) * n[:, None]
-    sums[:, 4] = rng.uniform(0, 48 * 255 ** 2, c_n) * n
-    sums[:, 5] = rng.uniform(0, 16 * 442, c_n) * n
-    sums[:, 6] = rng.uniform(0, 16 * 442 ** 2, c_n) * n
-    sums[:, 7:] = rng.uniform(0, 4e4, (c_n, 8 * d_n)) * n[:, None]
+    px = rng.integers(0, 256, (b_n, 16, 3)).astype(np.float32)
+    if kind == "single":
+        ids = rng.permutation(b_n)
+    else:
+        ids = rng.integers(2, c_n, b_n) if c_n > 2 else np.zeros(b_n, int)
+        if kind == "large":
+            ids[rng.random(b_n) < 2 / 3] = c_n // 2
+    mt = rng.uniform(0, 4e3, (b_n, 8 * d_n)).astype(np.float32)
+    if kind == "zeros":
+        mt[rng.random(mt.shape) < 1 / 3] = -0.0
+        mt[np.isin(ids, ids[:5])] = -0.0
     base8 = rng.uniform(-60, 320, (d_n, c_n, 3)).astype(np.float32)
-    lb = rng.uniform(-100, 450, (d_n, c_n)).astype(np.float32)
-    return (torch.from_numpy(sums), torch.from_numpy(base8),
-            torch.from_numpy(lb) if with_lb else None)
+    lb = moments = None
+    if perceptual:
+        lb = torch.from_numpy(rng.uniform(-100, 450, (d_n, c_n))
+                              .astype(np.float32))
+        moments = tuple(torch.from_numpy(rng.uniform(0, hi, shape)
+                                         .astype(np.float32))
+                        for hi, shape in ((16 * 255, (b_n, 3)),
+                                          (48 * 255 ** 2, (b_n,)),
+                                          (16 * 442, (b_n,)),
+                                          (16 * 442 ** 2, (b_n,))))
+    return (torch.from_numpy(px), torch.from_numpy(ids), torch.from_numpy(mt),
+            torch.from_numpy(base8), lb, moments)
 
 
-@pytest.mark.parametrize("c_n,radius,with_lb,seed", [
-    (37, 1, False, 0), (37, 1, True, 1), (37, 1, False, 2), (300, 1, True, 3),
-    (61, 2, False, 4), (61, 2, True, 5), (1, 1, False, 6),
-    (2416, 1, False, 7)])
-def test_cluster_scan_assemble_kernel_is_the_plain_version(
-        codebook_lib, c_n, radius, with_lb, seed):
-    """`cluster_scan_assemble_kernel` against
-    `cluster_scan_assemble_reference` (the port's composition before the
-    kernel): D 27 and 125, lb null (the bases' sums) and given, ragged
-    tails (C x D x 8 not a multiple of the CTA's 256 threads), one cluster,
-    and the main path's C 2,416."""
-    sums, base8, lb = _assemble_inputs(c_n, radius, with_lb, seed)
-    d_n = base8.shape[0]
+def _host_cluster_scan(lib, mt, order, offsets, base8, lb, pixels, moments):
+    """The kernel's errors through the host build's C entry."""
+    c_n, d_n = base8.shape[1], base8.shape[0]
     out = torch.full((c_n, 8 * d_n), float("nan"))
-    assert codebook_lib.etc1s_cluster_scan_assemble(
-        sums.data_ptr(), base8.data_ptr(),
-        None if lb is None else lb.data_ptr(), out.data_ptr(), c_n, d_n,
-        None) == 0
-    assert torch.equal(out, ck.cluster_scan_assemble_reference(sums, base8,
-                                                               lb))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    assert lib.etc1s_cluster_scan_assemble(
+        mt.data_ptr(), order.data_ptr(), offsets.data_ptr(), ptr(pixels),
+        *(ptr(m) for m in (moments or (None,) * 4)), base8.data_ptr(), ptr(lb),
+        out.data_ptr(), c_n, d_n, None) == 0
+    return out
+
+
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_cluster_scan_assemble_kernel_is_the_plain_version(codebook_lib,
+                                                           case):
+    """`cluster_scan_assemble_kernel` (the members' sums and the assembly)
+    against `cluster_scan_assemble_reference` (the port's composition
+    before the kernel: the moments and terms in one segment sum, then the
+    assembly): RGB and perceptual at D 27 and 125, ids in no order, empty
+    clusters, single-member clusters, a cluster of several hundred members,
+    -0.0 terms, and the main path's C 2,416. Every value equal."""
+    b_n, c_n, radius, perceptual, kind = SCAN_CASES[case]
+    px, ids, mt, base8, lb, moments = _scan_inputs(
+        b_n, c_n, radius, perceptual, kind, len(case))
+    order, offsets = tops.segment_order(ids, c_n)
+    pixels = None if perceptual else px
+    counts = (offsets[1:] - offsets[:-1]).numpy()
+    print(f"{case}: {int((counts == 0).sum())} empty clusters, the largest "
+          f"{int(counts.max())} members")
+    out = _host_cluster_scan(codebook_lib, mt, order, offsets, base8, lb,
+                             pixels, moments)
+    want = ck.cluster_scan_assemble_reference(mt, order, offsets, base8, lb,
+                                              pixels=pixels, moments=moments)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    if kind == "large":
+        assert counts.max() > 8 * 32
+    if kind == "single":
+        assert (counts == 1).all()
+
+
+@pytest.mark.parametrize("case", ["rgb-d27", "perceptual-d27"])
+def test_cluster_scan_assemble_kernel_is_the_previous_composition(
+        codebook_lib, case):
+    """The kernel against the parent's `_cluster_scan`, spelled out: the
+    moments of `_block_moments` (of the transformed pixels with the
+    perceptual metric) and the terms cat into one (B, 7 + D*8) matrix,
+    summed by a `segment_sum` that sorts, then the assembly."""
+    b_n, c_n, radius, perceptual, kind = SCAN_CASES[case]
+    px, ids, mt, base8, lb, _ = _scan_inputs(b_n, c_n, radius, perceptual,
+                                             kind, 7)
+    if perceptual:
+        m = tops._block_moments(tops.perceptual_transform(px),
+                                torch.as_tensor(tops.GVEC))
+        moments, pixels = (m["sum_x"], m["sum_x2"], m["sum_l"],
+                           m["sum_l2"]), None
+    else:
+        m, moments, pixels = tops._block_moments(px), None, px
+    sums = tops.segment_sum(torch.cat([
+        torch.ones(b_n, 1), m["sum_x"], m["sum_x2"][:, None],
+        m["sum_l"][:, None], m["sum_l2"][:, None], mt], 1), ids, c_n)
+    want = ck._assemble_reference(sums, base8, lb)
+    order, offsets = tops.segment_order(ids, c_n)
+    out = _host_cluster_scan(codebook_lib, mt, order, offsets, base8, lb,
+                             pixels, moments)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(tops._cluster_scan(px, ids, base8, lb, mt, perceptual),
+                       want)
 
 
 def _codebook_rows(n, c_n, kind, seed):
@@ -1062,26 +1166,49 @@ def test_codebook_constants_match_python():
 
 
 def test_cluster_scan_assemble_wrapper_checks_its_inputs():
-    """The wrapper takes the segment sums, bases and levels as
-    `_cluster_scan` gives them and refuses other shapes, dtypes and
-    layouts; CPU tensors run the plain version and launch nothing."""
-    sums, base8, lb = _assemble_inputs(5, 1, True, 9)
+    """The wrapper takes the terms, order, bases and the pixels (RGB) or the
+    moments and levels (perceptual) as `_cluster_scan` gives them and
+    refuses other shapes, dtypes and combinations; CPU tensors run the
+    plain version and launch nothing."""
+    px, ids, mt, base8, lb, moments = _scan_inputs(40, 5, 1, True, "drawn", 9)
+    order, offsets = tops.segment_order(ids, 5)
     ck.reset_launch_counts()
-    for levels in (None, lb):
-        assert torch.equal(ck.cluster_scan_assemble(sums, base8, levels),
-                           ck.cluster_scan_assemble_reference(sums, base8,
-                                                              levels))
+    for kw in (dict(pixels=px), dict(moments=moments)):
+        levels = None if "pixels" in kw else lb
+        assert torch.equal(
+            ck.cluster_scan_assemble(mt, order, offsets, base8, levels, **kw),
+            ck.cluster_scan_assemble_reference(mt, order, offsets, base8,
+                                               levels, **kw))
     assert all(v == 0 for v in ck.LAUNCHES.values())
     with pytest.raises(ValueError):
-        ck.cluster_scan_assemble(sums[:, :-1].contiguous(), base8)
+        ck.cluster_scan_assemble(mt[:, :-1].contiguous(), order, offsets,
+                                 base8, pixels=px)
     with pytest.raises(ValueError):
-        ck.cluster_scan_assemble(sums[:4].contiguous(), base8)
+        ck.cluster_scan_assemble(mt, order[:-1].contiguous(), offsets, base8,
+                                 pixels=px)
     with pytest.raises(ValueError):
-        ck.cluster_scan_assemble(sums, base8, lb[:, :4].contiguous())
-    with pytest.raises(ValueError):
-        ck.cluster_scan_assemble(sums, base8.transpose(0, 1).contiguous()
-                                 .transpose(0, 1))
+        ck.cluster_scan_assemble(mt, order, offsets[:-1].contiguous(), base8,
+                                 pixels=px)
     with pytest.raises(TypeError):
-        ck.cluster_scan_assemble(sums.double(), base8)
+        ck.cluster_scan_assemble(mt, order.int(), offsets, base8, pixels=px)
     with pytest.raises(ValueError):
-        ck.cluster_scan_assemble(sums, base8[..., :2].contiguous())
+        ck.cluster_scan_assemble(mt, order, offsets, base8)
+    with pytest.raises(ValueError):
+        ck.cluster_scan_assemble(mt, order, offsets, base8, lb, pixels=px)
+    with pytest.raises(ValueError):
+        ck.cluster_scan_assemble(mt, order, offsets, base8, moments=moments)
+    with pytest.raises(ValueError):
+        ck.cluster_scan_assemble(mt, order, offsets, base8,
+                                 lb[:, :4].contiguous(), moments=moments)
+    with pytest.raises(ValueError):
+        ck.cluster_scan_assemble(mt, order, offsets, base8.transpose(0, 1)
+                                 .contiguous().transpose(0, 1), pixels=px)
+    with pytest.raises(TypeError):
+        ck.cluster_scan_assemble(mt.double(), order, offsets, base8,
+                                 pixels=px)
+    with pytest.raises(ValueError):
+        ck.cluster_scan_assemble(mt, order, offsets,
+                                 base8[..., :2].contiguous(), pixels=px)
+    with pytest.raises(ValueError):
+        ck.cluster_scan_assemble(mt, order, offsets, base8, pixels=px[:, :8]
+                                 .contiguous())

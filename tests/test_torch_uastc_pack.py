@@ -274,8 +274,9 @@ def host_kernel(tmp_path_factory):
     `cuda_host_stub.h`; its C entry `uastc_pack`."""
     src = KERNEL.read_text().replace(
         "#include <cuda_runtime.h>", f'#include "{TESTS / "cuda_host_stub.h"}"')
-    src, n = re.subn(r"(\w+)<<<([^,]+), ([^,]+), 0, [^>]+>>>\(",
-                     r"emu_launch(\1, \2, \3, ", src)
+    src, n = re.subn(
+        r"(\w+(?:<[\w, ]+>)?)<<<([^,]+), ([^,]+), 0, [^>]+>>>\(",
+        r"emu_launch(\1, \2, \3, ", src)
     assert n == 1
     out = tmp_path_factory.mktemp("uastc_pack_host")
     (out / "kernel.cpp").write_text(src)
@@ -287,20 +288,27 @@ def host_kernel(tmp_path_factory):
     lib.uastc_pack.argtypes = [vp, vp, vp, ctypes.c_int, vp,
                                ctypes.c_longlong, vp]
     lib.uastc_pack.restype = ctypes.c_int
+    lib.uastc_pack_split.argtypes = [vp, vp, vp, ctypes.c_int, vp,
+                                     ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, vp]
+    lib.uastc_pack_split.restype = ctypes.c_int
     return lib
 
 
-def _kernel(lib, compact, alpha0, tabs, offset):
+def _kernel(lib, compact, alpha0, tabs, offset, stop=None, group=0):
     """The kernel's bytes, its buffer at `offset` bytes past a 16-byte
-    boundary (0: the CTAs stage their rows with 16-byte loads; else byte
-    by byte)."""
+    boundary (0: the CTAs stage their rows with 4-byte loads; 3: byte by
+    byte); with `stop` or `group` (the lanes a block, 4 or 8; 0: by the
+    size, as `uastc_pack` takes them), those of `uastc_pack_split`."""
     buf = torch.zeros(compact.size + 16, dtype=torch.uint8)
     c = buf[offset:offset + compact.size].view(-1, 59)
     c.copy_(torch.from_numpy(compact))
     a = torch.from_numpy(alpha0)
     out = torch.zeros((compact.shape[0], 16), dtype=torch.uint8)
-    status = lib.uastc_pack(c.data_ptr(), a.data_ptr(), tabs.data_ptr(),
-                            tabs.numel(), out.data_ptr(), c.shape[0], None)
+    args = (c.data_ptr(), a.data_ptr(), tabs.data_ptr(), tabs.numel(),
+            out.data_ptr(), c.shape[0])
+    status = (lib.uastc_pack(*args, None) if stop is None and not group
+              else lib.uastc_pack_split(*args, stop or 5, group, None))
     assert status == 0
     return out.numpy()
 
@@ -315,8 +323,9 @@ def test_kernel_source_on_the_host_is_the_plain_version(host_kernel, effort,
     compact, alpha0 = _drawn(effort, alpha, 100 + 10 * effort + alpha)
     want = _plain(compact, alpha0, modes, extra)
     for offset in (0, 3):
-        np.testing.assert_array_equal(
-            _kernel(host_kernel, compact, alpha0, tabs, offset), want)
+        for group in (0, 4):
+            np.testing.assert_array_equal(_kernel(
+                host_kernel, compact, alpha0, tabs, offset, group=group), want)
     px = _blocks(60 + effort, alpha)
     compact = port_encode._search(torch.from_numpy(px), modes, ls_iters,
                                   extra, topk)
@@ -324,3 +333,79 @@ def test_kernel_source_on_the_host_is_the_plain_version(host_kernel, effort,
     np.testing.assert_array_equal(
         _kernel(host_kernel, compact, alpha0, tabs, 0),
         _plain(compact, alpha0, modes, extra))
+
+
+def test_kernel_source_on_solid_lut_ties(host_kernel):
+    """Solid colours whose LUT combinations tie at the least error, through
+    the kernel: the group of lanes keeps the first of them, as `np.argmin`
+    (and the search of one lane before) takes it; mixed with rows of other
+    slots, so that warps take the solid search and skip it."""
+    errs, _ = pack._solid_etc1_luts()
+    rng = np.random.default_rng(6)
+    rgb = np.concatenate([np.repeat(np.arange(256)[:, None], 3, 1),
+                          rng.integers(0, 256, (6000, 3))])
+    e = sum(errs[:, rgb[:, ch]].astype(np.int64) ** 2 for ch in range(3))
+    rgb = rgb[(e == e.min(0)).sum(0) > 1]
+    assert len(rgb) > 300
+    modes, _, extra, _ = pack._effort_mode_set(2, True)
+    tabs = pack.pack_tables(modes, extra)
+    compact, _ = _drawn(2, True, 77)
+    solid = rng.integers(0, 256, (len(rgb), 59))
+    solid[:, 0], solid[:, 1:4] = len(modes), rgb
+    compact = np.concatenate([solid, compact]).astype(np.uint8)
+    compact = compact[rng.permutation(len(compact))]
+    alpha0 = rng.integers(0, 1024, len(compact)).astype(np.int32)
+    want = _plain(compact, alpha0, modes, extra)
+    for group in (0, 4):
+        np.testing.assert_array_equal(
+            _kernel(host_kernel, compact, alpha0, tabs, 0, group=group), want)
+    np.testing.assert_array_equal(
+        want, _numpy_packs(compact, alpha0, modes, extra)[0])
+
+
+@pytest.mark.parametrize("n", [1, 7, 9, 61, 1001])
+def test_kernel_source_on_ragged_and_sorted_rows(host_kernel, n):
+    """Buffers of n blocks, n not a multiple of the CTA's 32 (the last CTA's
+    rows partly absent, its lanes still at every shuffle), drawn over every
+    slot of effort 4 RGBA, as drawn and with the rows sorted by slot (no
+    warp spans two slots but at the boundaries), with 8 lanes a block (as
+    `uastc_pack` takes them below 16,384 blocks) and with 4."""
+    modes, _, extra, _ = pack._effort_mode_set(4, True)
+    tabs = pack.pack_tables(modes, extra)
+    compact, alpha0 = _drawn(4, True, n)
+    rng = np.random.default_rng(n)
+    pick = rng.choice(len(compact), n, replace=n > len(compact))
+    compact, alpha0 = compact[pick], alpha0[pick]
+    for rows in (np.arange(n), np.argsort(compact[:, 0], kind="stable")):
+        c, a = np.ascontiguousarray(compact[rows]), alpha0[rows].copy()
+        want = _plain(c, a, modes, extra)
+        for offset, group in ((0, 0), (3, 0), (0, 4), (3, 4)):
+            np.testing.assert_array_equal(
+                _kernel(host_kernel, c, a, tabs, offset, group=group), want)
+
+
+@pytest.mark.parametrize("effort,alpha", [(2, False), (4, True)],
+                         ids=["e2-rgb", "e4-rgba"])
+def test_kernel_split_instances(host_kernel, effort, alpha):
+    """The measurement instances `uastc_pack_split`: stop 5 is the whole
+    kernel (its bytes) with either group of lanes; each earlier stop writes
+    a subset of the bits of the next but at the flips' stop (3), whose
+    marks are measurement only; a stop outside 1..5 and a group other than
+    0, 4 and 8 are refused."""
+    modes, _, extra, _ = pack._effort_mode_set(effort, alpha)
+    tabs = pack.pack_tables(modes, extra)
+    compact, alpha0 = _drawn(effort, alpha, 300 + effort)
+    want = _plain(compact, alpha0, modes, extra)
+    for group in (4, 8):
+        got = {stop: _kernel(host_kernel, compact, alpha0, tabs, 0, stop,
+                             group) for stop in range(1, 6)}
+        np.testing.assert_array_equal(got[5], want)
+        for lo, hi in ((1, 2), (2, 4), (4, 5)):
+            assert not (got[lo] & ~got[hi]).any()
+    c = torch.from_numpy(compact)
+    out = torch.zeros((len(compact), 16), dtype=torch.uint8)
+    for stop, group in ((6, 0), (5, 2)):
+        assert host_kernel.uastc_pack_split(
+            c.data_ptr(), torch.from_numpy(alpha0).data_ptr(),
+            tabs.data_ptr(), tabs.numel(), out.data_ptr(), len(compact),
+            stop, group, None) != 0
