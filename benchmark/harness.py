@@ -4,16 +4,17 @@ readings, the check, and the result line.
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
-Set-up pins the host's threads and allocator to the configuration's
-(`pin_host`), makes the cell's pool of distinct textures on the card from
-the seed, and warms up with one `compress_batch` call of the cell's own
-size and mix, the pool's first textures. The window (`window.py`) runs
-`basis_universal_tpu_torch.compressor.compress_batch` back to back from the
-next textures on. With
-`--trace 1` the same window runs under the spans and the device trace
-(`trace.py`) and reports the per-layer metrics instead of the end-to-end
-ones. The check (`check.py`) runs once the window has closed and the
-memory peak is read.
+Set-up pins the host (`pin_host`: the configuration's thread counts, the
+harness's allocator settings), makes the cell's pool of distinct textures
+on the card from the seed, and warms up with one `compress_batch` call of
+the cell's own size and mix, the pool's first textures. The window
+(`window.py`) runs `basis_universal_tpu_torch.compressor.compress_batch`
+back to back from the next textures on. With `--trace 1` the same window
+runs under the spans and the device trace (`trace.py`) and reports the
+per-layer metrics instead of the end-to-end ones. The check (`check.py`)
+runs once the window has closed and the memory peak is read. Standard
+error gets the set-up's phases, each call's seconds and, last, each number
+the check compared beside its limit.
 
 Exit codes: 0 with a result line; 2 for bad arguments; 3 without the
 card(s) the cell asks for; 4 where JAX, Flax or the JAX package was
@@ -33,21 +34,22 @@ from . import manifest
 FORBIDDEN = ("jax", "jaxlib", "flax", "basis_universal_tpu")
 
 
-MALLOPT = {"M_TRIM_THRESHOLD": -1, "M_TOP_PAD": -2, "M_MMAP_MAX": -4}
+# glibc's mallopt parameters and the values every run sets: freed memory is
+# kept (no mmap of large blocks, no trimming, 1 GiB of top pad), so that the
+# host path does not page-fault its large arrays afresh in some calls and
+# not in others. The same for every cell and both sides of a comparison.
+MALLOPT = {"M_TRIM_THRESHOLD": (-1, -1), "M_TOP_PAD": (-2, 1 << 30),
+           "M_MMAP_MAX": (-4, 0)}
 
 
 def pin_host(cfg: dict):
-    """The configuration's host settings, before the program loads: the
+    """The host settings, before the program loads: the configuration's
     BLAS / OpenMP thread counts, and glibc's allocator made to keep what is
-    freed (no mmap of large blocks, no trimming), so that the host path's
-    page faults do not differ from run to run. Raises where glibc refuses
-    a setting."""
-    host = cfg["host"]
-    os.environ.update(host["env"])
+    freed (`MALLOPT`). Raises where glibc refuses a setting."""
+    os.environ.update(cfg["host"]["env"])
     libc = ctypes.CDLL(None)
-    for name, value in host.get("mallopt", {}).items():
-        if libc.mallopt(ctypes.c_int(MALLOPT[name]), ctypes.c_int(value)) \
-                != 1:
+    for name, (param, value) in MALLOPT.items():
+        if libc.mallopt(ctypes.c_int(param), ctypes.c_int(value)) != 1:
             raise OSError(f"mallopt({name}, {value}) refused")
 
 
@@ -103,14 +105,17 @@ class Run:
 
 
 def measure(cell: str, seed: int, seconds: float, traced: bool, start: float,
-            device: str = "cuda", encode=None, bench: dict = None):
+            device: str = "cuda", encode=None, bench: dict = None,
+            marks=()):
     """Set-up, window, readings and check of one run; returns the result
     dict (the line's keys) and the check's numbers. encode replaces
-    `compress_batch` (the tests' faults and the controls)."""
+    `compress_batch` (the tests' faults and the controls); marks: the
+    set-up's phases so far, [(name, clock at its end)]."""
     import torch
 
     from . import check, texgen, window
 
+    marks = [*marks, ("harness", time.perf_counter())]
     bench = bench or manifest.manifest()
     w = manifest.workload(cell, bench)
     cfg, mix = manifest.config(w["config"]), manifest.traffic(w["traffic"])
@@ -122,15 +127,25 @@ def measure(cell: str, seed: int, seconds: float, traced: bool, start: float,
 
         def encode(textures):
             return compressor.compress_batch(textures, params)
-
+    marks.append(("program", time.perf_counter()))
+    torch.zeros(1, device=device)
+    marks.append(("context", time.perf_counter()))
     pool = texgen.make_pool(seed, mix, device)
+    marks.append(("pool", time.perf_counter()))
     # one call of the window's own size and mix: the window's first call
     # finds its memory and its kernels ready
     per_call = mix["textures_per_call"]
     encode(pool[:per_call])
     if device != "cpu":
         torch.cuda.synchronize()
-    setup_s = time.perf_counter() - start
+    marks.append(("warm-up", time.perf_counter()))
+    setup_s = marks[-1][1] - start
+    last = start
+    phases = []
+    for name, t in marks:
+        phases.append(f"{name} {t - last:.3f} s")
+        last = t
+    print(f"set-up: {', '.join(phases)}", file=sys.stderr)
 
     kind = "per_layer" if traced else "end_to_end"
     wanted = manifest.metrics_of(cell, kind, bench)
@@ -187,8 +202,7 @@ def measure(cell: str, seed: int, seconds: float, traced: bool, start: float,
     attempted = sum(len(c.pool_index) for c in win.calls)
     line = {"correct": correct, "attempted": attempted, "failed": failed,
             "metrics": metrics, "device": dev_info, **result,
-            "checks": {name: {"value": v, "limit": lim}
-                       for name, v, lim in numbers}}
+            "checks": {name: check.entry(v, lim) for name, v, lim in numbers}}
     return line, numbers, verdicts
 
 
@@ -206,15 +220,19 @@ def main(argv, start: float) -> int:
     pin_host(cfg)
     import torch
 
+    marks = [("import torch", time.perf_counter())]
     if not torch.cuda.is_available() or \
             torch.cuda.device_count() < int(w["chips"]):
         print(f"{args.workload} needs {w['chips']} CUDA card(s); this "
               f"machine has {torch.cuda.device_count()}: no result",
               file=sys.stderr)
         return 3
+    marks.append(("card query", time.perf_counter()))
+    from .check import describe
+
     line, numbers, verdicts = measure(args.workload, args.seed,
                                       args.seconds, bool(args.trace), start,
-                                      bench=bench)
+                                      bench=bench, marks=marks)
     bad = forbidden_modules()
     if bad:
         print(f"loaded in this process: {', '.join(bad)}; no result",
@@ -227,7 +245,8 @@ def main(argv, start: float) -> int:
             print(f"texture {v['where']}: {v['problem'] or 'unstable'}",
                   file=sys.stderr)
     for name, v, lim in numbers:
-        print(f"check {name} {v} limit {lim}", file=sys.stderr)
+        print(f"check {name} {v} limit {describe(lim)}",
+              file=sys.stderr)
     sys.stderr.flush()
     print(json.dumps(line), flush=True)
     return 0

@@ -55,9 +55,31 @@ def reader(metric: str):
 
 def control(name: str):
     """controls/<name>.py: `encoder(params)` -> a function that takes the
-    program's place in the window and breaks a guarantee (the check's
-    control; `readings.py` and the tests run it, a run never does)."""
+    program's place in the window and breaks a guarantee."""
     return importlib.import_module(f"{__package__}.controls.{name}")
+
+
+def control_encoder(entry: dict, params):
+    """One of a configuration's `controls` (the first is the check's
+    control, the others the faults its limits are read against; the
+    readings and the tests run them, a run never does): the program with
+    some of its parameters lowered, {"name", "params"}, or a module of
+    controls/, {"name", "module"}. -> encode(textures)."""
+    if "module" in entry:
+        return control(entry["module"]).encoder(params)
+    import dataclasses
+
+    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.formats.constants import BasisTexFormat
+
+    kw = dict(entry["params"])
+    if "tex_format" in kw:
+        kw["tex_format"] = BasisTexFormat[kw["tex_format"]]
+    lower = dataclasses.replace(params, **kw)
+
+    def encode(textures):
+        return compressor.compress_batch(textures, lower)
+    return encode
 
 
 def rooflines() -> dict:

@@ -199,6 +199,17 @@ class DecodeError(ValueError):
     """A block that is not a UASTC LDR 4x4 block."""
 
 
+def modes(blocks) -> np.ndarray:
+    """(N, 16) uint8 UASTC blocks -> (N,) each block's mode, 0-18 (8 the
+    solid colour)."""
+    blocks = np.ascontiguousarray(blocks, np.uint8).reshape(-1, 16)
+    lo = blocks.view("<u8").reshape(-1, 2)[:, 0]
+    out = MODE_LUT[(lo & np.uint64(127)).astype(np.int64)]
+    if (out > 18).any():
+        raise DecodeError("invalid UASTC mode code")
+    return out
+
+
 def decode_rgba(blocks) -> np.ndarray:
     """(N, 16) uint8 UASTC blocks -> (N, 16, 4) uint8 RGBA texels (index y
     * 4 + x), interpolated as 8-bit LDR (not sRGB)."""
@@ -206,13 +217,11 @@ def decode_rgba(blocks) -> np.ndarray:
     n = blocks.shape[0]
     w64 = blocks.view("<u8").reshape(-1, 2)
     lo, hi = w64[:, 0].copy(), w64[:, 1].copy()
-    modes = MODE_LUT[(lo & np.uint64(127)).astype(np.int64)]
-    if (modes > 18).any():
-        raise DecodeError("invalid UASTC mode code")
+    block_modes = modes(blocks)
     out = np.zeros((n, 16, 4), np.uint8)
-    for mode in np.unique(modes):
+    for mode in np.unique(block_modes):
         mode = int(mode)
-        idx = np.flatnonzero(modes == mode)
+        idx = np.flatnonzero(block_modes == mode)
         ml, mh = lo[idx], hi[idx]
         ofs = MODE_HUFF_CODES[mode][1]
         if mode == MODE_SOLID:

@@ -7,8 +7,9 @@ What it reads: the .basis header, its CRC-16s and slice descriptors; for
 ETC1S the palettes, the Huffman tables and every slice's symbol stream,
 decoded, the physical ETC1 blocks against each slice's CRC-16, and the
 codebook sizes against the quality level's; for UASTC every block, its
-slice's CRC-16; the .KTX2 header, its DFD colour model and the slice data
-and ETC1S global data it carries, byte for byte against the .basis file's.
+slice's CRC-16 and each block's mode; the .KTX2 header, its DFD colour
+model and the slice data and ETC1S global data it carries, byte for byte
+against the .basis file's.
 """
 
 import numpy as np
@@ -18,6 +19,10 @@ from . import blockref, container, etc1s, quality, uastc
 
 FORMATS = {"etc1s": container.FORMAT_ETC1S,
            "uastc": container.FORMAT_UASTC_LDR_4x4}
+# The UASTC modes a level 0 or 1 search is limited to (RGB 0, RGBA 10,
+# LA 15) and the solid colour (8): every other mode is one the level-2
+# search adds (the reference's cUASTCLevel, the port's `_effort_mode_set`).
+LEVEL1_MODES = (0, 8, 10, 15)
 
 
 class Invalid(ValueError):
@@ -59,6 +64,9 @@ def _decode_etc1s(b: container.Basis, k: container.Ktx2, alpha: bool,
                  f"{h['total_endpoints']} endpoints and "
                  f"{h['total_selectors']} selectors past quality "
                  f"{quality_level}'s {max_e} and {max_s}")
+        shortfall = 100.0 * (1.0 - h["total_selectors"] / max_s)
+    else:
+        shortfall = None
 
     _require(k.supercompression == container.KTX2_SS_BASISLZ
              and k.color_model == container.KDF_MODEL_ETC1S,
@@ -79,7 +87,7 @@ def _decode_etc1s(b: container.Basis, k: container.Ktx2, alpha: bool,
         _require(a_len == 0, "KTX2 alpha slice of an opaque texture")
     rgb = planes[0]
     out = np.concatenate([rgb, planes[1][..., 1:2]], -1) if alpha else rgb
-    return out                                          # (BY, BX, 16, C)
+    return out, shortfall                               # (BY, BX, 16, C)
 
 
 def _decode_uastc(b: container.Basis, k: container.Ktx2, alpha: bool):
@@ -95,9 +103,10 @@ def _decode_uastc(b: container.Basis, k: container.Ktx2, alpha: bool):
              "KTX2 supercompression or colour model")
     _require(k.level_data(0) == data, "KTX2 level differs from the .basis "
              "slice")
-    rgba = uastc.decode_rgba(np.frombuffer(data, np.uint8).reshape(-1, 16))
-    rgba = rgba.reshape(nby, nbx, 16, 4)
-    return rgba if alpha else rgba[..., :3]
+    blocks = np.frombuffer(data, np.uint8).reshape(-1, 16)
+    rgba = uastc.decode_rgba(blocks).reshape(nby, nbx, 16, 4)
+    level2 = ~np.isin(uastc.modes(blocks), LEVEL1_MODES)
+    return (rgba if alpha else rgba[..., :3]), 100.0 * float(level2.mean())
 
 
 def judge(texture: np.ndarray, basis: bytes, ktx2: bytes, codec: str,
@@ -105,13 +114,22 @@ def judge(texture: np.ndarray, basis: bytes, ktx2: bytes, codec: str,
     """One texture's verdict: `valid` (False with `problem` where a rule is
     broken), and `sq_error`, `ref_sq_error` and their `ratio` where the
     file decodes, and `worse_pct`, the share of blocks whose decoded error
-    exceeds the yardstick block's, in %. texture: (H, W, 3 | 4) uint8 with
-    sides that are multiples of 4; codec: the configuration's
-    ("etc1s" or "uastc"); quality_level: ETC1S's, for its codebook sizes."""
+    exceeds the yardstick block's, in %; for UASTC `level2_modes_pct`, the
+    share of blocks in modes a level 0 or 1 search never picks, in %; for
+    ETC1S `codebooks`, the endpoint and selector counts, and
+    `selector_shortfall_pct`, how far the selector codebook falls short of
+    the quality level's size, in % (the selectors' fills to within a few
+    tenths of a percent on the cells' textures; the endpoints' comes out a
+    quarter or more short, so it is held only to its upper size).
+    texture: (H, W, 3 | 4) uint8 with sides that are multiples of 4;
+    codec: the configuration's ("etc1s" or "uastc"); quality_level:
+    ETC1S's, for its codebook sizes."""
     h, w, c = texture.shape
     alpha = c == 4 and bool((texture[..., 3] != 255).any())
     out = {"valid": True, "problem": None, "sq_error": None,
-           "ref_sq_error": None, "ratio": None, "worse_pct": None}
+           "ref_sq_error": None, "ratio": None, "worse_pct": None,
+           "level2_modes_pct": None, "codebooks": None,
+           "selector_shortfall_pct": None}
     prog = None
     try:
         b = container.Basis(basis)
@@ -135,10 +153,11 @@ def judge(texture: np.ndarray, basis: bytes, ktx2: bytes, codec: str,
                   k.face_count, k.vk_format) == (w, h, 1, 0, 1, 0),
                  "KTX2 header")
         if fmt == container.FORMAT_ETC1S:
-            dec = _decode_etc1s(b, k, alpha, quality_level
-                                if codec == "etc1s" else None)
+            out["codebooks"] = (hd["total_endpoints"], hd["total_selectors"])
+            dec, out["selector_shortfall_pct"] = _decode_etc1s(
+                b, k, alpha, quality_level if codec == "etc1s" else None)
         else:
-            dec = _decode_uastc(b, k, alpha)
+            dec, out["level2_modes_pct"] = _decode_uastc(b, k, alpha)
         src = texture if alpha else texture[..., :3]
         by, bx = dec.shape[:2]
         src_blocks = src.reshape(by, 4, bx, 4, -1).transpose(

@@ -12,14 +12,20 @@ from benchmark import check, harness, manifest
 from benchmark.reference import verify
 
 SEED = 2 ** 31 + 99
-TINY = dict(width=64, height=64, alpha_share=0.0, textures_per_call=4,
-            pool=8, check_textures=4)
+TINY = dict(width=64, height=64, textures_per_call=4, pool=8,
+            check_textures=4)
 CELLS = ["etc1s_q128.build_kodak", "uastc_l2.build_kodak_rgba"]
+REAL_TRAFFIC = manifest.traffic
+
+
+def tiny(**kw):
+    """Each cell's own mix (its alpha share) at a size the CPU runs."""
+    return lambda name: {**REAL_TRAFFIC(name), **TINY, **kw}
 
 
 @pytest.fixture(autouse=True)
 def tiny_traffic(monkeypatch):
-    monkeypatch.setattr(manifest, "traffic", lambda name: dict(TINY))
+    monkeypatch.setattr(manifest, "traffic", tiny())
 
 
 def run(cell, encode=None, seconds=0.0):
@@ -47,11 +53,21 @@ def test_a_sound_run_is_correct(cell):
     assert {"encode_mpix_s", "setup_s"} <= set(line["metrics"])
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_the_control_is_not_correct(cell):
-    cfg = manifest.config(manifest.workload(cell)["config"])
+def controls(cell):
+    """The configuration's control (its first entry) and the faults planted
+    by a module of controls/; the other lowered parameters are read on the
+    card at the cell's size (readings.py), where the sizes they change
+    differ (quality 127's selector codebook is quality 128's at 64x64)."""
+    entries = manifest.config(manifest.workload(cell)["config"])["controls"]
+    return entries[:1] + [c for c in entries[1:] if "module" in c]
+
+
+@pytest.mark.parametrize("cell, entry", [
+    (cell, c) for cell in CELLS for c in controls(cell)],
+    ids=lambda x: x if isinstance(x, str) else x["name"])
+def test_the_control_is_not_correct(cell, entry):
     params, _ = program(cell)
-    line, values = run(cell, manifest.control(cfg["control"]).encoder(params))
+    line, values = run(cell, manifest.control_encoder(entry, params))
     assert not line["correct"], line["checks"]
 
 
@@ -99,8 +115,7 @@ def answers_swapped(encode):
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_fault_underneath_is_not_correct(cell, fault, monkeypatch):
     # every texture of the window judged, so the fault cannot miss the sample
-    monkeypatch.setattr(manifest, "traffic",
-                        lambda name: dict(TINY, check_textures=64))
+    monkeypatch.setattr(manifest, "traffic", tiny(check_textures=64))
     _, encode = program(cell)
     line, values = run(cell, fault(encode), seconds=0.5)
     assert not line["correct"], (fault.__name__, line["checks"])

@@ -93,7 +93,11 @@ def test_every_named_file_is_found(bench):
         cfg = manifest.config(c["name"])
         assert cfg["source"] == c["source"]
         assert cfg["reduced"] == c["reduced"] and len(c["reduced"]) <= 16
-        assert callable(manifest.control(cfg["control"]).encoder)
+        assert cfg["controls"]
+        for entry in cfg["controls"]:
+            assert ("params" in entry) != ("module" in entry)
+            if "module" in entry:
+                assert callable(manifest.control(entry["module"]).encoder)
     for w in bench["workloads"]:
         assert w["chips"] in (1, 4)
         assert w["name"] == f"{w['config']}.{w['traffic']}"

@@ -32,6 +32,7 @@ def test_alpha_texture_and_its_share():
     assert sum(kinds) == 32 and kinds[:8] == [False] * 3 + [True] \
         + [False] * 3 + [True]
     assert not any(texgen.has_alpha(i, 0.0) for i in range(64))
+    assert all(texgen.has_alpha(i, 1.0) for i in range(64))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2 ** 33 + 5, -3])

@@ -24,6 +24,23 @@ def test_busy_time_is_the_union_inside_the_window():
     assert len(t.kernels) == 3 and len(t.ops) == 4
 
 
+@pytest.mark.parametrize("lost", [None, 0, 1])
+def test_marker_offset_survives_one_lost_marker(lost):
+    """Host marks at 10 s and 55 s, the device clock 3 s ahead, activity
+    between them; either marker alone gives the same offset."""
+    marks = [10.0, 55.0]
+    found = [int((t + 3.0) * 1e9) for t in marks]
+    starts = [int(13.5e9), int(50e9)]
+    if lost is not None:
+        del found[lost]
+    assert trace.marker_offset(found, marks, starts) == pytest.approx(3.0)
+
+
+def test_marker_offset_needs_a_marker():
+    with pytest.raises(RuntimeError, match="0 of 2 markers"):
+        trace.marker_offset([], [10.0, 55.0], [1])
+
+
 def test_idle_gaps_credit_the_main_thread_first():
     spans = [trace.Span("frontend", 10.0, 10.5, True),
              trace.Span("assembly", 10.3, 11.0, False),
@@ -75,6 +92,7 @@ def test_end_to_end_readers():
                                 basis_bytes=1_250_000)
     run = harness.Run(win, 12.5)
     assert manifest.reader("encode_mpix_s").read(run) == 2.5
+    assert manifest.reader("window_mpix_s").read(run) == 2.5
     assert manifest.reader("bits_per_texel").read(run) == 1.0
     assert manifest.reader("setup_s").read(run) == 12.5
 

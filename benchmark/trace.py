@@ -16,6 +16,7 @@ the window puts the device clock beside the host's.
 import dataclasses
 import importlib
 import re
+import sys
 import threading
 import time
 from typing import Dict, List, Optional
@@ -77,6 +78,10 @@ class DeviceOp:
 
 
 MARKER = "spin_kernel"
+# host seconds between the profiler's start and the first marker, and
+# between the last marker and its stop, so that neither marker lies at the
+# edge of the traced span
+GUARD_S = 0.05
 
 
 def _kind(name: str) -> str:
@@ -125,26 +130,43 @@ class DeviceTrace:
 
     def __enter__(self):
         self.prof.__enter__()
+        time.sleep(GUARD_S)
         self._mark()
         return self
 
     def __exit__(self, *exc):
         self._mark()
+        time.sleep(GUARD_S)
         self.prof.__exit__(*exc)
 
     def ops(self) -> List[DeviceOp]:
-        """Device activity on the host clock, markers left out; raises
-        where the trace holds no marker (the card was not traced)."""
+        """Device activity on the host clock, markers left out."""
         raw = _kineto_ops(self.prof)
-        marks = sorted(s for n, s, _ in raw if MARKER in n)
-        if len(marks) != len(self.marks):
-            raise RuntimeError(f"device trace: {len(marks)} of "
-                               f"{len(self.marks)} markers found; is CUPTI "
-                               "tracing the card?")
-        offset = float(np.mean([m * 1e-9 - t for m, t in
-                                zip(marks, self.marks)]))
+        found = sorted(s for n, s, _ in raw if MARKER in n)
+        starts = [s for n, s, _ in raw if MARKER not in n]
+        offset = marker_offset(found, self.marks, starts)
+        if len(found) != len(self.marks):
+            print(f"device trace: {len(found)} of {len(self.marks)} markers "
+                  "found; the clocks aligned by it alone", file=sys.stderr)
         return [DeviceOp(n, s * 1e-9 - offset, d * 1e-9, _kind(n))
                 for n, s, d in raw if MARKER not in n]
+
+
+def marker_offset(found, marks, starts) -> float:
+    """Seconds from the host's clock to the device trace's: found, the
+    device ns of the markers in the trace; marks, the host seconds of the
+    start and end markers; starts, the ns of the other activity.
+    Where the trace lost one marker, the other sets the offset alone: the
+    start marker precedes all other activity, the end marker follows it.
+    Raises where none is found (the card was not traced)."""
+    if len(found) == len(marks):
+        return float(np.mean([m * 1e-9 - t for m, t in zip(found, marks)]))
+    if len(found) == 1 and len(marks) == 2:
+        first = min(starts, default=found[0])
+        return found[0] * 1e-9 - marks[0 if found[0] <= first else 1]
+    raise RuntimeError(f"device trace: {len(found)} of {len(marks)} markers "
+                       f"found among {len(starts)} records; is CUPTI "
+                       "tracing the card?")
 
 
 def short_name(name: str) -> str:
