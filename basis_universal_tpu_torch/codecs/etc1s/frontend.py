@@ -12,12 +12,14 @@ reference's (that module imports jax at the top).
 """
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ...ops import etc1s_encode as ops
 from ...ops.etc1 import ETC1_INTEN_TABLES
+from ...utils import telemetry
 
 
 @dataclasses.dataclass
@@ -186,19 +188,30 @@ def _knobs_and_neighbors(pixels_shape_b: int, params: FrontendParams,
     return knobs, np.asarray(left), np.asarray(up)
 
 
+def upload(array: np.ndarray, dev) -> torch.Tensor:
+    """A host array on dev, counted in the `upload_bytes` counter."""
+    telemetry.count("upload_bytes", array.nbytes)
+    return torch.as_tensor(array).to(dev)
+
+
 def _run_one(pixels, params: FrontendParams, knobs, left, up, seed: int,
-             dev) -> FrontendOutput:
-    px = torch.as_tensor(np.ascontiguousarray(pixels)).to(dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
-    with ops.exact_matmuls():
-        outs = _frontend_impl(
-            px, gen, torch.as_tensor(left).to(dev),
-            torch.as_tensor(up).to(dev), float(params.endpoint_rdo_thresh),
-            float(params.selector_rdo_thresh), **knobs)
-    assign, color5, inten, patterns, sel = (t.cpu().numpy() for t in outs)
-    return _host_finalize(assign, color5, inten, patterns, sel,
-                          knobs["num_e"], knobs["num_s"])
+             dev, texture: Optional[int] = None) -> FrontendOutput:
+    """One image's frontend: uploads and launches, the wait for its five
+    results, then the host's finalize, each a span of `texture`."""
+    with telemetry.span("etc1s.frontend.dispatch", texture=texture):
+        px = upload(np.ascontiguousarray(pixels), dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        with ops.exact_matmuls():
+            outs = _frontend_impl(
+                px, gen, upload(left, dev), upload(up, dev),
+                float(params.endpoint_rdo_thresh),
+                float(params.selector_rdo_thresh), **knobs)
+    with telemetry.span("etc1s.frontend.wait", texture=texture):
+        assign, color5, inten, patterns, sel = (t.cpu().numpy() for t in outs)
+    with telemetry.span("etc1s.frontend.finalize", texture=texture):
+        return _host_finalize(assign, color5, inten, patterns, sel,
+                              knobs["num_e"], knobs["num_s"])
 
 
 def compress(pixels: np.ndarray, params: FrontendParams, seed: int = 0,
@@ -229,7 +242,7 @@ def compress_batch_iter(pixels, params: FrontendParams, seed: int = 0,
         left, up = (np.asarray(neighbors[i][0]), np.asarray(neighbors[i][1])) \
             if neighbors else (left0, up0)
         yield _run_one(np.asarray(pixels[i]), params, knobs, left, up,
-                       seed + i, dev)
+                       seed + i, dev, texture=i)
 
 
 def _assign_global(px, cb_color5, cb_inten, patterns, topk: int, num_s: int,

@@ -46,6 +46,7 @@ Equivalences with the reference kept on purpose:
 """
 
 import functools
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,7 +55,8 @@ from ...ops import etc1s_encode as etc1s_ops
 from ...ops import xla_order
 from ...ops.cuda_etc1s import LAUNCHES, THIRD, _raise_on
 from ...ops.xla_order import _dot, _fma, _sqrt, _sum
-from ..etc1s.frontend import resolve_device
+from ...utils import telemetry
+from ..etc1s.frontend import resolve_device, upload
 from . import pack
 from . import tables as T
 
@@ -809,14 +811,19 @@ def _search(px, modes, ls_iters, extra, topk) -> np.ndarray:
     return _search_device(px, modes, ls_iters, extra, topk).cpu().numpy()
 
 
-def _search_and_pack(px, modes, ls_iters, extra, topk) -> np.ndarray:
+def _search_and_pack(px, modes, ls_iters, extra, topk,
+                     texture: Optional[int] = None) -> np.ndarray:
     """Search and pack the (B, 16, 4) pixels px on their device; fetch the
     (B, 16) blocks. The solid colour's alpha is pixel 0's, truncated to an
-    integer, as `pack._pack_from_compact` reads it."""
-    compact = _search_device(px, modes, ls_iters, extra, topk)
-    alpha0 = px[:, 0, 3].to(torch.int32)
-    tables = pack.pack_tables(modes, extra, px.device)
-    return pack.uastc_pack(compact, alpha0, tables).cpu().numpy()
+    integer, as `pack._pack_from_compact` reads it. The launches and the
+    fetch are spans of `texture`."""
+    with telemetry.span("uastc.search.dispatch", texture=texture):
+        compact = _search_device(px, modes, ls_iters, extra, topk)
+        alpha0 = px[:, 0, 3].to(torch.int32)
+        tables = pack.pack_tables(modes, extra, px.device)
+        blocks = pack.uastc_pack(compact, alpha0, tables)
+    with telemetry.span("uastc.search.wait", texture=texture):
+        return blocks.cpu().numpy()
 
 
 def encode_blocks(px_rgba: np.ndarray, effort: int = 2,
@@ -830,13 +837,17 @@ def encode_blocks(px_rgba: np.ndarray, effort: int = 2,
 
 
 def encode_blocks_batch(px_list, effort: int = 2, has_alpha: bool = True,
-                        device="cuda"):
+                        device="cuda", textures: Optional[Sequence] = None):
     """Encode N same-shaped (B,16,4) images; yields (B,16) uint8 per image.
 
     One image at a time runs on the device (uploaded as uint8, cast there):
-    the search, then the packing, then one fetch of its blocks."""
+    the search, then the packing, then one fetch of its blocks. textures:
+    each image's texture index in the caller's call, for the spans."""
     modes, ls_iters, extra, topk = pack._effort_mode_set(effort, has_alpha)
     dev = resolve_device(device)
-    for px in px_list:
-        up = torch.as_tensor(np.ascontiguousarray(px).astype(np.uint8))
-        yield _search_and_pack(up.to(dev), modes, ls_iters, extra, topk)
+    for i, px in enumerate(px_list):
+        texture = textures[i] if textures is not None else i
+        with telemetry.span("uastc.upload", texture=texture):
+            up = upload(np.ascontiguousarray(px).astype(np.uint8), dev)
+        yield _search_and_pack(up, modes, ls_iters, extra, topk,
+                               texture=texture)

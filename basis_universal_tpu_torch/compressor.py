@@ -32,6 +32,7 @@ from .formats.constants import (
     SliceDescFlags,
 )
 from .ops.etc1 import image_to_blocks, pack_etc1_blocks
+from .utils import telemetry
 from .utils.crc import crc16
 
 MAX_ENDPOINT_CLUSTERS = 16128
@@ -293,30 +294,49 @@ def compress_batch(images, params: CompressorParams = CompressorParams()):
     with seed + i; the host assembly of image i overlaps the device work of
     the images after it. Mixed sizes fall back to per-image `compress`.
     UASTC groups same-shaped slices across images instead. ETC1S and
-    UASTC LDR 4x4 only, as in the reference."""
-    if params.tex_format == BasisTexFormat.UASTC_LDR_4x4:
-        return _compress_uastc_batch(images, params)
-    if params.tex_format != BasisTexFormat.ETC1S:
-        raise ValueError("compress_batch encodes ETC1S and UASTC LDR 4x4; "
-                         f"use compress for {params.tex_format!r}")
-    per_image = [_prepare_slices([img], params) for img in images]
-    shapes = {tuple((s["num_blocks_x"] * s["num_blocks_y"], s["alpha"])
-                    for s in sl) for sl in per_image}
+    UASTC LDR 4x4 only, as in the reference. Each call is a span of the
+    recorder (`utils/telemetry.py`), and so is each stage of it."""
+    with telemetry.span("compress_batch", new_call=True):
+        if params.tex_format == BasisTexFormat.UASTC_LDR_4x4:
+            return _compress_uastc_batch(images, params)
+        if params.tex_format != BasisTexFormat.ETC1S:
+            raise ValueError("compress_batch encodes ETC1S and UASTC LDR "
+                             f"4x4; use compress for {params.tex_format!r}")
+        return _compress_etc1s_batch(images, params)
+
+
+def _compress_etc1s_batch(images, params: CompressorParams):
+    with telemetry.span("etc1s.prep"):
+        per_image = [_prepare_slices([img], params) for img in images]
+        shapes = {tuple((s["num_blocks_x"] * s["num_blocks_y"], s["alpha"])
+                        for s in sl) for sl in per_image}
+        if len(shapes) == 1:
+            total_blocks = sum(s["blocks"].shape[0] for s in per_image[0])
+            fp = _frontend_params(params, total_blocks)
+            batch = [np.concatenate([s["blocks"] for s in sl], axis=0)
+                     for sl in per_image]
+            nbrs = [_slice_neighbors(sl) for sl in per_image]
     if len(shapes) != 1:
         return [compress(img, params) for img in images]
-    total_blocks = sum(s["blocks"].shape[0] for s in per_image[0])
-    fp = _frontend_params(params, total_blocks)
-    batch = [np.concatenate([s["blocks"] for s in sl], axis=0)
-             for sl in per_image]
-    nbrs = [_slice_neighbors(sl) for sl in per_image]
-    with cf.ThreadPoolExecutor(8) as ex:
-        futs = [
-            ex.submit(_assemble, sl, fe, params)
-            for sl, fe in zip(per_image,
-                              etc1s_frontend.compress_batch_iter(
-                                  batch, fp, seed=params.seed,
-                                  neighbors=nbrs))]
-        return [f.result() for f in futs]
+    ex = cf.ThreadPoolExecutor(8)
+    try:
+        # each job's parent: the span that produced its frontend output
+        futs = [ex.submit(_assemble_job, sl, fe, params, telemetry.last())
+                for sl, fe in zip(per_image,
+                                  etc1s_frontend.compress_batch_iter(
+                                      batch, fp, seed=params.seed,
+                                      neighbors=nbrs))]
+    finally:
+        with telemetry.span("etc1s.drain"):
+            ex.shutdown()
+    return [f.result() for f in futs]
+
+
+def _assemble_job(slices, fe, params: CompressorParams, parent):
+    """One texture's `_assemble` on the pool, a span whose parent is the
+    frontend span (on the main thread) that produced fe."""
+    with telemetry.span("etc1s.assembly", parent=parent):
+        return _assemble(slices, fe, params)
 
 
 def _prep_uastc_slices(images, params: CompressorParams):
@@ -365,7 +385,8 @@ def _encode_uastc_slices(slice_groups, params: CompressorParams):
         px_list = [s["px"] for s in members]
         for s, ub in zip(members, uastc_encode.encode_blocks_batch(
                 px_list, effort=params.effort, has_alpha=alpha,
-                device=params.device)):
+                device=params.device,
+                textures=[s.get("texture") for s in members])):
             if params.rdo_uastc_quality > 0.0:
                 ub = uastc_pack.rdo_selector_match(
                     ub, s["px"], params.rdo_uastc_quality,
@@ -384,9 +405,17 @@ def _compress_uastc(images, params: CompressorParams) -> CompressorOutput:
 
 def _compress_uastc_batch(images, params: CompressorParams):
     """N UASTC textures, one CompressorOutput per input image."""
-    preps = [_prep_uastc_slices([img], params) for img in images]
+    with telemetry.span("uastc.prep"):
+        preps = [_prep_uastc_slices([img], params) for img in images]
+    for i, (sl, _) in enumerate(preps):
+        for s in sl:
+            s["texture"] = i
     _encode_uastc_slices([s for sl, _ in preps for s in sl], params)
-    return [_assemble_uastc(sl, a, params) for sl, a in preps]
+    out = []
+    for i, (sl, a) in enumerate(preps):
+        with telemetry.span("uastc.container", texture=i):
+            out.append(_assemble_uastc(sl, a, params))
+    return out
 
 
 def _assemble_uastc(slices, any_alpha: bool,
@@ -863,8 +892,9 @@ def _assemble(slices, fe, params: CompressorParams,
                and native_mod.available())
 
     if use_rdo:
-        tables, slice_streams, e_color5, e_inten, sel_cb, e_grids, s_grids = \
-            etc1s_backend.encode_slices_rdo(
+        with telemetry.span("etc1s.assembly.rdo"):
+            (tables, slice_streams, e_color5, e_inten, sel_cb, e_grids,
+             s_grids) = etc1s_backend.encode_slices_rdo(
                 [s["blocks"] for s in slices],
                 [fe.block_endpoints[_ofs(slices, i)].reshape(
                     slices[i]["num_blocks_y"], slices[i]["num_blocks_x"])
@@ -896,8 +926,10 @@ def _assemble(slices, fe, params: CompressorParams,
             s_grids.append(block_s[ofs:ofs + n].reshape(shape))
             ofs += n
 
-    endpoint_palette = etc1s_backend.encode_endpoint_palette(e_color5, e_inten)
-    selector_palette = etc1s_backend.encode_selector_palette(sel_cb)
+    with telemetry.span("etc1s.assembly.palettes"):
+        endpoint_palette = etc1s_backend.encode_endpoint_palette(e_color5,
+                                                                 e_inten)
+        selector_palette = etc1s_backend.encode_selector_palette(sel_cb)
 
     # video frames: P-frames use conditional replenishment vs the previous
     # frame's slice of the same (level, alpha) kind
@@ -915,69 +947,74 @@ def _assemble(slices, fe, params: CompressorParams,
             e_grids, s_grids, e_color5.shape[0], sel_cb.shape[0],
             video_prev=video_prev)
 
-    descs = []
-    any_alpha = False
-    for i, (s, e_grid, s_grid) in enumerate(zip(slices, e_grids, s_grids)):
-        physical = pack_etc1_blocks(e_grid, s_grid, e_color5, e_inten, sel_cb)
-        sflags = 0
-        if s["alpha"]:
-            sflags |= SliceDescFlags.HAS_ALPHA
-            any_alpha = True
-        if is_video and (video_prev[i] is None):
-            sflags |= SliceDescFlags.FRAME_IS_IFRAME
-        descs.append(basis_file.SliceDesc(
-            image_index=s["image_index"],
-            level_index=s["level_index"],
-            flags=int(sflags),
-            orig_width=s["orig_width"],
-            orig_height=s["orig_height"],
-            num_blocks_x=s["num_blocks_x"],
-            num_blocks_y=s["num_blocks_y"],
-            slice_data_crc16=crc16(physical.tobytes()),
-        ))
+    with telemetry.span("etc1s.assembly.pack"):
+        descs = []
+        any_alpha = False
+        for i, (s, e_grid, s_grid) in enumerate(
+                zip(slices, e_grids, s_grids)):
+            physical = pack_etc1_blocks(e_grid, s_grid, e_color5, e_inten,
+                                        sel_cb)
+            sflags = 0
+            if s["alpha"]:
+                sflags |= SliceDescFlags.HAS_ALPHA
+                any_alpha = True
+            if is_video and (video_prev[i] is None):
+                sflags |= SliceDescFlags.FRAME_IS_IFRAME
+            descs.append(basis_file.SliceDesc(
+                image_index=s["image_index"],
+                level_index=s["level_index"],
+                flags=int(sflags),
+                orig_width=s["orig_width"],
+                orig_height=s["orig_height"],
+                num_blocks_x=s["num_blocks_x"],
+                num_blocks_y=s["num_blocks_y"],
+                slice_data_crc16=crc16(physical.tobytes()),
+            ))
 
-    flags = HeaderFlags.ETC1S
-    if params.perceptual:
-        flags |= HeaderFlags.SRGB
-    if any_alpha:
-        flags |= HeaderFlags.HAS_ALPHA_SLICES
-    if use_global:
-        flags |= HeaderFlags.USES_GLOBAL_CODEBOOK
+    with telemetry.span("etc1s.assembly.write"):
+        flags = HeaderFlags.ETC1S
+        if params.perceptual:
+            flags |= HeaderFlags.SRGB
+        if any_alpha:
+            flags |= HeaderFlags.HAS_ALPHA_SLICES
+        if use_global:
+            flags |= HeaderFlags.USES_GLOBAL_CODEBOOK
 
-    data = basis_file.write_basis_file(
-        BasisTexFormat.ETC1S, descs, slice_streams,
-        endpoint_palette=b"" if use_global else endpoint_palette,
-        selector_palette=b"" if use_global else selector_palette,
-        tables=tables,
-        num_endpoints=e_color5.shape[0],
-        num_selectors=sel_cb.shape[0],
-        tex_type=params.tex_type,
-        flags=int(flags),
-        us_per_frame=params.us_per_frame if is_video else 0,
-        userdata0=params.userdata0,
-        userdata1=params.userdata1,
-    )
+        data = basis_file.write_basis_file(
+            BasisTexFormat.ETC1S, descs, slice_streams,
+            endpoint_palette=b"" if use_global else endpoint_palette,
+            selector_palette=b"" if use_global else selector_palette,
+            tables=tables,
+            num_endpoints=e_color5.shape[0],
+            num_selectors=sel_cb.shape[0],
+            tex_type=params.tex_type,
+            flags=int(flags),
+            us_per_frame=params.us_per_frame if is_video else 0,
+            userdata0=params.userdata0,
+            userdata1=params.userdata1,
+        )
 
-    base = slices[0]
-    level_count, layer_count, face_count, info = _ktx2_layout(params, slices)
-    for i, s in enumerate(slices):
-        info[i]["alpha"] = s["alpha"]
-        info[i]["iframe"] = (not is_video) or video_prev[i] is None
-    ktx2_data = ktx2.write_ktx2_etc1s(
-        base_width=base["orig_width"], base_height=base["orig_height"],
-        level_count=level_count, layer_count=layer_count,
-        face_count=face_count,
-        slice_streams=slice_streams,
-        slice_info=info,
-        is_video=is_video,
-        endpoint_palette=endpoint_palette,
-        selector_palette=selector_palette,
-        tables=tables,
-        num_endpoints=e_color5.shape[0],
-        num_selectors=sel_cb.shape[0],
-        srgb=params.perceptual,
-        has_alpha=any_alpha,
-    )
+        base = slices[0]
+        level_count, layer_count, face_count, info = _ktx2_layout(params,
+                                                                  slices)
+        for i, s in enumerate(slices):
+            info[i]["alpha"] = s["alpha"]
+            info[i]["iframe"] = (not is_video) or video_prev[i] is None
+        ktx2_data = ktx2.write_ktx2_etc1s(
+            base_width=base["orig_width"], base_height=base["orig_height"],
+            level_count=level_count, layer_count=layer_count,
+            face_count=face_count,
+            slice_streams=slice_streams,
+            slice_info=info,
+            is_video=is_video,
+            endpoint_palette=endpoint_palette,
+            selector_palette=selector_palette,
+            tables=tables,
+            num_endpoints=e_color5.shape[0],
+            num_selectors=sel_cb.shape[0],
+            srgb=params.perceptual,
+            has_alpha=any_alpha,
+        )
     return CompressorOutput(
         basis_data=data,
         ktx2_data=ktx2_data,

@@ -115,7 +115,7 @@ def compress_batch_sharded(images, params, devices):
         return [(i, F._run_one(
                     np.concatenate([s["blocks"] for s in per_image[i]]), fp,
                     knobs, np.asarray(nbrs[i][0]), np.asarray(nbrs[i][1]),
-                    params.seed + i, devs[j]))
+                    params.seed + i, devs[j], texture=i))
                 for i in range(j, len(images), len(devs))]
 
     fes = [None] * len(images)

@@ -1387,3 +1387,83 @@ def test_perceptual_compress_on_card_gives_the_cpus_bytes(cuda, size,
     cpu = compressor.compress(img, compressor.CompressorParams(
         device="cpu", **kw))
     assert card.basis_data == cpu.basis_data
+
+
+def _htod_copies(trace_json):
+    """[(bytes, innermost frame of the port that made it)] of every
+    host-to-device copy in a Chrome trace recorded with_stack."""
+    import json
+
+    events = json.loads(trace_json.read_text())["traceEvents"]
+    runtime = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") == "cuda_runtime" and "correlation"
+               in e.get("args", {})}
+    frames = [e for e in events if e.get("cat") == "python_function"
+              and "basis_universal_tpu_torch/" in e.get("name", "")]
+    out = []
+    for e in events:
+        if e.get("cat") != "gpu_memcpy" or "HtoD" not in e.get("name", ""):
+            continue
+        call = runtime.get(e["args"].get("correlation"))
+        site = [f for f in frames if call is not None
+                and f["ts"] <= call["ts"] <= f["ts"] + f.get("dur", 0)]
+        name = max(site, key=lambda f: f["ts"])["name"] if site else "?"
+        out.append((int(e["args"]["bytes"]), name.split(
+            "basis_universal_tpu_torch/")[-1]))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["ETC1S", "UASTC_LDR_4x4"])
+def test_upload_counter_is_the_htod_copies_on_card(cuda, codec, tmp_path):
+    """One 768x512 texture through compress_batch under the profiler (CPU and
+    CUDA, with Python stacks), the recorder on: every upload the
+    `upload_bytes` counter counts is one `Memcpy HtoD` of its bytes; the
+    copies it leaves out are small, and printed with the frame that made
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.formats.constants import BasisTexFormat
+    from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+    from basis_universal_tpu_torch.utils import telemetry
+
+    img = synthetic_texture(512, 768, seed=3)[0]
+    blocks = 512 * 768 // 16
+    params = compressor.CompressorParams(
+        tex_format=BasisTexFormat[codec], effort=2 if codec != "ETC1S" else 1,
+        device="cuda")
+    compressor.compress_batch([img], params)        # builds and caches
+    torch.cuda.synchronize()
+    telemetry.drain()
+    telemetry.record(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     with_stack=True) as prof:
+            compressor.compress_batch([img], params)
+            torch.cuda.synchronize()
+    finally:
+        telemetry.record(False)
+    _, counters = telemetry.drain()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    copies = _htod_copies(tmp_path / "trace.json")
+    counted = ([48 * blocks, 4 * blocks, 4 * blocks] if codec == "ETC1S"
+               else [64 * blocks])
+    assert counters["upload_bytes"] == (len(counted), sum(counted))
+    left = list(copies)
+    for n in counted:
+        match = [c for c in left if c[0] == n]
+        assert match, (n, copies)
+        left.remove(match[0])
+    by_site = {}
+    for n, site in left:
+        entry = by_site.setdefault(site, [0, 0])
+        entry[0] += 1
+        entry[1] += n
+    print(f"\n{codec}: {len(copies)} HtoD copies, {sum(c[0] for c in copies)}"
+          f" B; counted {len(counted)}, {sum(counted)} B; left out "
+          f"{len(left)}, {sum(n for n, _ in left)} B:")
+    for site, (k, n) in sorted(by_site.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {k} x, {n} B: {site}")
+    assert sum(n for n, _ in left) < 0.05 * sum(counted)
