@@ -11,14 +11,17 @@ clusters, deduplicates entries and remaps block indices.
 reference's (that module imports jax at the top).
 """
 
+import collections
+import contextlib
 import dataclasses
+import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ...ops import threefry
 from ...ops import etc1s_encode as ops
-from ...ops.etc1 import ETC1_INTEN_TABLES
 from ...utils import telemetry
 
 
@@ -69,8 +72,7 @@ def _effort_knobs(effort: int):
 
 def _palette(color5, inten):
     base8 = ops.expand5(color5).float()
-    tabs = torch.as_tensor(ETC1_INTEN_TABLES, dtype=torch.float32,
-                           device=color5.device)
+    tabs = ops.constant("inten", color5.device)
     return torch.clamp(base8[:, None, :] + tabs[inten.long()][:, :, None],
                        0.0, 255.0)
 
@@ -103,12 +105,19 @@ def _init_selector_patterns(opt_sel, num_s: int):
     return ((keys[:, None] >> shifts[None, :]) & 3).to(torch.int32)
 
 
-def _frontend_impl(px, generator, left_idx, up_idx, e_thresh, s_thresh, *,
+def _frontend_impl(px, fill_idx, left_idx, up_idx, e_thresh, s_thresh, *,
                    num_e: int, num_s: int, radius: int, kmeans_iters: int,
                    refine_iters: int, sel_iters: int, topk: int, rdo: bool,
-                   perceptual: bool = False):
-    """The per-image device pipeline. px: (B, 16, 3) on the target device.
-    Returns (assign, color5, inten, patterns, sel_assign) tensors on it."""
+                   perceptual: bool = False, generator=None):
+    """The per-image device pipeline. px: (B, 16, 3) on the target device;
+    fill_idx (num_e,) int64 on it, the blocks whose vectors fill empty
+    k-means seeds (`fill_indices`), or None to draw them from `generator`'s
+    seed inside (`ops.bisecting_init`). Returns (assign, color5, inten,
+    patterns, sel_assign) tensors on the device.
+
+    It reads nothing back from the card and copies nothing from the host
+    (the constant tables come from `ops.constant`), so on a CUDA device it
+    can be captured as one graph (`_Graph`)."""
     px = px.float()
     nblocks = px.shape[0]
     dev = px.device
@@ -121,7 +130,9 @@ def _frontend_impl(px, generator, left_idx, up_idx, e_thresh, s_thresh, *,
     # the 6D clustering vectors stay RGB, as in the reference
     vec6 = torch.cat([init["low"], init["high"]], -1) * (1.0 / 255.0)
     weights = torch.ones(nblocks, dtype=torch.float32, device=dev)
-    seeds = ops.bisecting_init(vec6, weights, num_e, generator=generator)
+    fill = None if fill_idx is None else vec6[fill_idx]
+    seeds = ops.bisecting_init(vec6, weights, num_e, generator=generator,
+                               fill=fill)
     _, assign = ops.kmeans(vec6, weights, seeds, num_e, iters=kmeans_iters)
 
     color5 = torch.zeros((num_e, 3), dtype=torch.int32, device=dev)
@@ -194,21 +205,155 @@ def upload(array: np.ndarray, dev) -> torch.Tensor:
     return torch.as_tensor(array).to(dev)
 
 
-def _run_one(pixels, params: FrontendParams, knobs, left, up, seed: int,
-             dev, texture: Optional[int] = None) -> FrontendOutput:
-    """One image's frontend: uploads and launches, the wait for its five
-    results, then the host's finalize, each a span of `texture`."""
-    with telemetry.span("etc1s.frontend.dispatch", texture=texture):
-        px = upload(np.ascontiguousarray(pixels), dev)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-        with ops.exact_matmuls():
-            outs = _frontend_impl(
-                px, gen, upload(left, dev), upload(up, dev),
-                float(params.endpoint_rdo_thresh),
-                float(params.selector_rdo_thresh), **knobs)
-    with telemetry.span("etc1s.frontend.wait", texture=texture):
-        assign, color5, inten, patterns, sel = (t.cpu().numpy() for t in outs)
+def fill_indices(seeds, num_blocks: int, num_e: int) -> np.ndarray:
+    """(len(seeds), num_e) int64: for each seed, the blocks whose vectors
+    fill empty k-means seeds, drawn on the host in one pass over all the
+    seeds: the reference's `jax.random.choice(PRNGKey(seed), ...)`, which
+    `ops.bisecting_init` draws from a generator seeded with seed
+    (`threefry.choice_indices`)."""
+    return threefry.choice_indices_many(seeds, num_blocks, num_e)
+
+
+# --- one CUDA graph per key ---------------------------------------------------
+#
+# On a CUDA device `_frontend_impl` is ~340 launches a Kodak-sized texture,
+# each issued through Python. From the second texture of a key (device,
+# input shapes and dtypes, thresholds, knobs) in a batch, the call is
+# captured once as a CUDA graph and replayed for each texture of that key
+# after: the same launches with the same arguments in the same order, so
+# the same bits. The first texture of the batch runs eagerly on a side
+# stream, the warm-up a capture wants. A lone `compress` replays a key that
+# is cached and otherwise runs eagerly. The cache keeps the `_MAX_GRAPHS`
+# keys used last.
+
+_MAX_GRAPHS = 4
+_GRAPHS = collections.OrderedDict()     # key -> _Graph, least recent first
+_GRAPHS_LOCK = threading.Lock()         # the cache, and each capture
+
+
+def _capturable(dev) -> bool:
+    return dev.type == "cuda"
+
+
+def _graph_key(dev, inputs, thresholds, knobs):
+    index = dev.index
+    if dev.type == "cuda" and index is None:
+        index = torch.cuda.current_device()
+    return ((dev.type, index), tuple((a.dtype.str, a.shape) for a in inputs),
+            thresholds, tuple(sorted(knobs.items())))
+
+
+class _Graph:
+    """`_frontend_impl` captured once on a CUDA device: static device
+    inputs (pixels, fill indices, left, up), filled for each texture from
+    pinned staging, and the five static outputs, valid until the next
+    replay. Its kernels' launches are in no wrapper's count
+    (`cuda_etc1s.LAUNCHES`), only in a device trace. Use it under `lock`;
+    `released` is set once the cache has dropped it."""
+
+    def __init__(self, dev, inputs, thresholds, knobs):
+        self.dev = dev
+        self.lock = threading.Lock()
+        self.released = False
+        self.stage = [torch.from_numpy(a).pin_memory() for a in inputs]
+        self.static = [torch.zeros(t.shape, dtype=t.dtype, device=dev)
+                       for t in self.stage]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), ops.exact_matmuls(), torch.cuda.graph(
+                self.graph, stream=torch.cuda.Stream(dev),
+                capture_error_mode="thread_local"):
+            self.outs = _frontend_impl(*self.static, *thresholds, **knobs)
+
+    def run(self, inputs):
+        """This texture's inputs copied in (counted in `upload_bytes`), then
+        one replay on the device's current stream; returns the outputs."""
+        with torch.cuda.device(self.dev):
+            for stage, static, a in zip(self.stage, self.static, inputs):
+                telemetry.count("upload_bytes", a.nbytes)
+                stage.numpy()[...] = a
+                static.copy_(stage, non_blocking=True)
+            self.graph.replay()
+        return self.outs
+
+    def release(self):
+        """The graph, its memory pool and its buffers freed."""
+        with self.lock:
+            self.released = True
+            self.graph.reset()
+            self.graph = self.outs = self.static = self.stage = None
+
+
+def _graph(dev, inputs, thresholds, knobs, capture: bool):
+    """The graph this texture replays, or None to run it eagerly: the
+    cached graph of its key, else, where `capture`, one captured now; never
+    on the CPU. Beyond `_MAX_GRAPHS` keys the least recently used is
+    dropped, with its graph and memory pool."""
+    if not _capturable(dev):
+        return None
+    key = _graph_key(dev, inputs, thresholds, knobs)
+    with _GRAPHS_LOCK:
+        graph = _GRAPHS.get(key)
+        if graph is not None:
+            _GRAPHS.move_to_end(key)
+        elif capture:
+            graph = _GRAPHS[key] = _Graph(dev, inputs, thresholds, knobs)
+            telemetry.count("etc1s.frontend.graph_captures", 1)
+            while len(_GRAPHS) > _MAX_GRAPHS:
+                _GRAPHS.popitem(last=False)[1].release()
+        return graph
+
+
+def drop_graphs():
+    """Free every captured graph and its memory pool: the frontend runs
+    eagerly again until a batch captures anew."""
+    with _GRAPHS_LOCK:
+        while _GRAPHS:
+            _GRAPHS.popitem(last=False)[1].release()
+
+
+@contextlib.contextmanager
+def _side_stream(dev):
+    """The work inside on a side stream of dev, after the device's work
+    before it and before its work after."""
+    main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        yield
+    main.wait_stream(side)
+
+
+def _run_one(pixels, params: FrontendParams, knobs, left, up, fill, dev,
+             texture: Optional[int] = None, capture: bool = False,
+             warm_up: bool = False) -> FrontendOutput:
+    """One image's frontend: its uploads and launches, or one replay of its
+    key's graph (`_graph`), then the wait for its five results and the
+    host's finalize, each a span of `texture`. fill: its seed's row of
+    `fill_indices`. capture: the texture repeats its key in a batch, so a
+    key not cached is captured now; warm_up: it is the first of a batch,
+    whose eager run is a capture's warm-up."""
+    thresholds = (float(params.endpoint_rdo_thresh),
+                  float(params.selector_rdo_thresh))
+    with contextlib.ExitStack() as held:
+        with telemetry.span("etc1s.frontend.dispatch", texture=texture):
+            inputs = (np.ascontiguousarray(pixels), fill,
+                      np.ascontiguousarray(left), np.ascontiguousarray(up))
+            graph = _graph(dev, inputs, thresholds, knobs, capture)
+            if graph is not None:
+                held.enter_context(graph.lock)
+                if graph.released:              # dropped by another thread
+                    graph = None
+            if graph is not None:
+                outs = graph.run(inputs)
+                telemetry.count("etc1s.frontend.graph_replays", 1)
+            else:
+                if warm_up and _capturable(dev):
+                    held.enter_context(_side_stream(dev))
+                with ops.exact_matmuls():
+                    outs = _frontend_impl(*(upload(a, dev) for a in inputs),
+                                          *thresholds, **knobs)
+        with telemetry.span("etc1s.frontend.wait", texture=texture):
+            assign, color5, inten, patterns, sel = (t.cpu().numpy()
+                                                    for t in outs)
     with telemetry.span("etc1s.frontend.finalize", texture=texture):
         return _host_finalize(assign, color5, inten, patterns, sel,
                               knobs["num_e"], knobs["num_s"])
@@ -223,26 +368,33 @@ def compress(pixels: np.ndarray, params: FrontendParams, seed: int = 0,
         raise ValueError(f"pixels must be (B, 16, 3), got {pixels.shape}")
     dev = resolve_device(params.device)
     knobs, left, up = _knobs_and_neighbors(pixels.shape[0], params, neighbors)
-    return _run_one(pixels, params, knobs, left, up, seed, dev)
+    (fill,) = fill_indices([seed], pixels.shape[0], knobs["num_e"])
+    return _run_one(pixels, params, knobs, left, up, fill, dev)
 
 
 def compress_batch_iter(pixels, params: FrontendParams, seed: int = 0,
                         neighbors=None):
     """Generator over N same-shaped block arrays (N, B, 16, 3), one image at
     a time; image i uses seed + i. neighbors: optional list of per-image
-    (left_idx, up_idx) pairs, or one shared pair."""
+    (left_idx, up_idx) pairs, or one shared pair. From the second image on
+    a CUDA device replays one captured graph (`_graph`)."""
     dev = resolve_device(params.device)
     n = len(pixels)
     if neighbors is not None and isinstance(neighbors, tuple):
         neighbors = [neighbors] * n
+    num_blocks = np.asarray(pixels[0]).shape[0]
     knobs, left0, up0 = _knobs_and_neighbors(
-        np.asarray(pixels[0]).shape[0], params,
-        neighbors[0] if neighbors else None)
+        num_blocks, params, neighbors[0] if neighbors else None)
+    # every image's fill in one draw: a draw a texture would hand the
+    # interpreter lock to the assembly threads hundreds of times
+    fills = fill_indices([seed + i for i in range(n)], num_blocks,
+                         knobs["num_e"])
     for i in range(n):
         left, up = (np.asarray(neighbors[i][0]), np.asarray(neighbors[i][1])) \
             if neighbors else (left0, up0)
         yield _run_one(np.asarray(pixels[i]), params, knobs, left, up,
-                       seed + i, dev, texture=i)
+                       fills[i], dev, texture=i, capture=i > 0,
+                       warm_up=i == 0 and n > 1)
 
 
 def _assign_global(px, cb_color5, cb_inten, patterns, topk: int, num_s: int,

@@ -53,7 +53,7 @@ import torch
 
 from ...ops import etc1s_encode as etc1s_ops
 from ...ops import xla_order
-from ...ops.cuda_etc1s import LAUNCHES, THIRD, _raise_on
+from ...ops.cuda_etc1s import THIRD, _launched, _raise_on
 from ...ops.xla_order import _dot, _fma, _sqrt, _sum
 from ...utils import telemetry
 from ..etc1s.frontend import resolve_device, upload
@@ -96,7 +96,7 @@ def line_fit(v, label, n_sub: int, levels, ls_iters: int):
         None if label is None else label.data_ptr(), n_sub,
         levels.data_ptr(), levels.numel(), ls_iters, lo.data_ptr(),
         hi.data_ptr(), b_n, n_ch)
-    LAUNCHES["uastc_line_fit"] += 1
+    _launched("uastc_line_fit")
     _raise_on(status, "uastc_line_fit")
     return lo, hi
 
@@ -272,7 +272,7 @@ def _mode_trial(px, wb: int, ep_range: int, comps: int, ls_iters: int):
         inv.data_ptr(), unq.data_ptr(), unq.numel(), wlev.data_ptr(),
         wlev.numel(), comps, ls_iters, err.data_ptr(), ep.data_ptr(),
         w.data_ptr(), b_n)
-    LAUNCHES["uastc_mode_trial"] += 1
+    _launched("uastc_mode_trial")
     _raise_on(status, "uastc_mode_trial")
     return err, ep, w
 
@@ -425,7 +425,7 @@ def subset_trial(px, wb: int, ep_range: int, comps: int, ls_iters: int,
         unq.numel(), wlev.data_ptr(), wlev.numel(), comps, n_sub, ls_iters,
         topk, err.data_ptr(), ep.data_ptr(), w.data_ptr(), pat.data_ptr(),
         b_n)
-    LAUNCHES["uastc_subset_trial"] += 1
+    _launched("uastc_subset_trial")
     _raise_on(status, "uastc_subset_trial")
     return err, ep, w, pat
 
@@ -674,7 +674,7 @@ def dualplane_trial(px, wb: int, ep_range: int, ls_iters: int, n_ch: int):
         inv.data_ptr(), unq.data_ptr(), unq.numel(), wlev.data_ptr(),
         wlev.numel(), n_ch, ls_iters, err.data_ptr(), ep.data_ptr(),
         w.data_ptr(), ccs.data_ptr(), b_n)
-    LAUNCHES["uastc_dualplane_trial"] += 1
+    _launched("uastc_dualplane_trial")
     _raise_on(status, "uastc_dualplane_trial")
     return (err, ep, w) if n_ch == 2 else (err, ep, w, ccs)
 

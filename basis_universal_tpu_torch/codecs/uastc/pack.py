@@ -20,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from ...ops.cuda_etc1s import LAUNCHES, _check, _raise_on, _same_device, \
+from ...ops.cuda_etc1s import _check, _launched, _raise_on, _same_device, \
     _stream
 from ...ops.etc1 import ETC1_INTEN_TABLES
 from . import tables as T
@@ -737,7 +737,7 @@ def uastc_pack(compact, alpha0, tables):
         status = get_lib("uastc_pack_kernels").uastc_pack(
             compact.data_ptr(), alpha0.data_ptr(), tables.data_ptr(),
             tables.numel(), out.data_ptr(), b_n, _stream(dev))
-    LAUNCHES["uastc_pack"] += 1
+    _launched("uastc_pack")
     _raise_on(status, "uastc_pack")
     return out
 

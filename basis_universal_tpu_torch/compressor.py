@@ -295,7 +295,13 @@ def compress_batch(images, params: CompressorParams = CompressorParams()):
     the images after it. Mixed sizes fall back to per-image `compress`.
     UASTC groups same-shaped slices across images instead. ETC1S and
     UASTC LDR 4x4 only, as in the reference. Each call is a span of the
-    recorder (`utils/telemetry.py`), and so is each stage of it."""
+    recorder (`utils/telemetry.py`), and so is each stage of it.
+
+    On a CUDA device the ETC1S frontend of the second same-shaped image on
+    replays one captured CUDA graph. The graph and its private memory pool
+    (some 2.75 GB at 2K) stay reserved after the call, up to four of them
+    (the least recently used dropped), so that a later call of that shape
+    replays at once; `codecs.etc1s.frontend.drop_graphs()` frees them."""
     with telemetry.span("compress_batch", new_call=True):
         if params.tex_format == BasisTexFormat.UASTC_LDR_4x4:
             return _compress_uastc_batch(images, params)

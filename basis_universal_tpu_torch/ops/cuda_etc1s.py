@@ -25,8 +25,11 @@ device of the tensors it was given:
 
 The plain version never runs for a CUDA tensor. `LAUNCHES` counts the kernel
 launches of each wrapper (here, in `ops/xla_order.py`, in
-`codecs/uastc/encode.py` and in `codecs/uastc/pack.py`);
-`reset_launch_counts()` zeroes it.
+`codecs/uastc/encode.py` and in `codecs/uastc/pack.py`) that run when the
+wrapper is called; `reset_launch_counts()` zeroes it. A launch recorded into a
+CUDA graph under capture is not counted, and a replay of the graph launches
+its kernels without a wrapper call: only the device trace sees those
+(`testing/launches.py`).
 """
 
 import numpy as np
@@ -71,6 +74,16 @@ _INTEN_MID = (ETC1_INTEN_TABLES[:, :-1] + ETC1_INTEN_TABLES[:, 1:]) / 2.0
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _launched(name: str):
+    """One launch of wrapper `name`'s kernel counted, unless this thread's
+    stream is capturing a CUDA graph (the launch then runs only in the
+    graph's replays). No stream captures before CUDA is initialised (the
+    host builds of the kernels launch without it)."""
+    if not (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing()):
+        LAUNCHES[name] += 1
 
 
 def _check(t, name, dtype, shape):
@@ -172,7 +185,7 @@ def factorized_scan(pixels, base5=None, radius: int = 1,
             pixels.data_ptr(), None if base5 is None else base5.data_ptr(),
             None if lb is None else lb.data_ptr(), out.data_ptr(), b_n,
             radius, int(bool(perceptual)), _stream(dev))
-    LAUNCHES["factorized_scan"] += 1
+    _launched("factorized_scan")
     _raise_on(status, "factorized_scan")
     return out
 
@@ -208,7 +221,7 @@ def factorized_scan_shortlist(pixels, base5=None, radius: int = 1,
             pixels.data_ptr(), None if base5 is None else base5.data_ptr(),
             out.data_ptr(), b_n, radius, int(bool(perceptual)), k,
             _stream(dev))
-    LAUNCHES["factorized_scan_shortlist"] += 1
+    _launched("factorized_scan_shortlist")
     _raise_on(status, "factorized_scan_shortlist")
     return out
 
@@ -261,13 +274,13 @@ def _scan_terms(pixels, base5, radius: int, perceptual: bool, lb=None):
     `xla_order._dot`), and lb (B, D), where given, replaces the gray-axis
     levels of the bases in the gray-axis sums (a cluster's, in the cluster
     scan)."""
-    from .etc1s_encode import (GVEC, _block_moments, _candidate_deltas,
-                               _gray_axis_minterm, perceptual_transform)
+    from .etc1s_encode import (_block_moments, _gray_axis_minterm, constant,
+                               perceptual_transform)
     from .xla_order import _dot, _fma
 
     dev = pixels.device
     px = pixels.float()
-    deltas = torch.as_tensor(_candidate_deltas(radius), device=dev)
+    deltas = constant(f"deltas{radius}", dev)
     if base5 is None:
         b5 = torch.clamp(torch.round(px.sum(1) / 16.0 * C31_255), 0.0, 31.0)
     else:
@@ -275,7 +288,7 @@ def _scan_terms(pixels, base5, radius: int, perceptual: bool, lb=None):
     c5 = torch.clamp(b5[None] + deltas[:, None, :].float(), 0.0, 31.0)
     base8 = c5 * 8.0 + torch.floor(c5 * 0.25)                    # (D,B,3)
     if perceptual:
-        gvec = torch.as_tensor(GVEC, device=dev)
+        gvec = constant("gvec", dev)
         px = perceptual_transform(px)
         base8 = perceptual_transform(base8)
         lb_base = _dot(base8, gvec)                              # (D,B)
@@ -332,7 +345,7 @@ def palette_errs_packed(pixels, packed, perceptual: bool = False):
         status = get_lib().etc1s_palette_errs_packed(
             pixels.data_ptr(), packed.data_ptr(), out.data_ptr(), b_n, k_n,
             int(bool(perceptual)), _stream(dev))
-    LAUNCHES["palette_errs_packed"] += 1
+    _launched("palette_errs_packed")
     _raise_on(status, "palette_errs_packed")
     return out
 
@@ -345,13 +358,14 @@ def palette_errs_packed_reference(pixels, packed, perceptual: bool = False):
     `PERC_TAIL_BIT` as the reference's last rows), the squared distances
     fused multiply-add chains over the channels, the 16 minima added in
     pixel order."""
-    from .etc1s_encode import PERC_TAIL_BIT, _perc_rows, perceptual_transform
+    from .etc1s_encode import (PERC_TAIL_BIT, _perc_rows, constant,
+                               perceptual_transform)
     from .xla_order import _dot, _sum
 
     dev = pixels.device
     v = packed.to(torch.int32)
     c5 = torch.stack([v & 31, (v >> 5) & 31, (v >> 10) & 31], -1).float()
-    tabs = torch.as_tensor(ETC1_INTEN_TABLES, dtype=torch.float32, device=dev)
+    tabs = constant("inten", dev)
     tsel = tabs[((v >> 15) & 7).long()]                          # (B,K,4)
     b8 = c5 * 8.0 + torch.floor(c5 * 0.25)                       # (B,K,3)
     pal = torch.clamp(b8[:, :, None, :] + tsel[..., None], 0.0, 255.0)
@@ -399,7 +413,7 @@ def palette_errs(pixels, palettes):
         status = get_lib().etc1s_palette_errs(
             pixels.data_ptr(), palettes.data_ptr(), out.data_ptr(), b_n, k_n,
             _stream(dev))
-    LAUNCHES["palette_errs"] += 1
+    _launched("palette_errs")
     _raise_on(status, "palette_errs")
     return out
 
@@ -453,7 +467,7 @@ def cross6_argmin(a, c):
         status = get_lib().etc1s_cross6_argmin(
             a.data_ptr(), c.data_ptr(), out.data_ptr(), a.shape[0],
             c.shape[0], _stream(dev))
-    LAUNCHES["cross6_argmin"] += 1
+    _launched("cross6_argmin")
     _raise_on(status, "cross6_argmin")
     return out
 
@@ -493,7 +507,7 @@ def cross6_distances(a, c):
         status = get_lib().etc1s_cross6_distances(
             a.data_ptr(), c.data_ptr(), out.data_ptr(), a.shape[0],
             c.shape[0], _stream(dev))
-    LAUNCHES["cross6_distances"] += 1
+    _launched("cross6_distances")
     _raise_on(status, "cross6_distances")
     return out
 
@@ -585,7 +599,7 @@ def cluster_scan_assemble(mt, order, offsets, base8, lb=None, *, pixels=None,
             mt.data_ptr(), order.data_ptr(), offsets.data_ptr(), ptr(pixels),
             *(ptr(m) for m in moments), base8.data_ptr(), ptr(lb),
             out.data_ptr(), c_n, d_n, _stream(dev))
-    LAUNCHES["cluster_scan_assemble"] += 1
+    _launched("cluster_scan_assemble")
     _raise_on(status, "cluster_scan_assemble")
     return out
 
@@ -658,7 +672,7 @@ def bisect_rows(vecs, weights):
         status = get_lib().etc1s_bisect_rows(
             vecs.data_ptr(), weights.data_ptr(), members.data_ptr(),
             starts.data_ptr(), n, _stream(dev))
-    LAUNCHES["bisect_rows"] += 1
+    _launched("bisect_rows")
     _raise_on(status, "bisect_rows")
     return members, starts
 
@@ -715,7 +729,7 @@ def bisect_round(members, starts, last: bool = False):
             members.data_ptr(), out.data_ptr(), starts.data_ptr(),
             starts_out.data_ptr(),
             None if leaves is None else leaves.data_ptr(), n_c, _stream(dev))
-    LAUNCHES["bisect_round"] += 1
+    _launched("bisect_round")
     _raise_on(status, "bisect_round")
     return out, starts_out, leaves
 
@@ -837,7 +851,7 @@ def xla_cpu_min_k(d, k: int, depth_cap: int = -1, *, stage: int = 2):
         status = lib.etc1s_xla_cpu_min_k(
             d.data_ptr(), None if scratch is None else scratch.data_ptr(),
             out.data_ptr(), d.shape[0], n, k, depth_cap, stage, _stream(dev))
-    LAUNCHES["xla_cpu_min_k"] += 1
+    _launched("xla_cpu_min_k")
     _raise_on(status, "xla_cpu_min_k")
     return out
 
@@ -934,7 +948,7 @@ def find_best_selector_patterns(dists, patterns, num_patterns: int):
         status = get_lib().etc1s_find_best_selector_patterns(
             dists.data_ptr(), patterns.data_ptr(), best.data_ptr(),
             val.data_ptr(), b_n, num_patterns, _stream(dev))
-    LAUNCHES["find_best_selector_patterns"] += 1
+    _launched("find_best_selector_patterns")
     _raise_on(status, "find_best_selector_patterns")
     return best, val
 

@@ -106,13 +106,34 @@ def segment_sum(data, segment_ids, num_segments: int, order=None):
                                 unsafe=True)
 
 
-def _inten(device):
-    return torch.as_tensor(ETC1_INTEN_TABLES, dtype=torch.float32,
-                           device=device)
-
-
 GVEC = (PERC_P @ np.ones(3, np.float32)).astype(np.float32)  # P (1,1,1)
 PERC_TAIL_BIT = 1 << 18          # in a packed candidate: see `_perc_rows`
+
+# The small constant tables of the ETC1S ops, by name: made on a device once
+# and kept (`constant`), so that no call copies them from the host again and
+# a frontend call can be captured in a CUDA graph (`frontend._Graph`).
+_TABLES = {
+    "inten": lambda: ETC1_INTEN_TABLES.astype(np.float32),      # (8, 4)
+    "inten_mid": lambda: _INTEN_MID.astype(np.float32),         # (8, 3)
+    "perc_p": lambda: PERC_P,                                   # (3, 3)
+    "gvec": lambda: GVEC,                                       # (3,)
+    "perc_lanes": lambda: np.array([True, True, False]),        # `_perc_rows`
+    **{f"deltas{r}": (lambda r=r: _candidate_deltas(r)) for r in (0, 1, 2)},
+}
+_CONSTANTS = {}
+
+
+def constant(name: str, device) -> torch.Tensor:
+    """The constant table `name` of `_TABLES` on device: one tensor per
+    (table, device), made at its first use. Callers do not write to it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    t = _CONSTANTS.get((name, dev))
+    if t is None:
+        t = _CONSTANTS[(name, dev)] = torch.as_tensor(_TABLES[name](),
+                                                      device=dev)
+    return t
 
 
 def perceptual_transform(x):
@@ -146,12 +167,12 @@ def _perc_rows(flat, vector):
     packed candidate whose palette the reference transforms among those
     other rows (the refine's codebook of an odd size) carries
     `PERC_TAIL_BIT`."""
-    pm = torch.as_tensor(PERC_P, device=flat.device)           # (3,3) P[j,k]
+    pm = constant("perc_p", flat.device)                        # (3,3) P[j,k]
     prod = [flat[:, k, None] * pm[:, k] for k in range(3)]      # (M,3) each
     chain = _fma(flat[:, 2, None], pm[:, 2],
                  _fma(flat[:, 1, None], pm[:, 1], prod[0]))
     summed = (prod[0] + prod[1]) + prod[2]
-    lanes = torch.tensor([True, True, False], device=flat.device)
+    lanes = constant("perc_lanes", flat.device)
     return torch.where(vector[:, None] & lanes, summed, chain)
 
 
@@ -172,8 +193,8 @@ def _gray_axis_minterm(u):
     """sum_i min_k (t_k - u_i)^2 per intensity table, for u (..., 16)
     gray-axis offsets. Returns (..., 8), summed in the order of the
     reference's compiled scan (`xla_order._sum_sq_tree16`)."""
-    mids = torch.as_tensor(_INTEN_MID, dtype=torch.float32, device=u.device)
-    tabs = _inten(u.device)
+    mids = constant("inten_mid", u.device)
+    tabs = constant("inten", u.device)
     uu = u[..., None, :]                                      # (...,1,16)
     k = ((uu > mids[:, 0, None]).to(torch.int32)
          + (uu > mids[:, 1, None]) + (uu > mids[:, 2, None]))  # (...,8,16)
@@ -251,7 +272,7 @@ def encode_blocks(pixels, radius: int = 1, perceptual: bool = False):
     low/high (B,3) f32 (the palette's ends, RGB).
     """
     dev = pixels.device
-    deltas = torch.as_tensor(_candidate_deltas(radius), device=dev)
+    deltas = constant(f"deltas{radius}", dev)
     base5 = torch.clamp(torch.round(pixels.mean(1) * C31_255).to(torch.int32),
                         0, 31)
     # the unclipped scores shortlist; the exact clipped rescore picks
@@ -267,7 +288,8 @@ def encode_blocks(pixels, radius: int = 1, perceptual: bool = False):
     color5, inten = _unpack(packed[b, kbest])
 
     base8 = expand5(color5).float()
-    pal = torch.clamp(base8[:, None, :] + _inten(dev)[inten.long()][:, :, None],
+    pal = torch.clamp(base8[:, None, :]
+                      + constant("inten", dev)[inten.long()][:, :, None],
                       0.0, 255.0)                               # (B,4,3)
     pal_m = perceptual_transform(pal) if perceptual else pal
     px_m = perceptual_transform(pixels) if perceptual else pixels
@@ -301,7 +323,7 @@ def optimize_cluster_endpoints(pixels, cluster_ids, cluster_means,
     ids = cluster_ids.long()
     if order is None:
         order = segment_order(ids, num_clusters)
-    deltas = torch.as_tensor(_candidate_deltas(radius), device=dev)
+    deltas = constant(f"deltas{radius}", dev)
     base5 = torch.clamp(
         torch.round(cluster_means * C31_255).to(torch.int32), 0, 31)  # (C,3)
     base8 = expand5(torch.clamp(base5[None] + deltas[:, None, :], 0,
@@ -312,7 +334,7 @@ def optimize_cluster_endpoints(pixels, cluster_ids, cluster_means,
         # each block's taken by its cluster's (row d * C + c of the
         # transform, not one of the block's own)
         base8 = perceptual_transform(base8)
-        lb = _dot(base8, torch.as_tensor(GVEC, device=dev))
+        lb = _dot(base8, constant("gvec", dev))
     mt = cuda_etc1s.factorized_scan(
         pixels, base5=base5[ids].float().contiguous(), radius=radius,
         perceptual=perceptual,
@@ -346,7 +368,7 @@ def _cluster_scan(pixels, ids, base8, lb, mt, perceptual: bool, order=None):
         return cuda_etc1s.cluster_scan_assemble(mt, *order, base8,
                                                 pixels=pixels)
     mom = _block_moments(perceptual_transform(pixels),
-                         torch.as_tensor(GVEC, device=pixels.device))
+                         constant("gvec", pixels.device))
     return cuda_etc1s.cluster_scan_assemble(
         mt, *order, base8, lb,
         moments=(mom["sum_x"], mom["sum_x2"], mom["sum_l"], mom["sum_l2"]))

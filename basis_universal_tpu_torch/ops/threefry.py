@@ -19,8 +19,8 @@ def _rotl(x, r: int):
 
 def threefry2x32(k1, k2, x1, x2):
     """Threefry-2x32 of the counter words (x1, x2) under the key (k1, k2);
-    uint32 arrays in, uint32 arrays out."""
-    k1, k2 = np.uint32(k1), np.uint32(k2)
+    uint32 arrays in (keys and counters broadcast), uint32 arrays out."""
+    k1, k2 = np.asarray(k1, np.uint32), np.asarray(k2, np.uint32)
     ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
     x = [np.asarray(x1, np.uint32) + ks[0], np.asarray(x2, np.uint32) + ks[1]]
     for i in range(5):
@@ -33,14 +33,16 @@ def threefry2x32(k1, k2, x1, x2):
 
 
 def _split(key):
-    """The two subkeys of jax.random.split(key) (fold-like split)."""
+    """The two subkeys of jax.random.split(key) (fold-like split); keys of
+    shape (S, 1) give subkeys of shape (S, 1)."""
     b1, b2 = threefry2x32(key[0], key[1], np.zeros(2, np.uint32),
                           np.arange(2, dtype=np.uint32))
-    return (b1[0], b2[0]), (b1[1], b2[1])
+    return (b1[..., :1], b2[..., :1]), (b1[..., 1:], b2[..., 1:])
 
 
 def _bits32(key, n: int):
-    """n random uint32 words, as jax.random.bits(key, (n,)) gives them."""
+    """n random uint32 words, as jax.random.bits(key, (n,)) gives them,
+    (S, n) for keys of shape (S, 1)."""
     b1, b2 = threefry2x32(key[0], key[1], np.zeros(n, np.uint32),
                           np.arange(n, dtype=np.uint32))
     return b1 ^ b2
@@ -49,10 +51,17 @@ def _bits32(key, n: int):
 def choice_indices(seed: int, n: int, k: int) -> np.ndarray:
     """The k indices into n items that jax.random.choice(PRNGKey(seed),
     n items, (k,)) picks (with replacement), as int64."""
+    return choice_indices_many([seed], n, k)[0]
+
+
+def choice_indices_many(seeds, n: int, k: int) -> np.ndarray:
+    """`choice_indices` of each seed, (len(seeds), k) int64, drawn in one
+    pass over all the seeds' counters."""
     with np.errstate(over="ignore"):
         # PRNGKey of a 32-bit seed: (0, seed)
-        key = (np.uint32(0), np.uint32(int(seed) & 0xFFFFFFFF))
-        k1, k2 = _split(key)
+        lows = np.array([int(s) & 0xFFFFFFFF for s in seeds],
+                        dtype=np.uint32)[:, None]
+        k1, k2 = _split((np.zeros_like(lows), lows))
         hi, lo = _bits32(k1, k), _bits32(k2, k)
         span = np.uint32(max(n, 1))
         mult = np.uint32((1 << 16) % int(span))

@@ -31,7 +31,7 @@ import array
 import numpy as np
 import torch
 
-from .cuda_etc1s import LAUNCHES, _raise_on
+from .cuda_etc1s import _launched, _raise_on
 
 _MAX_DIMS = 8
 _ORDERS = {"sum": 0, "dot": 1, "dot_mm": 2, "dot_vec16": 3}
@@ -214,7 +214,7 @@ def _fma_card(a, b, c):
                     c.data_ptr() if tc else None, 0.0 if ta else a,
                     0.0 if tb else b, 0.0 if tc else c, out.data_ptr(), n,
                     nd, meta_ptr)
-    LAUNCHES["xla_fma"] += 1
+    _launched("xla_fma")
     if status:
         _raise_on(status, "xla_fma")
     return out
@@ -245,7 +245,7 @@ def _reduce_card(a, b, dim: int, order: str):
     status = launch("reduce", idx, a.data_ptr(),
                     None if b is None else b.data_ptr(), out.data_ptr(), n,
                     k_len, ka, kb, _ORDERS[order], nd, meta_ptr)
-    LAUNCHES["xla_reduce"] += 1
+    _launched("xla_reduce")
     if status:
         _raise_on(status, "xla_reduce")
     return out

@@ -111,12 +111,17 @@ def compress_batch_sharded(images, params, devices):
     knobs, _, _ = F._knobs_and_neighbors(total_blocks, fp, nbrs[0])
 
     def run_device(j):
-        """The textures of device j, one after another."""
+        """The textures of device j, one after another (from the second on,
+        replays of one captured graph on a card, as in `compress_batch`)."""
+        mine = range(j, len(images), len(devs))
+        fills = F.fill_indices([params.seed + i for i in mine], total_blocks,
+                               knobs["num_e"])
         return [(i, F._run_one(
                     np.concatenate([s["blocks"] for s in per_image[i]]), fp,
                     knobs, np.asarray(nbrs[i][0]), np.asarray(nbrs[i][1]),
-                    params.seed + i, devs[j], texture=i))
-                for i in range(j, len(images), len(devs))]
+                    fill, devs[j], texture=i, capture=k > 0,
+                    warm_up=k == 0 and len(mine) > 1))
+                for k, (i, fill) in enumerate(zip(mine, fills))]
 
     fes = [None] * len(images)
     # TF32 stays off across every worker: each frontend's exact_matmuls()

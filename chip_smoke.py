@@ -68,7 +68,8 @@ Phases (any failure raises, so the process exits nonzero with no final line):
    output and from a transposed one;
 4. ETC1S: encode four synthetic 768x512 textures with
    `compressor.compress_batch` at quality 128, effort 1 on the card: check
-   that each kernel was launched the expected number of times, decode every
+   that each kernel ran the expected number of times (counted in the device
+   trace, which sees the frontend graph's replays), decode every
    .basis with the port's host decoder (slice CRCs, PSNR), and hold
    image 0 to the JAX-CPU reference's recorded bytes (sha256);
 5. UASTC LDR 4x4: the same four textures through `compress_batch` at
@@ -1901,9 +1902,13 @@ def uastc_line_fits(torch, px, rng, measure, split=True):
 
 
 def phase_main_path(torch, images):
+    """ETC1S `compress_batch` of the images, timed after a warm-up run (which
+    captures the frontend's graph), then again under the profiler: each
+    kernel's launches counted in the device trace (the replays launch
+    theirs with no wrapper call) and every file checked."""
     from basis_universal_tpu_torch import compressor
-    from basis_universal_tpu_torch.ops import cuda_etc1s as ck
     from basis_universal_tpu_torch.testing.checks import etc1s_psnr
+    from basis_universal_tpu_torch.testing.launches import traced_launches
 
     params = compressor.CompressorParams(quality_level=QUALITY, effort=EFFORT,
                                          device="cuda")
@@ -1913,12 +1918,12 @@ def phase_main_path(torch, images):
     torch.cuda.synchronize()
     t_first = time.time() - t0
 
-    ck.reset_launch_counts()
     t0 = time.time()
-    outs = compressor.compress_batch(images, params)
+    compressor.compress_batch(images, params)
     torch.cuda.synchronize()
     dt = time.time() - t0
-    launches = dict(ck.LAUNCHES)
+    outs, launches = traced_launches(
+        lambda: compressor.compress_batch(images, params))
     print(f"main path: {len(images)} x {WIDTH}x{HEIGHT} q{QUALITY} e{EFFORT}: "
           f"{dt:.3f} s = {mpix / dt:.3f} Mpix/s (first run {t_first:.3f} s)")
     _expect(launches, EXPECTED_PER_IMAGE, len(images), "ETC1S compress_batch")
@@ -2518,9 +2523,9 @@ SORT_SITES = (("ops.etc1s_encode", "segment_sum"),
 
 
 def segment_split(torch, pkg, images):
-    """ETC1S `compress_batch` of images through the port package `pkg`
-    (this tree's, or `_other_port`) under torch.profiler, after a warm-up
-    run, with the functions of `SORT_SITES` each in a profiler range named
+    """ETC1S `compress_batch` of each image through the port package `pkg`
+    (this tree's, or `_other_port`) under torch.profiler, eagerly (no
+    captured frontend graph kept), after a warm-up run, with the functions of `SORT_SITES` each in a profiler range named
     `name@caller` (`segment_order` only where a sum does not call it): the
     device ms per image of `segment_reduce` by the caller of `segment_sum`
     (`SEGMENT_SITES`), the sorts per image (`aten::sort` calls, each counted
@@ -2547,6 +2552,11 @@ def segment_split(torch, pkg, images):
 
     compressor.compress_batch(images, params)
     torch.cuda.synchronize()
+    # the profiled call runs the frontend eagerly, not as a graph's replay
+    # (whose launches no Python call site encloses)
+    frontend = importlib.import_module(f"{pkg}.codecs.etc1s.frontend")
+    if hasattr(frontend, "drop_graphs"):
+        frontend.drop_graphs()
     patched = []
     for mod_name, name in SORT_SITES:
         mod = importlib.import_module(f"{pkg}.{mod_name}")
@@ -2556,7 +2566,9 @@ def segment_split(torch, pkg, images):
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            compressor.compress_batch(images, params)
+            # one image a call: no call captures a graph
+            for img in images:
+                compressor.compress_batch([img], params)
             torch.cuda.synchronize()
     finally:
         for mod, name, fn in patched:
@@ -3266,7 +3278,8 @@ def _sha(data):
 
 def _launches_of(torch, ck, run):
     """run() with the launch counts read from 0 around it: (result,
-    launches)."""
+    launches). Eager launches only: a captured graph's replays are in the
+    device trace alone (`phase_main_path`)."""
     ck.reset_launch_counts()
     out = run()
     torch.cuda.synchronize()
@@ -3279,15 +3292,19 @@ def _add(total, launches):
 
 
 def phase_front_doors(torch, img0, work_dir):
-    """The API and the CLI on the card at 768x512. Returns (the API path's
-    launches, the CLI path's, the API's ETC1S .basis bytes)."""
+    """The API and the CLI on the card at 768x512, as a new process meets
+    them: no frontend graph cached, so each lone ETC1S encode runs eagerly
+    and the wrappers count its launches. Returns (the API path's launches,
+    the CLI path's, the API's ETC1S .basis bytes)."""
     from basis_universal_tpu_torch import api, cli, compressor
+    from basis_universal_tpu_torch.codecs.etc1s import frontend
     from basis_universal_tpu_torch.formats.constants import BasisTexFormat as F
     from basis_universal_tpu_torch.formats.constants import \
         TranscoderTextureFormat as TF
     from basis_universal_tpu_torch.ops import cuda_etc1s as ck
     from basis_universal_tpu_torch.utils import image_io
 
+    frontend.drop_graphs()
     enc = api.Encoder(device="cuda")
     api_total, cli_total = {}, {}
     # -- ETC1S: quality 50 is native 128; the bytes of compress() itself

@@ -1448,8 +1448,15 @@ def test_upload_counter_is_the_htod_copies_on_card(cuda, codec, tmp_path):
     _, counters = telemetry.drain()
     prof.export_chrome_trace(str(tmp_path / "trace.json"))
     copies = _htod_copies(tmp_path / "trace.json")
-    counted = ([48 * blocks, 4 * blocks, 4 * blocks] if codec == "ETC1S"
-               else [64 * blocks])
+    if codec == "ETC1S":
+        from basis_universal_tpu_torch.codecs.etc1s import frontend
+
+        # the pixels, the fill indices of empty k-means seeds, the neighbours
+        knobs, _, _ = frontend._knobs_and_neighbors(
+            blocks, compressor._frontend_params(params, blocks), None)
+        counted = [48 * blocks, 8 * knobs["num_e"], 4 * blocks, 4 * blocks]
+    else:
+        counted = [64 * blocks]
     assert counters["upload_bytes"] == (len(counted), sum(counted))
     left = list(copies)
     for n in counted:
@@ -1467,3 +1474,179 @@ def test_upload_counter_is_the_htod_copies_on_card(cuda, codec, tmp_path):
     for site, (k, n) in sorted(by_site.items(), key=lambda kv: -kv[1][0]):
         print(f"  {k} x, {n} B: {site}")
     assert sum(n for n, _ in left) < 0.05 * sum(counted)
+
+
+def _etc1s_batch(size, seeds, **kw):
+    """(blocks, frontend params, neighbours) of synthetic ETC1S textures
+    of one size, as `compressor.compress_batch` makes them."""
+    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+
+    params = compressor.CompressorParams(device="cuda", **kw)
+    per = [compressor._prepare_slices([synthetic_texture(*size, seed=s)[0]],
+                                      params) for s in seeds]
+    blocks = [np.concatenate([s["blocks"] for s in sl]) for sl in per]
+    fp = compressor._frontend_params(params, len(blocks[0]))
+    return blocks, fp, [compressor._slice_neighbors(sl) for sl in per]
+
+
+def _same_frontend_outputs(got, want):
+    import dataclasses
+
+    from basis_universal_tpu_torch.codecs.etc1s import frontend
+
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for f in dataclasses.fields(frontend.FrontendOutput):
+            np.testing.assert_array_equal(getattr(g, f.name),
+                                          getattr(w, f.name), f.name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("perceptual", [False, True])
+def test_frontend_impl_never_syncs_on_card(cuda, perceptual):
+    """`_frontend_impl` at Kodak size reads nothing back from the card and
+    copies nothing from the host once its constant tables are made: it
+    runs under `set_sync_debug_mode("error")`, to the first call's bits."""
+    from basis_universal_tpu_torch.codecs.etc1s import frontend
+    from basis_universal_tpu_torch.ops import etc1s_encode as ops
+
+    (blocks,), fp, (nbr,) = _etc1s_batch((512, 768), [0],
+                                         perceptual_metric=perceptual)
+    knobs, left, up = frontend._knobs_and_neighbors(len(blocks), fp, nbr)
+    (fill,) = frontend.fill_indices([0], len(blocks), knobs["num_e"])
+    args = [frontend.upload(a, cuda) for a in (blocks, fill, left, up)]
+    args += [float(fp.endpoint_rdo_thresh), float(fp.selector_rdo_thresh)]
+    with ops.exact_matmuls():
+        want = frontend._frontend_impl(*args, **knobs)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = frontend._frontend_impl(*args, **knobs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(512, 768), (2048, 2048)])
+def test_frontend_graph_replays_give_the_eager_bits_on_card(cuda, size):
+    """Three textures a batch at B 24,576 and at 2K: the eager runs' five
+    outputs, texture for texture, from the batch's warm-up, its capture and
+    its replays; a quality-64 key captured after the quality-128 one, and
+    the quality-128 graph replayed again after it. The device trace sees
+    each texture's kernels, replayed or not; the wrappers count only the
+    warm-up's, not the capture's nor a replay's."""
+    from basis_universal_tpu_torch.codecs.etc1s import frontend
+    from basis_universal_tpu_torch.testing.launches import traced_launches
+    from basis_universal_tpu_torch.utils import telemetry
+
+    frontend.drop_graphs()
+    runs = {}
+    for quality in (128, 64):
+        blocks, fp, nbrs = _etc1s_batch(size, (3, 4, 5),
+                                        quality_level=quality)
+        knobs, _, _ = frontend._knobs_and_neighbors(len(blocks[0]), fp,
+                                                    nbrs[0])
+        fills = frontend.fill_indices([100, 101, 102], len(blocks[0]),
+                                      knobs["num_e"])
+        ck.reset_launch_counts()
+        eager, traced = traced_launches(lambda: [
+            frontend._run_one(b, fp, knobs, *n, fill, cuda)
+            for b, n, fill in zip(blocks, nbrs, fills)])
+        assert traced == ck.LAUNCHES
+        launches = {k: v // 3 for k, v in ck.LAUNCHES.items()}
+        ck.reset_launch_counts()
+        telemetry.drain()
+        telemetry.record(True)
+        try:
+            batch, traced = traced_launches(lambda: list(
+                frontend.compress_batch_iter(blocks, fp, seed=100,
+                                             neighbors=nbrs)))
+        finally:
+            telemetry.record(False)
+        counters = telemetry.drain()[1]
+        assert counters["etc1s.frontend.graph_captures"][0] == 1
+        assert counters["etc1s.frontend.graph_replays"][0] == 2
+        assert traced == {k: 3 * v for k, v in launches.items()}
+        assert ck.LAUNCHES == launches
+        _same_frontend_outputs(batch, eager)
+        ck.reset_launch_counts()
+        again, traced = traced_launches(lambda: frontend._run_one(
+            blocks[0], fp, knobs, *nbrs[0], fills[0], cuda))
+        assert traced == launches
+        assert not any(ck.LAUNCHES.values())
+        _same_frontend_outputs([again], eager[:1])
+        runs[quality] = blocks, fp, nbrs, eager
+    assert len(frontend._GRAPHS) == 2
+    blocks, fp, nbrs, eager = runs[128]
+    _same_frontend_outputs(list(frontend.compress_batch_iter(
+        blocks, fp, seed=100, neighbors=nbrs)), eager)
+    assert len(frontend._GRAPHS) == 2
+    frontend.drop_graphs()
+
+
+@pytest.mark.cuda
+def test_compress_batch_files_are_eager_compress_files_on_card(cuda):
+    """`compress_batch`'s files, whose frontends replay a captured graph
+    from the second texture on, are those of each texture's own eager
+    `compress` byte for byte."""
+    import dataclasses
+
+    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.codecs.etc1s import frontend
+    from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+
+    imgs = [synthetic_texture(128, 192, seed=40 + i)[0] for i in range(4)]
+    params = compressor.CompressorParams(device="cuda")
+    frontend.drop_graphs()
+    single = [compressor.compress(img, dataclasses.replace(
+        params, seed=params.seed + i)) for i, img in enumerate(imgs)]
+    assert not frontend._GRAPHS
+    batch = compressor.compress_batch(imgs, params)
+    assert len(frontend._GRAPHS) == 1
+    assert [o.basis_data for o in batch] == [o.basis_data for o in single]
+    assert [o.ktx2_data for o in batch] == [o.ktx2_data for o in single]
+    frontend.drop_graphs()
+
+
+@pytest.mark.cuda
+def test_mesh_with_the_card_named_twice_replays_graphs_on_card(cuda):
+    """`compress_batch_sharded` over the card named twice, four textures a
+    device thread: the files of `compress_batch`; the device trace sees
+    each texture's kernels once (a lone eager `compress`'s counts), while
+    the wrappers count only the textures that ran eagerly, those the
+    recorder does not count as replays."""
+    from basis_universal_tpu_torch import compressor
+    from basis_universal_tpu_torch.codecs.etc1s import frontend
+    from basis_universal_tpu_torch.parallel import mesh
+    from basis_universal_tpu_torch.testing.launches import traced_launches
+    from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
+    from basis_universal_tpu_torch.utils import telemetry
+
+    imgs = [synthetic_texture(128, 192, seed=60 + i)[0] for i in range(8)]
+    params = compressor.CompressorParams(device="cuda")
+    frontend.drop_graphs()
+    ck.reset_launch_counts()
+    compressor.compress(imgs[0], params)
+    torch.cuda.synchronize()
+    per_image = dict(ck.LAUNCHES)
+    assert per_image["bisect_rows"] == 1 and not frontend._GRAPHS
+    ck.reset_launch_counts()
+    telemetry.drain()
+    telemetry.record(True)
+    try:
+        got, traced = traced_launches(lambda: mesh.compress_batch_sharded(
+            imgs, params, ["cuda:0", "cuda:0"]))
+    finally:
+        telemetry.record(False)
+    counters = telemetry.drain()[1]
+    replays = counters["etc1s.frontend.graph_replays"][0]
+    assert counters["etc1s.frontend.graph_captures"][0] == 1
+    assert 6 <= replays <= 7
+    assert traced == {k: 8 * v for k, v in per_image.items()}
+    assert ck.LAUNCHES == {k: (8 - replays) * v for k, v in per_image.items()}
+    want = compressor.compress_batch(imgs, params)
+    assert [o.basis_data for o in got] == [o.basis_data for o in want]
+    frontend.drop_graphs()

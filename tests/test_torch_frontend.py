@@ -15,6 +15,7 @@ bytes.
 Both compressors must run the same host back end (`same_host_backend`).
 """
 
+import dataclasses
 import time
 
 import numpy as np
@@ -98,6 +99,319 @@ def test_seed_fill_is_the_references_draw():
                                                 jnp.arange(n), (k,)))
             np.testing.assert_array_equal(
                 threefry.choice_indices(seed, n, k), want)
+
+
+def test_a_batchs_fills_drawn_at_once_are_each_seeds_draw():
+    """`fill_indices` over a batch's seeds (one pass of the Threefry draw)
+    gives each seed's own `jax.random.choice` draw."""
+    from basis_universal_tpu_torch.ops import threefry
+
+    seeds = [0, 1, 2**31 - 1, 2**31 + 7, -5, 12345678901]
+    for n, k in ((24576, 2416), (7, 300)):
+        many = frontend.fill_indices(seeds, n, k)
+        assert many.shape == (len(seeds), k) and many.dtype == np.int64
+        for row, seed in zip(many, seeds):
+            np.testing.assert_array_equal(
+                row, threefry.choice_indices(seed, n, k))
+        want = np.asarray(jax.random.choice(
+            jax.random.PRNGKey(seeds[3]), jnp.arange(n), (k,)))
+        np.testing.assert_array_equal(many[3], want)
+
+
+@pytest.mark.parametrize("size", [(32, 48), (64, 64)])
+@pytest.mark.parametrize("seed", [0, 2**31 + 7])
+def test_frontend_impl_fed_the_host_drawn_fill(size, seed):
+    """`_frontend_impl` fed the fill indices drawn on the host before the
+    dispatch (`frontend.fill_indices`) gives the five outputs of the path
+    that draws them inside from a seeded generator, bit for bit. At q255
+    the bisecting init leaves 12 of 96 and 69 of 256 seeds empty, so the
+    fill decides the codebooks: another seed's fill gives others."""
+    img, _ = synthetic_texture(*size, seed=31)
+    params = compressor.CompressorParams(device="cpu", quality_level=255)
+    blocks = compressor._prepare_slices([img], params)[0]["blocks"]
+    fp = compressor._frontend_params(params, len(blocks))
+    knobs, left, up = frontend._knobs_and_neighbors(len(blocks), fp, None)
+    args = (torch.as_tensor(left), torch.as_tensor(up), 1.0, 1.0)
+    px = torch.as_tensor(blocks)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    want = frontend._frontend_impl(px, None, *args, generator=gen, **knobs)
+    (idx,) = frontend.fill_indices([seed], len(blocks), knobs["num_e"])
+    assert idx.dtype == np.int64 and idx.shape == (knobs["num_e"],)
+    got = frontend._frontend_impl(px, torch.as_tensor(idx), *args, **knobs)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    other = frontend._frontend_impl(px, torch.as_tensor(frontend.fill_indices(
+        [seed + 1], len(blocks), knobs["num_e"])[0]), *args, **knobs)
+    assert not all(torch.equal(o, w) for o, w in zip(other, want))
+
+
+def test_constant_tables_are_made_once_per_device():
+    """`etc1s_encode.constant`: one tensor per (table, device), the tables'
+    values; the frontend's palettes read the same tensor."""
+    from basis_universal_tpu_torch.ops import etc1s_encode as ops
+    from basis_universal_tpu_torch.ops.etc1 import ETC1_INTEN_TABLES
+
+    for name in ops._TABLES:
+        t = ops.constant(name, "cpu")
+        assert ops.constant(name, torch.device("cpu")) is t
+        np.testing.assert_array_equal(t.numpy(), ops._TABLES[name]())
+    np.testing.assert_array_equal(ops.constant("inten", "cpu").numpy(),
+                                  ETC1_INTEN_TABLES)
+    assert ops.constant("inten", "cpu").dtype == torch.float32
+    assert ops.constant("deltas2", "cpu").shape == (125, 3)
+    assert ops.constant("gvec", "cpu").dtype == torch.float32
+    made = len(ops._CONSTANTS)
+    frontend._palette(torch.zeros((4, 3), dtype=torch.int32),
+                      torch.arange(4, dtype=torch.int32))
+    assert len(ops._CONSTANTS) == made
+
+
+class _StubGraph:
+    """A stand-in for `frontend._Graph` on the CPU: a 'capture' records
+    its key's inputs, a 'replay' runs `_frontend_impl` eagerly on them."""
+
+    def __init__(self, dev, inputs, thresholds, knobs):
+        import threading
+
+        self.lock, self.released = threading.Lock(), False
+        self.shapes = [a.shape for a in inputs]
+        self.thresholds, self.knobs, self.runs = thresholds, knobs, 0
+
+    def run(self, inputs):
+        assert not self.released        # the cache dropped it: never again
+        self.runs += 1
+        return frontend._frontend_impl(*(torch.as_tensor(a) for a in inputs),
+                                       *self.thresholds, **self.knobs)
+
+    def release(self):
+        self.released = True
+
+
+@pytest.fixture
+def stub_graphs(monkeypatch):
+    """The graph cache on the CPU through `_StubGraph`: (the cache, the
+    textures that ran as a capture's warm-up)."""
+    import collections
+    import contextlib
+
+    from basis_universal_tpu_torch.utils import telemetry
+
+    cache, warm = collections.OrderedDict(), []
+
+    @contextlib.contextmanager
+    def side_stream(dev):
+        warm.append(len(telemetry.drain()[0]))
+        yield
+
+    monkeypatch.setattr(frontend, "_GRAPHS", cache)
+    monkeypatch.setattr(frontend, "_capturable", lambda dev: True)
+    monkeypatch.setattr(frontend, "_Graph", _StubGraph)
+    monkeypatch.setattr(frontend, "_side_stream", side_stream)
+    return cache, warm
+
+
+def _tiny_batch(n, blocks=16, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (blocks, 16, 3), np.uint8) for _ in range(n)]
+
+
+_TINY = frontend.FrontendParams(max_endpoint_clusters=8,
+                                max_selector_clusters=8, effort=1,
+                                device="cpu")
+
+
+def _graph_counts(run):
+    """(captures, replays) counted by the recorder over run()."""
+    from basis_universal_tpu_torch.utils import telemetry
+
+    telemetry.drain()
+    telemetry.record(True)
+    try:
+        run()
+    finally:
+        telemetry.record(False)
+    counters = telemetry.drain()[1]
+    return tuple(counters.get(f"etc1s.frontend.graph_{k}", (0, 0))[0]
+                 for k in ("captures", "replays"))
+
+
+def _same_outputs(got, want):
+    for g, w in zip(got, want):
+        for f in dataclasses.fields(frontend.FrontendOutput):
+            np.testing.assert_array_equal(getattr(g, f.name),
+                                          getattr(w, f.name))
+
+
+def test_graph_rule_never_captures_on_the_cpu():
+    """CPU tensors run eagerly: nothing is cached, nothing counted."""
+    frontend.drop_graphs()
+    batch = _tiny_batch(3)
+    counts = _graph_counts(lambda: list(frontend.compress_batch_iter(
+        batch, _TINY)))
+    assert counts == (0, 0) and not frontend._GRAPHS
+
+
+def test_graph_rule_captures_on_a_keys_second_texture(stub_graphs):
+    """In a batch, the first texture runs eagerly as the warm-up, the
+    second captures the key's graph and replays it, the rest replay; the
+    outputs are the eager ones."""
+    cache, warm = stub_graphs
+    batch = _tiny_batch(4)
+    want = [frontend.compress(b, _TINY, seed=5 + i)
+            for i, b in enumerate(batch)]
+    assert not cache
+    got = []
+    counts = _graph_counts(lambda: got.extend(frontend.compress_batch_iter(
+        batch, _TINY, seed=5)))
+    assert counts == (1, 3)
+    assert len(warm) == 1 and len(cache) == 1
+    (graph,) = cache.values()
+    assert graph.runs == 3 and graph.shapes[0] == (16, 16, 3)
+    assert graph.shapes[1] == (8,)                   # the fill indices
+    _same_outputs(got, want)
+
+
+def test_graph_rule_a_lone_compress_never_captures(stub_graphs):
+    """`compress` replays a cached key only; a one-texture batch neither
+    captures nor warms up."""
+    cache, warm = stub_graphs
+    (one,) = _tiny_batch(1)
+    assert _graph_counts(lambda: frontend.compress(one, _TINY)) == (0, 0)
+    assert _graph_counts(lambda: list(frontend.compress_batch_iter(
+        [one], _TINY))) == (0, 0)
+    assert not cache and not warm
+    _graph_counts(lambda: list(frontend.compress_batch_iter(
+        _tiny_batch(2), _TINY)))
+    assert _graph_counts(lambda: frontend.compress(one, _TINY)) == (0, 1)
+
+
+def test_graph_cache_drops_the_least_recently_used_past_four_keys(
+        stub_graphs):
+    """Five keys (block counts) captured in turn keep four; a key used
+    again is kept over one used less recently."""
+    cache, _ = stub_graphs
+    made = []
+    for blocks in (16, 20, 24, 28):
+        list(frontend.compress_batch_iter(_tiny_batch(2, blocks), _TINY))
+        made.append(next(reversed(cache.values())))
+    frontend.compress(_tiny_batch(1, 16)[0], _TINY)      # 16 used again
+    list(frontend.compress_batch_iter(_tiny_batch(2, 32), _TINY))
+    assert len(cache) == 4
+    assert [g.released for g in made] == [False, True, False, False]
+    assert [g.shapes[0][0] for g in cache.values()] == [24, 28, 16, 32]
+    frontend.drop_graphs()
+    assert not cache and all(g.released for g in made)
+
+
+def test_graph_cache_under_threads(stub_graphs):
+    """12 threads (more than the cores), each running two batches, six keys
+    between them, through a cache of four, with a short switch interval: every
+    output is the eager one, no dropped graph runs again (`_StubGraph`),
+    and the cache ends with four live graphs."""
+    import concurrent.futures as cf
+    import sys
+
+    cache, _ = stub_graphs
+    sizes = (16, 20, 24, 28, 32, 36)
+    batches = {b: _tiny_batch(2, b, seed=b) for b in sizes}
+    # lone calls on an empty cache: eager
+    want = {b: [frontend.compress(x, _TINY, seed=i)
+                for i, x in enumerate(batches[b])] for b in sizes}
+    assert not cache
+
+    def worker(k):
+        for j in range(2):
+            b = sizes[(k + j) % len(sizes)]
+            _same_outputs(list(frontend.compress_batch_iter(batches[b], _TINY)),
+                          want[b])
+        return k
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with cf.ThreadPoolExecutor(12) as ex:
+            futs = [ex.submit(worker, k) for k in range(12)]
+            assert sorted(f.result(timeout=600) for f in futs) == list(range(12))
+    finally:
+        sys.setswitchinterval(interval)
+    assert len(cache) == 4 and not any(g.released for g in cache.values())
+
+
+@pytest.mark.parametrize("name, key", [
+    ("void (anonymous namespace)::fscan_kernel<27, false, true, false>"
+     "(float const*, float const*, float const*, float*, long*, int, int, "
+     "int)", "factorized_scan"),
+    ("void (anonymous namespace)::fscan_kernel<1, true, false, true>"
+     "(float const*)", "factorized_scan_shortlist"),
+    ("void (anonymous namespace)::cross6_kernel<true>(float const*)",
+     "cross6_distances"),
+    ("void (anonymous namespace)::cross6_argmin_kernel<false>(float const*)",
+     "cross6_argmin"),
+    ("void (anonymous namespace)::rescore_kernel<true>(float const*)",
+     "palette_errs_packed"),
+    ("void (anonymous namespace)::errs_kernel(float const*)", "palette_errs"),
+    ("void (anonymous namespace)::xla_reduce_kernel64<(anonymous namespace)"
+     "::Order)1>(float const*)", "xla_reduce"),
+    ("void (anonymous namespace)::xla_fma_kernel_rows(float const*)",
+     "xla_fma"),
+    ("bisect_round_kernel<16, 6, 8>(float const*)", "bisect_round"),
+    ("void at::native::vectorized_elementwise_kernel<4, "
+     "at::native::FillFunctor<float>, std::array<char*, 1ul> >(int)", None),
+    ("Memcpy HtoD (Pinned -> Device)", None)])
+def test_trace_kernel_names_read_as_wrapper_launches(name, key):
+    """The device trace's kernel names, demangled, count under the wrapper
+    that launches the kernel (`testing/launches.py`); PyTorch's own
+    kernels and copies under none."""
+    from basis_universal_tpu_torch.testing.launches import kernel_launch_name
+
+    assert kernel_launch_name(name) == key
+
+
+def test_trace_kernel_name_of_the_port_that_no_wrapper_reads_raises():
+    from basis_universal_tpu_torch.testing.launches import kernel_launch_name
+
+    with pytest.raises(ValueError, match="no wrapper"):
+        kernel_launch_name("void (anonymous namespace)::xla_fma_kernel16()")
+
+
+def test_a_launch_recorded_into_a_graph_is_not_counted(monkeypatch):
+    """`cuda_etc1s.LAUNCHES` counts a wrapper's launch that runs now, and
+    not one that a stream capturing a CUDA graph records."""
+    from basis_universal_tpu_torch.ops import cuda_etc1s as ck
+
+    ck.reset_launch_counts()
+    ck._launched("bisect_round")
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    capturing = [False]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+    ck._launched("bisect_round")
+    capturing[0] = True
+    ck._launched("bisect_round")
+    assert {k: v for k, v in ck.LAUNCHES.items() if v} == {"bisect_round": 2}
+    ck.reset_launch_counts()
+
+
+def test_mesh_draws_each_devices_fills_in_one_pass(monkeypatch):
+    """`compress_batch_sharded` draws each device's fill indices in one
+    `fill_indices` call over its textures' seeds, and its files are
+    `compress_batch`'s."""
+    from basis_universal_tpu_torch.parallel import mesh
+
+    imgs = [synthetic_texture(32, 48, seed=50 + i)[0] for i in range(5)]
+    params = compressor.CompressorParams(device="cpu", seed=7)
+    draws, draw = [], frontend.fill_indices
+
+    def counted(seeds, *args):
+        draws.append(list(seeds))
+        return draw(seeds, *args)
+
+    monkeypatch.setattr(frontend, "fill_indices", counted)
+    got = mesh.compress_batch_sharded(imgs, params, ["cpu", "cpu"])
+    assert sorted(draws) == [[7, 9, 11], [8, 10]]
+    want = compressor.compress_batch(imgs, params)
+    assert [o.basis_data for o in got] == [o.basis_data for o in want]
 
 
 @pytest.mark.parametrize("alpha", [False, True])

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from basis_universal_tpu_torch import compressor
+from basis_universal_tpu_torch.codecs.etc1s import frontend
 from basis_universal_tpu_torch.formats.constants import BasisTexFormat
 from basis_universal_tpu_torch.testing.synthetic import synthetic_texture
 from basis_universal_tpu_torch.utils import telemetry
@@ -237,7 +238,11 @@ def test_upload_bytes_are_the_arrays_handed_to_the_device(traced):
         slices = compressor._prepare_slices([img], params)
         left, up = compressor._slice_neighbors(slices)
         blocks = np.concatenate([s["blocks"] for s in slices])
-        want_etc1s += [blocks.nbytes, left.nbytes, up.nbytes]
+        # the pixels, the fill indices of empty k-means seeds, the neighbours
+        knobs, _, _ = frontend._knobs_and_neighbors(
+            len(blocks), compressor._frontend_params(params, len(blocks)), None)
+        (fill,) = frontend.fill_indices([0], len(blocks), knobs["num_e"])
+        want_etc1s += [blocks.nbytes, fill.nbytes, left.nbytes, up.nbytes]
     assert traced["etc1s"]["counters"] == {
         "upload_bytes": (len(want_etc1s), sum(want_etc1s))}
     want_uastc = []
@@ -247,5 +252,5 @@ def test_upload_bytes_are_the_arrays_handed_to_the_device(traced):
         want_uastc.append(s["px"].astype(np.uint8).nbytes)
     assert traced["uastc"]["counters"] == {
         "upload_bytes": (len(want_uastc), sum(want_uastc))}
-    assert sum(want_etc1s) == 3 * 256 * (48 + 8)
+    assert sum(want_etc1s) == 3 * 256 * (48 + 8) + 3 * 144 * 8
     assert sum(want_uastc) == 2 * 256 * 64
